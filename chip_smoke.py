@@ -13,8 +13,10 @@ Phases (any failure exits non-zero before the result line):
                on the card (ILU(0) seed, hidden 4, heads 4).
 4. kernels   — K1 (fused GATv2 tile forward) and K3 (windowed row gather)
                at every bucket of that graph, both GAT layers, against
-               their plain PyTorch versions on the same CUDA tensors; times
-               by CUDA events beside the bytes/ops bound.
+               their plain PyTorch versions on the same CUDA tensors.
+               Kernel and library times are CUDA-graph replays (device
+               time, no host dispatch), printed beside the eager calls'
+               time and the bytes/ops bound.
 5. slice     — launch counters to 0, ``sample(..., batch_size=256)`` for a
                few batches, counters read: every kernel of the path ran.
                Checks finite rewards and log-probs, terminal-ended
@@ -61,8 +63,9 @@ def fail(msg: str):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls
-    (CUDA events, after one warm-up call)."""
+    """Mean milliseconds of ``fn`` over ``reps`` back-to-back eager calls
+    (CUDA events, after one warm-up call).  Where a call's device work is
+    shorter than its host dispatch, this is the dispatch rate."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -72,6 +75,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device milliseconds of one call of ``fn``: ``reps`` calls are
+    captured into one CUDA graph, whose replays are timed with CUDA events,
+    so host dispatch is not in the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -112,16 +136,25 @@ def _k1_case(bk, layer, gen, dev):
     xs = r(1, HD) if layer == 1 else r(T * S, HD)
     xd = r(1, HD) if layer == 1 else r(T * TN, HD)
     args = (bk.attr_t.reshape(-1), xs, xd, r(HD), r(H, D))
-    real = int((tb.local_dst < TN).sum())
-    nbytes = 4 * (2 * T * S + xs.numel() + xd.numel() + 2 * HD + T * TN * HD)
+    # bytes the function needs: every local_dst; attr and (layer 2) the xs
+    # rows of real slots only; the xd rows of nodes that have slots; w_e,
+    # att; the whole output
+    ld = tb.local_dst.long()
+    is_real = ld < TN
+    real = int(is_real.sum())
+    nodes = int(torch.unique((ld + torch.arange(T, device=dev)[:, None] * TN)
+                             [is_real]).numel())
+    xs_rows = 1 if layer == 1 else real
+    xd_rows = 1 if layer == 1 else nodes
+    nbytes = 4 * (T * S + real + (xs_rows + xd_rows + 2) * HD + T * TN * HD)
     return tb, args, nbytes, real * (8 * HD + 5 * H)
 
 
 def phase_kernels(graph, dev):
     """K1 and K3 against their plain versions at the slice's shapes."""
     gen = torch.Generator(device=dev).manual_seed(1234)
-    k1 = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, ops=0.0)
-    k3 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0)
+    k1 = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, bytes=0.0, ops=0.0)
+    k3 = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, lib=0.0, bytes=0.0)
     n_nodes = graph.tiles.num_nodes
     for bk in graph.gat_buckets:
         tb = bk.tiles
@@ -134,15 +167,17 @@ def phase_kernels(graph, dev):
             if not torch.allclose(got, want, **K1_TOL):
                 fail(f"K1 disagrees with its plain version at bucket "
                      f"T={tb.tiles} S={tb.slots} layer {layer}: max abs err {err}")
-            ms = cuda_ms(lambda: gf.gat_tile_fused(tiles, *args), 20)
+            ms = graph_ms(lambda: gf.gat_tile_fused(tiles, *args), 20)
+            eager = cuda_ms(lambda: gf.gat_tile_fused(tiles, *args), 20)
             plain = cuda_ms(lambda: gf.gat_tile_fused_ref(tiles, *args), 3)
             b, _ = bound_ms(nbytes, ops)
             print(f"[K1] T={tb.tiles} S={tb.slots} layer {layer}: max abs err "
                   f"{err:.3e} (rel {err / max(float(want.abs().max()), 1e-30):.3e}); "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.5f} ms",
-                  flush=True)
+                  f"kernel {ms:.5f} ms (graph replay; eager calls {eager:.5f} ms), "
+                  f"plain {plain:.4f} ms, bound {b:.6f} ms", flush=True)
             k1["err"] = max(k1["err"], err)
             k1["ms"] += ms
+            k1["eager"] += eager
             k1["plain"] += plain
             k1["bytes"] += nbytes
             k1["ops"] += ops
@@ -156,21 +191,30 @@ def phase_kernels(graph, dev):
         ext = torch.cat([vals, vals.new_zeros(1, 4)])
         lib = torch.index_select(ext, 0, row)
         torch.cuda.synchronize()
+        err = float((got - want).abs().max())
         if not torch.equal(got, want):
             fail(f"K3 disagrees with its plain version at bucket T={tb.tiles} "
-                 f"S={tb.slots}: max abs err {float((got - want).abs().max())}")
+                 f"S={tb.slots}: max abs err {err}")
+        k3["err"] = max(k3["err"], err)
         if not torch.equal(lib, want):
             fail("the index_select yardstick does not compute K3's function")
-        ms = cuda_ms(lambda: seg.gather_rows_windows(plan, tb, bk.src_t, vals), 50)
+        ms = graph_ms(lambda: seg.gather_rows_windows(plan, tb, bk.src_t, vals), 50)
+        eager = cuda_ms(lambda: seg.gather_rows_windows(plan, tb, bk.src_t, vals), 50)
         plain = cuda_ms(lambda: seg.gather_rows_windows_ref(plan, tb, vals), 10)
-        lib_ms = cuda_ms(lambda: torch.index_select(ext, 0, row), 50)
-        T, S, O = tb.tiles, tb.slots, plan.n_outliers
-        nbytes = 4 * (T * S + T + 2 * O + vals.numel() + T * S * 4)
+        lib_ms = graph_ms(lambda: torch.index_select(ext, 0, row), 50)
+        # bytes the function needs: lsrc, blk, the real outliers, each
+        # distinct source row once, the whole output
+        T, S, D = tb.tiles, tb.slots, vals.shape[1]
+        outliers = int((plan.out_slot < T * S).sum())
+        rows = int(torch.unique(row[row < n_nodes]).numel())
+        nbytes = 4 * (T * S + T + 2 * outliers + rows * D + T * S * D)
         b, _ = bound_ms(nbytes, 0)
-        print(f"[K3] T={T} S={S} win={plan.win} outliers={O}: exact; kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, index_select {lib_ms:.4f} ms, "
-              f"bound {b:.5f} ms", flush=True)
+        print(f"[K3] T={T} S={S} win={plan.win} outliers={outliers} distinct "
+              f"rows={rows}: exact; kernel {ms:.5f} ms (graph replay; eager "
+              f"calls {eager:.5f} ms), plain {plain:.4f} ms, index_select "
+              f"{lib_ms:.5f} ms (graph replay), bound {b:.6f} ms", flush=True)
         k3["ms"] += ms
+        k3["eager"] += eager
         k3["plain"] += plain
         k3["lib"] += lib_ms
         k3["bytes"] += nbytes
@@ -328,7 +372,10 @@ def main() -> int:
     n_b = len(graph.gat_buckets)
     print(f"[kernels] ms, plain_ms, library_ms and bound_ms are per policy "
           f"forward: K1 summed over its {2 * n_b} launches ({n_b} buckets x 2 "
-          f"layers), K3 over its {n_b}", flush=True)
+          f"layers), K3 over its {n_b}. ms and library_ms are CUDA-graph "
+          f"replays (device time); plain_ms is eager calls (the plain versions "
+          f"sync with the host). Eager calls of the kernels' wrappers: K1 "
+          f"{k1['eager']:.5f} ms, K3 {k3['eager']:.5f} ms", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
-repository root, then loaded with ``ctypes``.  The library's file name
-carries a hash of its source, so an edited source is rebuilt and an
-unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source,
-all at once.
+for ``sm_90a`` into its own shared library, then loaded with ``ctypes``.
+The libraries go to ``$GFLOWNET_SPAI_KERNEL_DIR`` when it is set, else to
+``build/kernels/`` at the root of a source checkout, else (an installed
+package) to ``gflownet_spai_tpu_torch/kernels`` in the user's cache
+directory.  The library's file name carries a hash of its source, so an
+edited source is rebuilt and an unchanged one is reused.  ``build_all``
+starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -19,7 +21,19 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+
+
+def _build_dir() -> Path:
+    if os.environ.get("GFLOWNET_SPAI_KERNEL_DIR"):
+        return Path(os.environ["GFLOWNET_SPAI_KERNEL_DIR"])
+    root = Path(__file__).resolve().parent.parent
+    if (root / "pyproject.toml").exists():          # a source checkout
+        return root / "build" / "kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "gflownet_spai_tpu_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
 SOURCES = ("gat_fused", "segment")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

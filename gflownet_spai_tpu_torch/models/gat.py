@@ -39,7 +39,7 @@ class GatBucket(NamedTuple):
     tile_idx: torch.Tensor
     src_t: torch.Tensor
     attr_t: torch.Tensor
-    srcwin: object = None
+    srcwin: object
 
 
 def _glorot(gen: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -112,9 +112,9 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
     pre-permuted into [T·S] slot order with self-loops appended
     (``models.policies.tiled_graph_from_seed``).  ``x.shape[0] == 1``
     declares uniform node features (layer 1 of the policy): xs/xd are one
-    broadcast row each.  Non-uniform source rows are gathered by K3 when a
-    window plan is given.  Each bucket (or the single layout) is one K1
-    launch."""
+    broadcast row each.  Non-uniform source rows are gathered by K3 through
+    the window plan, which such layers must be given (``srcwin``, or each
+    bucket's).  Each bucket (or the single layout) is one K1 launch."""
     if p.w_edge.shape[0] != 1:
         raise NotImplementedError(
             "gatv2_apply_tiled with edge_dim != 1 needs the unfused segment "
@@ -130,10 +130,13 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
     def src_rows(plan, tl, s_t):
         if uniform:
             return xs
-        if plan is not None:
-            return gather_rows_windows(plan, tl, s_t, xs)
-        return xs[s_t.long()]
+        return gather_rows_windows(plan, tl, s_t, xs)
 
+    if not uniform and (srcwin is None if buckets is None
+                        else any(bk.srcwin is None for bk in buckets)):
+        raise ValueError("gatv2_apply_tiled: non-uniform node features need "
+                         "the window plan (srcwin) of every layout they run "
+                         "on; build it with tiled_graph_from_seed")
     if buckets is not None:
         # one fused launch per slot-width class; node blocks are stitched
         # through global tile order with one [T_b, TN, HD] gather/scatter

@@ -125,6 +125,19 @@ def test_forward_policy_logits_match(case, tiled):
         float(j_pol.forward_policy_alpha(case["jparams"].forward)))
 
 
+@pytest.mark.parametrize("bucketed", [True, False])
+def test_non_uniform_layer_without_window_plan_raises(case, bucketed):
+    tg = case["tg"]
+    n2 = tg.tiles.num_nodes
+    p = case["tparams"].forward.gat2
+    h = torch.ones((n2, p.w_src.shape[0]))
+    buckets = (tuple(b._replace(srcwin=None) for b in tg.gat_buckets)
+               if bucketed else None)
+    with pytest.raises(ValueError, match="window plan"):
+        t_gat.gatv2_apply_tiled(p, h, tg.tiles, tg.src_t, tg.dst_t, tg.attr_t,
+                                n2, 1, HIDDEN, srcwin=None, buckets=buckets)
+
+
 def test_edge_dim_other_than_one_raises(case):
     gen = torch.Generator().manual_seed(0)
     p = t_gat.gatv2_init(gen, 1, HIDDEN, HEADS, edge_dim=2)
