@@ -6,9 +6,9 @@ Phases (any failure exits non-zero before the result line):
 
 1. card      — requires CUDA; prints the device, its count and
                ``nvidia-smi``'s name and power limit; TF32 off.
-2. build     — compiles every kernel of the sampling path from
-               ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process per
-               source, all at once).
+2. build     — compiles every kernel of the sampling and training paths
+               from ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process
+               per source, all at once).
 3. setup     — ``setup(TrainConfig(matrix="orsirr_like150", env_format="coo"))``
                on the card (ILU(0) seed, hidden 4, heads 4).
 4. kernels   — K1 (fused GATv2 tile forward) and K3 (windowed row gather)
@@ -17,12 +17,27 @@ Phases (any failure exits non-zero before the result line):
                Kernel and library times are CUDA-graph replays (device
                time, no host dispatch), printed beside the eager calls'
                time and the bytes/ops bound.
-5. slice     — launch counters to 0, ``sample(..., batch_size=256)`` for a
+5. backward  — K2 (the fused tile backward) and K4 (the windowed
+               scatter-add) the same way, for both layers, at every bucket.
+6. gradients — a fixed random cotangent on the 156,975 logits: the
+               forward parameters' gradient through the tiled graph
+               (K1-K4) against the per-edge scatter path on the card.
+7. slice     — launch counters to 0, ``sample(..., batch_size=256)`` for a
                few batches, counters read: every kernel of the path ran.
                Checks finite rewards and log-probs, terminal-ended
                trajectories, rewards against a float64 scipy reference, and
                the kernel-path logits against the per-edge scatter path.
-6. breakdown — host-clock times of the forward, the rollout and the reward.
+8. breakdown — host-clock times of the forward, the rollout and the reward.
+9. train     — launch counters to 0, ``train(cfg)`` at the training slice's
+               configuration (SubTB, linear backward, t_cap 4096, replay),
+               counters read: K1 8, K2 8, K3 4, K4 4 per step.  Checks a
+               finite loss every epoch, moved forward parameters and the
+               metrics stream; prints ms per step, peak memory, a
+               synchronised breakdown of one step and a ``torch.profiler``
+               summary of three (device busy share, top operators).
+10. restore  — ``python -m gflownet_spai_tpu_torch.sample --run-dir`` (in
+               process) restores the checkpoint: the epoch comes back and
+               the rewards are finite.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -30,10 +45,15 @@ The line before the last is the ``kernels`` JSON object; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,11 +62,16 @@ import gflownet_spai_tpu_torch as port
 from gflownet_spai_tpu_torch import _build
 from gflownet_spai_tpu_torch.env import spai
 from gflownet_spai_tpu_torch.gfn import gflownet as gfn
-from gflownet_spai_tpu_torch.gfn.rollout import gumbel_topk_rollout
+from gflownet_spai_tpu_torch.gfn.loss import log_reward, subtb_loss
+from gflownet_spai_tpu_torch.gfn.replay import replay_sample
+from gflownet_spai_tpu_torch.gfn.rollout import gumbel_topk_rollout, trajectory_logprobs
 from gflownet_spai_tpu_torch.models import policies as pol
 from gflownet_spai_tpu_torch.ops import gat_fused as gf
 from gflownet_spai_tpu_torch.ops import segment as seg
-from gflownet_spai_tpu_torch.train import TrainConfig, setup
+from gflownet_spai_tpu_torch.sample.__main__ import main as sample_main
+from gflownet_spai_tpu_torch.train import TrainConfig, setup, train
+from gflownet_spai_tpu_torch.train.loop import (apply_updates, make_train_step,
+                                                tree_leaves, tree_replace)
 
 MATRIX = "orsirr_like150"
 BATCH = 256
@@ -54,6 +79,28 @@ BATCHES = 4                 # sampled batches on the main path (first is warm-up
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 K1_TOL = dict(rtol=1e-5, atol=1e-5)   # shared-memory atomics: run-dependent sum order
+# K2: its per-tile outputs (dw_e, datt and the uniform layer's dxs, dxd) are
+# float32 sums over every real slot of a bucket (up to ~96,000 terms of
+# mixed sign), reduced in another order than the plain version's.  Both
+# are held against the plain version in float64: K2 may be at most 8x as
+# far from it as the plain float32 version is, plus 4e-5 of the output's
+# largest magnitude (at least 1): on the one-tile bucket the plain
+# version's own error is tiny, and K2's run-dependent atomic order lands
+# within about 1e-5 of the scale there
+K2_FACTOR, K2_FLOOR = 8.0, 4e-5
+K4_TOL = dict(rtol=1e-5, atol=1e-6)   # float atomics: run-dependent order of a row's sum
+# gradients, tiled (K1-K4) vs per-edge path: the repo's bound (rtol 5e-4,
+# atol 5e-5) times the parameter group's largest gradient, because a
+# layer's w_dst / w_edge / att gradients cancel to ~1e-9 of its w_src one
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5
+# the training slice: the repo's at-scale recipe (docs/BENCH.md round 4)
+# without the spai seed and the sharded sampler
+TRAIN = dict(matrix=MATRIX, env_format="coo", loss="subtb", backward="linear",
+             t_cap=4096, terminal_bias=8.0, batch_size=16, lr=2e-3,
+             plateau_patience=0, replay_size=32, replay_samples=4,
+             replay_prioritized=1.0, alpha_fixed=0.98,
+             reward_baseline="identity", log_every=1)
+EPOCHS = 12
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-5)   # tiled vs per-edge GAT (repo's own bound)
 REWARD_RTOL = 1e-4          # f32 device reward vs float64 host reward
 
@@ -139,11 +186,7 @@ def _k1_case(bk, layer, gen, dev):
     # bytes the function needs: every local_dst; attr and (layer 2) the xs
     # rows of real slots only; the xd rows of nodes that have slots; w_e,
     # att; the whole output
-    ld = tb.local_dst.long()
-    is_real = ld < TN
-    real = int(is_real.sum())
-    nodes = int(torch.unique((ld + torch.arange(T, device=dev)[:, None] * TN)
-                             [is_real]).numel())
+    real, nodes = _tile_counts(tb, dev)
     xs_rows = 1 if layer == 1 else real
     xd_rows = 1 if layer == 1 else nodes
     nbytes = 4 * (T * S + real + (xs_rows + xd_rows + 2) * HD + T * TN * HD)
@@ -187,7 +230,7 @@ def phase_kernels(graph, dev):
         got = seg.gather_rows_windows(plan, tb, bk.src_t, vals)
         want = seg.gather_rows_windows_ref(plan, tb, vals)
         # the same function as one PyTorch indexing call (timed only)
-        row = _effective_rows(plan, n_nodes).to(dev)
+        row = seg.effective_rows(plan, n_nodes)
         ext = torch.cat([vals, vals.new_zeros(1, 4)])
         lib = torch.index_select(ext, 0, row)
         torch.cuda.synchronize()
@@ -219,18 +262,6 @@ def phase_kernels(graph, dev):
         k3["lib"] += lib_ms
         k3["bytes"] += nbytes
     return k1, k3
-
-
-def _effective_rows(plan, n):
-    """Per-slot source row of the window plan (n = the appended zero row)."""
-    lsrc = plan.lsrc.long().cpu()
-    row = plan.blk.long().cpu()[:, None] * plan.win + lsrc
-    ok = (lsrc >= 0) & (lsrc < 2 * plan.win) & (row < n)
-    row = torch.where(ok, row, n).reshape(-1)
-    slot, src = plan.out_slot.long().cpu(), plan.out_src.long().cpu()
-    keep = slot < row.numel()
-    row[slot[keep]] = src[keep]
-    return row
 
 
 def _host_reward(seed, a, keep_row, alpha, base_res, base_flops):
@@ -338,44 +369,369 @@ def phase_breakdown(env, graph, mcfg, params, dev, reps=5):
           flush=True)
 
 
+def _tile_counts(tb, dev):
+    """Real (non-padding) slots and nodes that have slots, of one bucket."""
+    T, TN = tb.tiles, tb.tile_nodes
+    ld = tb.local_dst.long()
+    is_real = ld < TN
+    nodes = torch.unique((ld + torch.arange(T, device=dev)[:, None] * TN)[is_real])
+    return int(is_real.sum()), int(nodes.numel())
+
+
+def phase_kernels_bwd(graph, dev):
+    """K2 and K4 against their plain versions at the slice's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    k2 = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, bytes=0.0, ops=0.0)
+    k4 = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, lib=0.0, bytes=0.0)
+    n_nodes = graph.tiles.num_nodes
+    for bk in graph.gat_buckets:
+        tb = bk.tiles
+        T, S, TN = tb.tiles, tb.slots, tb.tile_nodes
+        real, nodes = _tile_counts(tb, dev)
+        for layer in (1, 2):
+            tiles, args, _, _ = _k1_case(bk, layer, gen, dev)
+            H, D = args[4].shape
+            HD = H * D
+            g = torch.randn((T * TN, HD), generator=gen, device=dev)
+            got = gf.gat_tile_fused_bwd(tiles, *args, g)
+            want = gf.gat_tile_fused_bwd_ref(tiles, *args, g)
+            want64 = gf.gat_tile_fused_bwd_ref(tiles, *(x.double() for x in args),
+                                               g.double())
+            torch.cuda.synchronize()
+            worst = case_err = 0.0
+            for name, a, b, b64 in zip(("xs", "xd", "w_e", "att"), got, want, want64):
+                scale = max(float(b64.abs().max()), 1.0)
+                err64 = float((a.double() - b64).abs().max())
+                plain64 = float((b.double() - b64).abs().max())
+                tol = K2_FACTOR * plain64 + K2_FLOOR * scale
+                if a.shape != b.shape or err64 > tol:
+                    fail(f"K2 d{name} at bucket T={T} S={S} layer {layer}: "
+                         f"{err64:.3e} from the float64 plain version, the "
+                         f"float32 plain version {plain64:.3e}")
+                case_err = max(case_err, float((a - b).abs().max()))
+                worst = max(worst, err64 / tol)
+            k2["err"] = max(k2["err"], case_err)
+            ms = graph_ms(lambda: gf.gat_tile_fused_bwd(tiles, *args, g), 20)
+            eager = cuda_ms(lambda: gf.gat_tile_fused_bwd(tiles, *args, g), 20)
+            plain = cuda_ms(lambda: gf.gat_tile_fused_bwd_ref(tiles, *args, g), 3)
+            # bytes the function needs: K1's inputs (local_dst, attr and
+            # layer-2 xs rows of real slots, xd rows of nodes with slots,
+            # w_e, att), g rows of nodes with slots, every output once
+            xs_rows = 1 if layer == 1 else real
+            xd_rows = 1 if layer == 1 else nodes
+            out_rows = (1 if layer == 1 else T * S) + (1 if layer == 1 else T * TN) + 2
+            nbytes = 4 * (T * S + real + (xs_rows + xd_rows + 2 + nodes + out_rows) * HD)
+            ops = real * (18 * HD + 10 * H)
+            b, _ = bound_ms(nbytes, ops)
+            print(f"[K2] T={T} S={S} layer {layer}: max abs err vs plain "
+                  f"{case_err:.3e}; vs float64, {100 * worst:.1f}% of the "
+                  f"tolerance; kernel {ms:.5f} ms (graph "
+                  f"replay; eager calls {eager:.5f} ms), plain {plain:.4f} ms, "
+                  f"bound {b:.6f} ms", flush=True)
+            k2["ms"] += ms
+            k2["eager"] += eager
+            k2["plain"] += plain
+            k2["bytes"] += nbytes
+            k2["ops"] += ops
+        # K4 at this bucket: cotangents of the layer-2 source rows [2n, 4]
+        plan = bk.srcwin
+        D = 4
+        g = torch.randn((T * S, D), generator=gen, device=dev)
+        got = seg.scatter_rows_windows(plan, g, n_nodes)
+        want = seg.scatter_rows_windows_ref(plan, g, n_nodes)
+        rows = seg.effective_rows(plan, n_nodes)
+        lib_fn = lambda: torch.zeros((n_nodes + 1, D), device=dev).index_add_(0, rows, g)
+        lib = lib_fn()[:n_nodes]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **K4_TOL):
+            fail(f"K4 disagrees with its plain version at bucket T={T} S={S}: "
+                 f"max abs err {err}")
+        if not torch.allclose(lib, want, **K4_TOL):
+            fail("the index_add_ yardstick does not compute K4's function")
+        k4["err"] = max(k4["err"], err)
+        ms = graph_ms(lambda: seg.scatter_rows_windows(plan, g, n_nodes), 50)
+        eager = cuda_ms(lambda: seg.scatter_rows_windows(plan, g, n_nodes), 50)
+        plain = cuda_ms(lambda: seg.scatter_rows_windows_ref(plan, g, n_nodes), 10)
+        lib_ms = graph_ms(lib_fn, 50)
+        # bytes the function needs: lsrc, blk, the real outliers, the g rows
+        # of slots that read a row, the whole output once
+        outliers = int((plan.out_slot < T * S).sum())
+        used = int((rows < n_nodes).sum())
+        nbytes = 4 * (T * S + T + 2 * outliers + used * D + n_nodes * D)
+        b, _ = bound_ms(nbytes, used * D)
+        print(f"[K4] T={T} S={S} win={plan.win} outliers={outliers}: max abs err "
+              f"{err:.3e}; kernel {ms:.5f} ms (graph replay; eager calls "
+              f"{eager:.5f} ms), plain {plain:.4f} ms, index_add_ {lib_ms:.5f} ms "
+              f"(graph replay), bound {b:.6f} ms", flush=True)
+        k4["ms"] += ms
+        k4["eager"] += eager
+        k4["plain"] += plain
+        k4["lib"] += lib_ms
+        k4["bytes"] += nbytes
+    return k2, k4
+
+
+def _forward_grads(params, graph, mcfg, c):
+    """Gradient of Σ c·logits in every forward parameter, by path."""
+    named = tree_leaves(params.forward)
+    leaves = [x.detach().requires_grad_(True) for _, x in named]
+    fwd = tree_replace(params.forward, iter(leaves))
+    logits = pol.forward_policy_logits(fwd, graph, mcfg.num_actions,
+                                       mcfg.hidden_dim, mcfg.heads)
+    grads = torch.autograd.grad((logits * c).sum(), leaves, allow_unused=True)
+    return {p: torch.zeros_like(x) if g is None else g
+            for (p, x), g in zip(named, grads)}
+
+
+def phase_gradients(seed, graph, mcfg, params, dev):
+    """The forward parameters' gradient through the tiled graph (K1-K4)
+    against the per-edge scatter path, both on the card."""
+    gen = torch.Generator(device=dev).manual_seed(99)
+    c = torch.randn(mcfg.num_actions, generator=gen, device=dev)
+    k2, k4 = gf.gat_tile_fused_bwd.launches, seg.scatter_rows_windows.launches
+    got = _forward_grads(params, graph, mcfg, c)
+    n_b = len(graph.gat_buckets)
+    if (gf.gat_tile_fused_bwd.launches - k2, seg.scatter_rows_windows.launches - k4) \
+            != (2 * n_b, n_b):
+        fail("the tiled gradient did not run K2 and K4 once per bucket and layer")
+    want = _forward_grads(params, pol.graph_from_seed(seed, device=dev), mcfg, c)
+    torch.cuda.synchronize()
+    group = lambda p: p.rsplit("/", 1)[0]
+    scale = {}
+    for p, w in want.items():
+        scale[group(p)] = max(scale.get(group(p), 0.0), float(w.abs().max()))
+    worst = 0.0
+    for p, w in want.items():
+        err = float((got[p] - w).abs().max())
+        worst = max(worst, err / max(scale[group(p)], 1e-30))
+        if not torch.allclose(got[p], w, rtol=GRAD_RTOL,
+                              atol=GRAD_ATOL * scale[group(p)]):
+            fail(f"gradient of {p}: tiled vs per-edge path max abs err {err} "
+                 f"(group scale {scale[group(p)]:.3e})")
+    print(f"[gradients] d(sum c*logits)/d(forward params), tiled (K1-K4) vs "
+          f"per-edge path: max abs err / group scale {worst:.3e} over "
+          f"{len(want)} leaves", flush=True)
+
+
+COUNTERS = {"K1": gf.gat_tile_fused, "K2": gf.gat_tile_fused_bwd,
+            "K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows}
+
+
+def phase_train(run_dir: Path, dev):
+    """``train(cfg)`` at the training slice's configuration."""
+    cfg = TrainConfig(**TRAIN, num_epochs=EPOCHS, out_dir=str(run_dir))
+    _, _, env, graph, mcfg, opt, init = setup(cfg)
+    n_b = len(graph.gat_buckets)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, history = train(cfg)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {"K1": 2 * n_b, "K2": 2 * n_b, "K3": n_b, "K4": n_b}
+    if launches != {k: v * EPOCHS for k, v in per_step.items()}:
+        fail(f"launch counts {launches} over {EPOCHS} train steps: expected "
+             f"{per_step} per step")
+    recs = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    if [r["epoch"] for r in recs] != list(range(EPOCHS)):
+        fail("metrics.jsonl does not hold every epoch")
+    if not all(np.isfinite(r["loss"]) and not r["skipped"] for r in recs) \
+            or not np.isfinite(history).all():
+        fail("a non-finite loss in the training slice")
+    moved = [p for (p, a), (_, b) in zip(tree_leaves(state.params.forward),
+                                         tree_leaves(init.params.forward))
+             if not torch.equal(a, b)]
+    for need in ("/gat1/w_src", "/gat2/w_src", "/fc_w", "/fc_b"):
+        if need not in moved:
+            fail(f"forward parameter {need} did not change in training")
+    wall = [r["wall_s"] * 1e3 for r in recs]
+    step_ms = float(np.mean(wall[1:]))
+    print(f"[train] {EPOCHS} steps of batch {cfg.batch_size} + {cfg.replay_samples} "
+          f"replayed, t_cap {mcfg.t_cap}: steady ms/step {step_ms:.3f} (steps "
+          f"{', '.join(f'{w:.3f}' for w in wall)}; the first includes warm-up); "
+          f"peak memory {peak / 2**20:.1f} MiB; launches {launches}", flush=True)
+    for r in recs:
+        print(f"[train] epoch {r['epoch']}: loss {r['loss']:.4f} reward mean "
+              f"{r['reward_mean']:.4f} max {r['reward_max']:.4f} mean length "
+              f"{r['mean_len']:.1f}", flush=True)
+    return cfg, env, graph, mcfg, opt, state, launches, step_ms, peak
+
+
+def phase_step_breakdown(cfg, env, graph, mcfg, opt, state, reps=3):
+    """One train step cut into synchronised parts (host clock), mirroring
+    ``gfn.loss_fn`` and ``make_train_step`` piece by piece."""
+    A, B = mcfg.num_actions, cfg.batch_size
+    gen = state.generator
+    parts: dict = {}
+
+    def mark(name, t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + (now - t) * 1e3 / reps
+        return now
+
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r_actions, _, r_valid = replay_sample(state.replay, gen, cfg.replay_samples,
+                                              prioritized=cfg.replay_prioritized)
+        leaves = [x.detach().requires_grad_(True) for _, x in tree_leaves(state.params)]
+        params = tree_replace(state.params, iter(leaves))
+        t = mark("replay draw", t)
+        logits = pol.forward_policy_logits(params.forward, graph, A, mcfg.hidden_dim,
+                                           mcfg.heads)
+        t = mark("sample: policy forward (K1, K3)", t)
+        alpha = torch.tensor(mcfg.alpha_fixed, dtype=logits.dtype, device=logits.device)
+        roll = gumbel_topk_rollout(logits.expand(B, A), gen, A - 1, t_cap=mcfg.t_cap)
+        t = mark("sample: rollout (noise + top-k)", t)
+        rewards = spai.batched_rewards(env, roll.actions, alpha)
+        t = mark("sample: reward (pair plan)", t)
+        r_fwd = trajectory_logprobs(logits, r_actions)
+        r_rewards = spai.batched_rewards(env, r_actions, alpha)
+        t = mark("loss: replay re-scoring", t)
+        actions = torch.cat([roll.actions, r_actions], 0)
+        back_lp = gfn.backward_logprobs(params, mcfg, actions)
+        t = mark("loss: backward policy (linear scan)", t)
+        terminated = torch.cat([torch.any(roll.actions == A - 1, dim=-1),
+                                torch.ones_like(r_valid)], 0)
+        weights = torch.cat([torch.ones(B, device=logits.device),
+                             r_valid.to(logits.dtype)], 0)
+        lengths = torch.cat([roll.lengths, (r_actions >= 0).sum(-1)], 0)
+        log_r = torch.cat([log_reward(rewards), log_reward(r_rewards)], 0)
+        loss = subtb_loss(pol.flow_head_logF(params.flow, actions), log_r,
+                          torch.cat([roll.fwd_logprobs, r_fwd], 0), back_lp, lengths,
+                          lam=mcfg.subtb_lambda, weights=weights, terminated=terminated)
+        t = mark("loss: SubTB", t)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        t = mark("backward() (K2, K4 and the rest)", t)
+        with torch.no_grad():
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+            updates, _ = opt.update(grads, state.opt_state, value=loss.detach())
+            apply_updates(tree_replace(state.params, (x.detach() for x in leaves)),
+                          updates)
+        mark("optimizer (Adam)", t)
+    total = sum(parts.values())
+    print(f"[step] one train step, synchronised parts (mean of {reps}), total "
+          f"{total:.3f} ms: " + "; ".join(f"{k} {v:.3f}" for k, v in parts.items()),
+          flush=True)
+    return parts
+
+
+def phase_profile(cfg, env, graph, mcfg, opt, state, steps=3):
+    """``torch.profiler`` over a few real train steps: the device's busy
+    share of the wall time and the operators that take the most host and
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_train_step(cfg, env, graph, mcfg, opt)
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == cuda) / 1e3 / steps
+    ka = prof.key_averages()
+    top = lambda rows, key: "; ".join(
+        f"{e.key[:56]} {key(e) / 1e3 / steps:.3f}"
+        for e in sorted(rows, key=key, reverse=True)[:8])
+    kernels = [e for e in ka if e.device_type == cuda]
+    ops = [e for e in ka if e.device_type != cuda]
+    print(f"[profile] {steps} train steps under torch.profiler: {wall_ms:.3f} "
+          f"ms/step wall, device busy {busy_ms:.3f} ms/step (idle share "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%)", flush=True)
+    print(f"[profile] kernels with the most device ms/step: "
+          f"{top(kernels, lambda e: e.device_time_total)}", flush=True)
+    print(f"[profile] operators with the most host (self CPU) ms/step: "
+          f"{top(ops, lambda e: e.self_cpu_time_total)}", flush=True)
+
+
+def phase_restore(run_dir: Path):
+    """The sample CLI restores the training run's checkpoint."""
+    argv = ["--run-dir", str(run_dir), "--matrix", MATRIX, "--env-format", "coo",
+            "--loss", TRAIN["loss"], "--backward", TRAIN["backward"],
+            "--t-cap", str(TRAIN["t_cap"]), "--replay-size", str(TRAIN["replay_size"]),
+            "--alpha-fixed", str(TRAIN["alpha_fixed"]),
+            "--plateau-patience", str(TRAIN["plateau_patience"]),
+            "--reward-baseline", TRAIN["reward_baseline"], "--num-samples", "256"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = sample_main(argv)
+    m = re.search(r"restored epoch (\d+)", out.getvalue())
+    summary = json.loads((run_dir / "sample_summary.json").read_text())
+    if rc != 0 or m is None or int(m.group(1)) != EPOCHS:
+        fail(f"the sample CLI did not restore epoch {EPOCHS}: {out.getvalue()[:500]}")
+    if summary["samples"] != 256 or not all(
+            np.isfinite(summary[k]) for k in ("reward_mean", "reward_max", "mean_len")):
+        fail(f"sample CLI summary {summary}")
+    print(f"[restore] sample --run-dir: restored epoch {m.group(1)}, 256 samples in "
+          f"{time.perf_counter() - t0:.1f} s (setup included): reward mean "
+          f"{summary['reward_mean']:.4f} max {summary['reward_max']:.4f}, mean "
+          f"length {summary['mean_len']:.1f}", flush=True)
+
+
 def main() -> int:
     name, count = phase_card()
     phase_build()
     dev = port.resolve_device(None)
     t0 = time.perf_counter()
-    a, seed, env, graph, mcfg, params = setup(
+    a, seed, env, graph, mcfg, _, state = setup(
         TrainConfig(matrix=MATRIX, env_format="coo"))
+    params = state.params
     print(f"[setup] {MATRIX}: n {a.shape[0]}, nnz(A) {a.nnz}, seed edges "
           f"{seed.nnz}, pair plan {env.plan.npairs} pairs -> {env.plan.out_nnz} "
           f"outputs, {time.perf_counter() - t0:.1f} s on the host", flush=True)
     if not isinstance(graph, pol.TiledGraphInputs) or not graph.gat_buckets:
         fail("the slice did not build the bucketed tile layout")
     k1, k3 = phase_kernels(graph, dev)
-    launches = phase_slice(a, seed, env, graph, mcfg, params, dev)
+    k2, k4 = phase_kernels_bwd(graph, dev)
+    phase_gradients(seed, graph, mcfg, params, dev)
+    sample_launches = phase_slice(a, seed, env, graph, mcfg, params, dev)
     phase_breakdown(env, graph, mcfg, params, dev)
-    k1_bound, k1_by = bound_ms(k1["bytes"], k1["ops"])
-    k3_bound, k3_by = bound_ms(k3["bytes"], 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        run_dir = Path(tmp)
+        cfg, tenv, tgraph, tmcfg, opt, tstate, launches, step_ms, peak = \
+            phase_train(run_dir, dev)
+        phase_step_breakdown(cfg, tenv, tgraph, tmcfg, opt, tstate)
+        phase_profile(cfg, tenv, tgraph, tmcfg, opt, tstate)
+        phase_restore(run_dir)
+    bwd_ms = k2["ms"] + k4["ms"]
+    print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
+          f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "
+          f"the steady {step_ms:.3f} ms step", flush=True)
+    bounds = {k: bound_ms(d["bytes"], d.get("ops", 0.0))
+              for k, d in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4))}
+    src = "gflownet_spai_tpu_torch/csrc/"
+    rows = [("gat_tile_fused (K1)", "K1", k1, "gat_fused.cu", "gat_fused.py:167", None),
+            ("gat_tile_fused_bwd (K2)", "K2", k2, "gat_fused.cu", "gat_fused.py:211", None),
+            ("gather_rows_windows (K3)", "K3", k3, "segment.cu", "segment.py:612",
+             k3["lib"]),
+            ("scatter_rows_windows (K4)", "K4", k4, "segment.cu", "segment.py:658",
+             k4["lib"])]
     kernels = [
-        {"name": "gat_tile_fused (K1)", "route": "cuda",
-         "source": "gflownet_spai_tpu_torch/csrc/gat_fused.cu",
-         "replaces": "gflownet_spai_tpu/ops/gat_fused.py:167",
-         "launches": launches["K1"], "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain"], "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
-        {"name": "gather_rows_windows (K3)", "route": "cuda",
-         "source": "gflownet_spai_tpu_torch/csrc/segment.cu",
-         "replaces": "gflownet_spai_tpu/ops/segment.py:612",
-         "launches": launches["K3"], "max_abs_err": k3["err"],
-         "ms": k3["ms"], "plain_ms": k3["plain"], "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": k3["lib"]},
-    ]
+        {"name": nm, "route": "cuda", "source": src + file,
+         "replaces": "gflownet_spai_tpu/ops/" + rep, "launches": launches[k],
+         "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
+        for nm, k, d, file, rep, lib in rows]
     n_b = len(graph.gat_buckets)
-    print(f"[kernels] ms, plain_ms, library_ms and bound_ms are per policy "
-          f"forward: K1 summed over its {2 * n_b} launches ({n_b} buckets x 2 "
-          f"layers), K3 over its {n_b}. ms and library_ms are CUDA-graph "
-          f"replays (device time); plain_ms is eager calls (the plain versions "
-          f"sync with the host). Eager calls of the kernels' wrappers: K1 "
-          f"{k1['eager']:.5f} ms, K3 {k3['eager']:.5f} ms", flush=True)
+    print(f"[kernels] launches count the {EPOCHS} train steps (the sampling "
+          f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
+          f"bound_ms are per policy forward (K1 over its {2 * n_b} launches, "
+          f"K3 over its {n_b}) and per policy backward (K2 over its {2 * n_b}, "
+          f"K4 over its {n_b}). ms and library_ms are CUDA-graph replays "
+          f"(device time); plain_ms is eager calls (the plain versions sync "
+          f"with the host). Eager calls of the kernels' wrappers: K1 "
+          f"{k1['eager']:.5f} ms, K2 {k2['eager']:.5f} ms, K3 {k3['eager']:.5f} "
+          f"ms, K4 {k4['eager']:.5f} ms; training peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -1,10 +1,10 @@
-"""The SPAI GFlowNet's parameters, configuration and sampler (counterpart of
-``gflownet_spai_tpu/gfn/gflownet.py:31-150``; ``loss_fn`` comes with the
-training slice).
+"""The SPAI GFlowNet's parameters, configuration, sampler and loss
+(counterpart of ``gflownet_spai_tpu/gfn/gflownet.py``).
 
 One GATv2 forward pass gives the static action logits, one Gumbel-top-k
-sort samples the whole batch of trajectories, and the rewards replay the
-action lists through the env's fixed-pattern residual plan.
+sort samples the whole batch of trajectories, the rewards replay the
+action lists through the env's fixed-pattern residual plan, the backward
+policy scores the trajectories, and TB / SubTB / VarGrad closes the loop.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import torch
 
 from ..env import spai
 from ..models import policies as pol
+from .loss import (log_reward, subtb_loss, trajectory_balance_loss,
+                   vargrad_loss)
 from .rollout import Rollout, gumbel_topk_rollout, trajectory_logprobs
 
 
@@ -40,12 +42,25 @@ class GFlowNetConfig(NamedTuple):
     t_cap: int = 0               # >0 caps rollouts at t_cap steps
 
 
-def _params_to(tree, device):
-    """Move every tensor of a params tree (nested NamedTuples) to ``device``."""
+def tree_leaves(tree, prefix: str = "") -> list:
+    """``[(path, tensor)]`` of a params tree (nested NamedTuples; ``None``
+    fields are skipped), in field order."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, tuple):
-        return type(tree)(*(_params_to(x, device) for x in tree))
+        return [(prefix, tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [leaf for f in tree._fields
+                for leaf in tree_leaves(getattr(tree, f), f"{prefix}/{f}")]
+    return []
+
+
+def tree_replace(tree, leaves):
+    """``tree`` with its tensor leaves replaced, in ``tree_leaves`` order,
+    by the items of the iterator ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_replace(getattr(tree, f), leaves)
+                            for f in tree._fields))
     return tree
 
 
@@ -73,7 +88,17 @@ def init_params(gen: torch.Generator, cfg: GFlowNetConfig, dtype=torch.float32,
         flow=(pol.flow_head_init(cfg.num_actions, dtype)
               if cfg.loss == "subtb" else None),
     )
-    return _params_to(params, device)
+    return tree_replace(params, (x.to(device) for _, x in tree_leaves(params)))
+
+
+def backward_logprobs(params: GFlowNetParams, cfg: GFlowNetConfig,
+                      actions: torch.Tensor) -> torch.Tensor:
+    """[B, T] actions → [B, T] log P_B under the configured backward policy."""
+    if cfg.backward == "linear":
+        return pol.linear_backward_batch(params.backward, actions)
+    if cfg.backward == "uniform":
+        return pol.uniform_backward_logprobs(actions, cfg.num_actions - 1)
+    return pol.backward_policy_batch(params.backward, actions, cfg.hidden_dim)
 
 
 class SampleOut(NamedTuple):
@@ -105,3 +130,56 @@ def sample(params: GFlowNetParams, env: spai.SpaiEnv, graph,
             logits, rollout.actions.detach()))
     rewards = spai.batched_rewards(env, rollout.actions, alpha)
     return SampleOut(rollout=rollout, rewards=rewards, alpha=alpha, logits=logits)
+
+
+def loss_fn(params: GFlowNetParams, env: spai.SpaiEnv, graph,
+            cfg: GFlowNetConfig, generator: torch.Generator, batch_size: int,
+            replay=None):
+    """The configured loss on one sampled batch; returns (loss, aux dict).
+
+    Gradients flow through the per-step forward log-probs (differentiable
+    in the logits along the sampled, grad-free action order), the backward
+    policy, α (through the reward mix) and log Z or the flow head.
+    ``replay``: optional ``(actions [R, T], valid [R])`` from the top-k
+    buffer, re-scored under the current logits and α; invalid slots are
+    weight-0.  With ``t_cap``, samples whose terminal missed the prefix
+    train as partial trajectories under SubTB and are weight-0 under TB
+    and VarGrad."""
+    out = sample(params, env, graph, cfg, generator, batch_size)
+    actions = out.rollout.actions
+    fwd_lp = out.rollout.fwd_logprobs
+    log_r = cfg.reward_beta * log_reward(out.rewards)
+    lengths = out.rollout.lengths
+    weights = terminated = None
+    if cfg.t_cap > 0:
+        terminated = torch.any(actions == cfg.num_actions - 1, dim=-1)
+        if cfg.loss != "subtb":
+            weights = terminated.to(fwd_lp.dtype)
+    if replay is not None:
+        r_actions, r_valid = replay
+        r_fwd = trajectory_logprobs(out.logits, r_actions)
+        r_rewards = spai.batched_rewards(env, r_actions, out.alpha)
+        actions = torch.cat([actions, r_actions], 0)
+        fwd_lp = torch.cat([fwd_lp, r_fwd], 0)
+        log_r = torch.cat([log_r, cfg.reward_beta * log_reward(r_rewards)], 0)
+        lengths = torch.cat([lengths, (r_actions >= 0).sum(-1).to(lengths.dtype)], 0)
+        fresh_w = (torch.ones((batch_size,), dtype=fwd_lp.dtype,
+                              device=fwd_lp.device) if weights is None else weights)
+        weights = torch.cat([fresh_w, r_valid.to(fwd_lp.dtype)], 0)
+        if terminated is not None:
+            # replay entries are complete trajectories
+            terminated = torch.cat([terminated, torch.ones_like(r_valid)], 0)
+    back_lp = backward_logprobs(params, cfg, actions)
+    if cfg.loss == "vargrad":
+        loss = vargrad_loss(log_r, fwd_lp.sum(-1), back_lp.sum(-1), weights=weights)
+    elif cfg.loss == "subtb":
+        loss = subtb_loss(pol.flow_head_logF(params.flow, actions), log_r, fwd_lp,
+                          back_lp, lengths, lam=cfg.subtb_lambda, weights=weights,
+                          terminated=terminated)
+    else:
+        loss = trajectory_balance_loss(params.log_z, log_r, fwd_lp.sum(-1),
+                                       back_lp.sum(-1), weights=weights)
+    aux = {"rewards": out.rewards, "alpha": out.alpha,
+           "lengths": out.rollout.lengths, "loss": loss,
+           "actions": out.rollout.actions}
+    return loss, aux

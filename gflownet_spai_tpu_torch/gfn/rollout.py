@@ -85,7 +85,10 @@ def trajectory_logprobs(logits: torch.Tensor, actions: torch.Tensor) -> torch.Te
     A = logits.shape[0]
     valid = actions >= 0
     a_safe = torch.where(valid, actions, 0).long()
-    taken = torch.where(valid, logits[a_safe],
+    # index_select: its backward is an index_add_, which does not
+    # serialise on the padding slots' repeated index 0
+    taken = torch.where(valid, torch.index_select(logits, 0, a_safe.reshape(-1))
+                        .reshape(a_safe.shape),
                         torch.tensor(float("-inf"), dtype=logits.dtype,
                                      device=logits.device))
     idx = torch.where(valid, actions, A).long()

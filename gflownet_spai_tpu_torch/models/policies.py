@@ -1,12 +1,15 @@
-"""Forward (GATv2) policy, and the parameter containers of the backward
-policies and the flow head (counterpart of
-``gflownet_spai_tpu/models/policies.py:34-229, 236-258, 280-299, 385-403``).
+"""Forward (GATv2) policy, backward policies and the flow head
+(counterpart of ``gflownet_spai_tpu/models/policies.py``).
 
 Forward policy: GATv2(1 → hidden, 4 heads, edge_dim = 1) → ReLU →
 GATv2(4·hidden → hidden, 1 head) → ReLU → mean pool over the 2n nodes →
 Linear(hidden → max_num_actions) → the live nnz + 1 logits.  The policy
-returns logits; everything downstream stays in log space.  The backward
-policies' log-probabilities come with the training slice.
+returns logits; everything downstream stays in log space.
+
+Backward policies (``policies.py:302-438`` in JAX): the reference-parity
+LSTM (``nn.LSTM`` through ``torch.func.functional_call`` on the params
+tree), the closed-form uniform-parent policy and the gated linear
+recurrence on ``ops.scan.linear_scan``; and the SubTB flow head.
 """
 
 from __future__ import annotations
@@ -180,8 +183,7 @@ def forward_policy_alpha(p: ForwardPolicyParams) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Flow head and backward policies: parameters and inits (their log-prob
-# functions come with the training slice)
+# Flow head (SubTB-λ) and backward policies
 # ---------------------------------------------------------------------------
 
 class FlowHeadParams(NamedTuple):
@@ -195,6 +197,36 @@ def flow_head_init(max_num_actions: int, dtype=torch.float32) -> FlowHeadParams:
                           edge_d=torch.zeros(max_num_actions, dtype=dtype))
 
 
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` through ``index_select``, whose backward is an
+    ``index_add_``.  Advanced indexing's backward sorts the indices and
+    serialises on repeats, and the −1-padded action lists clamp every
+    padding slot to row 0 (most of a [B, t_cap] batch)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
+def flow_head_logF(p: FlowHeadParams, actions: torch.Tensor) -> torch.Tensor:
+    """[B, T] ``-1``-padded actions → [B, T+1] log F(s_t), t = 0..T, with
+    t̂ = t/T."""
+    B, T = actions.shape
+    w = p.poly_w
+    t_hat = (torch.arange(T + 1, dtype=w.dtype, device=w.device) / T)[None, :]
+    base = w[0] + w[1] * t_hat + w[2] * t_hat ** 2 + w[3] * t_hat ** 3
+    valid = actions >= 0
+    d = torch.where(valid, take_rows(p.edge_d, torch.clamp_min(actions, 0)), 0.0)
+    cum = torch.cat([d.new_zeros((B, 1)), torch.cumsum(d, dim=-1)], dim=-1)
+    return base + cum
+
+
+def _masked_log_softmax(logits: torch.Tensor, n_valid: torch.Tensor,
+                        T: int) -> torch.Tensor:
+    """log-softmax of ``logits[..., :T]`` over the first ``n_valid`` entries
+    of each row, read at every step; 0 past ``n_valid``."""
+    keep = torch.arange(T, device=logits.device) < n_valid[..., None]
+    masked = torch.where(keep, logits[..., :T], float("-inf"))
+    return torch.where(keep, torch.log_softmax(masked, dim=-1), 0.0)
+
 class BackwardPolicyParams(NamedTuple):
     """LSTM backward policy (reference parity)."""
     w_ih: torch.Tensor   # [input_dim, 4*hidden]
@@ -206,6 +238,59 @@ class BackwardPolicyParams(NamedTuple):
 
 def _uniform(gen, shape, lim, dtype):
     return (torch.rand(shape, generator=gen, dtype=dtype) * 2.0 - 1.0) * lim
+
+
+def _lstm_module(p: BackwardPolicyParams) -> tuple:
+    """An ``nn.LSTM`` shell and its weights in PyTorch's layout: gates in
+    (i, f, g, o) order as the JAX split, ``weight_ih_l0 = w_ihᵀ``,
+    ``weight_hh_l0 = w_hhᵀ``, ``bias_ih_l0 = b``, ``bias_hh_l0 = 0``."""
+    hidden = p.w_hh.shape[0]
+    lstm = torch.nn.LSTM(p.w_ih.shape[0], hidden, batch_first=True,
+                         device="meta", dtype=p.w_ih.dtype)
+    weights = {"weight_ih_l0": p.w_ih.T, "weight_hh_l0": p.w_hh.T,
+               "bias_ih_l0": p.b, "bias_hh_l0": torch.zeros_like(p.b)}
+    return lstm, weights
+
+
+def backward_policy_batch(p: BackwardPolicyParams, actions: torch.Tensor,
+                          hidden_dim: int) -> torch.Tensor:
+    """[B, T] ``-1``-padded actions → [B, T] per-step log P_B of the LSTM
+    backward policy (reference parity); padding contributes 0.
+
+    The LSTM reads the raw action ids as scalars over the whole padded
+    sequence; padding is trailing, so the state after the last valid step
+    is the output at ``n_valid − 1`` (zeros when nothing is valid), which
+    equals the JAX scan's carry frozen on padding."""
+    B, T = actions.shape
+    valid = actions >= 0
+    n_valid = valid.sum(-1)
+    lstm, weights = _lstm_module(p)
+    xs = actions.to(p.w_ih.dtype)[..., None]
+    cudnn = torch.backends.cudnn
+    # cuDNN's RNN would run in TF32 by default; the port keeps float32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        out, _ = torch.func.functional_call(lstm, weights, (xs,))
+    last = torch.clamp_min(n_valid - 1, 0)
+    h_last = out[torch.arange(B, device=out.device), last]
+    h_last = torch.where((n_valid > 0)[:, None], h_last, 0.0)
+    logits = h_last @ p.fc_w + p.fc_b
+    return _masked_log_softmax(logits, n_valid, T)
+
+
+def backward_policy_logprobs(p: BackwardPolicyParams, actions: torch.Tensor,
+                             hidden_dim: int) -> torch.Tensor:
+    """One trajectory: [T] actions → [T] log P_B (``backward_policy_batch``)."""
+    return backward_policy_batch(p, actions[None], hidden_dim)[0]
+
+
+def uniform_backward_logprobs(actions: torch.Tensor,
+                              terminal_action: int) -> torch.Tensor:
+    """[B, T] actions → [B, T] log P_B of the uniform-parent policy: −log t
+    at the t-th deletion, 0 on the terminal step and on padding."""
+    deletion = (actions >= 0) & (actions != terminal_action)
+    t_idx = torch.cumsum(deletion.to(torch.int32), dim=-1)
+    return torch.where(deletion, -torch.log(t_idx.to(torch.float32)), 0.0)
 
 
 def backward_policy_init(gen: torch.Generator, hidden_dim: int,
@@ -239,3 +324,27 @@ def linear_backward_init(gen: torch.Generator, hidden_dim: int,
         fc_w=_uniform(gen, (hidden_dim, max_num_actions), lim, dtype),
         fc_b=torch.zeros(max_num_actions, dtype=dtype),
     )
+
+
+def linear_backward_batch(p: LinearBackwardParams,
+                          actions: torch.Tensor) -> torch.Tensor:
+    """[B, T] ``-1``-padded actions → [B, T] log P_B of the gated linear
+    recurrence h_t = a_t·h_{t−1} + b_t, a_t = σ(emb_g[act_t]) (1 on
+    padding, so the carry freezes), b_t = (1 − a_t)·emb_v[act_t] (0 on
+    padding), read out at the last step (``ops.scan.linear_scan``)."""
+    from ..ops.scan import linear_scan
+
+    T = actions.shape[-1]
+    valid = actions >= 0
+    idx = torch.clamp_min(actions, 0)
+    a = torch.where(valid, torch.sigmoid(take_rows(p.emb_g, idx)), 1.0)[..., None]
+    b = torch.where(valid[..., None], (1.0 - a) * take_rows(p.emb_v, idx), 0.0)
+    h = linear_scan(a, b, axis=-2)
+    logits = h[..., -1, :] @ p.fc_w + p.fc_b
+    return _masked_log_softmax(logits, valid.sum(-1), T)
+
+
+def linear_backward_logprobs(p: LinearBackwardParams,
+                             actions: torch.Tensor) -> torch.Tensor:
+    """One trajectory: [T] actions → [T] log P_B (``linear_backward_batch``)."""
+    return linear_backward_batch(p, actions[None])[0]

@@ -1,7 +1,8 @@
-"""Fused GATv2 tile forward K1: score → segment softmax → weighted segment
-sum in one launch, one block per node tile (counterpart of
-``gflownet_spai_tpu/ops/gat_fused.py``: ``gat_tile_fused_jnp`` :70 and the
-Pallas ``_fwd_kernel`` :167 / ``_run_fwd`` :269 / ``gat_tile_fused`` :438).
+"""Fused GATv2 tile forward K1 and backward K2: score → segment softmax →
+weighted segment sum in one launch, one block per node tile (counterpart
+of ``gflownet_spai_tpu/ops/gat_fused.py``: ``gat_tile_fused_jnp`` :70, the
+Pallas ``_fwd_kernel`` :167 / ``_run_fwd`` :269, its custom VJP :396-418
+and ``gat_tile_fused`` :438).
 
 Per tile::
 
@@ -12,9 +13,10 @@ Per tile::
     α       = segment softmax with a per-segment max shift (padding → 0)
     out     = Σ_{slots of v} xs_slot ⊙ α        ([TN, H·D])
 
-CUDA tensors launch ``csrc/gat_fused.cu``; CPU tensors take
-``gat_tile_fused_ref``.  Forward only: the backward kernel K2 comes with
-the training slice.
+The backward K2 (``_bwd_kernel`` :211 / ``_run_bwd`` :315 in JAX) recomputes
+this per tile and emits ∂xs, ∂xd and per-tile ∂att, ∂w_e.  CUDA tensors
+launch ``csrc/gat_fused.cu`` for both directions; CPU tensors take
+``gat_tile_fused_ref`` and ``gat_tile_fused_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -78,39 +80,41 @@ def gat_tile_fused_ref(tiles: SegTiles, attr: torch.Tensor, xs_slot: torch.Tenso
     return torch.einsum("tvs,tsc->tvc", ohf, wgt).reshape(T * TN, HD)
 
 
+def gat_tile_fused_bwd_ref(tiles: SegTiles, attr: torch.Tensor,
+                           xs_slot: torch.Tensor, xd: torch.Tensor,
+                           w_e: torch.Tensor, att: torch.Tensor,
+                           g: torch.Tensor, negative_slope: float = 0.2):
+    """Plain version of K2: the VJP of ``gat_tile_fused_ref`` at cotangent
+    ``g`` [n_pad, H·D], by autograd.  Returns ``(dxs, dxd, dw_e, datt)``
+    shaped as ``(xs_slot, xd, w_e, att)``; uniform rows get their sums."""
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(True) for x in (xs_slot, xd, w_e, att)]
+        out = gat_tile_fused_ref(tiles, attr.detach(), *ins, negative_slope)
+        return torch.autograd.grad(out, ins, g)
+
+
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                  + [ctypes.c_float, ctypes.c_void_p])
 _MAX_HEADS = 8          # kMaxHeads in csrc/gat_fused.cu
 _MAX_SMEM = 48 * 1024   # static launch limit without the opt-in attribute
 
 
-def _fwd_lib():
-    fn = _build.load("gat_fused").gat_tile_fused_fwd
-    fn.argtypes, fn.restype = _FWD_ARGTYPES, ctypes.c_int
+def _lib_fn(name: str, argtypes):
+    fn = getattr(_build.load("gat_fused"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
-def gat_tile_fused(tiles: SegTiles, attr: torch.Tensor, xs_slot: torch.Tensor,
-                   xd: torch.Tensor, w_e: torch.Tensor, att: torch.Tensor,
-                   negative_slope: float = 0.2) -> torch.Tensor:
-    """One-launch-per-tile fused GATv2 step (see the module docstring).
-
-    ``attr``: [T·S] edge scalars in slot order; ``xs_slot``: [T·S, H·D]
-    source slot features or [1, H·D] uniform; ``xd``: [n_pad, H·D] target
-    node features or [1, H·D] uniform; ``w_e``: [H·D]; ``att``: [H, D].
-    Returns [n_pad, H·D] aggregated node features (no bias)."""
+def _check_cuda_args(what: str, tiles: SegTiles, attr, xs_slot, xd, w_e, att,
+                     smem_floats: int):
+    """Device, shape, dtype and limit checks shared by K1 and K2."""
     args = (attr, xs_slot, xd, w_e, att)
-    if all(a.device.type == "cpu" for a in args):
-        return gat_tile_fused_ref(tiles, attr, xs_slot, xd, w_e, att,
-                                  negative_slope)
     dev = attr.device
     if dev.type != "cuda" or any(a.device != dev for a in args) \
             or tiles.local_dst.device != dev:
-        raise ValueError("gat_tile_fused: all tensors must be on one CUDA device")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise NotImplementedError(
-            "gat_tile_fused on CUDA is forward only: K2 (the fused backward "
-            "kernel) lands with the training slice")
+        raise ValueError(f"{what}: all tensors must be on one CUDA device")
     T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
     H, D = att.shape
     HD = H * D
@@ -122,29 +126,113 @@ def gat_tile_fused(tiles: SegTiles, attr: torch.Tensor, xs_slot: torch.Tensor,
         and w_e.shape == (HD,))
     if not shapes_ok:
         raise ValueError(
-            f"gat_tile_fused: shapes do not match the tile layout (T={T}, "
+            f"{what}: shapes do not match the tile layout (T={T}, "
             f"S={S}, TN={TN}, H={H}, D={D}): local_dst "
             f"{tuple(tiles.local_dst.shape)} {tiles.local_dst.dtype}, attr "
             f"{tuple(attr.shape)}, xs {tuple(xs_slot.shape)}, xd "
             f"{tuple(xd.shape)}, w_e {tuple(w_e.shape)}")
     if any(a.dtype != torch.float32 or not a.is_contiguous() for a in args) \
             or not tiles.local_dst.is_contiguous():
-        raise ValueError("gat_tile_fused: inputs must be contiguous float32")
-    smem = 4 * (2 * TN * H + TN * HD + 2 * HD)
-    if H > _MAX_HEADS or smem > _MAX_SMEM or T * S * HD >= 2**31:
-        raise ValueError(f"gat_tile_fused: H={H}, TN·H·D={TN * HD} exceed the "
+        raise ValueError(f"{what}: inputs must be contiguous float32")
+    if H > _MAX_HEADS or 4 * smem_floats > _MAX_SMEM or T * S * HD >= 2**31:
+        raise ValueError(f"{what}: H={H}, TN·H·D={TN * HD} exceed the "
                          "kernel's limits (H ≤ 8, 48 KB of shared memory)")
-    out = torch.empty((T * TN, HD), dtype=attr.dtype, device=dev)
-    fn = _fwd_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(fn(tiles.local_dst.data_ptr(), attr.data_ptr(),
-                    xs_slot.data_ptr(), xd.data_ptr(), w_e.data_ptr(),
-                    att.data_ptr(), out.data_ptr(), T, S, TN, H, D,
-                    int(xs_slot.shape[0] == 1), int(xd.shape[0] == 1),
-                    float(negative_slope), stream),
-                 "gat_tile_fused")
+
+
+def _fwd(tiles: SegTiles, attr, xs_slot, xd, w_e, att, negative_slope):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    if all(a.device.type == "cpu" for a in (attr, xs_slot, xd, w_e, att)):
+        return gat_tile_fused_ref(tiles, attr, xs_slot, xd, w_e, att,
+                                  negative_slope)
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    H, D = att.shape
+    HD = H * D
+    _check_cuda_args("gat_tile_fused", tiles, attr, xs_slot, xd, w_e, att,
+                     2 * TN * H + TN * HD + 2 * HD)
+    out = torch.empty((T * TN, HD), dtype=attr.dtype, device=attr.device)
+    stream = torch.cuda.current_stream(attr.device).cuda_stream
+    _build.check(_lib_fn("gat_tile_fused_fwd", _FWD_ARGTYPES)(
+        tiles.local_dst.data_ptr(), attr.data_ptr(), xs_slot.data_ptr(),
+        xd.data_ptr(), w_e.data_ptr(), att.data_ptr(), out.data_ptr(),
+        T, S, TN, H, D, int(xs_slot.shape[0] == 1), int(xd.shape[0] == 1),
+        float(negative_slope), stream), "gat_tile_fused")
     gat_tile_fused.launches += 1
     return out
 
 
+def gat_tile_fused_bwd(tiles: SegTiles, attr: torch.Tensor,
+                       xs_slot: torch.Tensor, xd: torch.Tensor,
+                       w_e: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
+                       negative_slope: float = 0.2):
+    """K2: the VJP of ``gat_tile_fused`` at cotangent ``g`` [n_pad, H·D],
+    recomputing the forward.  Returns ``(dxs, dxd, dw_e, datt)`` shaped as
+    ``(xs_slot, xd, w_e, att)``.  CUDA tensors launch ``csrc/gat_fused.cu``
+    (per-tile partials summed here, as ``_run_bwd`` sums them in JAX); CPU
+    tensors take ``gat_tile_fused_bwd_ref``."""
+    if all(a.device.type == "cpu" for a in (attr, xs_slot, xd, w_e, att, g)):
+        return gat_tile_fused_bwd_ref(tiles, attr, xs_slot, xd, w_e, att, g,
+                                      negative_slope)
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    H, D = att.shape
+    HD = H * D
+    xs_uni, xd_uni = xs_slot.shape[0] == 1, xd.shape[0] == 1
+    _check_cuda_args("gat_tile_fused_bwd", tiles, attr, xs_slot, xd, w_e, att,
+                     3 * TN * H + 6 * HD + (0 if xd_uni else TN * HD))
+    if g.shape != (T * TN, HD) or g.dtype != torch.float32 \
+            or g.device != attr.device or not g.is_contiguous():
+        raise ValueError(f"gat_tile_fused_bwd: g must be a contiguous float32 "
+                         f"[{T * TN}, {HD}] tensor on {attr.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    new = lambda *shape: torch.empty(shape, dtype=g.dtype, device=g.device)
+    dxs = new(T, HD) if xs_uni else new(T * S, HD)
+    dxd = new(T, HD) if xd_uni else new(T * TN, HD)
+    datt, dwe = new(T, HD), new(T, HD)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    _build.check(_lib_fn("gat_tile_fused_bwd", _BWD_ARGTYPES)(
+        tiles.local_dst.data_ptr(), attr.data_ptr(), xs_slot.data_ptr(),
+        xd.data_ptr(), w_e.data_ptr(), att.data_ptr(), g.data_ptr(),
+        dxs.data_ptr(), dxd.data_ptr(), datt.data_ptr(), dwe.data_ptr(),
+        T, S, TN, H, D, int(xs_uni), int(xd_uni), float(negative_slope),
+        stream), "gat_tile_fused_bwd")
+    gat_tile_fused_bwd.launches += 1
+    if xs_uni:
+        dxs = dxs.sum(0, keepdim=True)
+    if xd_uni:
+        dxd = dxd.sum(0, keepdim=True)
+    return dxs, dxd, dwe.sum(0), datt.sum(0).reshape(H, D)
+
+
+class _GatTileFused(torch.autograd.Function):
+    """K1 forward, K2 backward (``_gat_fused_p`` and its custom VJP in
+    JAX).  ``attr`` is static graph data and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, tiles, negative_slope, attr, xs_slot, xd, w_e, att):
+        ctx.tiles, ctx.slope = tiles, negative_slope
+        ctx.save_for_backward(attr, xs_slot, xd, w_e, att)
+        return _fwd(tiles, attr, xs_slot, xd, w_e, att, negative_slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        dxs, dxd, dwe, datt = gat_tile_fused_bwd(
+            ctx.tiles, *ctx.saved_tensors, g.contiguous(), ctx.slope)
+        return None, None, None, dxs, dxd, dwe, datt
+
+
+def gat_tile_fused(tiles: SegTiles, attr: torch.Tensor, xs_slot: torch.Tensor,
+                   xd: torch.Tensor, w_e: torch.Tensor, att: torch.Tensor,
+                   negative_slope: float = 0.2) -> torch.Tensor:
+    """One-launch-per-tile fused GATv2 step (see the module docstring).
+
+    ``attr``: [T·S] edge scalars in slot order; ``xs_slot``: [T·S, H·D]
+    source slot features or [1, H·D] uniform; ``xd``: [n_pad, H·D] target
+    node features or [1, H·D] uniform; ``w_e``: [H·D]; ``att``: [H, D].
+    Returns [n_pad, H·D] aggregated node features (no bias).
+    Differentiable in (xs_slot, xd, w_e, att): K1 forward and K2 backward
+    on CUDA tensors, their plain versions on CPU tensors."""
+    return _GatTileFused.apply(tiles, float(negative_slope), attr, xs_slot,
+                               xd, w_e, att)
+
+
 gat_tile_fused.launches = 0
+gat_tile_fused_bwd.launches = 0

@@ -233,52 +233,123 @@ def gather_rows_windows_ref(plan: SrcWindows, tiles: SegTiles,
     return got
 
 
-_GATHER_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def effective_rows(plan: SrcWindows, n: int) -> torch.Tensor:
+    """int64[T·S] source row that each slot reads through the plan: the
+    window row for in-window slots below ``n``, ``out_src`` for outlier
+    slots, and ``n`` (a dropped row) for misses and padding."""
+    lsrc = plan.lsrc.long()
+    row = plan.blk.long()[:, None] * plan.win + lsrc
+    ok = (lsrc >= 0) & (lsrc < 2 * plan.win) & (row < n)
+    row = torch.where(ok, row, n).reshape(-1)
+    slot, src = plan.out_slot.long(), plan.out_src.long()
+    fix = (slot >= 0) & (slot < row.numel())
+    row[slot[fix]] = torch.where((src >= 0) & (src < n), src, n)[fix]
+    return row
 
 
-def _gather_lib():
-    lib = _build.load("segment")
-    fn = lib.gather_rows_windows_fwd
-    fn.argtypes, fn.restype = _GATHER_ARGTYPES, ctypes.c_int
+def scatter_rows_windows_ref(plan: SrcWindows, g: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    """Plain version of K4, the transpose of ``gather_rows_windows``:
+    ``dv[r] = Σ_{slots s reading row r} g[s]`` → [n, D], one
+    ``index_add_`` over the plan's effective rows."""
+    rows = effective_rows(plan, n)
+    dv = g.new_zeros((n + 1, g.shape[-1]))
+    return dv.index_add_(0, rows, g)[:n]
+
+
+def _check_plan(plan: SrcWindows, device, what: str):
+    T, S = plan.lsrc.shape
+    idx = (plan.lsrc, plan.blk, plan.out_slot, plan.out_src)
+    for a in idx:
+        if a.device != device or a.dtype != torch.int32 or not a.is_contiguous():
+            raise ValueError(f"{what}: plan arrays must be contiguous int32 "
+                             "tensors on the device of the values")
+    if plan.blk.shape != (T,):
+        raise ValueError(f"{what}: plan shapes do not fit the kernel")
+    return T, S, idx
+
+
+def _check_rows(x: torch.Tensor, what: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous float32 [rows, D] "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+
+
+_WIN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _seg_fn(name: str):
+    fn = getattr(_build.load("segment"), name)
+    fn.argtypes, fn.restype = _WIN_ARGTYPES, ctypes.c_int
     return fn
+
+
+def _gather_fwd(plan: SrcWindows, tiles: SegTiles, vals: torch.Tensor):
+    """K3 on CUDA tensors, its plain version on CPU tensors."""
+    if vals.device.type == "cpu":
+        return gather_rows_windows_ref(plan, tiles, vals)
+    _check_rows(vals, "gather_rows_windows")
+    T, S, idx = _check_plan(plan, vals.device, "gather_rows_windows")
+    n, D = vals.shape
+    if T * S * D >= 2**31:
+        raise ValueError("gather_rows_windows: plan shapes do not fit the kernel")
+    out = torch.empty((T * S, D), dtype=vals.dtype, device=vals.device)
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    _build.check(_seg_fn("gather_rows_windows_fwd")(
+        *(a.data_ptr() for a in idx), vals.data_ptr(), out.data_ptr(),
+        T, S, D, plan.win, n, plan.out_slot.shape[0], stream),
+        "gather_rows_windows")
+    gather_rows_windows.launches += 1
+    return out
+
+
+def scatter_rows_windows(plan: SrcWindows, g: torch.Tensor, n: int) -> torch.Tensor:
+    """K4: the windowed scatter-add of [T·S, D] slot cotangents ``g`` onto
+    [n, D] source rows, the outlier fixup included.  CUDA tensors launch
+    ``csrc/segment.cu``; CPU tensors take ``scatter_rows_windows_ref``."""
+    if g.device.type == "cpu":
+        return scatter_rows_windows_ref(plan, g, n)
+    _check_rows(g, "scatter_rows_windows")
+    T, S, idx = _check_plan(plan, g.device, "scatter_rows_windows")
+    D = g.shape[1]
+    if g.shape[0] != T * S or T * S * D >= 2**31 or n * D >= 2**31:
+        raise ValueError(f"scatter_rows_windows: g {tuple(g.shape)} does not "
+                         f"fit the plan (T={T}, S={S}) or the kernel")
+    dv = torch.zeros((n, D), dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    _build.check(_seg_fn("scatter_rows_windows_bwd")(
+        *(a.data_ptr() for a in idx), g.data_ptr(), dv.data_ptr(),
+        T, S, D, plan.win, n, plan.out_slot.shape[0], stream),
+        "scatter_rows_windows")
+    scatter_rows_windows.launches += 1
+    return dv
+
+
+class _GatherRowsWindows(torch.autograd.Function):
+    """K3 forward, K4 backward (``_gather_rows_p`` and its VJP in JAX)."""
+
+    @staticmethod
+    def forward(ctx, vals, plan, tiles):
+        ctx.plan, ctx.n = plan, vals.shape[0]
+        return _gather_fwd(plan, tiles, vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_rows_windows(ctx.plan, g.contiguous(), ctx.n), None, None
 
 
 def gather_rows_windows(plan: SrcWindows, tiles: SegTiles, src_t,
                         vals: torch.Tensor) -> torch.Tensor:
     """``vals[src_t]`` as [T·S, D] slot rows through the window plan (same
     signature and result as the JAX function with ``interpret=True``).
-    CUDA tensors launch K3 (``csrc/segment.cu``); CPU tensors take
-    ``gather_rows_windows_ref``.  ``src_t`` is carried for the backward
-    pass, which comes with the training slice."""
-    if vals.device.type == "cpu":
-        return gather_rows_windows_ref(plan, tiles, vals)
-    if vals.device.type != "cuda":
-        raise ValueError(f"gather_rows_windows: unsupported device {vals.device}")
-    if vals.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "gather_rows_windows on CUDA is forward only: its backward (the "
-            "windowed scatter K4) lands with the training slice")
-    if vals.dtype != torch.float32 or vals.dim() != 2 or not vals.is_contiguous():
-        raise ValueError("gather_rows_windows: vals must be a contiguous "
-                         f"float32 [n, D] tensor, got {vals.dtype} "
-                         f"{tuple(vals.shape)}")
-    T, S = plan.lsrc.shape
-    n, D = vals.shape
-    idx = (plan.lsrc, plan.blk, plan.out_slot, plan.out_src)
-    for a in idx:
-        if a.device != vals.device or a.dtype != torch.int32 or not a.is_contiguous():
-            raise ValueError("gather_rows_windows: plan arrays must be "
-                             "contiguous int32 tensors on the device of vals")
-    if plan.blk.shape != (T,) or T * S * D >= 2**31:
-        raise ValueError("gather_rows_windows: plan shapes do not fit the kernel")
-    out = torch.empty((T * S, D), dtype=vals.dtype, device=vals.device)
-    fn = _gather_lib()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    _build.check(fn(*(a.data_ptr() for a in idx), vals.data_ptr(), out.data_ptr(),
-                    T, S, D, plan.win, n, plan.out_slot.shape[0], stream),
-                 "gather_rows_windows")
-    gather_rows_windows.launches += 1
-    return out
+    Differentiable in ``vals``: the forward is K3 and the backward K4
+    (``csrc/segment.cu``) on CUDA tensors, their plain versions on CPU
+    tensors.  ``src_t`` is the JAX signature's; the plan carries the rows."""
+    del src_t
+    return _GatherRowsWindows.apply(vals, plan, tiles)
 
 
 gather_rows_windows.launches = 0
+scatter_rows_windows.launches = 0

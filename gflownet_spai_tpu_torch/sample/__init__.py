@@ -1,0 +1,1 @@
+"""Sampling CLI: ``python -m gflownet_spai_tpu_torch.sample``."""

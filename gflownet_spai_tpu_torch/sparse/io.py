@@ -1,15 +1,17 @@
-"""Matrix Market reader (counterpart of ``gflownet_spai_tpu/sparse/io.py``
-``read_mtx``, on its pure-Python path): coordinate and array formats,
-general / symmetric / skew-symmetric, real / integer / pattern fields."""
+"""Matrix Market IO (counterpart of ``gflownet_spai_tpu/sparse/io.py``):
+``read_mtx`` on the JAX package's pure-Python path (coordinate and array
+formats, general / symmetric / skew-symmetric, real / integer / pattern
+fields) and ``write_mtx``."""
 
 from __future__ import annotations
 
 import gzip
+from pathlib import Path
 
 import numpy as np
 
 from .convert import coo_sort_dedup
-from .types import COO
+from .types import COO, to_numpy
 
 
 def _open(path):
@@ -68,3 +70,21 @@ def read_mtx(path, dtype=np.float64) -> COO:
     return coo_sort_dedup(COO(row=row.astype(np.int32), col=col.astype(np.int32),
                               data=data, shape=(nrows, ncols)),
                           sum_duplicates=False)
+
+
+def write_mtx(path, coo: COO, comment: str = "") -> None:
+    """Write a COO matrix (numpy or tensors) in Matrix Market
+    coordinate/real/general format."""
+    row = to_numpy(coo.row) + 1
+    col = to_numpy(coo.col) + 1
+    data = to_numpy(coo.data)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"%{line}\n")
+        f.write(f"{coo.shape[0]} {coo.shape[1]} {len(data)}\n")
+        for r, c, v in zip(row, col, data):
+            f.write(f"{r} {c} {v:.17g}\n")

@@ -145,3 +145,39 @@ def test_edge_dim_other_than_one_raises(case):
     with pytest.raises(NotImplementedError, match="K5"):
         t_gat.gatv2_apply_tiled(p, tg.x, tg.tiles, tg.src_t, tg.dst_t,
                                 tg.attr_t, tg.tiles.num_nodes, HEADS, HIDDEN)
+
+
+def test_gatv2_apply_tiled_buckets_grads_match(case):
+    """Gradients through the bucketed branch (the ``xd_r[idx]`` gather and
+    the ``out_r[idx]`` write, K2 and K4 on the card, their plain versions
+    here) against ``jax.grad`` through the JAX layer with the interpret-mode
+    kernels, for the layer's parameters and its input features.  Tolerance
+    rtol 5e-4 and atol 5e-5 times the largest gradient of the layer (the
+    repo's bound for these gradients, tests/test_segment.py; w_dst's and
+    att's gradients are float32 sums that cancel)."""
+    jg, tg = case["jg"], case["tg"]
+    n2 = jg.tiles.num_nodes
+    rng = np.random.default_rng(4)
+    jl, tl = case["jparams"].forward.gat2, case["tparams"].forward.gat2
+    x = rng.standard_normal((n2, jl.w_src.shape[0])).astype(np.float32)
+    tgt = rng.standard_normal((n2, HIDDEN)).astype(np.float32)
+
+    def jloss(p, x):
+        out = j_gat.gatv2_apply_tiled(p, x, jg.tiles, jg.src_t, jg.dst_t,
+                                      jg.attr_t, n2, 1, HIDDEN, interpret=True,
+                                      srcwin=jg.srcwin, buckets=jg.gat_buckets)
+        return jnp.sum(out * tgt)
+
+    jp_g, jx_g = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jl, jnp.asarray(x))
+    leaves = [t.clone().requires_grad_(True) for t in tl]
+    tx = torch.as_tensor(x).requires_grad_(True)
+    out = t_gat.gatv2_apply_tiled(
+        t_gat.GATv2Params(*leaves), tx, tg.tiles, tg.src_t, tg.dst_t, tg.attr_t,
+        n2, 1, HIDDEN, srcwin=tg.srcwin, buckets=tg.gat_buckets)
+    got = torch.autograd.grad((out * torch.as_tensor(tgt)).sum(), leaves + [tx])
+    want = [np.asarray(w) for w in jax.tree_util.tree_leaves(jp_g)] + [np.asarray(jx_g)]
+    scale = max(float(np.abs(w).max()) for w in want[:-1])
+    for g, w in zip(got[:-1], want[:-1]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=5e-4, atol=5e-5 * scale)
+    np.testing.assert_allclose(got[-1].numpy(), want[-1], rtol=5e-4,
+                               atol=5e-5 * float(np.abs(want[-1]).max()))

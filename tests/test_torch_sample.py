@@ -31,7 +31,7 @@ CFG = dict(matrix="orsirr_like16", env_format="coo", gat_tiled_min_edges=0)
 @pytest.fixture(scope="module")
 def both():
     ja, jseed, jenv, jgraph, jmcfg, _, jstate = j_setup(JConfig(**CFG))
-    ta, tseed, tenv, tgraph, tmcfg, _ = t_setup(TConfig(platform="cpu", **CFG))
+    ta, tseed, tenv, tgraph, tmcfg, _, _ = t_setup(TConfig(platform="cpu", **CFG))
     return dict(jseed=jseed, jenv=jenv, jgraph=jgraph, jmcfg=jmcfg,
                 jparams=jstate.params, tseed=tseed, tenv=tenv, tgraph=tgraph,
                 tmcfg=tmcfg)

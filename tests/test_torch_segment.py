@@ -132,3 +132,57 @@ def test_tiled_graph_from_seed_equal():
                                    rtol=1e-6)
         for f in ("lsrc", "blk", "out_slot", "out_src", "win", "rows_pad"):
             _eq(getattr(tb.srcwin, f), getattr(jb.srcwin, f))
+
+
+def _grad_case(seed=3):
+    n, dst, src = _window_case(seed=seed)
+    jt = j_seg.build_seg_tiles(dst, n, tile_nodes=64)
+    j_src = j_seg.to_tiles(jt, jnp.asarray(src, jnp.int32))
+    jp = j_seg.build_src_windows(jt, np.asarray(j_src), n, win=128)
+    tt = t_seg.build_seg_tiles(dst, n, tile_nodes=64, device=CPU)
+    tp = t_seg.build_src_windows(tt, np.asarray(j_src), n, win=128, device=CPU)
+    return n, jt, j_src, jp, tt, tp
+
+
+@pytest.mark.parametrize("D", [4, 16])
+def test_gather_rows_windows_grad_matches_interpret(D):
+    """The port's gradient of the K3 gather (K4's plain version with the
+    outlier fixup) against ``jax.grad`` through
+    ``gather_rows_windows(..., interpret=True)``, which runs K4 in interpret
+    mode, on a plan with outliers and padding slots.  Tolerance rtol 5e-4,
+    atol 5e-5 (the repo's own for these gradients: the interpret-mode
+    kernel sums hi/lo-split products in another order)."""
+    import jax
+
+    n, jt, j_src, jp, tt, tp = _grad_case()
+    n_slots = jt.tiles * jt.slots
+    assert int((np.asarray(jp.out_slot) < n_slots).sum()) > 0        # outliers
+    assert int((np.asarray(jt.local_dst) >= jt.tile_nodes).sum()) > 0  # padding
+    rng = np.random.default_rng(D)
+    vals = rng.standard_normal((n, D)).astype(np.float32)
+    tgt = rng.standard_normal((n_slots, D)).astype(np.float32)
+    want = jax.grad(lambda v: jnp.sum(j_seg.gather_rows_windows(
+        jp, jt, j_src, v, interpret=True) * jnp.asarray(tgt)))(jnp.asarray(vals))
+    v = torch.as_tensor(vals).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        (t_seg.gather_rows_windows(tp, tt, None, v) * torch.as_tensor(tgt)).sum(), v)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4, atol=5e-5)
+    before = t_seg.scatter_rows_windows.launches
+    t_seg.scatter_rows_windows(tp, torch.as_tensor(tgt), n)
+    assert t_seg.scatter_rows_windows.launches == before
+
+
+def test_scatter_rows_windows_ref_is_index_add():
+    """The plain K4 equals ``index_add_`` of the slot cotangents onto the
+    rows that the gather reads (the plain ``vals[src_t]`` gradient, with
+    padding slots dropped)."""
+    n, jt, j_src, jp, tt, tp = _grad_case(seed=4)
+    g = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (jt.tiles * jt.slots, 4)).astype(np.float32))
+    src = torch.as_tensor(np.array(j_src)).long()
+    real = (tt.local_dst.reshape(-1) < tt.tile_nodes)
+    rows = torch.where(real, src, n)
+    want = torch.zeros((n + 1, 4)).index_add_(0, rows, g)[:n]
+    got = t_seg.scatter_rows_windows_ref(tp, g, n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(t_seg.effective_rows(tp, n), rows)
