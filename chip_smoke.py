@@ -6,7 +6,7 @@ Phases (any failure exits non-zero before the result line):
 
 1. card      — requires CUDA; prints the device, its count and
                ``nvidia-smi``'s name and power limit; TF32 off.
-2. build     — compiles every kernel of the sampling and training paths
+2. build     — compiles every kernel of the sampling, training and validation paths
                from ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process
                per source, all at once).
 3. setup     — ``setup(TrainConfig(matrix="orsirr_like150", env_format="coo"))``
@@ -38,15 +38,44 @@ Phases (any failure exits non-zero before the result line):
 10. restore  — ``python -m gflownet_spai_tpu_torch.sample --run-dir`` (in
                process) restores the checkpoint: the epoch comes back and
                the rewards are finite.
+11. dia      — K8 (DIA SpMV), K12 (fused k-step SpMV) and K13 (fused
+               Chebyshev steps) against their plain versions at the
+               validation path's shapes: K8 on poisson1024 and on the
+               orsirr_like150 DIA (230 diagonals), K12 on poisson1024's
+               Jacobi iteration matrix at k = 8 and k = 2 with and without
+               the affine term, K13 on poisson1024 at k = 2 with Chebyshev
+               coefficients from the estimated spectrum.  Kernel (CUDA-graph
+               replays cycling through input copies larger than L2 together,
+               and one L2-warm copy), eager, plain, bound and (K8)
+               torch.sparse CSR times.
+12. validate — launch counters to 0, then the orsirr_like150 harness from
+               the training run's checkpoint: restore, sample 256, the best
+               sampled M, GMRES(20) (x0 = 0, b = ones, rtol 1e-5, maxiter
+               10,260) with none / ILU(0) / sampled SPAI / classic SPAI /
+               Jacobi 16 sweeps / Chebyshev degree 16; per row iterations,
+               cold and steady wall, true residual and kernel launches.
+13. poisson  — launch counters to 0, CG on poisson1024 (the BASELINE
+               config-2 class at a grid whose padded size lets the kernels
+               fuse) with none / Jacobi 16 / Chebyshev 16 to rtol 1e-5;
+               each row's residual history held against float64 scipy CG
+               with the same operators in float64 (the first iteration at
+               rtol 1e-1 and 1e-2 within 3%; the ladder down to 1e-5
+               printed), and the polynomial operators against their
+               float64 versions on two vectors.
+14. validate-cli — ``python -m gflownet_spai_tpu_torch.validate`` on
+               bcsstk03_like in a subprocess on the card: every row in
+               validation.json; the CLI's verdict printed.
 
-The line before the last is the ``kernels`` JSON object; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase prints its seconds.  The line before the last is the ``kernels``
+JSON object; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
+import itertools
 import json
 import re
 import subprocess
@@ -66,6 +95,7 @@ from gflownet_spai_tpu_torch.gfn.loss import log_reward, subtb_loss
 from gflownet_spai_tpu_torch.gfn.replay import replay_sample
 from gflownet_spai_tpu_torch.gfn.rollout import gumbel_topk_rollout, trajectory_logprobs
 from gflownet_spai_tpu_torch.models import policies as pol
+from gflownet_spai_tpu_torch.ops import dia
 from gflownet_spai_tpu_torch.ops import gat_fused as gf
 from gflownet_spai_tpu_torch.ops import segment as seg
 from gflownet_spai_tpu_torch.sample.__main__ import main as sample_main
@@ -677,9 +707,437 @@ def phase_restore(run_dir: Path):
           f"length {summary['mean_len']:.1f}", flush=True)
 
 
+# --- the validation path (K8, K12, K13) --------------------------------------
+
+POISSON = 1024              # poisson1024: n 1,048,576, 5 diagonals, fuses k = 8 / 2
+VALIDATE_MAXITER = 10260    # the CLI's (reference GFlowNet100.py:81)
+COLD_BYTES = 150_000_000    # input copies a cold-L2 kernel time cycles through (3x L2)
+CG_MAXITER = 20000
+CG_ITER_TOL = 0.03          # float32 CG vs float64 scipy CG: iterations within 3%
+# float32 CG on poisson1024 (κ ≈ 4e5, b = ones) cannot hold its true
+# residual below about eps·κ ≈ 0.03-0.15, so past rtol 1e-2 its recursive
+# residual runs on rounding and its count drifts from float64's (the
+# ladder printed per row shows where); the 3% parity is held down to 1e-2
+CG_PARITY_RTOLS = (1e-1, 1e-2)
+CG_LADDER = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
+POLY_OP_RTOL = 1e-4         # float32 polynomial operator vs float64, ‖·‖₂ relative
+DIA_COUNTERS = {"K8": dia.spmv_dia, "K12": dia.spmv_dia_power, "K13": dia.spmv_dia_cheby}
+CLI_ARGS = ["--matrix", "bcsstk03_like", "--epochs", "8", "--batch-size", "4",
+            "--maxiter", "500", "--jacobi-poly", "4", "--chebyshev", "4"]
+
+
+def _dia_tol(want, k):
+    """K8: 1e-5 of the output's largest magnitude (at least 1): float32
+    FMAs against separate multiply-adds.  K12/K13 carry k dependent passes:
+    k times that."""
+    return 1e-5 * k * max(float(want.abs().max()), 1.0)
+
+
+def _cycle(fns):
+    """One call of the next function in ``fns`` per call (round robin)."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _dia_copy(d):
+    return dataclasses.replace(d, data=d.data.clone())
+
+
+def _dia_counts():
+    return {k: fn.launches for k, fn in DIA_COUNTERS.items()}
+
+
+def _reset_dia_counts():
+    for fn in DIA_COUNTERS.values():
+        fn.launches = 0
+
+
+def phase_dia(dev):
+    """K8, K12 and K13 against their plain versions at the validation
+    path's shapes."""
+    from gflownet_spai_tpu_torch.solvers.stationary import (
+        _pick_power_config, chebyshev_coeffs, estimate_lmax, jacobi_iteration_matrix)
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev)
+    pois = gallery.poisson2d(POISSON, dtype=np.float32)
+    d = dia.coo_to_dia(pois, device=dev)
+    ors = gallery.get(MATRIX)
+    ors = ors.with_data(ors.data.astype(np.float32))
+    dors = dia.coo_to_dia(ors, device=dev)
+    out = {}
+
+    def record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None):
+        """``make(i)`` returns a call of the kernel on the i-th copy of its
+        inputs (copy 0: the inputs ``got`` came from).  The kernel time
+        cycles through enough copies that a replay reads HBM, not the 50 MB
+        L2 that holds one copy; the warm time repeats copy 0."""
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        tol = max(_dia_tol(w, k) for w in want)
+        if not err <= tol:
+            fail(f"{key} disagrees with its plain version ({label}): max abs err "
+                 f"{err:.3e} > {tol:.3e}")
+        n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
+        # one call per copy before capture: a copy's first call makes
+        # per-matrix state (the offsets tensor) that a capture may not copy
+        fns = [make(i) for i in range(n_copies)]
+        lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
+        for f in fns + lib_fns:
+            f()
+        ms = graph_ms(_cycle(fns), 20)
+        warm = graph_ms(fns[0], 20)
+        eager = cuda_ms(fns[0], 20)
+        plain_ms = cuda_ms(plain, 3)
+        lib_ms = graph_ms(_cycle(lib_fns), 20) if lib_fns else None
+        b, by = bound_ms(nbytes, ops)
+        print(f"[{key}] {label}: max abs err {err:.3e} (tolerance {tol:.3e}); kernel "
+              f"{ms:.5f} ms (graph replay over {n_copies} input copies; one copy, "
+              f"L2-warm {warm:.5f} ms; eager calls {eager:.5f} ms), plain "
+              f"{plain_ms:.4f} ms, " + (f"torch.sparse CSR A@x {lib_ms:.5f} ms (graph "
+                                        f"replay, same copies), " if lib_ms is not None
+                                        else "library: none, ")
+              + f"bound {b:.6f} ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mflop)",
+              flush=True)
+        return dict(err=err, ms=ms, warm=warm, eager=eager, plain=plain_ms, lib=lib_ms,
+                    bound=(b, by))
+
+    # K8: y = A·x, stored diagonals + x + y once
+    for name, dd, coo in ((f"poisson{POISSON}", d, pois), (MATRIX, dors, ors)):
+        x = rnd(dd.n)
+        csr = torch.sparse_coo_tensor(
+            torch.as_tensor(np.stack([coo.row, coo.col]).astype(np.int64), device=dev),
+            torch.as_tensor(coo.data, device=dev), coo.shape).coalesce().to_sparse_csr()
+        lib_y = csr @ x
+        want = dia.spmv_dia_ref(dd, x)
+        if not float((lib_y - want).abs().max()) <= _dia_tol(want, 1):
+            fail("the torch.sparse yardstick does not compute K8's function")
+        nbytes = 4 * (dd.ndiags * dd.n_pad + 2 * dd.n)
+
+        def make(i, dd=dd, x=x):
+            di, xi = (dd, x) if i == 0 else (_dia_copy(dd), x.clone())
+            return lambda: dia.spmv_dia(di, xi)
+
+        def make_lib(i, csr=csr, x=x):
+            ci, xi = (csr, x) if i == 0 else (csr.clone(), x.clone())
+            return lambda: ci @ xi
+
+        r = record("K8", f"{name} ({dd.ndiags} diagonals, n_pad {dd.n_pad}, halo "
+                   f"{dd.halo}, nnz {coo.nnz})", [dia.spmv_dia(dd, x)], [want], 1,
+                   make, lambda: dia.spmv_dia_ref(dd, x),
+                   nbytes, 2 * dd.ndiags * dd.n_pad, make_lib=make_lib)
+        out.setdefault("K8", r)           # the poisson case stands for K8
+        out[f"K8 {name}"] = r
+
+    # K12 on the Jacobi iteration matrix at the two fused configurations
+    m = jacobi_iteration_matrix(d)
+    for sweeps in (16, 4):
+        k, tr = _pick_power_config(m, 8, sweeps)
+        xq = dia.dia_pad_pp(m, rnd(m.n), tr=tr)
+        cq = dia.dia_pad_pp(m, rnd(m.n), tr=tr)
+        for add in (cq, None):
+            zq, zref = torch.zeros_like(xq), torch.zeros_like(xq)
+            got = dia.spmv_dia_power(m, None, xq, zq, k=k, add=add)
+            want = dia.spmv_dia_power_ref(m, xq, zref, k=k, add=add)
+            n_in = 2 if add is not None else 1
+            nbytes = 4 * (m.ndiags * m.n_pad + (n_in + 1) * m.n_pad)
+            ops = k * (2 * m.ndiags + 1 + (add is not None)) * m.n_pad
+
+            def make(i, k=k, add=add, xq=xq, zq=zq):
+                if i == 0:
+                    mi, xi, zi, ci = m, xq, zq, add
+                else:
+                    mi, xi, zi = _dia_copy(m), xq.clone(), zq.clone()
+                    ci = None if add is None else add.clone()
+                return lambda: dia.spmv_dia_power(mi, None, xi, zi, k=k, add=ci)
+
+            r = record("K12", f"poisson{POISSON} Jacobi M, k = {k}, P = {tr}, "
+                       f"{'affine' if add is not None else 'plain power'}", [got],
+                       [want], k, make,
+                       lambda: dia.spmv_dia_power_ref(m, xq, zref, k=k, add=add),
+                       nbytes, ops)
+            out[f"K12 k={k} {'affine' if add is not None else 'power'}"] = r
+            out.setdefault("K12", r)      # the Jacobi-16 row's call stands for K12
+
+    # K13 at k = 2 with the Chebyshev coefficients of the estimated spectrum
+    lmax = 1.05 * float(estimate_lmax(d, iters=30))
+    coeffs = chebyshev_coeffs(lmax / 30, lmax, 16)[2:4]      # the second fused call
+    q = lambda: dia.dia_pad_pp(d, rnd(d.n))
+    zq, ddq, rq = q(), q(), q()
+    bufs = [torch.zeros_like(zq) for _ in range(4)]
+    got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, bufs[0], bufs[1], coeffs, 2)
+    want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2)
+    nbytes = 4 * (d.ndiags * d.n_pad + 5 * d.n_pad)
+
+    def make(i):
+        if i == 0:
+            di, ins, outs = d, (zq, ddq, rq), bufs[:2]
+        else:
+            di, ins, outs = _dia_copy(d), (zq.clone(), ddq.clone(), rq.clone()), \
+                (bufs[0].clone(), bufs[1].clone())
+        return lambda: dia.spmv_dia_cheby(di, None, *ins, *outs, coeffs, 2)
+
+    out["K13"] = record(
+        "K13", f"poisson{POISSON}, k = 2, lmax {lmax:.4f}, (a, b) = "
+        f"{[(round(a, 5), round(b, 5)) for a, b in coeffs]}", got, want, 2, make,
+        lambda: dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2),
+        nbytes, 2 * (2 * d.ndiags + 5) * d.n_pad)
+    return out
+
+
+def _row_print(tag, name, rec):
+    print(f"[{tag}] {name:13s} iterations {rec['iterations']:6d}  cold "
+          f"{rec['cold_s']:.3f} s  steady {rec['steady_s']:.3f} s  "
+          f"({1e3 * rec['steady_s'] / max(rec['iterations'], 1):.4f} ms/iteration)  "
+          f"true residual {rec['true_residual']:.3e}  launches {rec['launches']}"
+          + (f"  {rec['note']}" if rec.get("note") else ""), flush=True)
+
+
+def phase_validate(run_dir: Path, dev):
+    """The orsirr_like150 harness from the training run's checkpoint."""
+    from gflownet_spai_tpu_torch.env import ilu as ilu_mod
+    from gflownet_spai_tpu_torch.solvers import (chebyshev_op, estimate_lmax,
+                                                 ilu_solve_op, jacobi_sweeps_op,
+                                                 solve_with_gmres, spai_op)
+    from gflownet_spai_tpu_torch.solvers.spai_classic import spai_classic
+    from gflownet_spai_tpu_torch.solvers.validate import (best_sampled_matrix,
+                                                          true_residual)
+    from gflownet_spai_tpu_torch.train import restore_checkpoint
+    from gflownet_spai_tpu_torch.train.enums import reconcile
+
+    cfg = TrainConfig(**TRAIN, num_epochs=EPOCHS, out_dir=str(run_dir))
+    a, _, env, graph, mcfg, _, template = setup(cfg)
+    restored = restore_checkpoint(str(run_dir), template)
+    if restored is None or restored.epoch != EPOCHS:
+        fail("the validate phase could not restore the training checkpoint")
+    state, _ = reconcile(str(run_dir), env, restored, backward=cfg.backward)
+    with torch.no_grad():
+        out = gfn.sample(state.params, env, graph, mcfg,
+                         torch.Generator(device=dev).manual_seed(123), 256)
+    m_best = best_sampled_matrix(env, out.rollout.actions, out.rewards)
+    kept = int((m_best.data.abs() > 0).sum())
+    ad = a.to(dev)
+    b = torch.ones((a.shape[0],), dtype=ad.data.dtype, device=dev)
+    print(f"[validate] {MATRIX} from the epoch-{EPOCHS} checkpoint: best of 256 "
+          f"samples keeps {kept}/{env.num_edges} seed entries (reward "
+          f"{float(out.rewards.max()):.4f}); GMRES(20), x0 = 0, b = ones, rtol 1e-5, "
+          f"maxiter {VALIDATE_MAXITER}", flush=True)
+
+    L, U = ilu_mod.ilu0(a)
+
+    def cheby():
+        dd = dia.coo_to_dia(a, device=dev)
+        lmax = 1.05 * float(estimate_lmax(dd, iters=30))
+        return chebyshev_op(dd, lmax=lmax, lmin=lmax / 30, degree=16)
+
+    rows = (("none", lambda: None),
+            ("ilu", lambda: ilu_solve_op(L, U, device=dev)),
+            ("sampled_spai", lambda: spai_op(m_best)),
+            ("classic_spai", lambda: spai_op(spai_classic(a, k=1, dtype=a.data.dtype,
+                                                          device=dev).to(dev))),
+            ("jacobi_poly", lambda: jacobi_sweeps_op(dia.coo_to_dia(a, device=dev),
+                                                     sweeps=16)),
+            ("chebyshev", cheby))
+    _reset_dia_counts()
+    report, total = {}, {k: 0 for k in DIA_COUNTERS}
+    for name, make in rows:
+        before = _dia_counts()
+        op = make()
+        walls = []
+        for _ in range(2):
+            x, res, iters, secs = solve_with_gmres(ad, b, op, maxiter=VALIDATE_MAXITER,
+                                                   restart=20, rtol=1e-5)
+            walls.append(secs)
+        launches = {k: v - before[k] for k, v in _dia_counts().items()}
+        rec = dict(iterations=iters, cold_s=walls[0], steady_s=walls[1],
+                   true_residual=true_residual(ad, b, x), launches=launches,
+                   note=", ".join(f"{k} {v}" for k, v in (op.info if op else {}).items()
+                                  if k in ("k", "sweeps", "degree", "levels")))
+        if not (iters >= 1 and np.isfinite(rec["true_residual"])):
+            fail(f"validate row {name}: {rec}")
+        report[name] = rec
+        _row_print("validate", name, rec)
+    total = _dia_counts()
+    if total["K8"] == 0:
+        fail("the validation harness did not launch K8")
+    print(f"[validate] kernel launches over the six rows: {total} (orsirr_like150's "
+          f"DIA has 230 diagonals: the fused selection picks k = 1, so only K8 runs)",
+          flush=True)
+    return report, total
+
+
+def _cg_ref(apply_a, apply_m, n, maxiter, dev):
+    """float64 scipy CG (x0 = 0, b = ones, rtol 1e-5) with LinearOperators
+    whose applies run in float64 on the card: (iterations, info, the
+    relative true residual ‖b − A·x_k‖/‖b‖ after each iteration)."""
+    import inspect
+
+    import scipy.sparse.linalg as spla
+
+    to_dev = lambda v: torch.from_numpy(np.ascontiguousarray(v, np.float64).ravel()).to(dev)
+    lin = lambda f: spla.LinearOperator((n, n), matvec=lambda v: f(to_dev(v)).cpu().numpy(),
+                                        dtype=np.float64)
+    hist = []
+
+    def callback(xk):
+        r = 1.0 - apply_a(to_dev(xk))
+        hist.append(float(torch.linalg.vector_norm(r)) / np.sqrt(n))
+
+    tol_kw = "rtol" if "rtol" in inspect.signature(spla.cg).parameters else "tol"
+    _, info = spla.cg(lin(apply_a), np.ones(n), x0=np.zeros(n), maxiter=maxiter,
+                      M=None if apply_m is None else lin(apply_m), callback=callback,
+                      **{tol_kw: 1e-5})
+    return len(hist), info, np.asarray(hist)
+
+
+def _crossings(rel_hist):
+    """The first iteration whose relative residual is ≤ each rtol of the
+    ladder (None where it never is)."""
+    out = {}
+    for t in CG_LADDER:
+        hit = np.nonzero(rel_hist <= t)[0]
+        out[t] = int(hit[0]) + 1 if len(hit) else None
+    return out
+
+
+def phase_poisson(dev):
+    """CG on poisson1024 with none / Jacobi 16 / Chebyshev 16 on the fused
+    kernels, each held against float64 scipy CG with the same operator:
+    the first iteration at each rtol of ``CG_PARITY_RTOLS`` within
+    ``CG_ITER_TOL``, and the polynomial operators on two vectors."""
+    from gflownet_spai_tpu_torch.solvers import (cg, chebyshev_coeffs, chebyshev_op,
+                                                 estimate_lmax, jacobi_sweeps_op)
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    a = gallery.poisson2d(POISSON, dtype=np.float32)
+    d = dia.coo_to_dia(a, device=dev)
+    n = d.n
+    a64 = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([a.row, a.col]).astype(np.int64), device=dev),
+        torch.as_tensor(a.data.astype(np.float64), device=dev),
+        a.shape).coalesce().to_sparse_csr()
+    A64 = lambda v: a64 @ v
+    b = torch.ones(n, device=dev)
+    _reset_dia_counts()
+    t_ops = time.perf_counter()
+    lmax = 1.05 * float(estimate_lmax(d, iters=30))
+    ops = {"none": None, "jacobi_poly": jacobi_sweeps_op(d, sweeps=16),
+           "chebyshev": chebyshev_op(d, lmax=lmax, lmin=lmax / 30, degree=16)}
+    t_ops = time.perf_counter() - t_ops
+    jac, che = ops["jacobi_poly"].info, ops["chebyshev"].info
+    print(f"[poisson] poisson{POISSON}: n {n}, nnz {a.nnz}, {d.ndiags} diagonals, halo "
+          f"{d.halo}; selection: Jacobi k = {jac['k']}, P = {jac['tile']}, "
+          f"{jac['sweeps']} sweeps; Chebyshev k = {che['k']}, P = {che['tile']}, "
+          f"degree {che['degree']}, lmax {lmax:.5f}, lmin {lmax / 30:.5f} "
+          f"(operators built in {t_ops:.2f} s)", flush=True)
+
+    def jacobi64(r):
+        x = torch.zeros_like(r)
+        for _ in range(jac["sweeps"]):
+            x = x + jac["omega"] / 4.0 * (r - A64(x))
+        return x
+
+    coeffs = chebyshev_coeffs(che["lmin"], che["lmax"], che["degree"])
+
+    def cheby64(r):
+        z, dd = torch.zeros_like(r), torch.zeros_like(r)
+        for ca, cb in coeffs:
+            dd = ca * dd + cb * (r - A64(z))
+            z = z + dd
+        return z
+
+    refs = {"none": None, "jacobi_poly": jacobi64, "chebyshev": cheby64}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name in ("jacobi_poly", "chebyshev"):
+        for _ in range(2):
+            v = torch.randn(n, generator=gen, device=dev)
+            got, want = ops[name](v).double(), refs[name](v.double())
+            rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+            if not rel <= POLY_OP_RTOL:
+                fail(f"[poisson] {name} operator vs float64: relative error {rel:.3e}")
+        print(f"[poisson] {name} operator (float32, kernels) vs float64 on two random "
+              f"vectors: relative 2-norm error {rel:.3e} (tolerance {POLY_OP_RTOL})",
+              flush=True)
+    report = {}
+    for name, op in ops.items():
+        before = _dia_counts()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cg(d, b, m_op=op, maxiter=CG_MAXITER, rtol=1e-5)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        x = res.x
+        true_res = float(torch.linalg.vector_norm(b.double() - A64(x.double()))
+                         / torch.linalg.vector_norm(b.double()))
+        launches = {k: v - before[k] for k, v in _dia_counts().items()}
+        t0 = time.perf_counter()
+        ref_it, info, ref_hist = _cg_ref(A64, refs[name], n, CG_MAXITER, dev)
+        ref_s = time.perf_counter() - t0
+        got_x = _crossings(res.residuals.cpu().numpy() / np.sqrt(n))
+        ref_x = _crossings(ref_hist)
+        ladder = ", ".join(f"{t:g}: {got_x[t]} vs {ref_x[t]}" for t in CG_LADDER)
+        rec = dict(iterations=res.iterations, cold_s=walls[0], steady_s=walls[1],
+                   true_residual=true_res, launches=launches,
+                   note=f"float64 scipy CG {ref_it} iterations (info {info}, "
+                        f"{ref_s:.1f} s); first iteration at rtol (float32 vs "
+                        f"float64) {ladder}")
+        _row_print("poisson", name, rec)
+        bad = [t for t in CG_PARITY_RTOLS if got_x[t] is None or ref_x[t] is None
+               or abs(got_x[t] - ref_x[t]) > max(2, CG_ITER_TOL * ref_x[t])]
+        if not res.converged or info != 0 or bad:
+            fail(f"[poisson] {name}: converged {res.converged}, scipy info {info}; "
+                 f"float32 vs float64 CG iterations at rtol {bad} differ by more "
+                 f"than {CG_ITER_TOL:.0%}: {ladder}")
+        report[name] = rec
+    total = _dia_counts()
+    if min(total.values()) == 0:
+        fail(f"[poisson] a kernel of the path did not launch: {total}")
+    print(f"[poisson] kernel launches over the three rows (two solves each, plus "
+          f"estimate_lmax): {total}", flush=True)
+    return report, total
+
+
+def phase_validate_cli():
+    """The port's validate CLI on bcsstk03_like in a subprocess on the card."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_validate_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gflownet_spai_tpu_torch.validate", *CLI_ARGS,
+             "--out-dir", tmp], capture_output=True, text=True, timeout=900,
+            cwd=str(Path(__file__).resolve().parent))
+        secs = time.perf_counter() - t0
+        path = Path(tmp) / "validation.json"
+        if proc.returncode not in (0, 1) or not path.exists():
+            fail(f"the validate CLI exited {proc.returncode}: "
+                 f"{(proc.stdout + proc.stderr)[-2000:]}")
+        report = json.loads(path.read_text())
+    rows = ("none", "ilu", "sampled_spai", "classic_spai", "jacobi_poly", "chebyshev")
+    for row in rows:
+        if row not in report or report[row]["iterations"] < 1 \
+                or not np.isfinite(report[row]["true_residual"]):
+            fail(f"validation.json lacks a finite row {row}: {report.get(row)}")
+    verdict = [ln for ln in proc.stdout.splitlines() if ln.startswith("sampled SPAI")]
+    print(f"[validate-cli] python -m gflownet_spai_tpu_torch.validate "
+          f"{' '.join(CLI_ARGS)}: exit {proc.returncode} in {secs:.1f} s (process "
+          f"start and setup included); " + "; ".join(
+              f"{r} {report[r]['iterations']} it" for r in rows)
+          + f"; verdict: {verdict[-1] if verdict else '?'}", flush=True)
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     name, count = phase_card()
-    phase_build()
+    timed("build", phase_build)
     dev = port.resolve_device(None)
     t0 = time.perf_counter()
     a, seed, env, graph, mcfg, _, state = setup(
@@ -690,18 +1148,22 @@ def main() -> int:
           f"outputs, {time.perf_counter() - t0:.1f} s on the host", flush=True)
     if not isinstance(graph, pol.TiledGraphInputs) or not graph.gat_buckets:
         fail("the slice did not build the bucketed tile layout")
-    k1, k3 = phase_kernels(graph, dev)
-    k2, k4 = phase_kernels_bwd(graph, dev)
-    phase_gradients(seed, graph, mcfg, params, dev)
-    sample_launches = phase_slice(a, seed, env, graph, mcfg, params, dev)
-    phase_breakdown(env, graph, mcfg, params, dev)
+    k1, k3 = timed("kernels", phase_kernels, graph, dev)
+    k2, k4 = timed("backward", phase_kernels_bwd, graph, dev)
+    timed("gradients", phase_gradients, seed, graph, mcfg, params, dev)
+    sample_launches = timed("slice", phase_slice, a, seed, env, graph, mcfg, params, dev)
+    timed("breakdown", phase_breakdown, env, graph, mcfg, params, dev)
+    dk = timed("dia", phase_dia, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         run_dir = Path(tmp)
         cfg, tenv, tgraph, tmcfg, opt, tstate, launches, step_ms, peak = \
-            phase_train(run_dir, dev)
-        phase_step_breakdown(cfg, tenv, tgraph, tmcfg, opt, tstate)
-        phase_profile(cfg, tenv, tgraph, tmcfg, opt, tstate)
-        phase_restore(run_dir)
+            timed("train", phase_train, run_dir, dev)
+        timed("step breakdown", phase_step_breakdown, cfg, tenv, tgraph, tmcfg, opt, tstate)
+        timed("profile", phase_profile, cfg, tenv, tgraph, tmcfg, opt, tstate)
+        timed("restore", phase_restore, run_dir)
+        _, val_launches = timed("validate", phase_validate, run_dir, dev)
+    _, pois_launches = timed("poisson", phase_poisson, dev)
+    timed("validate-cli", phase_validate_cli)
     bwd_ms = k2["ms"] + k4["ms"]
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
           f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "
@@ -721,17 +1183,35 @@ def main() -> int:
          "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
         for nm, k, d, file, rep, lib in rows]
+    for nm, k, rep in (("spmv_dia (K8)", "K8", "dia.py:215"),
+                       ("spmv_dia_power (K12)", "K12", "dia.py:1325"),
+                       ("spmv_dia_cheby (K13)", "K13", "dia.py:1606")):
+        d = dk[k]
+        errs = [v["err"] for key, v in dk.items() if key.split()[0] == k]
+        kernels.append({"name": nm, "route": "cuda", "source": src + "dia.cu",
+                        "replaces": "gflownet_spai_tpu/ops/" + rep,
+                        "launches": val_launches[k] + pois_launches[k],
+                        "max_abs_err": max(errs), "ms": d["ms"], "plain_ms": d["plain"],
+                        "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
+                        "library_ms": d["lib"]})
     n_b = len(graph.gat_buckets)
-    print(f"[kernels] launches count the {EPOCHS} train steps (the sampling "
+    print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps (the sampling "
           f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
           f"bound_ms are per policy forward (K1 over its {2 * n_b} launches, "
           f"K3 over its {n_b}) and per policy backward (K2 over its {2 * n_b}, "
-          f"K4 over its {n_b}). ms and library_ms are CUDA-graph replays "
-          f"(device time); plain_ms is eager calls (the plain versions sync "
-          f"with the host). Eager calls of the kernels' wrappers: K1 "
+          f"K4 over its {n_b}). K8, K12 and K13 launches count the validate "
+          f"phase {val_launches} plus the poisson phase {pois_launches}; their ms "
+          f"are one call at poisson1024 (K8: y = A.x; K12: k = 8 affine, the "
+          f"Jacobi-16 row's call; K13: k = 2), max_abs_err the largest over the "
+          f"dia phase's cases. ms and library_ms are CUDA-graph replays (device "
+          f"time; K8, K12 and K13 and K8's torch.sparse CSR cycle through input "
+          f"copies larger than L2); plain_ms are eager calls. Eager calls of the "
+          f"kernels' wrappers: K1 "
           f"{k1['eager']:.5f} ms, K2 {k2['eager']:.5f} ms, K3 {k3['eager']:.5f} "
-          f"ms, K4 {k4['eager']:.5f} ms; training peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+          f"ms, K4 {k4['eager']:.5f} ms, K8 {dk['K8']['eager']:.5f} ms, K12 "
+          f"{dk['K12']['eager']:.5f} ms, K13 {dk['K13']['eager']:.5f} ms; training "
+          f"peak memory {peak / 2**20:.1f} MiB; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -6,7 +6,8 @@ of A.  This is one-off host setup, so it runs in numpy/scipy:
 
 * ``ilu0``         — ILU(0) (no fill, no pivoting) in numpy;
 * ``spilu_lu``     — scipy SuperLU ``spilu``;
-* ``seed_pattern`` — the L @ U product as a COO matrix, the env's M0.
+* ``seed_pattern`` — the L @ U product as a COO matrix, the env's M0, or
+  (``method="spai"``) the classic SPAI of A.
 """
 
 from __future__ import annotations
@@ -78,9 +79,12 @@ def seed_pattern(a: COO, method: str = "ilu0", dtype=np.float32, **kwargs) -> CO
         h = a.numpy()
         return COO(row=h.row, col=h.col, data=h.data.astype(dtype), shape=a.shape)
     elif method == "spai":
-        raise NotImplementedError(
-            "seed_method='spai' needs solvers/spai_classic.py, which the "
-            "validation slice of the port brings")
+        # the classic-SPAI approximate inverse min ‖A·M − I‖_F, so thinning
+        # trades preconditioner quality against cost (host setup: the
+        # batched QR runs on the CPU)
+        from ..solvers.spai_classic import spai_classic
+
+        return spai_classic(a, k=kwargs.get("k", 1), dtype=dtype, device="cpu")
     else:
         raise ValueError(f"unknown seed method {method!r}")
     seed = scipy_to_coo((coo_to_scipy(L) @ coo_to_scipy(U)).tocoo())

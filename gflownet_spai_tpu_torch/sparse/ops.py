@@ -1,5 +1,6 @@
-"""Fixed-pattern SpGEMM and the ‖C − I‖_F² norm (counterpart of
-``gflownet_spai_tpu/sparse/ops.py:112-214``).
+"""COO SpMV, the fixed-pattern SpGEMM and the ‖C − I‖_F² norm
+(counterpart of ``gflownet_spai_tpu/sparse/ops.py``: ``spmv_coo`` :23 and
+:112-214).
 
 The patterns of A and B never change while a model trains or samples, only
 their values, so the symbolic product runs once on the host (numpy) and
@@ -14,6 +15,13 @@ import torch
 
 from .._device import resolve_device
 from .types import COO
+
+
+def spmv(a: COO, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for a COO matrix of tensors on x's device: a gather of x,
+    a product and one ``index_add_`` into the rows (``spmv_coo``)."""
+    prod = a.data * x[a.col]
+    return prod.new_zeros((a.shape[0],)).index_add_(0, a.row, prod)
 
 
 class SpGEMMPlan:

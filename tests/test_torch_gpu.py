@@ -12,13 +12,19 @@ magnitude of the gradient (at least 1), because the uniform rows' gradients
 are float32 sums of ~24,000 slot terms of mixed sign, which two summation
 orders round apart by ~1e-5 absolute (measured on the card).  K4 adds each
 row's slots with float atomics in run-dependent order: rtol 1e-5, atol
-1e-6."""
+1e-6.
+
+K8 rtol 1e-5, atol 1e-5 (the kernel's sums contract to FMAs and start
+from zero in offset order like the plain version: float32 rounding only).
+K12 and K13 carry k dependent passes: atol 1e-5 times k times the largest
+output magnitude, rtol 1e-5."""
 
 import numpy as np
 import pytest
 import torch
 
 from gflownet_spai_tpu_torch.models import policies as pol
+from gflownet_spai_tpu_torch.ops import dia
 from gflownet_spai_tpu_torch.ops import gat_fused as gf
 from gflownet_spai_tpu_torch.ops import segment as seg
 from gflownet_spai_tpu_torch.sparse import gallery
@@ -168,3 +174,102 @@ def test_train_two_steps_on_card(cuda, tmp_path):
     restored = restore_checkpoint(str(tmp_path), template)
     assert restored.epoch == 2
     assert torch.equal(restored.params.forward.fc_w, state.params.forward.fc_w)
+
+
+def _poisson_dia(dev, k=96):
+    a = gallery.poisson2d(k, dtype=np.float32)
+    return a, dia.coo_to_dia(a, device=dev)
+
+
+def _close_k(got, want, k):
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * k * scale)
+
+
+@pytest.mark.parametrize("name", ["poisson96", "orsirr_like24"])
+def test_k8_matches_plain(cuda, name):
+    """K8 on a banded and on a many-diagonal (wide-halo) matrix, through
+    ``spmv_dia``, its gradient, and ``spmv_dia_padded``."""
+    a = gallery.get(name)
+    d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=cuda)
+    x = torch.randn(d.n, device=cuda, requires_grad=True)
+    before = dia.spmv_dia.launches
+    y = dia.spmv_dia(d, x)
+    g = torch.randn(d.n, device=cuda)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia.launches == before + 2      # forward, and Aᵀ·g
+    with torch.no_grad():
+        torch.testing.assert_close(y, dia.spmv_dia_ref(d, x),
+                                   rtol=1e-5, atol=1e-5)
+    dt = dia.dia_transpose(d)
+    torch.testing.assert_close(dx, dia.spmv_dia_ref(dt, g), rtol=1e-5, atol=1e-5)
+    xp = dia.dia_pad_x(d, x.detach())
+    torch.testing.assert_close(dia.spmv_dia_padded(d, xp),
+                               dia.spmv_dia_padded_ref(d, xp), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("affine", [False, True])
+def test_k12_matches_plain(cuda, k, affine):
+    from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
+
+    _, d = _poisson_dia(cuda)
+    m = jacobi_iteration_matrix(d)
+    tr = 4 * m.halo
+    xq = dia.dia_pad_pp(m, torch.randn(m.n, device=cuda), tr=tr)
+    cq = dia.dia_pad_pp(m, torch.randn(m.n, device=cuda), tr=tr) if affine else None
+    before = dia.spmv_dia_power.launches
+    got = dia.spmv_dia_power(m, None, xq, torch.zeros_like(xq), scale=0.9, k=k, add=cq)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_power.launches == before + 1
+    want = dia.spmv_dia_power_ref(m, xq, torch.zeros_like(xq), scale=0.9, k=k, add=cq)
+    _close_k(got, want, k)
+    assert not got[:tr].any() and not got[tr + m.n_pad:].any()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_k13_matches_plain(cuda, k):
+    from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
+
+    _, d = _poisson_dia(cuda)
+    q = lambda: dia.dia_pad_pp(d, torch.randn(d.n, device=cuda))
+    zq, ddq, rq = q(), q(), q()
+    coeffs = tuple(chebyshev_coeffs(0.3, 8.2, k))
+    before = dia.spmv_dia_cheby.launches
+    got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, torch.zeros_like(zq),
+                             torch.zeros_like(zq), coeffs, k)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_cheby.launches == before + 1
+    want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, torch.zeros_like(zq),
+                                  torch.zeros_like(zq), coeffs, k)
+    for a, b in zip(got, want):
+        _close_k(a, b, k)
+
+
+def test_cg_with_polynomial_preconditioners_on_card(cuda):
+    """CG on poisson64 with the fused Jacobi (K12, k = 4) and Chebyshev
+    (K13, k = 4) preconditioners on the card: the same iteration counts
+    as on the CPU (float32 both), and both kernels ran."""
+    from gflownet_spai_tpu_torch.solvers import (cg, chebyshev_op, estimate_lmax,
+                                                 jacobi_sweeps_op)
+
+    a = gallery.poisson2d(64, dtype=np.float32)
+    its = {}
+    for dev in ("cpu", cuda):
+        d = dia.coo_to_dia(a, device=dev)
+        b = torch.ones(d.n, device=dev)
+        v0 = torch.as_tensor(np.random.default_rng(0).standard_normal(d.n),
+                             dtype=torch.float32, device=dev)
+        lmax = 1.05 * float(estimate_lmax(d, iters=30, v0=v0))
+        ops = (jacobi_sweeps_op(d, sweeps=16),
+               chebyshev_op(d, lmax=lmax, lmin=lmax / 30, degree=16))
+        assert [op.info["k"] for op in ops] == [4, 4]
+        before = (dia.spmv_dia_power.launches, dia.spmv_dia_cheby.launches)
+        its[str(dev)] = [cg(d, b, m_op=op, maxiter=500, rtol=1e-5).iterations
+                         for op in ops]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert dia.spmv_dia_power.launches > before[0]
+            assert dia.spmv_dia_cheby.launches > before[1]
+    assert all(abs(g - c) <= 1 for g, c in zip(its[str(cuda)], its["cpu"])), its

@@ -22,6 +22,8 @@ from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
 from gflownet_spai_tpu_torch.sparse.io import read_mtx as t_read_mtx
 from gflownet_spai_tpu_torch.sparse.ops import SpGEMMPlan as TPlan
 from gflownet_spai_tpu_torch.sparse.types import COO as TCOO
+from gflownet_spai_tpu_torch.train.config import TrainConfig
+from gflownet_spai_tpu_torch.train.loop import setup
 
 MATRICES = ["LF10_like", "bcsstk03_like", "orsirr_like12"]
 
@@ -135,5 +137,7 @@ def test_unported_paths_raise():
     ja, ta, js, ts = _seeds("LF10_like")
     with pytest.raises(NotImplementedError, match="rowblock"):
         t_spai.make_env(ts, original=ta, reward_path="rowblock", device="cpu")
-    with pytest.raises(NotImplementedError, match="spai_classic"):
-        t_ilu.seed_pattern(ta, "spai")
+    # the DIA env (and auto resolving to it) waits for the rowblock/DIA slice;
+    # the spai seed is ported (tests/test_torch_validate.py)
+    with pytest.raises(NotImplementedError, match="env_format='dia'"):
+        setup(TrainConfig(matrix="LF10_like", env_format="dia", platform="cpu"))
