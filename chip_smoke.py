@@ -44,7 +44,11 @@ Phases (any failure exits non-zero before the result line):
                orsirr_like150 DIA (230 diagonals), K12 on poisson1024's
                Jacobi iteration matrix at k = 8 and k = 2 with and without
                the affine term, K13 on poisson1024 at k = 2 with Chebyshev
-               coefficients from the estimated spectrum.  Kernel (CUDA-graph
+               coefficients from the estimated spectrum, each in the tiled
+               mode (k passes in shared memory); K12 at k = 8 and K13 also
+               forced into the streamed mode (one launch per pass), and K12
+               on poisson2048's Jacobi 16 sweeps (k = 8 at reach 2048, which
+               needs the streamed mode).  Kernel (CUDA-graph
                replays cycling through input copies larger than L2 together,
                and one L2-warm copy), eager, plain, bound and (K8)
                torch.sparse CSR times.
@@ -743,6 +747,19 @@ def _dia_copy(d):
     return dataclasses.replace(d, data=d.data.clone())
 
 
+@contextlib.contextmanager
+def _streamed():
+    """K12 and K13 in their streamed mode whatever the reach (no block's
+    shared memory is taken to fit a tile), to time both modes on one
+    matrix."""
+    saved = dia._SMEM_BYTES
+    dia._SMEM_BYTES = 0
+    try:
+        yield
+    finally:
+        dia._SMEM_BYTES = saved
+
+
 def _dia_counts():
     return {k: fn.launches for k, fn in DIA_COUNTERS.items()}
 
@@ -780,12 +797,8 @@ def phase_dia(dev):
             fail(f"{key} disagrees with its plain version ({label}): max abs err "
                  f"{err:.3e} > {tol:.3e}")
         n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
-        # one call per copy before capture: a copy's first call makes
-        # per-matrix state (the offsets tensor) that a capture may not copy
         fns = [make(i) for i in range(n_copies)]
         lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
-        for f in fns + lib_fns:
-            f()
         ms = graph_ms(_cycle(fns), 20)
         warm = graph_ms(fns[0], 20)
         eager = cuda_ms(fns[0], 20)
@@ -830,59 +843,88 @@ def phase_dia(dev):
         out.setdefault("K8", r)           # the poisson case stands for K8
         out[f"K8 {name}"] = r
 
+    def k12(mm, name, k, tr, affine):
+        """K12 on ``mm`` (a Jacobi iteration matrix) at the selection's k."""
+        xq = dia.dia_pad_pp(mm, rnd(mm.n), tr=tr)
+        add = dia.dia_pad_pp(mm, rnd(mm.n), tr=tr) if affine else None
+        zq, zref = torch.zeros_like(xq), torch.zeros_like(xq)
+        got = dia.spmv_dia_power(mm, None, xq, zq, k=k, add=add)
+        want = dia.spmv_dia_power_ref(mm, xq, zref, k=k, add=add)
+        nbytes = 4 * (mm.ndiags * mm.n_pad + (2 + affine) * mm.n_pad)
+        ops = k * (2 * mm.ndiags + 1 + affine) * mm.n_pad
+        rows = dia._tile_rows(lambda t: 2 * (t + 2 * k * mm.reach) + mm.ndiags)
+
+        def make(i):
+            if i == 0:
+                return lambda: dia.spmv_dia_power(mm, None, xq, zq, k=k, add=add)
+            mi, xi, zi = _dia_copy(mm), xq.clone(), zq.clone()
+            ci = None if add is None else add.clone()
+            return lambda: dia.spmv_dia_power(mi, None, xi, zi, k=k, add=ci)
+
+        return record(
+            "K12", f"{name} Jacobi M, k = {k}, P = {tr}, "
+            f"{'affine' if affine else 'plain power'}, "
+            + (f"tiled ({rows} rows per block)" if rows else f"streamed ({k} launches)"),
+            [got], [want], k, make,
+            lambda: dia.spmv_dia_power_ref(mm, xq, zref, k=k, add=add), nbytes, ops)
+
     # K12 on the Jacobi iteration matrix at the two fused configurations
     m = jacobi_iteration_matrix(d)
     for sweeps in (16, 4):
         k, tr = _pick_power_config(m, 8, sweeps)
-        xq = dia.dia_pad_pp(m, rnd(m.n), tr=tr)
-        cq = dia.dia_pad_pp(m, rnd(m.n), tr=tr)
-        for add in (cq, None):
-            zq, zref = torch.zeros_like(xq), torch.zeros_like(xq)
-            got = dia.spmv_dia_power(m, None, xq, zq, k=k, add=add)
-            want = dia.spmv_dia_power_ref(m, xq, zref, k=k, add=add)
-            n_in = 2 if add is not None else 1
-            nbytes = 4 * (m.ndiags * m.n_pad + (n_in + 1) * m.n_pad)
-            ops = k * (2 * m.ndiags + 1 + (add is not None)) * m.n_pad
-
-            def make(i, k=k, add=add, xq=xq, zq=zq):
-                if i == 0:
-                    mi, xi, zi, ci = m, xq, zq, add
-                else:
-                    mi, xi, zi = _dia_copy(m), xq.clone(), zq.clone()
-                    ci = None if add is None else add.clone()
-                return lambda: dia.spmv_dia_power(mi, None, xi, zi, k=k, add=ci)
-
-            r = record("K12", f"poisson{POISSON} Jacobi M, k = {k}, P = {tr}, "
-                       f"{'affine' if add is not None else 'plain power'}", [got],
-                       [want], k, make,
-                       lambda: dia.spmv_dia_power_ref(m, xq, zref, k=k, add=add),
-                       nbytes, ops)
-            out[f"K12 k={k} {'affine' if add is not None else 'power'}"] = r
+        for affine in (True, False):
+            r = k12(m, f"poisson{POISSON}", k, tr, affine)
+            out[f"K12 k={k} {'affine' if affine else 'power'}"] = r
             out.setdefault("K12", r)      # the Jacobi-16 row's call stands for K12
+    with _streamed():
+        out["K12 k=8 affine streamed"] = k12(m, f"poisson{POISSON}", 8,
+                                             _pick_power_config(m, 8, 16)[1], True)
+    # K12's streamed mode where the selection needs it: poisson2048's
+    # Jacobi 16 sweeps pick k = 8, whose window (reach 2048) fits no block
+    t0 = time.perf_counter()
+    m2 = jacobi_iteration_matrix(
+        dia.coo_to_dia(gallery.poisson2d(2 * POISSON, dtype=np.float32), device=dev))
+    k, tr = _pick_power_config(m2, 8, 16)
+    print(f"[K12] poisson{2 * POISSON}: Jacobi M built in {time.perf_counter() - t0:.1f} s "
+          f"(n {m2.n}, halo {m2.halo}); Jacobi-16 selection k = {k}, P = {tr}", flush=True)
+    if k != 8 or dia._tile_rows(lambda t: 2 * (t + 2 * k * m2.reach) + m2.ndiags):
+        fail(f"poisson{2 * POISSON} Jacobi-16 should stream K12 at k = 8 (k = {k})")
+    out[f"K12 k=8 affine poisson{2 * POISSON}"] = k12(m2, f"poisson{2 * POISSON}", k,
+                                                       tr, True)
+    del m2
 
     # K13 at k = 2 with the Chebyshev coefficients of the estimated spectrum
     lmax = 1.05 * float(estimate_lmax(d, iters=30))
     coeffs = chebyshev_coeffs(lmax / 30, lmax, 16)[2:4]      # the second fused call
     q = lambda: dia.dia_pad_pp(d, rnd(d.n))
     zq, ddq, rq = q(), q(), q()
-    bufs = [torch.zeros_like(zq) for _ in range(4)]
-    got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, bufs[0], bufs[1], coeffs, 2)
-    want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2)
     nbytes = 4 * (d.ndiags * d.n_pad + 5 * d.n_pad)
 
-    def make(i):
-        if i == 0:
-            di, ins, outs = d, (zq, ddq, rq), bufs[:2]
-        else:
-            di, ins, outs = _dia_copy(d), (zq.clone(), ddq.clone(), rq.clone()), \
-                (bufs[0].clone(), bufs[1].clone())
-        return lambda: dia.spmv_dia_cheby(di, None, *ins, *outs, coeffs, 2)
+    def k13():
+        bufs = [torch.zeros_like(zq) for _ in range(4)]
+        got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, bufs[0], bufs[1], coeffs, 2)
+        want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2)
+        rows = dia._tile_rows(lambda t: 3 * t + 10 * d.reach + d.ndiags)
 
-    out["K13"] = record(
-        "K13", f"poisson{POISSON}, k = 2, lmax {lmax:.4f}, (a, b) = "
-        f"{[(round(a, 5), round(b, 5)) for a, b in coeffs]}", got, want, 2, make,
-        lambda: dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2),
-        nbytes, 2 * (2 * d.ndiags + 5) * d.n_pad)
+        def make(i):
+            if i == 0:
+                di, ins, outs = d, (zq, ddq, rq), bufs[:2]
+            else:
+                di, ins, outs = _dia_copy(d), (zq.clone(), ddq.clone(), rq.clone()), \
+                    (bufs[0].clone(), bufs[1].clone())
+            return lambda: dia.spmv_dia_cheby(di, None, *ins, *outs, coeffs, 2)
+
+        return record(
+            "K13", f"poisson{POISSON}, k = 2, lmax {lmax:.4f}, (a, b) = "
+            f"{[(round(a, 5), round(b, 5)) for a, b in coeffs]}, "
+            + (f"tiled ({rows} rows per block)" if rows else "streamed (2 launches)"),
+            got, want, 2, make,
+            lambda: dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2),
+            nbytes, 2 * (2 * d.ndiags + 5) * d.n_pad)
+
+    out["K13"] = k13()
+    with _streamed():
+        out["K13 streamed"] = k13()
     return out
 
 

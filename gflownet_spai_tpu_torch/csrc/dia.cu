@@ -20,19 +20,29 @@
 // unstructured matrix with 230 diagonals) takes the same path.
 //
 // K12 replaces `_spmv_pallas_power` (x resident) and `_spmv_pallas_power_stream`
-// (x and c streamed by window DMAs); K13 replaces `_spmv_pallas_cheby`.  Both
-// are temporal blocking: each block owns `tr` output rows and computes k
-// dependent passes in shared memory over a window that shrinks by the
-// matrix's true reach R = max|off| per pass (rows t0 - (k-p).R ..
-// t0 + tr + (k-p).R at pass p), so the iterate never goes back to device
-// memory between passes.  The overlap rows are computed redundantly by the
-// neighbouring blocks.  Rows outside [0, n_pad) read as zero at every pass
-// after the first, as the reference's zero re-padding does.  The diagonals
-// are read from global memory (d.data directly: the per-tile widened copy
+// (x and c streamed by window DMAs); K13 replaces `_spmv_pallas_cheby`.  Each
+// has two modes, chosen by the caller through `tr`:
+//
+// - tiled (tr > 0): temporal blocking.  Each block owns `tr` output rows and
+//   computes k dependent passes in shared memory over a window that shrinks
+//   by the matrix's true reach R = max|off| per pass (rows t0 - (k-p).R ..
+//   t0 + tr + (k-p).R at pass p), so the iterate never goes back to device
+//   memory between passes.  The overlap rows are computed redundantly by the
+//   neighbouring blocks.  The window is 2.(tr + 2.k.R) words, so this mode
+//   needs k.R below about 14,000 words of shared memory.
+// - streamed (tr == 0): k launches of a one-pass kernel, the iterate
+//   ping-ponging through global memory between the output buffer and a
+//   caller-given [n_pad] scratch buffer, ordered so that the last pass
+//   lands in the output.  It serves any reach and k (a 2D Poisson grid
+//   above ~1800^2 at k = 8), which is what the TPU's streamed variant is for.
+//
+// In both, rows outside [0, n_pad) read as zero at every pass after the
+// first, as the reference's zero re-padding does.  The diagonals are read
+// from global memory (d.data directly: the per-tile widened copy
 // `dia_power_data` existed only for Mosaic's block mapping).  What bounds
-// them on an H100: bytes of the diagonals, once per k passes, while the
-// redundant overlap rows stay small against tr; at the slice's shapes the
-// overlap re-reads hit L2.
+// them on an H100: bytes of the diagonals, once per k passes when tiled
+// (while the redundant overlap rows stay small against tr; at the slice's
+// shapes the overlap re-reads hit L2), k times when streamed.
 
 #include <cuda_runtime.h>
 
@@ -47,10 +57,13 @@ struct Coeffs {
   float b[kMaxPasses];
 };
 
+// y[i] = scale.sum_s data[s, i].x[i + offs[s]] (+ c[i]) for i < rows: K8 at
+// scale 1 with no c, and one pass of K12's streamed mode.
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const float* __restrict__ data, long long ld,
                 const int* __restrict__ offs, int ndiags,
                 const float* __restrict__ x, long long x_lo, long long x_hi,
+                const float* __restrict__ c, float scale,
                 float* __restrict__ y, long long rows) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= rows) return;
@@ -60,7 +73,31 @@ dia_spmv_kernel(const float* __restrict__ data, long long ld,
     const float xv = (j >= x_lo && j < x_hi) ? x[j] : 0.f;
     acc += data[s * ld + i] * xv;
   }
-  y[i] = acc;
+  float v = acc * scale;
+  if (c != nullptr) v += c[i];
+  y[i] = v;
+}
+
+// One pass of K13's streamed mode over rows [0, n_pad): t = A.z,
+// dd <- a.dd + b.(r - t), z_out = z + dd.  dd_in may be dd_out (each
+// thread reads and writes only its own row there).
+__global__ void __launch_bounds__(kThreads)
+dia_cheby_pass_kernel(const float* __restrict__ data, long long n_pad,
+                      const int* __restrict__ offs, int ndiags,
+                      const float* __restrict__ z, long long z_lo, long long z_hi,
+                      const float* dd_in, const float* __restrict__ r,
+                      float* __restrict__ z_out, float* dd_out, float a, float b) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= n_pad) return;
+  float t = 0.f;
+  for (int s = 0; s < ndiags; ++s) {
+    const long long j = i + offs[s];
+    const float zv = (j >= z_lo && j < z_hi) ? z[j] : 0.f;
+    t += data[s * n_pad + i] * zv;
+  }
+  const float dn = a * dd_in[i] + b * (r[i] - t);
+  z_out[i] = z[i] + dn;
+  dd_out[i] = dn;
 }
 
 // One block per `tr` output rows.  smem: cur[W], nxt[W], offs[ndiags] with
@@ -183,6 +220,10 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, size_t* granted) {
 size_t g_power_smem[2] = {0, 0};
 size_t g_cheby_smem = 0;
 
+unsigned row_blocks(long long rows) {
+  return static_cast<unsigned>((rows + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 // K8.  `x` points at logical index 0 of the vector; x[j] is read for
@@ -191,51 +232,87 @@ extern "C" int dia_spmv(const void* data, long long ld, const void* offs,
                         int ndiags, const void* x, long long x_lo,
                         long long x_hi, void* y, long long rows, void* stream) {
   if (rows > 0) {
-    const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
-    dia_spmv_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    dia_spmv_kernel<<<row_blocks(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(data), ld, static_cast<const int*>(offs), ndiags,
-        static_cast<const float*>(x), x_lo, x_hi, static_cast<float*>(y), rows);
+        static_cast<const float*>(x), x_lo, x_hi, nullptr, 1.f, static_cast<float*>(y),
+        rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K12.  xq, cq (nullable) and zq are [P + n_pad + P] buffers; only zq's
-// interior [P, P + n_pad) is written.
+// interior [P, P + n_pad) is written.  tr > 0: tiled, `tr` rows per block;
+// tr == 0: streamed, through `tmp` ([n_pad] floats; unused when k == 1).
 extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* xq, const void* cq,
                          void* zq, long long P, int k, float scale, int tr,
-                         void* stream) {
+                         void* tmp, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dat = static_cast<const float*>(data);
+  const int* off = static_cast<const int*>(offs);
+  const float* x = static_cast<const float*>(xq);
+  const float* c = static_cast<const float*>(cq);
+  float* z = static_cast<float*>(zq);
+  if (tr == 0) {
+    const float* src = x + P;
+    for (int p = 1; p <= k; ++p) {
+      float* dst = (k - p) % 2 == 0 ? z + P : static_cast<float*>(tmp);
+      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+      dia_spmv_kernel<<<row_blocks(n_pad), kThreads, 0, st>>>(
+          dat, n_pad, off, ndiags, src, lo, hi, c == nullptr ? nullptr : c + P, scale,
+          dst, n_pad);
+      src = dst;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = sizeof(float) * 2 * (tr + 2 * static_cast<size_t>(k) * reach)
                       + sizeof(int) * ndiags;
   const unsigned blocks = static_cast<unsigned>((n_pad + tr - 1) / tr);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (cq != nullptr) {
+  if (c != nullptr) {
     err = opt_in_smem(dia_power_kernel<true>, smem, &g_power_smem[1]);
     if (err != cudaSuccess) return static_cast<int>(err);
     dia_power_kernel<true><<<blocks, kTileThreads, smem, st>>>(
-        static_cast<const float*>(data), n_pad, static_cast<const int*>(offs),
-        ndiags, reach, static_cast<const float*>(xq), static_cast<const float*>(cq),
-        static_cast<float*>(zq), P, k, scale, tr);
+        dat, n_pad, off, ndiags, reach, x, c, z, P, k, scale, tr);
   } else {
     err = opt_in_smem(dia_power_kernel<false>, smem, &g_power_smem[0]);
     if (err != cudaSuccess) return static_cast<int>(err);
     dia_power_kernel<false><<<blocks, kTileThreads, smem, st>>>(
-        static_cast<const float*>(data), n_pad, static_cast<const int*>(offs),
-        ndiags, reach, static_cast<const float*>(xq), nullptr,
-        static_cast<float*>(zq), P, k, scale, tr);
+        dat, n_pad, off, ndiags, reach, x, nullptr, z, P, k, scale, tr);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K13.  zq, ddq, rq, z_out, dd_out are [P + n_pad + P] buffers; `coeffs`
 // is a host array a_1, b_1, ..., a_k, b_k (k <= 32).  Only the interiors of
-// z_out and dd_out are written.
+// z_out and dd_out are written.  tr > 0: tiled, `tr` rows per block;
+// tr == 0: streamed, through `tmp` ([n_pad] floats; unused when k == 1).
 extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* zq, const void* ddq,
                          const void* rq, void* z_out, void* dd_out, long long P,
-                         int k, const float* coeffs, int tr, void* stream) {
+                         int k, const float* coeffs, int tr, void* tmp, void* stream) {
   if (k < 1 || k > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dat = static_cast<const float*>(data);
+  const int* off = static_cast<const int*>(offs);
+  const float* z = static_cast<const float*>(zq);
+  const float* r = static_cast<const float*>(rq);
+  float* zo = static_cast<float*>(z_out);
+  float* ddo = static_cast<float*>(dd_out);
+  if (tr == 0) {
+    const float* src = z + P;
+    const float* dd = static_cast<const float*>(ddq) + P;
+    for (int p = 1; p <= k; ++p) {
+      float* dst = (k - p) % 2 == 0 ? zo + P : static_cast<float*>(tmp);
+      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+      dia_cheby_pass_kernel<<<row_blocks(n_pad), kThreads, 0, st>>>(
+          dat, n_pad, off, ndiags, src, lo, hi, dd, r + P, dst, ddo + P,
+          coeffs[2 * p - 2], coeffs[2 * p - 1]);
+      src = dst;
+      dd = ddo + P;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   Coeffs cf;
   for (int p = 0; p < k; ++p) {
     cf.a[p] = coeffs[2 * p];
@@ -248,10 +325,8 @@ extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
   cudaError_t err = opt_in_smem(dia_cheby_kernel, smem, &g_cheby_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((n_pad + tr - 1) / tr);
-  dia_cheby_kernel<<<blocks, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-      reach, static_cast<const float*>(zq), static_cast<const float*>(ddq),
-      static_cast<const float*>(rq), static_cast<float*>(z_out),
-      static_cast<float*>(dd_out), P, k, cf, tr);
+  dia_cheby_kernel<<<blocks, kTileThreads, smem, st>>>(
+      dat, n_pad, off, ndiags, reach, z, static_cast<const float*>(ddq), r, zo, ddo, P,
+      k, cf, tr);
   return static_cast<int>(cudaGetLastError());
 }

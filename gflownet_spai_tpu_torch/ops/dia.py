@@ -14,7 +14,10 @@ out of range, padded to ``n_pad`` rows (a multiple of 1024)::
 On CUDA tensors the three entry points launch ``csrc/dia.cu`` (K8 also
 serves ``spmv_dia_padded`` and the unfused affine sweep); on CPU tensors
 they compute their plain versions, which are the JAX package's jnp
-fallbacks.  Only float32 diagonals run on the card.
+fallbacks.  Only float32 diagonals run on the card.  K12 and K13 keep the
+iterate in shared memory across their k passes when the window fits one
+block, and else stream it through global memory one pass per launch
+(``_tile_rows``), so every k the selection picks runs on the card.
 
 The selection functions (``dia_pp_tile``, ``dia_power_ok``,
 ``dia_power_stream_ok``, ``dia_power_tile``, ``dia_cheby_ok``) are the
@@ -49,6 +52,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+@functools.lru_cache(maxsize=256)
+def _offsets_tensor(offsets: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DIA:
     """Diagonal-format sparse matrix (square).  ``data``: [ndiags, n_pad]."""
@@ -57,6 +65,16 @@ class DIA:
     offsets: Tuple[int, ...]
     shape: Tuple[int, int]
     nnz: int
+    # the offsets as int32 on the data's device, which the kernels read
+    offsets_t: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        # Made with the matrix, one copy per pattern and device, never in a
+        # kernel call: a CUDA-graph capture of a call (or of the backward,
+        # which builds the transpose) then holds no host-to-device copy.
+        dev = self.data.device
+        object.__setattr__(self, "offsets_t", _offsets_tensor(self.offsets, dev))
+        _offsets_tensor(tuple(-o for o in self.offsets), dev)
 
     @property
     def n(self) -> int:
@@ -79,12 +97,6 @@ class DIA:
     def halo(self) -> int:
         # never 0 (a diagonal-only matrix still gets one aligned halo unit)
         return _round_up(max(self.reach, 1), _ALIGN)
-
-    @functools.cached_property
-    def offsets_t(self) -> torch.Tensor:
-        """The offsets as an int32 tensor on the data's device (made once
-        per matrix; the kernels read it)."""
-        return torch.tensor(self.offsets, dtype=torch.int32, device=self.data.device)
 
     def todense(self) -> torch.Tensor:
         n = self.n
@@ -345,9 +357,9 @@ _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _PTR],
     "dia_power": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                  ctypes.c_float, _INT, _PTR],
+                  ctypes.c_float, _INT, _PTR, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _PTR],
+                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _PTR, _PTR],
 }
 
 
@@ -383,16 +395,20 @@ def _check_pp(d: DIA, what: str, *bufs: torch.Tensor) -> int:
     return p
 
 
-def _tile_rows(what: str, words) -> int:
-    """K12/K13 rows per block: 4096, halved until the block's shared
-    memory (``words(tr)`` 4-byte words) fits."""
+def _tile_rows(words) -> int:
+    """K12/K13 rows per block in the tiled mode: 4096, halved until the
+    block's shared memory (``words(tr)`` 4-byte words) fits; 0 (the
+    streamed mode) when not even 128 rows fit."""
     tr = _TILE_ROWS
     while tr > 128 and 4 * words(tr) > _SMEM_BYTES:
         tr //= 2
-    if 4 * words(tr) > _SMEM_BYTES:
-        raise ValueError(f"{what}: the reach and k of this matrix need more "
-                         "shared memory than one block has")
-    return tr
+    return tr if 4 * words(tr) <= _SMEM_BYTES else 0
+
+
+def _scratch(like: torch.Tensor, n_pad: int, tr: int, k: int):
+    """The streamed mode's [n_pad] ping-pong buffer (None when unused)."""
+    return torch.empty((n_pad,), dtype=like.dtype, device=like.device) \
+        if tr == 0 and k > 1 else None
 
 
 def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int,
@@ -480,12 +496,14 @@ def spmv_dia_power(d: DIA, datak: torch.Tensor, xq: torch.Tensor,
     if zq.data_ptr() == xq.data_ptr() or k < 1:
         raise ValueError("spmv_dia_power: zq must be another buffer than xq, k >= 1")
     R = d.reach
-    tr = _tile_rows("spmv_dia_power", lambda t: 2 * (t + 2 * k * R) + d.ndiags)
+    tr = _tile_rows(lambda t: 2 * (t + 2 * k * R) + d.ndiags)
+    tmp = _scratch(xq, d.n_pad, tr, k)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_power")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
         xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(),
-        p, k, float(scale), tr, stream), "spmv_dia_power")
+        p, k, float(scale), tr, None if tmp is None else tmp.data_ptr(), stream),
+        "spmv_dia_power")
     spmv_dia_power.launches += 1
     return zq
 
@@ -512,14 +530,15 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
         raise ValueError("spmv_dia_cheby: 1..32 coefficient pairs, and outputs "
                          "in buffers other than the inputs")
     R = d.reach
-    tr = _tile_rows("spmv_dia_cheby",
-                    lambda t: 3 * t + (6 * k - 2) * R + d.ndiags)
+    tr = _tile_rows(lambda t: 3 * t + (6 * k - 2) * R + d.ndiags)
+    tmp = _scratch(zq, d.n_pad, tr, k)
     cf = (ctypes.c_float * (2 * k))(*(float(v) for ab in coeffs for v in ab))
     stream = torch.cuda.current_stream(zq.device).cuda_stream
     _build.check(_lib_fn("dia_cheby")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
         zq.data_ptr(), ddq.data_ptr(), rq.data_ptr(), z_dead.data_ptr(),
-        dd_dead.data_ptr(), p, k, cf, tr, stream), "spmv_dia_cheby")
+        dd_dead.data_ptr(), p, k, cf, tr, None if tmp is None else tmp.data_ptr(),
+        stream), "spmv_dia_cheby")
     spmv_dia_cheby.launches += 1
     return z_dead, dd_dead
 

@@ -22,9 +22,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.dia import (DIA, dia_cheby_ok, dia_pad_pp, dia_power_data,
-                       dia_power_ok, dia_power_tile, dia_pp_tile, spmv_dia,
-                       spmv_dia_cheby, spmv_dia_padded, spmv_dia_power)
+from ..ops.dia import (DIA, dia_cheby_ok, dia_pad_pp, dia_power_ok,
+                       dia_power_tile, dia_pp_tile, spmv_dia, spmv_dia_cheby,
+                       spmv_dia_padded, spmv_dia_power)
 from .linop import LinOp
 
 
@@ -100,12 +100,13 @@ def spmv_dia_pingpong_affine(m: DIA, xq: torch.Tensor, zq: torch.Tensor,
     return zq
 
 
-def _sweep_pairs(m: DIA, xq, zq, cq, datak, k: int, pairs: int):
-    """``pairs`` fixed-role call pairs x → z → x of k sweeps each."""
+def _sweep_pairs(m: DIA, xq, zq, cq, k: int, pairs: int):
+    """``pairs`` fixed-role call pairs x → z → x of k sweeps each (the
+    kernels read ``m.data``, so no ``dia_power_data`` windows are made)."""
     for _ in range(pairs):
         if k > 1:
-            spmv_dia_power(m, datak, xq, zq, k=k, add=cq)
-            spmv_dia_power(m, datak, zq, xq, k=k, add=cq)
+            spmv_dia_power(m, None, xq, zq, k=k, add=cq)
+            spmv_dia_power(m, None, zq, xq, k=k, add=cq)
         else:
             spmv_dia_pingpong_affine(m, xq, zq, cq)
             spmv_dia_pingpong_affine(m, zq, xq, cq)
@@ -126,8 +127,7 @@ def jacobi(d: DIA, b: torch.Tensor, x0: torch.Tensor | None = None,
         if x0 is None else x0
     xq = dia_pad_pp(m, x_init, tr=tr)
     pairs = max(1, -(-iters // (2 * k)))
-    datak = dia_power_data(m, k, tr=tr) if k > 1 else None
-    xq = _sweep_pairs(m, xq, torch.zeros_like(xq), cq, datak, k, pairs)
+    xq = _sweep_pairs(m, xq, torch.zeros_like(xq), cq, k, pairs)
     x = xq[tr:tr + d.n]
     r = b.to(x.dtype) - spmv_dia(d, x)
     return JacobiResult(x=x, residual=torch.linalg.vector_norm(r),
@@ -138,12 +138,11 @@ def jacobi(d: DIA, b: torch.Tensor, x0: torch.Tensor | None = None,
 
 def _jacobi_sweeps_apply(data, r, *, k: int, pairs: int, n: int,
                          tile: int | None = None):
-    m, datak, c_scale = data
+    m, c_scale = data
     c = c_scale * torch.nn.functional.pad(r.to(m.data.dtype), (0, m.n_pad - r.shape[0]))
     cq = dia_pad_pp(m, c[:n], tr=tile)
     tr = (cq.shape[0] - m.n_pad) // 2             # P from the buffer
-    xq = _sweep_pairs(m, torch.zeros_like(cq), torch.zeros_like(cq), cq, datak,
-                      k, pairs)
+    xq = _sweep_pairs(m, torch.zeros_like(cq), torch.zeros_like(cq), cq, k, pairs)
     return xq[tr:tr + n].to(r.dtype)
 
 
@@ -158,10 +157,9 @@ def jacobi_sweeps_op(d: DIA, omega: float = 2.0 / 3.0, sweeps: int = 16,
     m = jacobi_iteration_matrix(d, omega)
     k, trk = _pick_power_config(m, fuse_k, sweeps)
     pairs = max(1, -(-sweeps // (2 * k)))
-    datak = dia_power_data(m, k, tr=trk) if k > 1 else None
     _, nz, safe = _safe_diag(d)
     c_scale = torch.where(nz, omega / safe, 0.0)
-    return LinOp(data=(m, datak, c_scale),
+    return LinOp(data=(m, c_scale),
                  fn=partial(_jacobi_sweeps_apply, k=k, pairs=pairs, n=d.n,
                             tile=trk or None),
                  info={"k": k, "tile": trk or dia_pp_tile(m) or m.halo,
@@ -204,8 +202,7 @@ def chebyshev_coeffs(lmin: float, lmax: float, degree: int):
     return coeffs
 
 
-def _chebyshev_apply(data, r, *, coeffs, n: int):
-    d, _ = data
+def _chebyshev_apply(d, r, *, coeffs, n: int):
     rr = r[:n]
     z = torch.zeros_like(rr)
     dd = torch.zeros_like(rr)
@@ -215,14 +212,13 @@ def _chebyshev_apply(data, r, *, coeffs, n: int):
     return z.to(r.dtype)
 
 
-def _chebyshev_apply_fused(data, r, *, coeff_calls, k: int, n: int):
-    d, datak = data
+def _chebyshev_apply_fused(d, r, *, coeff_calls, k: int, n: int):
     rq = dia_pad_pp(d, r[:n].to(d.data.dtype))
     tr = (rq.shape[0] - d.n_pad) // 2             # P from the buffer
     bufs = [torch.zeros_like(rq) for _ in range(4)]   # zA, ddA, zB, ddB
     for i, cc in enumerate(coeff_calls):
         src, dst = (0, 2) if i % 2 == 0 else (2, 0)
-        spmv_dia_cheby(d, datak, bufs[src], bufs[src + 1], rq,
+        spmv_dia_cheby(d, None, bufs[src], bufs[src + 1], rq,
                        bufs[dst], bufs[dst + 1], cc, k)
     final = 0 if len(coeff_calls) % 2 == 0 else 2
     return bufs[final][tr:tr + n].to(r.dtype)
@@ -251,10 +247,10 @@ def chebyshev_op(d: DIA, lmax: float, lmin: float | None = None,
         degree_eff = -(-degree // k) * k
         coeffs = chebyshev_coeffs(float(lmin), float(lmax), degree_eff)
         coeff_calls = tuple(tuple(coeffs[i:i + k]) for i in range(0, degree_eff, k))
-        return LinOp(data=(d, dia_power_data(d, k)),
+        return LinOp(data=d,
                      fn=partial(_chebyshev_apply_fused, coeff_calls=coeff_calls,
                                 k=k, n=d.n),
                      info={**info, "degree": degree_eff})
     coeffs = tuple(chebyshev_coeffs(float(lmin), float(lmax), degree))
-    return LinOp(data=(d, None), fn=partial(_chebyshev_apply, coeffs=coeffs, n=d.n),
+    return LinOp(data=d, fn=partial(_chebyshev_apply, coeffs=coeffs, n=d.n),
                  info={**info, "degree": degree})

@@ -256,7 +256,29 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         T._check_pp(td, "spmv_dia_power", xq)                     # P < halo
     assert T._check_pp(td, "spmv_dia_power",
                        torch.zeros(td.n_pad + 2 * td.halo)) == td.halo
-    # K12/K13 tiles shrink with the reach, and refuse when nothing fits
-    assert T._tile_rows("k12", lambda t: 2 * (t + 2 * 8 * 1024) + 5) == 4096
-    with pytest.raises(ValueError):
-        T._tile_rows("k12", lambda t: 2 * (t + 2 * 8 * 21504))
+    # K12/K13 tiles shrink with the reach; where not even 128 rows fit
+    # (poisson2048's Jacobi-16 at k = 8, reach 2048) the wrappers stream
+    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 1024) + 5) == 4096
+    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 1792) + 5) == 256
+    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 2048) + 5) == 0
+    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 21504)) == 0
+    assert T._scratch(xq, td.n_pad, 0, 8).shape == (td.n_pad,)
+    assert T._scratch(xq, td.n_pad, 0, 1) is None
+    assert T._scratch(xq, td.n_pad, 4096, 8) is None
+
+
+def test_offsets_tensor_is_made_with_the_matrix():
+    """The kernels' int32 offsets exist once a DIA does, shared by every
+    DIA of the same pattern (a copy, a transpose's transpose), so no kernel
+    call copies from the host."""
+    import dataclasses
+
+    _, td = _poisson(24)
+    assert td.offsets_t.dtype == torch.int32
+    assert td.offsets_t.tolist() == list(td.offsets)
+    assert dataclasses.replace(td, data=td.data * 2).offsets_t is td.offsets_t
+    tt = T.dia_transpose(td)
+    assert tt.offsets_t.tolist() == [-o for o in td.offsets]
+    assert T.dia_transpose(tt).offsets_t is td.offsets_t
+    m = t_st.jacobi_iteration_matrix(td)
+    assert m.offsets_t is td.offsets_t

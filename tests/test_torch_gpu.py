@@ -17,7 +17,8 @@ row's slots with float atomics in run-dependent order: rtol 1e-5, atol
 K8 rtol 1e-5, atol 1e-5 (the kernel's sums contract to FMAs and start
 from zero in offset order like the plain version: float32 rounding only).
 K12 and K13 carry k dependent passes: atol 1e-5 times k times the largest
-output magnitude, rtol 1e-5."""
+output magnitude, rtol 1e-5, in the tiled mode and in the streamed mode
+(a reach too wide for one block's shared memory)."""
 
 import numpy as np
 import pytest
@@ -273,3 +274,111 @@ def test_cg_with_polynomial_preconditioners_on_card(cuda):
             assert dia.spmv_dia_power.launches > before[0]
             assert dia.spmv_dia_cheby.launches > before[1]
     assert all(abs(g - c) <= 1 for g, c in zip(its[str(cuda)], its["cpu"])), its
+
+
+def _banded_dia(dev, n, reach, seed=0):
+    """A random 5-diagonal DIA with offsets (−reach, −1, 0, 1, reach)."""
+    n_pad = -(-n // 1024) * 1024
+    data = np.random.default_rng(seed).standard_normal((5, n_pad)).astype(np.float32)
+    data[:, n:] = 0.0
+    return dia.DIA(data=torch.as_tensor(data, device=dev),
+                   offsets=(-reach, -1, 0, 1, reach), shape=(n, n), nnz=5 * n)
+
+
+def _pp(d, dev, seed):
+    x = torch.randn(d.n, generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    return dia.dia_pad_pp(d, x)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("affine", [False, True])
+def test_k12_streamed_matches_plain(cuda, k, affine):
+    """Reach 10,000: the k-pass window needs more shared memory than a
+    block has, so K12 streams its passes through global memory."""
+    d = _banded_dia(cuda, 50_000, 10_000)
+    assert dia._tile_rows(lambda t: 2 * (t + 2 * k * d.reach) + d.ndiags) == 0
+    xq, cq = _pp(d, cuda, 1), (_pp(d, cuda, 2) if affine else None)
+    before = dia.spmv_dia_power.launches
+    got = dia.spmv_dia_power(d, None, xq, torch.zeros_like(xq), scale=0.3, k=k, add=cq)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_power.launches == before + 1
+    want = dia.spmv_dia_power_ref(d, xq, torch.zeros_like(xq), scale=0.3, k=k, add=cq)
+    _close_k(got, want, k)
+    p = (xq.shape[0] - d.n_pad) // 2
+    assert not got[:p].any() and not got[p + d.n_pad:].any()
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_k13_streamed_matches_plain(cuda, k):
+    from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
+
+    d = _banded_dia(cuda, 50_000, 10_000, seed=3)
+    assert dia._tile_rows(lambda t: 3 * t + (6 * k - 2) * d.reach + d.ndiags) == 0
+    zq, ddq, rq = (_pp(d, cuda, s) for s in (4, 5, 6))
+    coeffs = tuple(chebyshev_coeffs(0.3, 8.2, k))
+    before = dia.spmv_dia_cheby.launches
+    got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, torch.zeros_like(zq),
+                             torch.zeros_like(zq), coeffs, k)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_cheby.launches == before + 1
+    want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, torch.zeros_like(zq),
+                                  torch.zeros_like(zq), coeffs, k)
+    for a, b in zip(got, want):
+        _close_k(a, b, k)
+
+
+def test_k12_poisson2048_jacobi16_streams(cuda):
+    """poisson2048's Jacobi 16 sweeps: the TPU selection picks k = 8 (its
+    streamed kernel), whose window does not fit a block at reach 2048; K12
+    streams, and the operator matches the plain sweeps."""
+    from gflownet_spai_tpu_torch.solvers.stationary import (
+        _pick_power_config, jacobi_iteration_matrix, jacobi_sweeps_op)
+
+    k, n = 2048, 2048 * 2048
+    i = np.arange(n)
+    r, c = i // k, i % k
+    data = np.zeros((5, n), np.float32)
+    data[2] = 4.0
+    data[0, i[r > 0]] = data[1, i[c > 0]] = -1.0
+    data[3, i[c < k - 1]] = data[4, i[r < k - 1]] = -1.0
+    d = dia.DIA(data=torch.as_tensor(data, device=cuda), offsets=(-k, -1, 0, 1, k),
+                shape=(n, n), nnz=int((data != 0).sum()))
+    m = jacobi_iteration_matrix(d)
+    fk, tile = _pick_power_config(m, 8, 16)
+    assert (fk, tile) == (8, 65536)
+    assert dia._tile_rows(lambda t: 2 * (t + 2 * fk * m.reach) + m.ndiags) == 0
+    op = jacobi_sweeps_op(d, sweeps=16)
+    assert op.info["k"] == 8 and op.info["sweeps"] == 16
+    rhs = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(7),
+                      device=cuda)
+    before = dia.spmv_dia_power.launches
+    got = op(rhs)
+    torch.cuda.synchronize()
+    assert dia.spmv_dia_power.launches == before + 2
+    c = torch.where(d.data[2] != 0, (2.0 / 3.0) * rhs / d.data[2], 0.0)
+    xq = dia.dia_pad_pp(m, torch.zeros(n, device=cuda), tr=tile)
+    cq = dia.dia_pad_pp(m, c, tr=tile)
+    zq = dia.spmv_dia_power_ref(m, xq, torch.zeros_like(xq), k=8, add=cq)
+    want = dia.spmv_dia_power_ref(m, zq, torch.zeros_like(xq), k=8, add=cq)
+    _close_k(got, want[tile:tile + n], 16)
+
+
+def test_spmv_dia_captures_on_a_fresh_matrix(cuda):
+    """A DIA built just before a CUDA-graph capture, never called before:
+    ``spmv_dia`` on it and on the transpose its backward builds (made
+    inside the capture) replay to the plain results."""
+    dia.spmv_dia(_poisson_dia(cuda, 16)[1], torch.ones(256, device=cuda))  # loads the library
+    d = _banded_dia(cuda, 5000, 131, seed=9)
+    d = dia.DIA(data=d.data, offsets=(-131, -3, 0, 5, 77), shape=d.shape, nnz=d.nnz)
+    x, g = torch.randn(d.n, device=cuda), torch.randn(d.n, device=cuda)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dia.spmv_dia(d, x)
+        yt = dia.spmv_dia(dia.dia_transpose(d), g)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, dia.spmv_dia_ref(d, x), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(yt, dia.spmv_dia_ref(dia.dia_transpose(d), g),
+                               rtol=1e-5, atol=1e-5)
