@@ -6,9 +6,10 @@ Phases (any failure exits non-zero before the result line):
 
 1. card      — requires CUDA; prints the device, its count and
                ``nvidia-smi``'s name and power limit; TF32 off.
-2. build     — compiles every kernel of the sampling, training and validation paths
-               from ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process
-               per source, all at once).
+2. build     — compiles every kernel of the sampling, training and validation
+               paths and of the solver library from
+               ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process per
+               source, all at once).
 3. setup     — ``setup(TrainConfig(matrix="orsirr_like150", env_format="coo"))``
                on the card (ILU(0) seed, hidden 4, heads 4).
 4. kernels   — K1 (fused GATv2 tile forward) and K3 (windowed row gather)
@@ -56,8 +57,9 @@ Phases (any failure exits non-zero before the result line):
                the training run's checkpoint: restore, sample 256, the best
                sampled M, GMRES(20) (x0 = 0, b = ones, rtol 1e-5, maxiter
                10,260) with none / ILU(0) / sampled SPAI / classic SPAI /
-               Jacobi 16 sweeps / Chebyshev degree 16; per row iterations,
-               cold and steady wall, true residual and kernel launches.
+               Jacobi 16 sweeps / Chebyshev degree 16 / a 3-level V-cycle;
+               per row iterations, cold and steady wall, true residual and
+               kernel launches.
 13. poisson  — launch counters to 0, CG on poisson1024 (the BASELINE
                config-2 class at a grid whose padded size lets the kernels
                fuse) with none / Jacobi 16 / Chebyshev 16 to rtol 1e-5;
@@ -66,9 +68,30 @@ Phases (any failure exits non-zero before the result line):
                rtol 1e-1 and 1e-2 within 3%; the ladder down to 1e-5
                printed), and the polynomial operators against their
                float64 versions on two vectors.
-14. validate-cli — ``python -m gflownet_spai_tpu_torch.validate`` on
-               bcsstk03_like in a subprocess on the card: every row in
-               validation.json; the CLI's verdict printed.
+14. dia-multi — K10 (padded-IO SpMV) and K11 (ping-pong SpMV) as chains of
+               8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
+               SpMMs) at 256 right-hand sides, K14 (multi-RHS fused k-step)
+               at k = 1 with 16 right-hand sides and at k = 8 on
+               poisson512 with 2 (tiled, and forced streamed), all on
+               poisson1024 unless named, against their plain versions;
+               times as [dia], library calls torch.sparse CSR A@x / A@X
+               and (K14 at k = 1) addmm.
+15. multirhs — launch counters to 0, poisson1024 with 16 seeded
+               right-hand sides: ``cg_multi`` (K16) plain and with a
+               one-diagonal Jacobi M, every column against single-RHS
+               ``cg`` (the same first iteration at rtol 1e-1 and 1e-2, within
+               5% at 1e-5); ``jacobi_multirhs`` (100 sweeps, k = 1: K14)
+               against 16 single ``jacobi`` runs.
+16. vcycle   — poisson1024 CG (b = ones, rtol 1e-5) with none, a 6-level
+               Jacobi V-cycle, a 3-level Chebyshev V-cycle and its W-cycle,
+               each against the same operator in float64 on the CPU (the
+               first iteration at rtol 1e-1 and 1e-2 within 3%); BiCGStab on
+               orsirr_like150 in float64 against scipy's iteration count
+               within 10%, and in float32 (printed).
+17. validate-cli — ``python -m gflownet_spai_tpu_torch.validate`` on
+               bcsstk03_like (with ``--vcycle 2``) in a subprocess on the
+               card: every row in validation.json, the vcycle row
+               converged; the CLI's verdict printed.
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
@@ -727,7 +750,7 @@ CG_LADDER = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
 POLY_OP_RTOL = 1e-4         # float32 polynomial operator vs float64, ‖·‖₂ relative
 DIA_COUNTERS = {"K8": dia.spmv_dia, "K12": dia.spmv_dia_power, "K13": dia.spmv_dia_cheby}
 CLI_ARGS = ["--matrix", "bcsstk03_like", "--epochs", "8", "--batch-size", "4",
-            "--maxiter", "500", "--jacobi-poly", "4", "--chebyshev", "4"]
+            "--maxiter", "500", "--jacobi-poly", "4", "--chebyshev", "4", "--vcycle", "2"]
 
 
 def _dia_tol(want, k):
@@ -760,13 +783,47 @@ def _streamed():
         dia._SMEM_BYTES = saved
 
 
-def _dia_counts():
-    return {k: fn.launches for k, fn in DIA_COUNTERS.items()}
+def _counts(counters=DIA_COUNTERS):
+    return {k: fn.launches for k, fn in counters.items()}
 
 
-def _reset_dia_counts():
-    for fn in DIA_COUNTERS.values():
+def _reset(counters=DIA_COUNTERS):
+    for fn in counters.values():
         fn.launches = 0
+
+
+def _record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None,
+            lib_name="torch.sparse CSR A@x", reps=20):
+    """Check a DIA kernel against its plain version and time it.  ``make(i)``
+    returns a call of the kernel on the i-th copy of its inputs (copy 0:
+    the inputs ``got`` came from).  The kernel time cycles through enough
+    copies that a replay reads HBM, not the 50 MB L2 that holds one copy;
+    the warm time repeats copy 0."""
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    tol = max(_dia_tol(w, k) for w in want)
+    if not err <= tol:
+        fail(f"{key} disagrees with its plain version ({label}): max abs err "
+             f"{err:.3e} > {tol:.3e}")
+    n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
+    fns = [make(i) for i in range(n_copies)]
+    lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
+    ms = graph_ms(_cycle(fns), reps)
+    warm = graph_ms(fns[0], reps)
+    eager = cuda_ms(fns[0], reps)
+    plain_ms = cuda_ms(plain, 3)
+    lib_ms = graph_ms(_cycle(lib_fns), reps) if lib_fns else None
+    b, by = bound_ms(nbytes, ops)
+    print(f"[{key}] {label}: max abs err {err:.3e} (tolerance {tol:.3e}); kernel "
+          f"{ms:.5f} ms (graph replay over {n_copies} input copies; one copy, "
+          f"L2-warm {warm:.5f} ms; eager calls {eager:.5f} ms), plain "
+          f"{plain_ms:.4f} ms, " + (f"{lib_name} {lib_ms:.5f} ms (graph replay, same "
+                                    f"copies), " if lib_ms is not None
+                                    else "library: none, ")
+          + f"bound {b:.6f} ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mflop)",
+          flush=True)
+    return dict(err=err, ms=ms, warm=warm, eager=eager, plain=plain_ms, lib=lib_ms,
+                bound=(b, by))
 
 
 def phase_dia(dev):
@@ -784,37 +841,7 @@ def phase_dia(dev):
     ors = ors.with_data(ors.data.astype(np.float32))
     dors = dia.coo_to_dia(ors, device=dev)
     out = {}
-
-    def record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None):
-        """``make(i)`` returns a call of the kernel on the i-th copy of its
-        inputs (copy 0: the inputs ``got`` came from).  The kernel time
-        cycles through enough copies that a replay reads HBM, not the 50 MB
-        L2 that holds one copy; the warm time repeats copy 0."""
-        torch.cuda.synchronize()
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        tol = max(_dia_tol(w, k) for w in want)
-        if not err <= tol:
-            fail(f"{key} disagrees with its plain version ({label}): max abs err "
-                 f"{err:.3e} > {tol:.3e}")
-        n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
-        fns = [make(i) for i in range(n_copies)]
-        lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
-        ms = graph_ms(_cycle(fns), 20)
-        warm = graph_ms(fns[0], 20)
-        eager = cuda_ms(fns[0], 20)
-        plain_ms = cuda_ms(plain, 3)
-        lib_ms = graph_ms(_cycle(lib_fns), 20) if lib_fns else None
-        b, by = bound_ms(nbytes, ops)
-        print(f"[{key}] {label}: max abs err {err:.3e} (tolerance {tol:.3e}); kernel "
-              f"{ms:.5f} ms (graph replay over {n_copies} input copies; one copy, "
-              f"L2-warm {warm:.5f} ms; eager calls {eager:.5f} ms), plain "
-              f"{plain_ms:.4f} ms, " + (f"torch.sparse CSR A@x {lib_ms:.5f} ms (graph "
-                                        f"replay, same copies), " if lib_ms is not None
-                                        else "library: none, ")
-              + f"bound {b:.6f} ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mflop)",
-              flush=True)
-        return dict(err=err, ms=ms, warm=warm, eager=eager, plain=plain_ms, lib=lib_ms,
-                    bound=(b, by))
+    record = _record
 
     # K8: y = A·x, stored diagonals + x + y once
     for name, dd, coo in ((f"poisson{POISSON}", d, pois), (MATRIX, dors, ors)):
@@ -941,7 +968,7 @@ def phase_validate(run_dir: Path, dev):
     from gflownet_spai_tpu_torch.env import ilu as ilu_mod
     from gflownet_spai_tpu_torch.solvers import (chebyshev_op, estimate_lmax,
                                                  ilu_solve_op, jacobi_sweeps_op,
-                                                 solve_with_gmres, spai_op)
+                                                 solve_with_gmres, spai_op, vcycle_op)
     from gflownet_spai_tpu_torch.solvers.spai_classic import spai_classic
     from gflownet_spai_tpu_torch.solvers.validate import (best_sampled_matrix,
                                                           true_residual)
@@ -980,18 +1007,19 @@ def phase_validate(run_dir: Path, dev):
                                                           device=dev).to(dev))),
             ("jacobi_poly", lambda: jacobi_sweeps_op(dia.coo_to_dia(a, device=dev),
                                                      sweeps=16)),
-            ("chebyshev", cheby))
-    _reset_dia_counts()
+            ("chebyshev", cheby),
+            ("vcycle", lambda: vcycle_op(dia.coo_to_dia(a, device=dev), levels=3)))
+    _reset()
     report, total = {}, {k: 0 for k in DIA_COUNTERS}
     for name, make in rows:
-        before = _dia_counts()
+        before = _counts()
         op = make()
         walls = []
         for _ in range(2):
             x, res, iters, secs = solve_with_gmres(ad, b, op, maxiter=VALIDATE_MAXITER,
                                                    restart=20, rtol=1e-5)
             walls.append(secs)
-        launches = {k: v - before[k] for k, v in _dia_counts().items()}
+        launches = {k: v - before[k] for k, v in _counts().items()}
         rec = dict(iterations=iters, cold_s=walls[0], steady_s=walls[1],
                    true_residual=true_residual(ad, b, x), launches=launches,
                    note=", ".join(f"{k} {v}" for k, v in (op.info if op else {}).items()
@@ -1000,11 +1028,11 @@ def phase_validate(run_dir: Path, dev):
             fail(f"validate row {name}: {rec}")
         report[name] = rec
         _row_print("validate", name, rec)
-    total = _dia_counts()
+    total = _counts()
     if total["K8"] == 0:
         fail("the validation harness did not launch K8")
-    print(f"[validate] kernel launches over the six rows: {total} (orsirr_like150's "
-          f"DIA has 230 diagonals: the fused selection picks k = 1, so only K8 runs)",
+    print(f"[validate] kernel launches over the seven rows: {total} (orsirr_like150's "
+          f"DIA has 230 diagonals: the fused selection picks k = 1 on the fine level)",
           flush=True)
     return report, total
 
@@ -1061,7 +1089,7 @@ def phase_poisson(dev):
         a.shape).coalesce().to_sparse_csr()
     A64 = lambda v: a64 @ v
     b = torch.ones(n, device=dev)
-    _reset_dia_counts()
+    _reset()
     t_ops = time.perf_counter()
     lmax = 1.05 * float(estimate_lmax(d, iters=30))
     ops = {"none": None, "jacobi_poly": jacobi_sweeps_op(d, sweeps=16),
@@ -1103,7 +1131,7 @@ def phase_poisson(dev):
               flush=True)
     report = {}
     for name, op in ops.items():
-        before = _dia_counts()
+        before = _counts()
         walls = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1114,7 +1142,7 @@ def phase_poisson(dev):
         x = res.x
         true_res = float(torch.linalg.vector_norm(b.double() - A64(x.double()))
                          / torch.linalg.vector_norm(b.double()))
-        launches = {k: v - before[k] for k, v in _dia_counts().items()}
+        launches = {k: v - before[k] for k, v in _counts().items()}
         t0 = time.perf_counter()
         ref_it, info, ref_hist = _cg_ref(A64, refs[name], n, CG_MAXITER, dev)
         ref_s = time.perf_counter() - t0
@@ -1134,11 +1162,463 @@ def phase_poisson(dev):
                  f"float32 vs float64 CG iterations at rtol {bad} differ by more "
                  f"than {CG_ITER_TOL:.0%}: {ladder}")
         report[name] = rec
-    total = _dia_counts()
+    total = _counts()
     if min(total.values()) == 0:
         fail(f"[poisson] a kernel of the path did not launch: {total}")
     print(f"[poisson] kernel launches over the three rows (two solves each, plus "
           f"estimate_lmax): {total}", flush=True)
+    return report, total
+
+
+# --- the solver library (K10, K11, K14, K15, K16) ------------------------------
+
+MULTI_K = 16                # right-hand sides of the [multirhs] phase
+SPMM_K = 256                # the wide-K SpMM configuration (docs/BENCH.md:97-104)
+CHAIN = 8                   # K10 / K11: chained calls at scale 0.2
+MULTI_ITER_TOL = 0.05       # cg_multi vs single cg per column at rtol 1e-5
+BICGSTAB_ITER_TOL = 0.10    # port BiCGStab (float64) vs scipy's iteration count
+# float32 BiCGStab on orsirr_like150 vs scipy's count: the float32 count
+# moves with the SpMV's summation order (the COO entry orders below show
+# by how much), so it is held to a wider bound, on the one SpMV whose
+# order is fixed (K8)
+BICGSTAB32_ITER_TOL = 0.20
+BICGSTAB32_ORDERS = 8       # COO entry orders shown for the float32 spread
+MULTI_COUNTERS = {"K10": dia.spmv_dia_padded_io, "K11": dia.spmv_dia_pingpong,
+                  "K14": dia.spmv_dia_power_rhs, "K15": dia.spmm_dia,
+                  "K16": dia.spmm_dia_t_padded}
+
+
+def _jacobi_m(d):
+    """The one-diagonal DIA Jacobi preconditioner diag(A)⁻¹ of ``cg_multi``."""
+    diag = d.data[d.offsets.index(0)]
+    return dia.DIA(data=torch.where(diag != 0, 1.0 / diag, 0.0)[None].contiguous(),
+                   offsets=(0,), shape=d.shape, nnz=d.n)
+
+
+def _csr(d):
+    """The stored entries of a DIA as a torch.sparse CSR matrix on its
+    device (the library yardstick; timed only)."""
+    i = torch.arange(d.n, device=d.data.device)
+    rows, cols, vals = [], [], []
+    for s, off in enumerate(d.offsets):
+        ok = (i + off >= 0) & (i + off < d.n)
+        rows.append(i[ok]); cols.append(i[ok] + off); vals.append(d.data[s, :d.n][ok])
+    return torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                   torch.cat(vals), d.shape).coalesce().to_sparse_csr()
+
+
+def phase_dia_multi(dev):
+    """K10, K11, K14, K15 and K16 against their plain versions on the card
+    at poisson1024 (K14 also at poisson512 with 2 right-hand sides and at
+    poisson128 with 16, where the selection fuses k = 8; K16 also on the
+    Jacobi M and at K = 256).  K10 and K11 are driven as chains of 8 calls
+    at scale 0.2, their launch counts read around the chain."""
+    from gflownet_spai_tpu_torch.solvers.stationary import (_multirhs_config,
+                                                            jacobi_iteration_matrix)
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    gen = torch.Generator(device=dev).manual_seed(4048)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    d = dia.coo_to_dia(gallery.poisson2d(POISSON, dtype=np.float32), device=dev)
+    n, nd = d.n, d.ndiags
+    csr = _csr(d)
+    out, launches = {}, {}
+    name = f"poisson{POISSON}"
+
+    # K10: the padded-IO chain (a new buffer per call, halo blocks zeroed)
+    x = rnd(n)
+    xq0 = dia.dia_pad_io(d, x)
+    p = (xq0.shape[0] - d.n_pad) // 2
+    _reset(MULTI_COUNTERS)
+    yq = xq0
+    for _ in range(CHAIN):
+        yq = dia.spmv_dia_padded_io(d, yq, scale=0.2)
+    torch.cuda.synchronize()
+    launches["K10"] = dia.spmv_dia_padded_io.launches
+    want = xq0
+    for _ in range(CHAIN):
+        want = dia.spmv_dia_padded_io_ref(d, want, 0.2)
+    if launches["K10"] != CHAIN or yq[:p].any() or yq[p + d.n_pad:].any():
+        fail(f"K10 chain: {launches['K10']} launches, or a halo block not zero")
+    xin = xq0[p:p + n]
+
+    def make10(i):
+        di, xi = (d, xq0) if i == 0 else (_dia_copy(d), xq0.clone())
+        return lambda: dia.spmv_dia_padded_io(di, xi, scale=0.2)
+
+    def make_lib1(i):
+        ci, xi = (csr, xin) if i == 0 else (csr.clone(), xin.clone())
+        return lambda: ci @ xi
+
+    out["K10"] = _record(
+        "K10", f"{name}, P {p}, chain of {CHAIN} calls at scale 0.2 (halo blocks zero)",
+        [yq], [want], CHAIN, make10, lambda: dia.spmv_dia_padded_io_ref(d, xq0, 0.2),
+        4 * (nd * d.n_pad + n + xq0.shape[0]), (2 * nd + 1) * d.n_pad,
+        make_lib=make_lib1)
+
+    # K11: the ping-pong chain (two fixed buffers, swapped each call)
+    xq0 = dia.dia_pad_pp(d, x)
+    p = (xq0.shape[0] - d.n_pad) // 2
+    bufs = [xq0.clone(), torch.zeros_like(xq0)]
+    for _ in range(CHAIN):
+        dia.spmv_dia_pingpong(d, bufs[0], bufs[1], scale=0.2)
+        bufs.reverse()
+    torch.cuda.synchronize()
+    launches["K11"] = dia.spmv_dia_pingpong.launches
+    ref = [xq0.clone(), torch.zeros_like(xq0)]
+    for _ in range(CHAIN):
+        dia.spmv_dia_pingpong_ref(d, ref[0], ref[1], 0.2)
+        ref.reverse()
+    if launches["K11"] != CHAIN or any(b[:p].any() or b[p + d.n_pad:].any() for b in bufs):
+        fail(f"K11 chain: {launches['K11']} launches, or a halo block written")
+    yq0 = torch.zeros_like(xq0)
+
+    def make11(i):
+        di, xi, yi = (d, xq0, yq0) if i == 0 else (_dia_copy(d), xq0.clone(), yq0.clone())
+        return lambda: dia.spmv_dia_pingpong(di, xi, yi, scale=0.2)
+
+    out["K11"] = _record(
+        "K11", f"{name}, P {p}, chain of {CHAIN} calls at scale 0.2 (halo blocks never "
+        "written)", [bufs[0]], [ref[0]], CHAIN, make11,
+        lambda: dia.spmv_dia_pingpong_ref(d, xq0, yq0, 0.2),
+        4 * (nd * d.n_pad + 2 * n), (2 * nd + 1) * d.n_pad, make_lib=make_lib1)
+    del bufs, ref, want, yq
+
+    # K15: Y = A·X, X [n, 256] (1.07 GB)
+    X = rnd(n, SPMM_K)
+    y = dia.spmm_dia(d, X)
+    launches["K15"] = dia.spmm_dia.launches
+    want = dia.spmm_dia_ref(d, X)
+    lib = csr @ X
+    if not float((lib - want).abs().max()) <= _dia_tol(want, 1):
+        fail("the torch.sparse yardstick does not compute K15's function")
+    del lib
+
+    def make15(i):
+        di, xi = (d, X) if i == 0 else (_dia_copy(d), X.clone())
+        return lambda: dia.spmm_dia(di, xi)
+
+    def make_lib15(i):
+        ci, xi = (csr, X) if i == 0 else (csr.clone(), X.clone())
+        return lambda: ci @ xi
+
+    out["K15"] = _record(
+        "K15", f"{name}, X [{n}, {SPMM_K}]", [y], [want], 1, make15,
+        lambda: dia.spmm_dia_ref(d, X), 4 * (nd * d.n_pad + 2 * n * SPMM_K),
+        2 * nd * n * SPMM_K, make_lib=make_lib15, lib_name="torch.sparse CSR A@X", reps=5)
+    del X, y, want
+
+    def k16(dd, label, xtp, reps=20):
+        """K16 on the [K_pad, h + n_pad + h] buffer ``xtp``; the library
+        yardstick is CSR A@X on a contiguous [n, K_pad] copy of X."""
+        h, kp = dd.halo, xtp.shape[0]
+        yt = dia.spmm_dia_t_padded(dd, xtp)
+        want = dia.spmm_dia_t_padded_ref(dd, xtp)
+        mcsr = _csr(dd)
+        x_nk = xtp[:, h:h + n].t().contiguous()
+        if not float((mcsr @ x_nk - want[:, :n].t()).abs().max()) <= _dia_tol(want, 1):
+            fail("the torch.sparse yardstick does not compute K16's function")
+
+        def make(i):
+            di, xi = (dd, xtp) if i == 0 else (_dia_copy(dd), xtp.clone())
+            return lambda: dia.spmm_dia_t_padded(di, xi)
+
+        def make_lib(i):
+            ci, xi = (mcsr, x_nk) if i == 0 else (mcsr.clone(), x_nk.clone())
+            return lambda: ci @ xi
+
+        return _record(
+            "K16", f"{label}, {dd.ndiags} diagonals, Xt [{kp}, {h} + {dd.n_pad} + {h}]",
+            [yt], [want], 1, make, lambda: dia.spmm_dia_t_padded_ref(dd, xtp),
+            4 * (dd.ndiags * dd.n_pad + 2 * kp * dd.n_pad), 2 * dd.ndiags * dd.n_pad * kp,
+            make_lib=make_lib, lib_name="torch.sparse CSR A@X (X [n, K_pad] contiguous)",
+            reps=reps)
+
+    # K16 at cg_multi's shapes (its main path): A at K = 16 (dia_pad_xt's
+    # K_pad), and the one-diagonal Jacobi M on the same [K_pad, n_pad] rows
+    # padded as cg_multi's M apply pads them; then the wide K = 256 case
+    xtp = dia.dia_pad_xt(d, rnd(MULTI_K, n))
+    out["K16"] = k16(d, f"{name} (cg_multi's A)", xtp)
+    mj = _jacobi_m(d)
+    h = d.halo
+    out["K16 M"] = k16(mj, f"{name} Jacobi M (cg_multi's M)", torch.nn.functional.pad(
+        xtp[:, h:h + d.n_pad], (mj.halo, mj.halo)))
+    del xtp, mj
+    out["K16 K=256"] = k16(d, name, dia.dia_pad_xt(d, rnd(SPMM_K, n)), reps=5)
+
+    def k14(dd, label, n_rhs, k, tr, lib=False):
+        m = jacobi_iteration_matrix(dd)
+        xq = dia.dia_pad_pp_rhs(m, rnd(n_rhs, m.n), tr=tr)
+        cq = dia.dia_pad_pp_rhs(m, rnd(n_rhs, m.n), tr=tr)
+        zq = torch.zeros_like(xq)
+        got = dia.spmv_dia_power_rhs(m, None, xq, zq, k=k, add=cq)
+        want = dia.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), k=k, add=cq)
+        kb = min(n_rhs, dia._RHS_BLOCK)
+        rows = dia._tile_rows(lambda t: 2 * kb * (t + 2 * k * m.reach) + m.ndiags) \
+            if k > 1 else 0
+        mode = (f"tiled ({rows} rows x {kb} right-hand sides per block)" if rows
+                else "one batched pass" if k == 1 else f"streamed ({k} launches)")
+
+        def make(i):
+            if i == 0:
+                return lambda: dia.spmv_dia_power_rhs(m, None, xq, zq, k=k, add=cq)
+            mi, xi, zi, ci = _dia_copy(m), xq.clone(), zq.clone(), cq.clone()
+            return lambda: dia.spmv_dia_power_rhs(mi, None, xi, zi, k=k, add=ci)
+
+        make_lib = None
+        if lib:                      # k = 1: C + M·X in one call (addmm)
+            mcsr, q = _csr(m), (xq.shape[1] - m.n_pad) // 2
+            x_nk = xq[:, q:q + m.n].t().contiguous()
+            c_nk = cq[:, q:q + m.n].t().contiguous()
+            if not float((torch.addmm(c_nk, mcsr, x_nk).t()
+                          - want[:, q:q + m.n]).abs().max()) <= _dia_tol(want, 1):
+                fail("the addmm yardstick does not compute K14's function at k = 1")
+
+            def make_lib(i):
+                ci, xi, bi = (mcsr, x_nk, c_nk) if i == 0 else \
+                    (mcsr.clone(), x_nk.clone(), c_nk.clone())
+                return lambda: torch.addmm(bi, ci, xi)
+
+        return _record(
+            "K14", f"{label} Jacobi M, {n_rhs} right-hand sides, k = {k}, P = {tr}, "
+            f"affine, {mode}", [got], [want], k, make,
+            lambda: dia.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), k=k, add=cq),
+            4 * (m.ndiags * m.n_pad + 3 * n_rhs * m.n_pad),
+            k * n_rhs * (2 * m.ndiags + 2) * m.n_pad, make_lib=make_lib,
+            lib_name="torch.addmm(C, CSR M, X)")
+
+    m = jacobi_iteration_matrix(d)
+    k, trk = _multirhs_config(m, 8, 100, MULTI_K)
+    if k != 1:
+        fail(f"jacobi_multirhs on {name} with {MULTI_K} right-hand sides should fuse "
+             f"k = 1, not {k}")
+    out["K14"] = k14(d, name, MULTI_K, 1, trk or dia.dia_pp_tile(m) or m.halo, lib=True)
+    del m
+    d512 = dia.coo_to_dia(gallery.poisson2d(POISSON // 2, dtype=np.float32), device=dev)
+    k, trk = _multirhs_config(jacobi_iteration_matrix(d512), 8, 16, 2)
+    if k != 8:
+        fail(f"jacobi_multirhs on poisson{POISSON // 2} with 2 right-hand sides should "
+             f"fuse k = 8, not {k}")
+    out["K14 k=8"] = k14(d512, f"poisson{POISSON // 2}", 2, 8, trk)
+    with _streamed():
+        out["K14 k=8 streamed"] = k14(d512, f"poisson{POISSON // 2}", 2, 8, trk)
+    # the table's other fused case: poisson128 with 16 right-hand sides, a
+    # small grid where one launch may beat eight
+    d128 = dia.coo_to_dia(gallery.poisson2d(POISSON // 8, dtype=np.float32), device=dev)
+    k, trk = _multirhs_config(jacobi_iteration_matrix(d128), 8, 16, MULTI_K)
+    if k != 8:
+        fail(f"jacobi_multirhs on poisson{POISSON // 8} with {MULTI_K} right-hand sides "
+             f"should fuse k = 8, not {k}")
+    out["K14 k=8 small"] = k14(d128, f"poisson{POISSON // 8}", MULTI_K, 8, trk)
+    with _streamed():
+        out["K14 k=8 small streamed"] = k14(d128, f"poisson{POISSON // 8}", MULTI_K, 8,
+                                             trk)
+    return out, launches
+
+
+def _crossing(hist, bnorm, rtol):
+    """The first iteration whose residual is ≤ rtol·‖b‖ (None if none)."""
+    hit = np.nonzero(hist <= rtol * bnorm)[0]
+    return int(hit[0]) + 1 if len(hit) else None
+
+
+def phase_multirhs(dev):
+    """poisson1024 with 16 seeded right-hand sides, rtol 1e-5: ``cg_multi``
+    (K16) plain and with a one-diagonal Jacobi M, each column against the
+    port's single-RHS ``cg``; ``jacobi_multirhs`` (100 sweeps, k = 1: K14)
+    against 16 single ``jacobi`` runs at the same k."""
+    from gflownet_spai_tpu_torch.solvers import cg, cg_multi, jacobi, jacobi_multirhs
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    d = dia.coo_to_dia(gallery.poisson2d(POISSON, dtype=np.float32), device=dev)
+    n = d.n
+    B = torch.randn((MULTI_K, n), generator=torch.Generator(device=dev).manual_seed(77),
+                    device=dev)
+    bnorm = torch.linalg.vector_norm(B, dim=1).cpu().numpy()
+    M = _jacobi_m(d)
+    _reset(MULTI_COUNTERS)
+    total = {}
+    for label, m in (("cg_multi", None), ("cg_multi, Jacobi M", M)):
+        before = _counts(MULTI_COUNTERS)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cg_multi(d, B, m=m, maxiter=CG_MAXITER, rtol=1e-5)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: v - before[k] for k, v in _counts(MULTI_COUNTERS).items() if v - before[k]}
+        its = res.iterations.cpu().numpy()
+        hist = res.residuals.cpu().numpy()
+        if not bool(res.converged.all()):
+            fail(f"[multirhs] {label}: not every system converged ({its})")
+        t0 = time.perf_counter()
+        singles = [cg(d, B[i], m_op=m, maxiter=CG_MAXITER, rtol=1e-5) for i in range(MULTI_K)]
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        bad = []
+        for i, sres in enumerate(singles):
+            shist = sres.residuals.cpu().numpy()
+            for t in (1e-1, 1e-2):
+                if _crossing(hist[:, i], bnorm[i], t) != _crossing(shist, bnorm[i], t):
+                    bad.append((i, t, _crossing(hist[:, i], bnorm[i], t),
+                                _crossing(shist, bnorm[i], t)))
+            if abs(int(its[i]) - sres.iterations) > MULTI_ITER_TOL * sres.iterations:
+                bad.append((i, 1e-5, int(its[i]), sres.iterations))
+        print(f"[multirhs] {label}: {MULTI_K} systems of poisson{POISSON}, iterations "
+              f"{its.min()}-{its.max()} (single cg {min(s.iterations for s in singles)}-"
+              f"{max(s.iterations for s in singles)}); wall cold {walls[0]:.3f} s, steady "
+              f"{walls[1]:.3f} s per solve of all {MULTI_K} ({1e3 * walls[1] / its.max():.4f} "
+              f"ms/iteration), single cg {single_s:.3f} s for the {MULTI_K} columns; "
+              f"launches per solve {launches}", flush=True)
+        if bad:
+            fail(f"[multirhs] {label} vs single cg (system, rtol, multi, single): {bad}")
+        total[label] = launches
+    before = _counts(MULTI_COUNTERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jm = jacobi_multirhs(d, B, iters=100)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in _counts(MULTI_COUNTERS).items() if v - before[k]}
+    t0 = time.perf_counter()
+    singles = [jacobi(d, B[i], iters=100, fuse_k=1) for i in range(MULTI_K)]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    got = jm.residual.cpu().numpy()
+    want = np.array([float(s.residual) for s in singles])
+    rel = float(np.max(np.abs(got - want) / want))
+    print(f"[multirhs] jacobi_multirhs: {MULTI_K} systems, {jm.iterations} sweeps (k = "
+          f"1): {1e3 * wall:.3f} ms ({1e3 * wall / jm.iterations:.4f} ms/sweep for all "
+          f"{MULTI_K}), {MULTI_K} single jacobi {1e3 * single_s:.3f} ms; residuals vs the "
+          f"single runs: max relative difference {rel:.3e}; launches {launches}", flush=True)
+    if jm.iterations != 100 or singles[0].iterations != 100 or launches.get("K14") != 100 \
+            or not rel <= 1e-4:
+        fail(f"[multirhs] jacobi_multirhs: {jm.iterations} sweeps, launches {launches}, "
+             f"residuals off by {rel:.3e}")
+    total["jacobi_multirhs"] = launches
+    return total
+
+
+VCYCLE_ROWS = (("none", None),
+               ("vcycle(levels=6)", dict(levels=6, pre=2, post=2, coarse_sweeps=16)),
+               ("vcycle-cheb(levels=3)", dict(levels=3, smoother="chebyshev")),
+               ("wcycle-cheb(levels=3)", dict(levels=3, smoother="chebyshev", gamma=2)))
+
+
+def phase_vcycle(dev):
+    """poisson1024 CG (b = ones, rtol 1e-5) with the V-cycle rows of
+    ``examples/chebyshev_cg.py:59-70``, each held against the same operator
+    in float64 on the CPU (its CG to rtol 1e-2: the first iteration at rtol
+    1e-1 and 1e-2 within ``CG_ITER_TOL``); BiCGStab on orsirr_like150
+    against scipy's iteration count."""
+    import inspect
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from gflownet_spai_tpu_torch.solvers import bicgstab, cg, vcycle_op
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    a = gallery.poisson2d(POISSON, dtype=np.float32)
+    d = dia.coo_to_dia(a, device=dev)
+    d64 = dia.coo_to_dia(gallery.poisson2d(POISSON), device="cpu")
+    n = d.n
+    b = torch.ones(n, device=dev)
+    _reset()
+    report = {}
+    for name, kw in VCYCLE_ROWS:
+        t0 = time.perf_counter()
+        op = vcycle_op(d, **kw) if kw else None
+        setup_s = time.perf_counter() - t0
+        before = _counts()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = cg(d, b, m_op=op, maxiter=CG_MAXITER, rtol=1e-5)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: (v - before[k]) // 2 for k, v in _counts().items()}
+        true_res = float(torch.linalg.vector_norm(b - dia.spmv_dia(d, res.x))
+                         / torch.linalg.vector_norm(b))
+        got_x = {t: _crossing(res.residuals.cpu().numpy(), np.sqrt(n), t)
+                 for t in CG_LADDER}
+        note = f"set-up {setup_s:.2f} s" + (f", k per level {op.info['k']}" if op else "")
+        if kw:
+            t0 = time.perf_counter()
+            ref = cg(d64, torch.ones(n, dtype=torch.float64), m_op=vcycle_op(d64, **kw),
+                     maxiter=CG_MAXITER, rtol=1e-2)
+            ref_x = {t: _crossing(ref.residuals.numpy(), np.sqrt(n), t) for t in (1e-1, 1e-2)}
+            note += (f"; float64 CPU reference {time.perf_counter() - t0:.1f} s: first "
+                     f"iteration at rtol 1e-1 {got_x[1e-1]} vs {ref_x[1e-1]}, 1e-2 "
+                     f"{got_x[1e-2]} vs {ref_x[1e-2]}")
+            bad = [t for t in (1e-1, 1e-2) if got_x[t] is None or ref_x[t] is None
+                   or abs(got_x[t] - ref_x[t]) > max(2, CG_ITER_TOL * ref_x[t])]
+        else:
+            bad = []
+        rec = dict(iterations=res.iterations, cold_s=walls[0], steady_s=walls[1],
+                   true_residual=true_res, launches=launches, note=note)
+        _row_print("vcycle", name, rec)
+        if not res.converged or bad:
+            fail(f"[vcycle] {name}: converged {res.converged}; float32 vs float64 "
+                 f"iterations at rtol {bad} differ by more than {CG_ITER_TOL:.0%}")
+        report[name] = rec
+    total = _counts()
+    if total["K8"] == 0 or total["K12"] + total["K13"] == 0:
+        fail(f"[vcycle] the V-cycles did not run K8 and the fused kernels: {total}")
+
+    ors = gallery.get(MATRIX)
+    A = sp.csr_matrix((ors.data, (ors.row, ors.col)), shape=ors.shape)
+    count = [0]
+    tol_kw = "rtol" if "rtol" in inspect.signature(spla.bicgstab).parameters else "tol"
+    _, info = spla.bicgstab(A, np.ones(ors.shape[0]), maxiter=CG_MAXITER,
+                            callback=lambda _: count.__setitem__(0, count[0] + 1),
+                            **{tol_kw: 1e-5})
+    bnorm = float(np.sqrt(ors.shape[0]))
+
+    def run(label, a_dev, dtype):
+        bb = torch.ones(ors.shape[0], dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bicgstab(a_dev, bb, maxiter=CG_MAXITER, rtol=1e-5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # stopped on its recursive residual, not on a breakdown
+        reached = bool(res.residuals[res.iterations - 1] <= 1e-5 * bnorm)
+        print(f"[vcycle] bicgstab {MATRIX} ({label}, b = ones, rtol 1e-5): "
+              f"{res.iterations} iterations (scipy float64: {count[0]}, info {info}), "
+              f"recursive residual reached rtol {reached}, true residual reached "
+              f"{res.converged}, {wall:.3f} s ({1e3 * wall / max(res.iterations, 1):.4f} "
+              f"ms/iteration)", flush=True)
+        return res.iterations, reached
+
+    def off(its, tol):
+        return abs(its - count[0]) > tol * count[0]
+
+    its, _ = run("float64, COO", ors.to(dev), torch.float64)
+    if off(its, BICGSTAB_ITER_TOL):
+        fail(f"[vcycle] float64 bicgstab {its} iterations vs scipy's {count[0]}")
+    # float32: the count depends on the SpMV's summation order.  The DIA
+    # SpMV (K8, one thread per row, a fixed order) runs the same every time
+    # and is held; the COO SpMV's index_add_ adds in a run-dependent order,
+    # shown over seeded orders of its entries
+    a32 = ors.with_data(ors.data.astype(np.float32))
+    its, reached = run("float32, DIA (K8)", dia.coo_to_dia(a32, device=dev), torch.float32)
+    if not reached or off(its, BICGSTAB32_ITER_TOL):
+        fail(f"[vcycle] float32 bicgstab on the DIA SpMV: {its} iterations vs scipy's "
+             f"{count[0]} (bound {BICGSTAB32_ITER_TOL:.0%}), reached rtol {reached}")
+    rng = np.random.default_rng(5)
+    spread = []
+    for i in range(BICGSTAB32_ORDERS):
+        p = np.arange(a32.nnz) if i == 0 else rng.permutation(a32.nnz)
+        spread.append(run(f"float32, COO, entry order {i}",
+                          type(a32)(row=a32.row[p], col=a32.col[p], data=a32.data[p],
+                                    shape=a32.shape).to(dev), torch.float32))
+    print(f"[vcycle] float32 bicgstab over {BICGSTAB32_ORDERS} COO entry orders "
+          f"(iterations, reached rtol): {spread}", flush=True)
+    print(f"[vcycle] kernel launches over the rows (two solves each, plus set-up): "
+          f"{total}", flush=True)
     return report, total
 
 
@@ -1156,11 +1636,15 @@ def phase_validate_cli():
             fail(f"the validate CLI exited {proc.returncode}: "
                  f"{(proc.stdout + proc.stderr)[-2000:]}")
         report = json.loads(path.read_text())
-    rows = ("none", "ilu", "sampled_spai", "classic_spai", "jacobi_poly", "chebyshev")
+    rows = ("none", "ilu", "sampled_spai", "classic_spai", "jacobi_poly", "chebyshev",
+            "vcycle")
     for row in rows:
         if row not in report or report[row]["iterations"] < 1 \
                 or not np.isfinite(report[row]["true_residual"]):
             fail(f"validation.json lacks a finite row {row}: {report.get(row)}")
+    vc = report["vcycle"]
+    if not (vc["iterations"] < 500 and vc["true_residual"] <= 100 * 1e-5):
+        fail(f"the CLI's vcycle row did not converge: {vc}")
     verdict = [ln for ln in proc.stdout.splitlines() if ln.startswith("sampled SPAI")]
     print(f"[validate-cli] python -m gflownet_spai_tpu_torch.validate "
           f"{' '.join(CLI_ARGS)}: exit {proc.returncode} in {secs:.1f} s (process "
@@ -1205,6 +1689,9 @@ def main() -> int:
         timed("restore", phase_restore, run_dir)
         _, val_launches = timed("validate", phase_validate, run_dir, dev)
     _, pois_launches = timed("poisson", phase_poisson, dev)
+    dm, chain_launches = timed("dia-multi", phase_dia_multi, dev)
+    multi_launches = timed("multirhs", phase_multirhs, dev)
+    _, vc_launches = timed("vcycle", phase_vcycle, dev)
     timed("validate-cli", phase_validate_cli)
     bwd_ms = k2["ms"] + k4["ms"]
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
@@ -1232,10 +1719,30 @@ def main() -> int:
         errs = [v["err"] for key, v in dk.items() if key.split()[0] == k]
         kernels.append({"name": nm, "route": "cuda", "source": src + "dia.cu",
                         "replaces": "gflownet_spai_tpu/ops/" + rep,
-                        "launches": val_launches[k] + pois_launches[k],
+                        "launches": val_launches[k] + pois_launches[k] + vc_launches[k],
                         "max_abs_err": max(errs), "ms": d["ms"], "plain_ms": d["plain"],
                         "bound_ms": d["bound"][0], "bound_by": d["bound"][1],
                         "library_ms": d["lib"]})
+    # K10, K11 and K15: the [dia-multi] calls that use them (the chains, one
+    # SpMM); K14 and K16: the [multirhs] solvers
+    path_launches = {"K10": chain_launches["K10"], "K11": chain_launches["K11"],
+                     "K15": chain_launches["K15"],
+                     "K14": sum(v.get("K14", 0) for v in multi_launches.values()),
+                     "K16": sum(v.get("K16", 0) for v in multi_launches.values())}
+    if min(path_launches.values()) == 0:
+        fail(f"a kernel of the solver library did not launch on its path: {path_launches}")
+    for nm, k, file, rep in (("spmv_dia_padded_io (K10)", "K10", "dia.cu", "dia.py:856"),
+                             ("spmv_dia_pingpong (K11)", "K11", "dia.cu", "dia.py:1091"),
+                             ("spmv_dia_power_rhs (K14)", "K14", "dia.cu", "dia.py:1889"),
+                             ("spmm_dia (K15)", "K15", "dia_spmm.cu", "dia.py:499"),
+                             ("spmm_dia_t_padded (K16)", "K16", "dia_spmm.cu", "dia.py:651")):
+        d = dm[k]
+        errs = [v["err"] for key, v in dm.items() if key.split()[0] == k]
+        kernels.append({"name": nm, "route": "cuda", "source": src + file,
+                        "replaces": "gflownet_spai_tpu/ops/" + rep,
+                        "launches": path_launches[k], "max_abs_err": max(errs),
+                        "ms": d["ms"], "plain_ms": d["plain"], "bound_ms": d["bound"][0],
+                        "bound_by": d["bound"][1], "library_ms": d["lib"]})
     n_b = len(graph.gat_buckets)
     print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps (the sampling "
           f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
@@ -1245,13 +1752,21 @@ def main() -> int:
           f"phase {val_launches} plus the poisson phase {pois_launches}; their ms "
           f"are one call at poisson1024 (K8: y = A.x; K12: k = 8 affine, the "
           f"Jacobi-16 row's call; K13: k = 2), max_abs_err the largest over the "
-          f"dia phase's cases. ms and library_ms are CUDA-graph replays (device "
-          f"time; K8, K12 and K13 and K8's torch.sparse CSR cycle through input "
+          f"dia phase's cases (launches also count the vcycle phase {vc_launches}). "
+          f"K10, K11 and K15 launches count their [dia-multi] path calls, K14 and "
+          f"K16 the multirhs phase {multi_launches}; their ms are one call at "
+          f"poisson1024 (K10, K11 scale 0.2; K14 16 right-hand sides, k = 1, "
+          f"affine; K15 256 right-hand sides; K16 cg_multi's A at its K_pad "
+          f"for 16), max_abs_err the largest over the dia-multi cases. ms and "
+          f"library_ms are CUDA-graph replays (device "
+          f"time; the DIA kernels and their library calls cycle through input "
           f"copies larger than L2); plain_ms are eager calls. Eager calls of the "
           f"kernels' wrappers: K1 "
           f"{k1['eager']:.5f} ms, K2 {k2['eager']:.5f} ms, K3 {k3['eager']:.5f} "
           f"ms, K4 {k4['eager']:.5f} ms, K8 {dk['K8']['eager']:.5f} ms, K12 "
-          f"{dk['K12']['eager']:.5f} ms, K13 {dk['K13']['eager']:.5f} ms; training "
+          f"{dk['K12']['eager']:.5f} ms, K13 {dk['K13']['eager']:.5f} ms, "
+          + ", ".join(f"{k} {dm[k]['eager']:.5f} ms" for k in MULTI_COUNTERS)
+          + "; training "
           f"peak memory {peak / 2**20:.1f} MiB; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,11 @@
-// DIA (diagonal-format) sparse kernels of the validation path:
+// DIA (diagonal-format) SpMV kernels of the validation path and the solvers:
 //
-//   K8   dia_spmv   y = A.x                      (one pass over the diagonals)
-//   K12  dia_power  z = (scale.A)^k.x, or k affine passes cur <- scale.A.cur + c
-//   K13  dia_cheby  k Chebyshev steps  dd <- a_p.dd + b_p.(r - A.z);  z <- z + dd
+//   K8   dia_spmv       y = A.x                  (one pass over the diagonals)
+//   K10  dia_spmv_pp    y = scale.A.x in x's padded layout, halo blocks zeroed
+//   K11  dia_spmv_pp    y = scale.A.x into the interior of a second buffer
+//   K12  dia_power      z = (scale.A)^k.x, or k affine passes cur <- scale.A.cur + c
+//   K13  dia_cheby      k Chebyshev steps  dd <- a_p.dd + b_p.(r - A.z);  z <- z + dd
+//   K14  dia_power_rhs  K12 on K right-hand sides at once
 //
 // Storage is row-scaled: data[s, i] = A[i, i + offs[s]], [ndiags, n_pad]
 // row-major.  x is read as zero outside the range the caller gives.
@@ -43,14 +46,33 @@
 // them on an H100: bytes of the diagonals, once per k passes when tiled
 // (while the redundant overlap rows stay small against tr; at the slice's
 // shapes the overlap re-reads hit L2), k times when streamed.
+//
+// K10 and K11 (dia_spmv_pp) replace `_spmv_pallas_io` / `_spmv_pallas_io_stream`
+// (y in x's padded layout, halo blocks zeroed) and `_spmv_pallas_pp` /
+// `_spmv_pallas_pp_stream` (y into the interior of a second buffer, whose
+// halo blocks are never written).  Each TPU pair differs only in whether x
+// fits VMEM; here both are K8's one-thread-per-row SpMV with `scale`,
+// writing at the pad offset P.  K10's threads that fall on the halo blocks
+// write their zeros in the same launch.  Bound by bytes, as K8.
+//
+// K14 (dia_power_rhs) replaces `_spmv_pallas_power_rhs`: K12 on K
+// right-hand sides, [K, P + n_pad + P] row-major buffers.  Each thread owns
+// one row and keeps up to kRhs sums in registers, so a diagonal word read
+// once serves every right-hand side of its block: the diagonals' traffic
+// drops by that factor, which is what the TPU kernel is for.  Modes as K12:
+// tiled (one block per row tile and block of kb <= kRhs right-hand sides,
+// their kb windows in shared memory across the k passes) or streamed (k
+// launches of the batched one-pass kernel through a [K, n_pad] scratch
+// buffer); k = 1 is one batched pass.  Bound by bytes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;      // K8
-constexpr int kTileThreads = 512;  // K12, K13
+constexpr int kThreads = 256;      // K8, K10, K11, K14's one-pass kernel
+constexpr int kTileThreads = 512;  // K12, K13, K14 tiled
 constexpr int kMaxPasses = 32;
+constexpr int kRhs = 8;            // K14: right-hand sides per block
 
 struct Coeffs {
   float a[kMaxPasses];
@@ -76,6 +98,67 @@ dia_spmv_kernel(const float* __restrict__ data, long long ld,
   float v = acc * scale;
   if (c != nullptr) v += c[i];
   y[i] = v;
+}
+
+// K10 and K11: thread t owns buffer row i = t - pad.  Rows in [0, rows) get
+// scale.sum_s data[s, i].x[i + offs[s]]; with pad = P (K10) the rows of the
+// two halo blocks [-P, 0) and [rows, rows + P) get zeros.
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_pp_kernel(const float* __restrict__ data, long long ld,
+                   const int* __restrict__ offs, int ndiags,
+                   const float* __restrict__ x, long long x_lo, long long x_hi,
+                   float scale, float* __restrict__ y, long long rows, long long pad) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x - pad;
+  if (i >= rows + pad) return;
+  if (i < 0 || i >= rows) {
+    y[i] = 0.f;
+    return;
+  }
+  float acc = 0.f;
+  for (int s = 0; s < ndiags; ++s) {
+    const long long j = i + offs[s];
+    const float xv = (j >= x_lo && j < x_hi) ? x[j] : 0.f;
+    acc += data[s * ld + i] * xv;
+  }
+  y[i] = acc * scale;
+}
+
+// One pass of K14 over rows [0, n_pad) of K right-hand sides: for each r,
+// y_r[i] = scale.sum_s data[s, i].x_r[i + offs[s]] (+ c_r[i]), x_r = x + r.ldx
+// read for x_lo <= j < x_hi.  Block b covers kThreads rows and right-hand
+// sides [kRhs.(b % rhs_blocks), +kRhs): consecutive blocks share their rows,
+// so the diagonal words they re-read come from L2.
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_rhs_kernel(const float* __restrict__ data, long long n_pad,
+                    const int* __restrict__ offs, int ndiags,
+                    const float* __restrict__ x, long long ldx, long long x_lo,
+                    long long x_hi, const float* __restrict__ c, long long ldc,
+                    float scale, float* __restrict__ y, long long ldy, int n_rhs,
+                    unsigned rhs_blocks) {
+  const long long i = (blockIdx.x / rhs_blocks) * static_cast<long long>(kThreads)
+                      + threadIdx.x;
+  if (i >= n_pad) return;
+  const int r0 = static_cast<int>(blockIdx.x % rhs_blocks) * kRhs;
+  const int nr = min(kRhs, n_rhs - r0);
+  float acc[kRhs];
+#pragma unroll
+  for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
+  for (int s = 0; s < ndiags; ++s) {
+    const long long j = i + offs[s];
+    if (j < x_lo || j >= x_hi) continue;   // adds 0.f: the sums are unchanged
+    const float dv = data[s * n_pad + i];
+#pragma unroll
+    for (int r = 0; r < kRhs; ++r)
+      if (r < nr) acc[r] += dv * x[(r0 + r) * ldx + j];
+  }
+#pragma unroll
+  for (int r = 0; r < kRhs; ++r) {
+    if (r < nr) {
+      float v = acc[r] * scale;
+      if (c != nullptr) v += c[(r0 + r) * ldc + i];
+      y[(r0 + r) * ldy + i] = v;
+    }
+  }
 }
 
 // One pass of K13's streamed mode over rows [0, n_pad): t = A.z,
@@ -144,6 +227,75 @@ dia_power_kernel(const float* __restrict__ data, long long n_pad,
   for (int i = threadIdx.x; i < tr; i += blockDim.x) {
     const long long row = t0 + i;
     if (row < n_pad) zq[P + row] = cur[k * reach + i];
+  }
+}
+
+// K14 tiled: block (blockIdx.x, blockIdx.y) owns rows [t0, t0 + tr) of
+// right-hand sides [kb.blockIdx.y, +kb).  smem: cur[kb][W], nxt[kb][W],
+// offs[ndiags] with W = tr + 2.k.R, window index i holding row t0 - k.R + i;
+// buffers are [n_rhs][ld], ld = P + n_pad + P.
+template <bool kAffine>
+__global__ void __launch_bounds__(kTileThreads)
+dia_power_rhs_kernel(const float* __restrict__ data, long long n_pad,
+                     const int* __restrict__ offs, int ndiags, int reach,
+                     const float* __restrict__ xq, const float* __restrict__ cq,
+                     float* __restrict__ zq, long long P, int n_rhs, int k,
+                     float scale, int tr, int kb) {
+  extern __shared__ float smem[];
+  const int W = tr + 2 * k * reach;
+  const long long ld = n_pad + 2 * P;
+  const int r0 = blockIdx.y * kb;
+  const int nr = min(kb, n_rhs - r0);
+  float* cur = smem;
+  float* nxt = smem + static_cast<long long>(kb) * W;
+  int* offs_s = reinterpret_cast<int*>(smem + 2LL * kb * W);
+  const long long t0 = static_cast<long long>(blockIdx.x) * tr;
+  const long long base = t0 - static_cast<long long>(k) * reach;
+  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
+  for (int e = threadIdx.x; e < nr * W; e += blockDim.x) {
+    const int r = e / W, i = e % W;
+    const long long row = base + i;
+    cur[e] = (row >= -P && row < n_pad + P) ? xq[(r0 + r) * ld + P + row] : 0.f;
+  }
+  __syncthreads();
+  for (int p = 1; p <= k; ++p) {
+    const int hi = W - p * reach;
+    for (int i = p * reach + threadIdx.x; i < hi; i += blockDim.x) {
+      const long long row = base + i;
+      float acc[kRhs];
+#pragma unroll
+      for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
+      const bool inside = row >= 0 && row < n_pad;
+      if (inside) {
+        for (int s = 0; s < ndiags; ++s) {
+          const float dv = data[s * n_pad + row];
+          const int j = i + offs_s[s];
+#pragma unroll
+          for (int r = 0; r < kRhs; ++r)
+            if (r < nr) acc[r] += dv * cur[r * W + j];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRhs; ++r) {
+        if (r < nr) {
+          float v = 0.f;
+          if (inside) {
+            v = acc[r] * scale;
+            if (kAffine) v += cq[(r0 + r) * ld + P + row];
+          }
+          nxt[r * W + i] = v;
+        }
+      }
+    }
+    __syncthreads();
+    float* const done = cur;
+    cur = nxt;
+    nxt = done;
+  }
+  for (int e = threadIdx.x; e < nr * tr; e += blockDim.x) {
+    const int r = e / tr, i = e % tr;
+    const long long row = t0 + i;
+    if (row < n_pad) zq[(r0 + r) * ld + P + row] = cur[r * W + k * reach + i];
   }
 }
 
@@ -218,6 +370,7 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, size_t* granted) {
 }
 
 size_t g_power_smem[2] = {0, 0};
+size_t g_power_rhs_smem[2] = {0, 0};
 size_t g_cheby_smem = 0;
 
 unsigned row_blocks(long long rows) {
@@ -328,5 +481,74 @@ extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
   dia_cheby_kernel<<<blocks, kTileThreads, smem, st>>>(
       dat, n_pad, off, ndiags, reach, z, static_cast<const float*>(ddq), r, zo, ddo, P,
       k, cf, tr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10 (zero_halo != 0) and K11.  xq and yq are [P + n_pad + P] buffers.
+// K11 writes yq's interior [P, P + n_pad) only; K10 writes all of yq, the
+// halo blocks as zeros.
+extern "C" int dia_spmv_pp(const void* data, long long n_pad, const void* offs,
+                           int ndiags, const void* xq, void* yq, long long P,
+                           float scale, int zero_halo, void* stream) {
+  const long long pad = zero_halo ? P : 0;
+  dia_spmv_pp_kernel<<<row_blocks(n_pad + 2 * pad), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(data), n_pad, static_cast<const int*>(offs), ndiags,
+      static_cast<const float*>(xq) + P, -P, n_pad + P, scale,
+      static_cast<float*>(yq) + P, n_pad, pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14.  xq, cq (nullable) and zq are [n_rhs][P + n_pad + P] buffers; only
+// zq's interiors are written.  k == 1 or tr == 0: k batched passes, through
+// `tmp` ([n_rhs][n_pad] floats; unused when k == 1); else tiled, `tr` rows
+// and `kb` (<= kRhs) right-hand sides per block.
+extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs,
+                             int ndiags, int reach, const void* xq, const void* cq,
+                             void* zq, long long P, int n_rhs, int k, float scale,
+                             int tr, int kb, void* tmp, void* stream) {
+  if (n_rhs < 1 || k < 1 || kb < 1 || kb > kRhs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* dat = static_cast<const float*>(data);
+  const int* off = static_cast<const int*>(offs);
+  const float* x = static_cast<const float*>(xq);
+  const float* c = static_cast<const float*>(cq);
+  float* z = static_cast<float*>(zq);
+  const long long ld = n_pad + 2 * P;
+  if (tr == 0 || k == 1) {
+    const unsigned rhs_blocks = static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs);
+    const float* src = x + P;
+    long long ld_src = ld;
+    for (int p = 1; p <= k; ++p) {
+      const bool last = (k - p) % 2 == 0;
+      float* dst = last ? z + P : static_cast<float*>(tmp);
+      const long long ld_dst = last ? ld : n_pad;
+      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+      dia_spmv_rhs_kernel<<<row_blocks(n_pad) * rhs_blocks, kThreads, 0, st>>>(
+          dat, n_pad, off, ndiags, src, ld_src, lo, hi, c == nullptr ? nullptr : c + P,
+          ld, scale, dst, ld_dst, n_rhs, rhs_blocks);
+      src = dst;
+      ld_src = ld_dst;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = sizeof(float) * 2 * static_cast<size_t>(kb)
+                          * (tr + 2 * static_cast<size_t>(k) * reach)
+                      + sizeof(int) * ndiags;
+  const dim3 grid(static_cast<unsigned>((n_pad + tr - 1) / tr),
+                  static_cast<unsigned>((n_rhs + kb - 1) / kb));
+  cudaError_t err;
+  if (c != nullptr) {
+    err = opt_in_smem(dia_power_rhs_kernel<true>, smem, &g_power_rhs_smem[1]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dia_power_rhs_kernel<true><<<grid, kTileThreads, smem, st>>>(
+        dat, n_pad, off, ndiags, reach, x, c, z, P, n_rhs, k, scale, tr, kb);
+  } else {
+    err = opt_in_smem(dia_power_rhs_kernel<false>, smem, &g_power_rhs_smem[0]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dia_power_rhs_kernel<false><<<grid, kTileThreads, smem, st>>>(
+        dat, n_pad, off, ndiags, reach, x, nullptr, z, P, n_rhs, k, scale, tr, kb);
+  }
   return static_cast<int>(cudaGetLastError());
 }

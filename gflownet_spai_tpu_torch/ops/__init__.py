@@ -1,12 +1,18 @@
 """Tile layouts and the CUDA kernels of the sampling, training and
-validation paths: the fused GATv2 tile forward and backward (K1, K2,
-``gat_fused``), the windowed row gather and scatter-add (K3, K4,
-``segment``) and the DIA SpMV, fused k-step SpMV and fused Chebyshev
-steps (K8, K12, K13, ``dia``); plus the band statistics and the scans
-with analytic adjoints."""
+validation paths and of the solver library: the fused GATv2 tile forward
+and backward (K1, K2, ``gat_fused``), the windowed row gather and
+scatter-add (K3, K4, ``segment``) and the DIA family (``dia``): SpMV (K8),
+padded-IO and ping-pong SpMV (K10, K11), fused k-step SpMV on one or K
+right-hand sides (K12, K14), fused Chebyshev steps (K13) and the SpMMs
+(K15, K16); plus the band statistics and the scans with analytic
+adjoints."""
 
-from .dia import (DIA, coo_to_dia, dia_to_coo, dia_transpose, spmv_dia,
-                  spmv_dia_cheby, spmv_dia_padded, spmv_dia_power)
+from .dia import (DIA, coo_to_dia, dia_pad_io, dia_pad_pp, dia_pad_pp_rhs, dia_pad_x,
+                  dia_pad_xt, dia_power_data, dia_power_ok, dia_power_tile,
+                  dia_pp_tile, dia_to_coo, dia_transpose, spmm_dia, spmm_dia_t,
+                  spmm_dia_t_padded, spmv_dia, spmv_dia_cheby, spmv_dia_padded,
+                  spmv_dia_padded_io, spmv_dia_pingpong, spmv_dia_power,
+                  spmv_dia_power_rhs, spmv_dia_ref)
 from .gat_fused import (gat_tile_fused, gat_tile_fused_bwd,
                         gat_tile_fused_bwd_ref, gat_tile_fused_ref)
 from .rcm import bandwidth, n_diagonals
@@ -17,8 +23,11 @@ from .segment import (SegBuckets, SegTiles, SrcWindows, build_seg_buckets,
                       scatter_rows_windows_ref, to_tiles)
 
 __all__ = [
-    "DIA", "coo_to_dia", "dia_to_coo", "dia_transpose", "spmv_dia",
-    "spmv_dia_cheby", "spmv_dia_padded", "spmv_dia_power",
+    "DIA", "coo_to_dia", "dia_pad_io", "dia_pad_pp", "dia_pad_pp_rhs", "dia_pad_x",
+    "dia_pad_xt", "dia_power_data", "dia_power_ok", "dia_power_tile", "dia_pp_tile",
+    "dia_to_coo", "dia_transpose", "spmm_dia", "spmm_dia_t", "spmm_dia_t_padded",
+    "spmv_dia", "spmv_dia_cheby", "spmv_dia_padded", "spmv_dia_padded_io",
+    "spmv_dia_pingpong", "spmv_dia_power", "spmv_dia_power_rhs", "spmv_dia_ref",
     "gat_tile_fused", "gat_tile_fused_bwd", "gat_tile_fused_bwd_ref",
     "gat_tile_fused_ref", "bandwidth", "n_diagonals", "linear_scan",
     "suffix_logsumexp", "SegBuckets", "SegTiles", "SrcWindows",

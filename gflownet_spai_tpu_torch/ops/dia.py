@@ -1,30 +1,38 @@
-"""DIA (diagonal) sparse format and the DIA kernels K8, K12 and K13
-(counterpart of ``gflownet_spai_tpu/ops/dia.py``: ``DIA`` :46,
-``coo_to_dia`` :91, ``dia_to_coo`` :122, ``dia_transpose`` :146, the SpMV
-and its padded layouts :171-186, :800-829, the ping-pong selection
-functions :1064-1455, :1590, and the three entry points
-``spmv_dia_cheby`` :1741, ``spmv_dia_power`` :1769 and ``spmv_dia``
-:1815).
+"""DIA (diagonal) sparse format and its kernels (counterpart of
+``gflownet_spai_tpu/ops/dia.py`` without ``spgemm_dia`` and bf16
+diagonals).
 
 Storage is row-scaled: ``data[s, i] = A[i, i + offsets[s]]``, zero where
 out of range, padded to ``n_pad`` rows (a multiple of 1024)::
 
     y[i] = Σ_s data[s, i] · x[i + offsets[s]]
 
-On CUDA tensors the three entry points launch ``csrc/dia.cu`` (K8 also
-serves ``spmv_dia_padded`` and the unfused affine sweep); on CPU tensors
-they compute their plain versions, which are the JAX package's jnp
-fallbacks.  Only float32 diagonals run on the card.  K12 and K13 keep the
-iterate in shared memory across their k passes when the window fits one
-block, and else stream it through global memory one pass per launch
-(``_tile_rows``), so every k the selection picks runs on the card.
+Entry points and the kernels they launch on CUDA tensors:
+
+- ``spmv_dia`` / ``spmv_dia_padded`` (and the unfused affine sweep): K8;
+- ``spmv_dia_padded_io`` (K10, output in x's padded layout, halo blocks
+  zeroed by the kernel) and ``spmv_dia_pingpong`` (K11, into a second
+  buffer's interior): one entry of ``csrc/dia.cu``;
+- ``spmv_dia_power`` (K12) and ``spmv_dia_power_rhs`` (K14, K right-hand
+  sides): k fused passes; ``spmv_dia_cheby`` (K13): k Chebyshev steps;
+- ``spmm_dia`` (K15, X [n, K]) and ``spmm_dia_t`` / ``spmm_dia_t_padded``
+  (K16, X in [K, n] layout): ``csrc/dia_spmm.cu``.
+
+On CPU tensors each computes its plain version (``*_ref``), the JAX
+package's jnp fallback.  Only float32 diagonals run on the card.  K12, K13
+and K14 keep the iterate in shared memory across their k passes when the
+window fits one block, and else stream it through global memory one pass
+per launch (``_tile_rows``), so every k the selection picks runs on the
+card.
 
 The selection functions (``dia_pp_tile``, ``dia_power_ok``,
-``dia_power_stream_ok``, ``dia_power_tile``, ``dia_cheby_ok``) are the
-TPU's VMEM model, kept verbatim for parity: the fused k they pick sets the
+``dia_power_stream_ok``, ``dia_power_tile``, ``dia_cheby_ok``,
+``dia_power_rhs_ok``, ``_spmv_io_tile``, ``_spmm_t_tiles``) are the TPU's
+VMEM model, kept verbatim for parity: the fused k they pick sets the
 polynomial a preconditioner applies (sweeps and degrees round up to
-multiples of k) and the ping-pong pad width P.  The CUDA kernels tile as
-they like and read P from the buffers.
+multiples of k), and they fix the pad widths P and the padded RHS count
+K_pad of the buffers.  The CUDA kernels tile as they like and read P and
+K_pad from the buffers.
 """
 
 from __future__ import annotations
@@ -170,9 +178,9 @@ def dia_transpose(d: DIA) -> DIA:
 # ---------------------------------------------------------------------------
 
 def _pad_x(d: DIA, x: torch.Tensor) -> torch.Tensor:
-    """[n] → [halo + n_pad + halo] with zeros around x."""
+    """[..., n] → [..., halo + n_pad + halo] with zeros around x."""
     h = d.halo
-    return torch.nn.functional.pad(x, (h, d.n_pad - x.shape[0] + h))
+    return torch.nn.functional.pad(x, (h, d.n_pad - x.shape[-1] + h))
 
 
 def dia_pad_x(d: DIA, x: torch.Tensor) -> torch.Tensor:
@@ -181,12 +189,14 @@ def dia_pad_x(d: DIA, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dia_rows(d: DIA, buf: torch.Tensor, start: int, rows: int) -> torch.Tensor:
-    """Σ_s data[s, :rows] · buf[start + off_s : start + off_s + rows],
+    """Σ_s data[s, :rows] · buf[..., start + off_s : start + off_s + rows]
+    along the last axis (one vector, or K right-hand sides as rows),
     summed in offset order from zero (the jnp fallbacks' order)."""
-    acc = torch.zeros((rows,), dtype=torch.promote_types(d.data.dtype, buf.dtype),
+    acc = torch.zeros((*buf.shape[:-1], rows),
+                      dtype=torch.promote_types(d.data.dtype, buf.dtype),
                       device=buf.device)
     for s, off in enumerate(d.offsets):
-        acc = acc + d.data[s, :rows] * buf[start + off:start + off + rows]
+        acc = acc + d.data[s, :rows] * buf[..., start + off:start + off + rows]
     return acc
 
 
@@ -200,23 +210,71 @@ def spmv_dia_padded_ref(d: DIA, xp: torch.Tensor) -> torch.Tensor:
     return _dia_rows(d, xp, (xp.shape[0] - d.n_pad) // 2, d.n_pad)
 
 
+def spmv_dia_padded_io_ref(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Plain version of K10 (the jnp fallback, dia.py:1038-1044): a new
+    buffer in xq's [P + n_pad + P] layout, zero halo blocks, interior
+    scale·A·x."""
+    p = (xq.shape[0] - d.n_pad) // 2
+    out = torch.zeros_like(xq)
+    out[p:p + d.n_pad] = _dia_rows(d, xq, p, d.n_pad) * scale
+    return out
+
+
+def spmv_dia_pingpong_ref(d: DIA, xq: torch.Tensor, yq: torch.Tensor,
+                          scale: float = 1.0) -> torch.Tensor:
+    """Plain version of K11 (dia.py:1260-1265): scale·A·x into yq's
+    interior in place (its halo blocks untouched); returns yq."""
+    p = (xq.shape[0] - d.n_pad) // 2
+    yq[p:p + d.n_pad] = _dia_rows(d, xq, p, d.n_pad) * scale
+    return yq
+
+
 def spmv_dia_power_ref(d: DIA, xq: torch.Tensor, zq: torch.Tensor,
                        scale: float = 1.0, k: int = 2,
                        add: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of K12 (the jnp fallback, dia.py:1796-1811): k passes
-    ``cur ← scale·A·cur [+ add]`` with rows outside [0, n_pad) zero after
-    the first; writes zq's interior in place and returns zq."""
-    p = (xq.shape[0] - d.n_pad) // 2
+    """Plain version of K12 (the jnp fallback, dia.py:1796-1811) and, on
+    [K, P + n_pad + P] buffers, of K14 (dia.py:1998-2014): k passes
+    ``cur ← scale·A·cur [+ add]`` along the last axis, with rows outside
+    [0, n_pad) zero after the first; writes zq's interior in place and
+    returns zq."""
+    p = (xq.shape[-1] - d.n_pad) // 2
     h = d.halo
-    cur = xq[p - h:p + d.n_pad + h]
-    cadd = None if add is None else add[p:p + d.n_pad]
+    cur = xq[..., p - h:p + d.n_pad + h]
+    cadd = None if add is None else add[..., p:p + d.n_pad]
     for _ in range(k):
         acc = _dia_rows(d, cur, h, d.n_pad) * scale
         if cadd is not None:
             acc = acc + cadd
         cur = torch.nn.functional.pad(acc, (h, h))
-    zq[p:p + d.n_pad] = cur[h:h + d.n_pad]
+    zq[..., p:p + d.n_pad] = cur[..., h:h + d.n_pad]
     return zq
+
+
+spmv_dia_power_rhs_ref = spmv_dia_power_ref      # K14's plain version
+
+
+def spmm_dia_ref(d: DIA, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K15 (``spmm_dia_jnp``, dia.py:483): Y = A·X for
+    X [n, K] → [n, K]."""
+    h, n = d.halo, d.n
+    xp = torch.nn.functional.pad(x, (0, 0, h, d.n_pad - n + h))
+    acc = torch.zeros((n, x.shape[1]), dtype=torch.promote_types(d.data.dtype, x.dtype),
+                      device=x.device)
+    for s, off in enumerate(d.offsets):
+        acc = acc + d.data[s, :n, None] * xp[h + off:h + off + n]
+    return acc
+
+
+def spmm_dia_t_ref(d: DIA, xt: torch.Tensor) -> torch.Tensor:
+    """Plain transposed-RHS SpMM (``spmm_dia_t_jnp``, dia.py:599):
+    Yt[k, i] = Σ_s data[s, i]·Xt[k, i + off_s] for Xt [K, n] → [K, n]."""
+    return _dia_rows(d, _pad_x(d, xt), d.halo, d.n)
+
+
+def spmm_dia_t_padded_ref(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16 (``spmm_dia_t_padded``'s jnp branch,
+    dia.py:759-765): [K_pad, h + n_pad + h] → [K_pad, n_pad]."""
+    return _dia_rows(d, xtp, d.halo, d.n_pad)
 
 
 def spmv_dia_cheby_ref(d: DIA, zq: torch.Tensor, ddq: torch.Tensor,
@@ -349,6 +407,109 @@ def dia_cheby_ok(d: DIA, k: int) -> bool:
     return need <= budget
 
 
+def _spmv_io_tile(d: DIA) -> int:
+    """Pad width P of the padded-IO layout: a multiple of ``_ALIGN``
+    dividing n_pad with P ≥ halo, from near 16·ALIGN up; 0 when none."""
+    lo = max(d.halo, min(16 * _ALIGN, d.n_pad))
+    tr = _round_up(lo, _ALIGN)
+    while tr <= d.n_pad and d.n_pad % tr:
+        tr += _ALIGN
+    return tr if tr <= d.n_pad else 0
+
+
+def _spmv_io_fits(d: DIA) -> Tuple[bool, bool]:
+    """Whether the TPU's resident / streamed padded-IO kernel fits (the
+    CUDA kernel has one mode; kept for parity of the selection)."""
+    tr = _spmv_io_tile(d)
+    if not tr:
+        return False, False
+    budget = _MAX_VMEM_BYTES // 4
+    resident = (d.n_pad + 2 * tr) + (3 * d.ndiags + 4) * tr <= budget
+    streamed = 2 * (tr + 2 * d.halo) + (3 * d.ndiags + 8) * tr <= budget
+    return resident, streamed
+
+
+def _pp_resident_ok(d: DIA, tr: int) -> bool:
+    """Whether the TPU's resident ping-pong kernel fits at tile ``tr``
+    (kept for parity of the selection, as ``_spmv_io_fits``)."""
+    budget = _MAX_VMEM_BYTES // 4
+    return (d.n_pad + 2 * tr) + (3 * d.ndiags + 4) * tr <= budget
+
+
+def dia_pad_io(d: DIA, x: torch.Tensor) -> torch.Tensor:
+    """[n] → [P + n_pad + P] buffer of the padded-IO chain, P =
+    ``_spmv_io_tile(d)`` (the halo width when no tile exists)."""
+    tr = _spmv_io_tile(d) or d.halo
+    return torch.nn.functional.pad(x.to(d.data.dtype), (tr, d.n_pad - x.shape[0] + tr))
+
+
+def _spmm_t_need(d: DIA, kb: int, tr: int) -> int:
+    """VMEM words of the TPU's transposed SpMM at (kb, tr)."""
+    return 3 * kb * (tr + 2 * d.halo) + 5 * kb * tr + 4 * d.ndiags * tr
+
+
+def _spmm_t_tiles(d: DIA, kp: int) -> Tuple[int, int]:
+    """(kb, tr) of the TPU's transposed SpMM: the least modeled HBM
+    traffic under the VMEM budget.  kb fixes K_pad, the row count of the
+    multi-RHS buffers (``dia_pad_xt``, ``cg_multi``)."""
+    budget = _MAX_VMEM_BYTES // 4
+    best = (min(kp, 8), _ALIGN)
+    best_cost = None
+    for kb in (8, 16, 32, 64, 128):
+        if kb > max(kp, 8):
+            break
+        for tr in range(_ALIGN, d.n_pad + 1, _ALIGN):
+            if d.n_pad % tr or _spmm_t_need(d, kb, tr) > budget:
+                continue
+            grid_k = -(-max(kp, kb) // kb)
+            cost = (max(kp, kb) * (2 * d.halo + 2 * tr) // tr
+                    + grid_k * d.ndiags)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = (kb, tr), cost
+    return best
+
+
+def _spmm_t_fits(d: DIA, kp: int) -> bool:
+    kb, tr = _spmm_t_tiles(d, kp)
+    return _spmm_t_need(d, kb, tr) <= _MAX_VMEM_BYTES // 4
+
+
+def dia_pad_xt(d: DIA, xt: torch.Tensor) -> torch.Tensor:
+    """[K, n] → [K_pad, h + n_pad + h] buffer of the transposed SpMM, K_pad
+    a multiple of ``_spmm_t_tiles``' kb (zero rows and halos)."""
+    kb, _ = _spmm_t_tiles(d, max(8, _round_up(xt.shape[0], 8)))
+    kp = _round_up(xt.shape[0], kb)
+    h = d.halo
+    return torch.nn.functional.pad(xt.to(d.data.dtype),
+                                   (h, d.n_pad - xt.shape[1] + h, 0, kp - xt.shape[0]))
+
+
+def dia_pad_pp_rhs(d: DIA, x: torch.Tensor, tr: int | None = None) -> torch.Tensor:
+    """[K, n] → [K, P + n_pad + P] ping-pong buffers (promoted dtype, zero
+    halo blocks), P = ``tr`` or ``dia_pp_tile(d)`` or the halo."""
+    if tr is None:
+        tr = dia_pp_tile(d) or d.halo
+    dt = torch.promote_types(d.data.dtype, x.dtype)
+    return torch.nn.functional.pad(x.to(dt), (tr, d.n_pad - x.shape[1] + tr))
+
+
+def dia_power_rhs_ok(d: DIA, k: int, n_rhs: int, tr: int | None = None) -> bool:
+    """Whether the TPU's resident multi-RHS fused kernel fits: x, z and the
+    output scale by K, the data windows do not.  It decides the fused k
+    of ``jacobi_multirhs``."""
+    if tr is None:
+        tr = dia_pp_tile(d)
+    if not tr or tr < k * d.halo or k < 2:
+        return False
+    budget = _MAX_VMEM_BYTES // 4
+    rows8 = _round_up(d.ndiags, 8)
+    win_d = tr + 2 * (k - 1) * d.halo
+    need = (n_rhs * (d.n_pad + 2 * tr)
+            + (2 * rows8 + 2 * d.ndiags + 8) * win_d
+            + n_rhs * (2 * tr + tr + 2 * k * d.halo))
+    return need <= budget
+
+
 # ---------------------------------------------------------------------------
 # The CUDA entry points
 # ---------------------------------------------------------------------------
@@ -360,11 +521,20 @@ _ARGTYPES = {
                   ctypes.c_float, _INT, _PTR, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
                   _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _PTR, _PTR],
+    "dia_spmv_pp": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _I64, ctypes.c_float, _INT,
+                    _PTR],
+    "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
+                      _INT, ctypes.c_float, _INT, _INT, _PTR, _PTR],
+    "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _PTR],
+    "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _PTR],
 }
+_LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_spmm"}   # else csrc/dia.cu
+_RHS_BLOCK = 8         # K14: right-hand sides per block in the tiled mode
+_SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in static shared memory
 
 
 def _lib_fn(name: str):
-    fn = getattr(_build.load("dia"), name)
+    fn = getattr(_build.load(_LIBRARY.get(name, "dia")), name)
     fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
     return fn
 
@@ -384,14 +554,16 @@ def _check_cuda(d: DIA, what: str, *bufs: torch.Tensor):
                          f"{d.ndiags} offsets")
 
 
-def _check_pp(d: DIA, what: str, *bufs: torch.Tensor) -> int:
-    """The ping-pong pad width P of same-layout buffers (P ≥ halo)."""
-    n = bufs[0].shape[0]
-    p = (n - d.n_pad) // 2
-    if any(b.dim() != 1 or b.shape[0] != n for b in bufs) or n != d.n_pad + 2 * p \
-            or p < d.halo:
-        raise ValueError(f"{what}: buffers must be [P + n_pad + P] with P >= halo "
-                         f"({d.halo}); got {[tuple(b.shape) for b in bufs]}")
+def _check_pp(d: DIA, what: str, *bufs: torch.Tensor, ndim: int = 1) -> int:
+    """The ping-pong pad width P of same-layout buffers (P ≥ halo): [P +
+    n_pad + P], or [K, P + n_pad + P] with ``ndim`` 2."""
+    shape = bufs[0].shape
+    p = (shape[-1] - d.n_pad) // 2
+    if any(b.dim() != ndim or b.shape != shape for b in bufs) \
+            or shape[-1] != d.n_pad + 2 * p or p < d.halo:
+        raise ValueError(f"{what}: buffers must be {'[K, ' if ndim == 2 else '['}P + "
+                         f"n_pad + P] with P >= halo ({d.halo}); got "
+                         f"{[tuple(b.shape) for b in bufs]}")
     return p
 
 
@@ -543,6 +715,139 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
     return z_dead, dd_dead
 
 
+def _spmv_pp(d: DIA, xq: torch.Tensor, yq: torch.Tensor, scale: float,
+             zero_halo: bool, what: str) -> None:
+    """Launch ``dia_spmv_pp`` (K10 with ``zero_halo``, else K11)."""
+    _check_cuda(d, what, xq, yq)
+    p = _check_pp(d, what, xq, yq)
+    if yq.data_ptr() == xq.data_ptr():
+        raise ValueError(f"{what}: the output must be another buffer than xq")
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    _build.check(_lib_fn("dia_spmv_pp")(
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, xq.data_ptr(),
+        yq.data_ptr(), p, float(scale), int(zero_halo), stream), what)
+
+
+def spmv_dia_padded_io(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """y = scale·A·x on a ``dia_pad_io`` buffer, returned as a new buffer
+    in the same [P + n_pad + P] layout with its halo blocks zero, so chained
+    applies never repack.  K10 (``csrc/dia.cu``, which writes the halo
+    blocks itself) on CUDA tensors, ``spmv_dia_padded_io_ref`` on CPU
+    tensors."""
+    if xq.device.type == "cpu":
+        return spmv_dia_padded_io_ref(d, xq, scale)
+    yq = torch.empty_like(xq)
+    _spmv_pp(d, xq, yq, scale, True, "spmv_dia_padded_io")
+    spmv_dia_padded_io.launches += 1
+    return yq
+
+
+def spmv_dia_pingpong(d: DIA, xq: torch.Tensor, yq: torch.Tensor,
+                      scale: float = 1.0) -> torch.Tensor:
+    """y = scale·A·x written into ``yq``'s interior in place, both buffers
+    in the ``dia_pad_pp`` layout with zero halo blocks, which are never
+    written; returns yq.  Chained callers swap the two buffers::
+
+        y = spmv_dia_pingpong(d, x, y); x, y = y, x
+
+    K11 (``csrc/dia.cu``) on CUDA tensors, ``spmv_dia_pingpong_ref`` on
+    CPU tensors."""
+    if xq.device.type == "cpu":
+        return spmv_dia_pingpong_ref(d, xq, yq, scale)
+    _spmv_pp(d, xq, yq, scale, False, "spmv_dia_pingpong")
+    spmv_dia_pingpong.launches += 1
+    return yq
+
+
+def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
+                       scale: float = 1.0, k: int = 2,
+                       add: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-RHS ``spmv_dia_power``: Z = scaleᵏ·Aᵏ·X for the K rows of X in
+    the ``dia_pad_pp_rhs`` layout [K, P + n_pad + P], or k affine passes
+    with ``add`` (per-RHS constants, same layout).  Writes zq's interior in
+    place (zq must not be xq) and returns zq.  K14 (``csrc/dia.cu``) on
+    CUDA tensors, any k ≥ 1, ``spmv_dia_power_rhs_ref`` on CPU tensors;
+    ``datak`` is not read."""
+    del datak
+    if xq.device.type == "cpu":
+        return spmv_dia_power_rhs_ref(d, xq, zq, scale=scale, k=k, add=add)
+    bufs = (xq, zq) if add is None else (xq, zq, add)
+    _check_cuda(d, "spmv_dia_power_rhs", *bufs)
+    p = _check_pp(d, "spmv_dia_power_rhs", *bufs, ndim=2)
+    if zq.data_ptr() == xq.data_ptr() or k < 1:
+        raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1")
+    n_rhs = xq.shape[0]
+    kb = min(n_rhs, _RHS_BLOCK)
+    R = d.reach
+    # k = 1 is one batched pass; k ≥ 2 tiles k passes in shared memory when
+    # kb windows of tr + 2·k·R rows fit a block, else streams them
+    tr = _tile_rows(lambda t: 2 * kb * (t + 2 * k * R) + d.ndiags) if k > 1 else 0
+    tmp = torch.empty((n_rhs, d.n_pad), dtype=xq.dtype, device=xq.device) \
+        if tr == 0 and k > 1 else None
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    _build.check(_lib_fn("dia_power_rhs")(
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
+        xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(), p,
+        n_rhs, k, float(scale), tr, kb, None if tmp is None else tmp.data_ptr(),
+        stream), "spmv_dia_power_rhs")
+    spmv_dia_power_rhs.launches += 1
+    return zq
+
+
+def spmm_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for dense X [n, K] (any K) → [n, K].  K15
+    (``csrc/dia_spmm.cu``) on CUDA tensors, ``spmm_dia_ref`` on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return spmm_dia_ref(d, x)
+    _check_cuda(d, "spmm_dia", x)
+    if x.dim() != 2 or x.shape[0] != d.n or d.ndiags > _SPMM_MAX_DIAGS:
+        raise ValueError(f"spmm_dia: X {tuple(x.shape)} for n = {d.n}, and at most "
+                         f"{_SPMM_MAX_DIAGS} diagonals ({d.ndiags})")
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(_lib_fn("dia_spmm")(
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, x.data_ptr(),
+        d.n, x.shape[1], y.data_ptr(), stream), "spmm_dia")
+    spmm_dia.launches += 1
+    return y
+
+
+def spmm_dia_t_padded(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
+    """Transposed-RHS SpMM on a ``dia_pad_xt`` buffer [K_pad, h + n_pad +
+    h] (any K_pad): Yt[k, i] = Σ_s data[s, i]·Xt[k, i + off_s] → [K_pad,
+    n_pad].  K16 (``csrc/dia_spmm.cu``) on CUDA tensors,
+    ``spmm_dia_t_padded_ref`` on CPU tensors."""
+    if xtp.device.type == "cpu":
+        return spmm_dia_t_padded_ref(d, xtp)
+    _check_cuda(d, "spmm_dia_t_padded", xtp)
+    if xtp.dim() != 2 or xtp.shape[1] != d.n_pad + 2 * d.halo:
+        raise ValueError(f"spmm_dia_t_padded: buffer {tuple(xtp.shape)} is not "
+                         f"[K_pad, {d.halo} + {d.n_pad} + {d.halo}]")
+    yt = torch.empty((xtp.shape[0], d.n_pad), dtype=xtp.dtype, device=xtp.device)
+    stream = torch.cuda.current_stream(xtp.device).cuda_stream
+    _build.check(_lib_fn("dia_spmm_t")(
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
+        xtp.data_ptr() + 4 * d.halo, xtp.shape[1], xtp.shape[0], yt.data_ptr(),
+        stream), "spmm_dia_t_padded")
+    spmm_dia_t_padded.launches += 1
+    return yt
+
+
+def spmm_dia_t(d: DIA, xt: torch.Tensor) -> torch.Tensor:
+    """Yt = (A·X)ᵀ for the right-hand sides in [K, n] layout → [K, n]:
+    K16 on the ``dia_pad_xt`` buffer on CUDA tensors, ``spmm_dia_t_ref``
+    on CPU tensors."""
+    if xt.device.type == "cpu":
+        return spmm_dia_t_ref(d, xt)
+    return spmm_dia_t_padded(d, dia_pad_xt(d, xt))[:xt.shape[0], :d.n]
+
+
 spmv_dia.launches = 0
 spmv_dia_power.launches = 0
 spmv_dia_cheby.launches = 0
+spmv_dia_padded_io.launches = 0
+spmv_dia_pingpong.launches = 0
+spmv_dia_power_rhs.launches = 0
+spmm_dia.launches = 0
+spmm_dia_t_padded.launches = 0

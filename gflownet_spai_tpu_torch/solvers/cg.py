@@ -62,6 +62,13 @@ def cg(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, m_op=None,
                     iterations=it, converged=done)
 
 
+def cg_matrix(a, b: torch.Tensor, m=None, maxiter: int = 1000,
+              rtol: float = 1e-5) -> CGResult:
+    """CG with sparse-container operands (``cg`` on ``as_linop`` of each)."""
+    return cg(as_linop(a), b, m_op=None if m is None else as_linop(m),
+              maxiter=maxiter, rtol=rtol)
+
+
 def solve_with_cg(a, b: torch.Tensor, m=None, maxiter: int = 1000,
                   rtol: float = 1e-5):
     """Harness wrapper mirroring ``solve_with_gmres``."""

@@ -1,6 +1,6 @@
 """Restarted GMRES with per-iteration residual history (counterpart of
-``gflownet_spai_tpu/solvers/gmres.py``: ``_gmres_impl`` :39-169 and
-``solve_with_gmres`` :226).
+``gflownet_spai_tpu/solvers/gmres.py``: ``_gmres_impl`` :39-169,
+``gmres_matrix`` :219 and ``solve_with_gmres`` :226).
 
 Parity target: the reference's ``solve_with_gmres`` (reference
 GFlowNet100.py:61-93), scipy ``gmres`` with x0 = 0 and one callback per
@@ -121,6 +121,14 @@ def gmres(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     return GMRESResult(x=x, residuals=torch.as_tensor(hist, device=dev),
                        iterations=it, converged=rec_ok or final_res <= tol,
                        final_residual=final_res)
+
+
+def gmres_matrix(a, b: torch.Tensor, m=None, restart: int = 30, maxiter: int = 1000,
+                 rtol: float = 1e-5) -> GMRESResult:
+    """GMRES with sparse-container operands (``gmres`` on ``as_linop`` of
+    each)."""
+    return gmres(as_linop(a), b, m_op=None if m is None else as_linop(m),
+                 restart=restart, maxiter=maxiter, rtol=rtol)
 
 
 def solve_with_gmres(a, b: torch.Tensor, m=None, maxiter: int = 10260,

@@ -1,6 +1,6 @@
-"""Weighted Jacobi and Chebyshev polynomial preconditioners on the fused
-DIA kernels (counterpart of ``gflownet_spai_tpu/solvers/stationary.py``,
-without ``jacobi_multirhs``).
+"""Weighted Jacobi (one or K right-hand sides) and Chebyshev polynomial
+preconditioners on the fused DIA kernels (counterpart of
+``gflownet_spai_tpu/solvers/stationary.py``).
 
 Weighted Jacobi for A·x = b with weight ω::
 
@@ -8,7 +8,9 @@ Weighted Jacobi for A·x = b with weight ω::
 
 M has A's offsets, so k sweeps fuse into one read of its diagonals (K12,
 ``ops.dia.spmv_dia_power`` with ``add=c``).  The Chebyshev semi-iteration
-fuses k steps the same way (K13, ``spmv_dia_cheby``).  The fused k comes
+fuses k steps the same way (K13, ``spmv_dia_cheby``), and
+``jacobi_multirhs`` runs k sweeps of K systems per diagonal read (K14,
+``spmv_dia_power_rhs``).  The fused k comes
 from the TPU's VMEM model (``ops.dia``), kept for parity: sweeps round up
 to a multiple of 2k and the Chebyshev degree to a multiple of k, so k is
 part of the operator a row of the harness applies.
@@ -22,9 +24,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.dia import (DIA, dia_cheby_ok, dia_pad_pp, dia_power_ok,
-                       dia_power_tile, dia_pp_tile, spmv_dia, spmv_dia_cheby,
-                       spmv_dia_padded, spmv_dia_power)
+from ..ops.dia import (DIA, dia_cheby_ok, dia_pad_pp, dia_pad_pp_rhs,
+                       dia_power_ok, dia_power_rhs_ok, dia_power_tile, dia_pp_tile,
+                       spmm_dia_t, spmv_dia, spmv_dia_cheby, spmv_dia_padded,
+                       spmv_dia_power, spmv_dia_power_rhs)
 from .linop import LinOp
 
 
@@ -55,8 +58,8 @@ def _pick_power_config(m: DIA, fuse_k: int, sweeps: int) -> tuple[int, int]:
 
 
 class JacobiResult(NamedTuple):
-    x: torch.Tensor          # [n] solution estimate
-    residual: torch.Tensor   # scalar ‖b − A·x‖₂ at exit
+    x: torch.Tensor          # [n] solution estimate ([K, n] for K systems)
+    residual: torch.Tensor   # ‖b − A·x‖₂ at exit (scalar, or [K])
     iterations: int          # sweeps performed
 
 
@@ -84,9 +87,9 @@ def jacobi_iteration_matrix(d: DIA, omega: float = 2.0 / 3.0) -> DIA:
 
 
 def jacobi_constant(d: DIA, b: torch.Tensor, omega: float = 2.0 / 3.0) -> torch.Tensor:
-    """c = ω·D⁻¹·b padded to [n_pad]."""
+    """c = ω·D⁻¹·b padded to [n_pad] (b [n], or [K, n] → [K, n_pad])."""
     _, nz, safe = _safe_diag(d)
-    bp = torch.nn.functional.pad(b.to(d.data.dtype), (0, d.n_pad - b.shape[0]))
+    bp = torch.nn.functional.pad(b.to(d.data.dtype), (0, d.n_pad - b.shape[-1]))
     return torch.where(nz, omega * bp / safe, 0.0)
 
 
@@ -171,13 +174,14 @@ def jacobi_sweeps_op(d: DIA, omega: float = 2.0 / 3.0, sweeps: int = 16,
 def estimate_lmax(d: DIA, iters: int = 20, seed: int = 0,
                   v0: torch.Tensor | None = None) -> torch.Tensor:
     """Power-iteration estimate of λmax(A) (a scalar tensor).  The start
-    vector is standard normal from a torch generator seeded with ``seed``
-    (JAX draws another stream from the same seed: ``v0`` takes a given
-    start vector instead)."""
+    vector is standard normal, drawn in float64 on the CPU from a torch
+    generator seeded with ``seed``, so a matrix on the card and its copy on
+    the CPU start alike (JAX draws another stream from the same seed:
+    ``v0`` takes a given start vector instead)."""
     if v0 is None:
-        gen = torch.Generator(device=d.data.device).manual_seed(seed)
-        v0 = torch.randn((d.n,), generator=gen, dtype=d.data.dtype,
-                         device=d.data.device)
+        gen = torch.Generator().manual_seed(seed)
+        v0 = torch.randn((d.n,), generator=gen, dtype=torch.float64).to(
+            device=d.data.device, dtype=d.data.dtype)
     v = v0 / torch.linalg.vector_norm(v0)
     for _ in range(iters):
         w = spmv_dia(d, v)
@@ -254,3 +258,45 @@ def chebyshev_op(d: DIA, lmax: float, lmin: float | None = None,
     coeffs = tuple(chebyshev_coeffs(float(lmin), float(lmax), degree))
     return LinOp(data=d, fn=partial(_chebyshev_apply, coeffs=coeffs, n=d.n),
                  info={**info, "degree": degree})
+
+
+# --- multi-RHS weighted Jacobi (fused over sweeps and right-hand sides) --
+
+def _multirhs_config(m: DIA, fuse_k: int, sweeps: int, n_rhs: int) -> tuple[int, int]:
+    """(k, tile) of ``jacobi_multirhs``: the single-RHS choice, k halved
+    until the TPU's multi-RHS model fits (``dia_power_rhs_ok``)."""
+    k, trk = _pick_power_config(m, fuse_k, sweeps)
+    while k > 1 and not dia_power_rhs_ok(m, k, n_rhs, trk or dia_pp_tile(m)):
+        k //= 2
+        trk = dia_power_tile(m, k) if k > 1 else 0
+    return k, trk
+
+
+def jacobi_multirhs(d: DIA, b: torch.Tensor, x0: torch.Tensor | None = None,
+                    omega: float = 2.0 / 3.0, iters: int = 100,
+                    fuse_k: int = 8) -> JacobiResult:
+    """Weighted Jacobi for K systems A·X = B at once (``b``: [K, n]): k
+    sweeps of all K per diagonal read (K14, ``spmv_dia_power_rhs``, any k).
+    The fused k is the single-RHS selection's, halved until the TPU's
+    multi-RHS model fits (``dia_power_rhs_ok``), so it can be 1 where one
+    system would fuse; sweeps round up to a multiple of 2k.  The ping-pong
+    pair is updated in place.  Residuals per system ([K]), from one K16
+    SpMM over all K."""
+    n_rhs = b.shape[0]
+    m = jacobi_iteration_matrix(d, omega)
+    k, trk = _multirhs_config(m, fuse_k, iters, n_rhs)
+    c = jacobi_constant(d, b, omega)               # [K, n_pad]
+    tr = trk or dia_pp_tile(m) or m.halo
+    cq = dia_pad_pp_rhs(m, c[:, :d.n], tr=tr)
+    x_init = torch.zeros((n_rhs, d.n), dtype=d.data.dtype, device=d.data.device) \
+        if x0 is None else x0
+    xq = dia_pad_pp_rhs(m, x_init, tr=tr)
+    zq = torch.zeros_like(xq)
+    pairs = max(1, -(-iters // (2 * k)))
+    for _ in range(pairs):
+        spmv_dia_power_rhs(m, None, xq, zq, k=k, add=cq)
+        spmv_dia_power_rhs(m, None, zq, xq, k=k, add=cq)
+    x = xq[:, tr:tr + d.n]
+    r = b.to(x.dtype) - spmm_dia_t(d, x)
+    return JacobiResult(x=x, residual=torch.linalg.vector_norm(r, dim=-1),
+                        iterations=pairs * 2 * k)

@@ -4,12 +4,11 @@ flags, ``validation.json``, table and exit-code rule).
 
   load matrix → train the GFlowNet (or restore a checkpoint) → the best of
   a final sampling round → GMRES (or CG) with none / ILU / sampled SPAI /
-  classic SPAI [/ polynomial Jacobi / Chebyshev] → iteration counts,
-  residuals and timings.
+  classic SPAI [/ polynomial Jacobi / Chebyshev / aggregation V-cycle] →
+  iteration counts, residuals and timings.
 
 Runs on the CUDA card unless ``--platform cpu``.  The ILU(0) factors keep
-float64 on either device.  ``--vcycle`` (multigrid) comes with the DIA
-slice of the port and raises ``NotImplementedError``.  Exit code 0 iff the
+float64 on either device.  Exit code 0 iff the
 sampled preconditioner needs no more iterations than none and solves the
 system (true residual ≤ 100·rtol).
 """
@@ -84,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(λmax by power iteration; λmin = λmax/--cheby-lmin-ratio)")
     p.add_argument("--cheby-lmin-ratio", type=float, default=30.0)
     p.add_argument("--vcycle", type=int, default=0, metavar="LEVELS",
-                   help="aggregation V-cycle row (the DIA slice; raises)")
+                   help="add an aggregation V-cycle preconditioner row with that "
+                        "many grid levels (>= 2; solvers.multigrid)")
     p.add_argument("--wall-repeats", type=int, default=1,
                    help="time each solve this many times and report the last "
                         "wall as time_steady_s beside the cold time_s")
@@ -95,9 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.vcycle >= 2:
-        raise NotImplementedError(
-            "--vcycle (solvers/multigrid.py) comes with the DIA slice of the port")
 
     import torch
 
@@ -107,6 +104,7 @@ def main(argv=None) -> int:
     from ..solvers import (best_sampled_matrix, chebyshev_op, estimate_lmax,
                            ilu_solve_op, jacobi_sweeps_op, solve_with_cg,
                            solve_with_gmres, spai_classic, spai_op, spai_op_sym)
+    from ..solvers.multigrid import vcycle_op
     from ..solvers.validate import true_residual
     from ..train import TrainConfig, make_train_step, restore_checkpoint, setup
     from ..train.loop import device_of
@@ -239,6 +237,12 @@ def main(argv=None) -> int:
                           degree=args.chebyshev)
         report["chebyshev"] = solve_row(op) | {"degree": args.chebyshev,
                                                "lmax_est": lmax}
+
+    if args.vcycle >= 2:
+        op = vcycle_op(coo_to_dia(a, device=dev), levels=args.vcycle,
+                       smoother=args.vcycle_smoother)
+        report["vcycle"] = solve_row(op) | {"levels": args.vcycle,
+                                            "smoother": args.vcycle_smoother}
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

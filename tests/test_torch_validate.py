@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the validation harness
-(``validate_preconditioners``), the port's validate CLI on the CPU, its
-checkpoint restore and the options that still raise, and the classic-SPAI
-seed pattern.
+(``validate_preconditioners``), the port's validate CLI on the CPU (its
+V-cycle row included), its checkpoint restore, and the classic-SPAI seed
+pattern.
 
 Iteration counts must be equal: both harnesses run the same float64
 matrices (bcsstk03_like from the gallery, the JAX package with x64), or,
@@ -86,9 +86,43 @@ def test_validate_cli_rows_match_jax(cli_run):
                                    rtol=1e-3)
 
 
-def test_validate_cli_vcycle_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="DIA slice"):
-        validate_main(CLI + ["--vcycle", "2", "--out-dir", str(tmp_path)])
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_validate_cli_vcycle_matches_jax(tmp_path, monkeypatch, smoother):
+    """``--vcycle 2``: the CLI's vcycle row (float32) takes as many GMRES(20)
+    iterations as JAX's ``vcycle_op`` on the same float32 matrix (n 112 is
+    below ``min_coarse_n``, so one level: 16 Jacobi sweeps, or a degree-32
+    Chebyshev polynomial whose λmax both sides estimate from JAX's start
+    vector).  JAX's solve runs unjitted: jit compiles the cycle's 185
+    diagonals × 16 sweeps for many minutes."""
+    import jax
+
+    from gflownet_spai_tpu.ops.dia import coo_to_dia as j_coo_to_dia
+    from gflownet_spai_tpu.solvers.multigrid import vcycle_op as j_vcycle_op
+    from gflownet_spai_tpu_torch.solvers import multigrid as t_mg
+    from gflownet_spai_tpu_torch.solvers import stationary as t_st
+
+    def lmax(d, iters=20, seed=0):
+        v0 = jax.random.normal(jax.random.PRNGKey(seed), (d.n,), jnp.float32)
+        return t_st.estimate_lmax(d, iters, v0=torch.tensor(np.asarray(v0)))
+
+    monkeypatch.setattr(t_mg, "estimate_lmax", lmax)
+    rc = validate_main(["--matrix", MATRIX, "--epochs", "1", "--batch-size", "4",
+                        "--maxiter", "500", "--final-samples", "16", "--vcycle", "2",
+                        "--vcycle-smoother", smoother, "--platform", "cpu",
+                        "--out-dir", str(tmp_path)])
+    assert rc in (0, 1)
+    row = json.loads((tmp_path / "validation.json").read_text())["vcycle"]
+    assert row["levels"] == 2 and row["smoother"] == smoother
+    a = j_gallery.get(MATRIX)
+    a32 = JCOO(row=a.row, col=a.col, data=jnp.asarray(a.data, jnp.float32),
+               shape=a.shape)
+    op = j_vcycle_op(j_coo_to_dia(a32, max_diags=10**6), levels=2, smoother=smoother)
+    with jax.disable_jit():
+        _, res, iters, _ = j_solve_with_gmres(a32, jnp.ones((a.shape[0],), jnp.float32),
+                                              op, maxiter=500, restart=20)
+    assert row["iterations"] == iters < 500
+    np.testing.assert_allclose(row["final_residual"], float(res[-1]), rtol=1e-3)
+    assert row["true_residual"] <= 100 * 1e-5
 
 
 def test_validate_cli_restores_a_port_training_run(tmp_path, capsys):
