@@ -6,8 +6,7 @@ Phases (any failure exits non-zero before the result line):
 
 1. card      — requires CUDA; prints the device, its count and
                ``nvidia-smi``'s name and power limit; TF32 off.
-2. build     — compiles every kernel of the sampling, training and validation
-               paths and of the solver library from
+2. build     — compiles every kernel of the port from
                ``gflownet_spai_tpu_torch/csrc`` with nvcc (one process per
                source, all at once).
 3. setup     — ``setup(TrainConfig(matrix="orsirr_like150", env_format="coo"))``
@@ -92,6 +91,25 @@ Phases (any failure exits non-zero before the result line):
                bcsstk03_like (with ``--vcycle 2``) in a subprocess on the
                card: every row in validation.json, the vcycle row
                converged; the CLI's verdict printed.
+18. segment  — K5 (segment softmax), K6 (segment sum) and K7 (node -> slot
+               broadcast) against their plain versions at orsirr_like150's
+               uniform tile layout, at every width the generic GAT layer
+               gives them (K5 at 4 and 1 heads, K6 and K7 at 16, 4 and 1
+               features); times as [dia], library calls index_add_ (K6)
+               and index_select (K7).
+19. gat-generic — launch counters to 0, a two-layer generic GATv2 stack
+               (edge_dim 2, the forward policy's widths) forward and the
+               gradient of sum(c * out) on orsirr_like150's tile graph,
+               counters read (K3-K7 each launched); output and gradients
+               against the per-edge path on the card and in float64 on the
+               CPU; ms per forward and per forward + backward.
+20. bell     — launch counters to 0, ``spmm_bell`` at docs/BENCH.md's
+               block-ELL configuration (4096^2, 2% of the (8,128) blocks,
+               K = 256), at blockshapes (32,128) and (128,128), and on a
+               65,536^2 matrix of the same density (JAX's streamed regime),
+               and ``spmv_bell`` once, counters read; each against
+               ``spmm_bell_ref`` and scipy float64; times as [dia], the
+               library call torch.sparse CSR A @ X.
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
@@ -121,8 +139,9 @@ from gflownet_spai_tpu_torch.gfn import gflownet as gfn
 from gflownet_spai_tpu_torch.gfn.loss import log_reward, subtb_loss
 from gflownet_spai_tpu_torch.gfn.replay import replay_sample
 from gflownet_spai_tpu_torch.gfn.rollout import gumbel_topk_rollout, trajectory_logprobs
+from gflownet_spai_tpu_torch.models import gat
 from gflownet_spai_tpu_torch.models import policies as pol
-from gflownet_spai_tpu_torch.ops import dia
+from gflownet_spai_tpu_torch.ops import bsr, dia
 from gflownet_spai_tpu_torch.ops import gat_fused as gf
 from gflownet_spai_tpu_torch.ops import segment as seg
 from gflownet_spai_tpu_torch.sample.__main__ import main as sample_main
@@ -794,17 +813,25 @@ def _reset(counters=DIA_COUNTERS):
 
 def _record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None,
             lib_name="torch.sparse CSR A@x", reps=20):
-    """Check a DIA kernel against its plain version and time it.  ``make(i)``
-    returns a call of the kernel on the i-th copy of its inputs (copy 0:
-    the inputs ``got`` came from).  The kernel time cycles through enough
-    copies that a replay reads HBM, not the 50 MB L2 that holds one copy;
-    the warm time repeats copy 0."""
+    """Check a DIA kernel against its plain version and time it
+    (``_timed``)."""
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     tol = max(_dia_tol(w, k) for w in want)
     if not err <= tol:
         fail(f"{key} disagrees with its plain version ({label}): max abs err "
              f"{err:.3e} > {tol:.3e}")
+    return _timed(key, label, f"max abs err {err:.3e} (tolerance {tol:.3e})", err,
+                  make, plain, nbytes, ops, make_lib, lib_name, reps)
+
+
+def _timed(key, label, checked, err, make, plain, nbytes, ops, make_lib=None,
+           lib_name="torch.sparse CSR A@x", reps=20):
+    """Time a kernel that was held against its plain version (``checked``
+    says how).  ``make(i)`` returns a call of the kernel on the i-th copy
+    of its inputs (copy 0: the inputs it was checked on).  The kernel time
+    cycles through enough copies that a replay reads HBM, not the 50 MB L2
+    that holds one copy; the warm time repeats copy 0."""
     n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
     fns = [make(i) for i in range(n_copies)]
     lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
@@ -814,7 +841,7 @@ def _record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None,
     plain_ms = cuda_ms(plain, 3)
     lib_ms = graph_ms(_cycle(lib_fns), reps) if lib_fns else None
     b, by = bound_ms(nbytes, ops)
-    print(f"[{key}] {label}: max abs err {err:.3e} (tolerance {tol:.3e}); kernel "
+    print(f"[{key}] {label}: {checked}; kernel "
           f"{ms:.5f} ms (graph replay over {n_copies} input copies; one copy, "
           f"L2-warm {warm:.5f} ms; eager calls {eager:.5f} ms), plain "
           f"{plain_ms:.4f} ms, " + (f"{lib_name} {lib_ms:.5f} ms (graph replay, same "
@@ -1653,6 +1680,376 @@ def phase_validate_cli():
           + f"; verdict: {verdict[-1] if verdict else '?'}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# [segment], [gat-generic], [bell]: the generic GATv2 tile layer (K5-K7) and
+# the block-ELL SpMM (K17)
+# ---------------------------------------------------------------------------
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+# K6 and K17 sum in another order than their plain versions: rtol 1e-5 and,
+# per element, 4·eps32 times the sum of the magnitudes of its terms; K5
+# divides by a sum of positive terms whose rounding grows with the run:
+# rtol 1e-5 + 4·eps32·(run length), atol 1e-6.  K7 moves values: exact.
+SEG_RTOL, SEG_EPS_SUMS = 1e-5, 4.0
+# the generic stack's gradients against the per-edge path and float64: the
+# repo's bound for tiled vs per-edge GAT gradients (tests/test_segment.py
+# :116-121, rtol 5e-3, atol 5e-4) times the layer's largest gradient
+GEN_GRAD_RTOL, GEN_GRAD_ATOL = 5e-3, 5e-4
+GEN_HEADS, GEN_HIDDEN, GEN_EDGE_DIM = 4, 4, 2   # the forward policy's widths
+# calls of each segment kernel in one forward + backward of the generic
+# stack, by feature width (layer 1: heads 4 x 4 on the uniform x; layer 2:
+# heads 1 x 4 through K3 and K7)
+GEN_CALLS = {"K5": {4: 1, 1: 1}, "K6": {16: 1, 4: 3, 1: 1}, "K7": {16: 1, 4: 3, 1: 1}}
+SEG_COUNTERS = {"K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows,
+                "K5": seg.segment_softmax_tiles_mh, "K6": seg.segment_sum_tiles,
+                "K7": seg.segment_broadcast_tiles}
+BELL_K = 256                # docs/BENCH.md:108-125
+BELL_DENSITY = 0.02         # of the blocks
+BELL_CASES = ((4096, (8, 128)), (4096, (32, 128)), (4096, (128, 128)), (65536, (8, 128)))
+BELL_SCIPY_BLOCK_ROWS = 64  # rows of the 65,536 case held against scipy float64
+
+
+def _elementwise(got, want, bound, what):
+    err = (got - want).abs()
+    worst = float((err / torch.clamp_min(bound, 1e-30)).max())
+    if not worst <= 1.0:
+        fail(f"{what}: max abs err {float(err.max()):.3e}, {worst:.2f} of the "
+             f"elementwise bound")
+    return float(err.max()), f"max abs err {float(err.max()):.3e} ({100 * worst:.1f}% " \
+        f"of the elementwise bound)"
+
+
+def phase_segment(graph, dev):
+    """K5, K6 and K7 against their plain versions at orsirr_like150's
+    uniform tile layout, at every width the generic stack gives them."""
+    tiles = graph.tiles
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    gen = torch.Generator(device=dev).manual_seed(77)
+    real, nodes = _tile_counts(tiles, dev)
+    rows = seg._slot_rows(tiles)
+    ones = torch.ones((T, S, 1), device=dev)
+    run_len = seg.segment_broadcast_tiles_ref(
+        tiles, seg.segment_sum_tiles_ref(tiles, ones).reshape(T, TN, 1))   # [T, S, 1]
+    print(f"[segment] {MATRIX} uniform layout: T {T}, S {S}, TN {TN}, {real} real "
+          f"slots of {T * S}, {nodes} nodes with slots, longest run "
+          f"{int(run_len.max())}", flush=True)
+    out = {}
+    for key, width in (("K5", 4), ("K5", 1), ("K6", 16), ("K6", 4), ("K6", 1),
+                       ("K7", 16), ("K7", 4), ("K7", 1)):
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        if key == "K5":
+            xs = [r(T, width, S) * 3 for _ in range(16)]
+            call = lambda x: seg.segment_softmax_tiles_mh(tiles, x)
+            plain = lambda x: seg.segment_softmax_tiles_ref(tiles, x)
+            want = plain(xs[0])
+            bound = 1e-6 + (SEG_RTOL + SEG_EPS_SUMS * EPS32 * run_len.permute(0, 2, 1)) \
+                * want.abs()
+            nbytes, ops, lib = 4 * (T * S + 2 * T * width * S), 5 * real * width, None
+        elif key == "K6":
+            xs = [r(T, S, width) for _ in range(16)]
+            call = lambda x: seg.segment_sum_tiles(tiles, x)
+            plain = lambda x: seg.segment_sum_tiles_ref(tiles, x)
+            want = plain(xs[0])
+            bound = SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * plain(xs[0].abs())
+            nbytes, ops = 4 * (T * S + real * width + T * TN * width), real * width
+            lib = lambda x: torch.zeros((T * (TN + 1), width), device=dev).index_add_(
+                0, rows, x.reshape(-1, width))
+        else:
+            xs = [r(T, TN, width) for _ in range(16)]
+            call = lambda x: seg.segment_broadcast_tiles(tiles, x)
+            plain = lambda x: seg.segment_broadcast_tiles_ref(tiles, x)
+            want = plain(xs[0])
+            bound = None
+            nbytes, ops = 4 * (T * S + nodes * width + T * S * width), 0
+            # the same function as one indexing call on the nodes' rows with a
+            # zero row per tile appended (built outside the timed call)
+            exts = [torch.cat([x, x.new_zeros((T, 1, width))], 1).reshape(-1, width)
+                    for x in xs]
+            lib = lambda i: torch.index_select(exts[i], 0, rows)
+        got = call(xs[0])
+        torch.cuda.synchronize()
+        if bound is None:
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                fail(f"K7 at D {width} disagrees with its plain version: {err:.3e}")
+            checked = "exact"
+        else:
+            err, checked = _elementwise(got, want, bound, f"{key} at width {width}")
+        if key == "K6":
+            lib_got = lib(xs[0]).reshape(T, TN + 1, width)[:, :TN].reshape(-1, width)
+            _elementwise(lib_got, want, bound, "the index_add_ yardstick")
+            make_lib = lambda i: (lambda: lib(xs[i]))
+            lib_name = "index_add_"
+        elif key == "K7":
+            if not torch.equal(lib(0).reshape(T, S, width), want):
+                fail("the index_select yardstick does not compute K7's function")
+            make_lib = lambda i: (lambda: lib(i))
+            lib_name = "index_select"
+        else:
+            make_lib, lib_name = None, None
+        if key == "K5":
+            label = f"H {width}, scores [{T}, {width}, {S}]"
+        elif key == "K6":
+            label = f"D {width}, [{T}, {S}, {width}] -> [{T}, {TN}, {width}]"
+        else:
+            label = f"D {width}, [{T}, {TN}, {width}] -> [{T}, {S}, {width}]"
+        out[(key, width)] = _timed(key, label, checked, err,
+                                   lambda i: (lambda: call(xs[i])), lambda: plain(xs[0]),
+                                   nbytes, ops, make_lib, lib_name, reps=20)
+    # per kernel: the sums over one forward + backward of the generic stack
+    total = {}
+    for key, calls in GEN_CALLS.items():
+        recs = [(out[(key, w)], c) for w, c in calls.items()]
+        lib = [r["lib"] for r, _ in recs]
+        total[key] = dict(
+            err=max(r["err"] for r, _ in recs),
+            **{f: sum(r[f] * c for r, c in recs) for f in ("ms", "eager", "plain")},
+            lib=None if None in lib else sum(r["lib"] * c for r, c in recs),
+            bound=(sum(r["bound"][0] * c for r, c in recs), recs[0][0]["bound"][1]))
+    return total
+
+
+def _edge_attr(seed, n2, dev):
+    """[E + n2, 2] edge features [v, |v|], the self-loop rows filled with the
+    column means of the real edges (as ``tiled_graph_from_seed`` fills its
+    one column)."""
+    v = torch.as_tensor(seed.data, dtype=torch.float32, device=dev)
+    feats = torch.stack([v, v.abs()], dim=1)
+    return torch.cat([feats, feats.mean(0, keepdim=True).expand(n2, 2)])
+
+
+def _generic_stack(ps, x, graph, attr_t, n2):
+    h = torch.relu(gat.gatv2_apply_tiled(ps[0], x, graph.tiles, graph.src_t,
+                                         graph.dst_t, attr_t, n2, GEN_HEADS, GEN_HIDDEN,
+                                         srcwin=graph.srcwin))
+    return gat.gatv2_apply_tiled(ps[1], h, graph.tiles, graph.src_t, graph.dst_t,
+                                 attr_t, n2, 1, GEN_HIDDEN, srcwin=graph.srcwin)
+
+
+def _per_edge_stack(ps, seed_dev, ea, n2):
+    x = torch.ones((n2, 1), dtype=ea.dtype, device=ea.device)
+    h = torch.relu(gat.gatv2_apply(ps[0], x, seed_dev.row, seed_dev.col, ea, n2,
+                                   GEN_HEADS, GEN_HIDDEN))
+    return gat.gatv2_apply(ps[1], h, seed_dev.row, seed_dev.col, ea, n2, 1, GEN_HIDDEN)
+
+
+def _grads(fn, ps, c):
+    leaves = [x for p in ps for x in p]
+    out = fn(ps)
+    return out.detach(), torch.autograd.grad((out * c).sum(), leaves)
+
+
+def _hold_grads(got, want, what):
+    """Each layer's gradients within the repo's bound times its largest."""
+    worst = 0.0
+    for layer in (slice(0, 6), slice(6, 12)):
+        scale = max(float(w.abs().max()) for w in want[layer])
+        for a, b in zip(got[layer], want[layer]):
+            a, b = a.double().cpu(), b.double().cpu()
+            err = float((a - b).abs().max())
+            worst = max(worst, err / scale)
+            if not torch.allclose(a, b, rtol=GEN_GRAD_RTOL, atol=GEN_GRAD_ATOL * scale):
+                fail(f"[gat-generic] gradient vs {what}: max abs err {err:.3e} (layer "
+                     f"scale {scale:.3e})")
+    return worst
+
+
+def phase_gat_generic(seed, graph, dev):
+    """The two-layer generic GATv2 stack (edge_dim 2) at the forward
+    policy's widths on orsirr_like150's tile graph: launch counters to 0,
+    a forward and the gradient of sum(c·out), counters read; outputs and
+    gradients against the per-edge path on the card and in float64 on the
+    CPU."""
+    n2 = graph.tiles.num_nodes
+    attr = _edge_attr(seed, n2, dev)
+    attr_t = seg.to_tiles(graph.tiles, attr)
+    gen = torch.Generator().manual_seed(2024)
+    ps = [gat.gatv2_init(gen, 1, GEN_HIDDEN, GEN_HEADS, edge_dim=GEN_EDGE_DIM),
+          gat.gatv2_init(gen, GEN_HEADS * GEN_HIDDEN, GEN_HIDDEN, 1, edge_dim=GEN_EDGE_DIM)]
+    ps = [gat.GATv2Params(*(x.to(dev).requires_grad_(True) for x in p)) for p in ps]
+    c = torch.randn((n2, GEN_HIDDEN), generator=gen).to(dev)
+    tiled = lambda q: _generic_stack(q, graph.x, graph, attr_t, n2)
+    for fn in SEG_COUNTERS.values():
+        fn.launches = 0
+    out, got = _grads(tiled, ps, c)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in SEG_COUNTERS.items()}
+    if min(launches.values()) == 0:
+        fail(f"[gat-generic] a kernel of the path did not launch: {launches}")
+    if not (out.shape == (n2, GEN_HIDDEN) and bool(torch.isfinite(out).all())):
+        fail("[gat-generic] the stack's output is not finite [n2, hidden]")
+    seed_dev = seed.to(dev)
+    ea = attr[:seed.nnz]
+    want_out, want = _grads(lambda q: _per_edge_stack(q, seed_dev, ea, n2), ps, c)
+    if not torch.allclose(out, want_out, **LOGIT_TOL):
+        fail(f"[gat-generic] output vs the per-edge path: max abs err "
+             f"{float((out - want_out).abs().max()):.3e}")
+    worst_edge = _hold_grads(got, want, "the per-edge path")
+    ps64 = [gat.GATv2Params(*(x.detach().double().cpu().requires_grad_(True) for x in p))
+            for p in ps]
+    seed_cpu = seed.to("cpu")
+    out64, want64 = _grads(lambda q: _per_edge_stack(q, seed_cpu, ea.double().cpu(), n2),
+                           ps64, c.double().cpu())
+    err64 = float((out.double().cpu() - out64).abs().max())
+    if not torch.allclose(out.double().cpu(), out64, **LOGIT_TOL):
+        fail(f"[gat-generic] output vs float64 on the CPU: max abs err {err64:.3e}")
+    worst64 = _hold_grads(got, want64, "float64 on the CPU")
+
+    def fwd():
+        with torch.no_grad():
+            tiled(ps)
+
+    fwd_ms = cuda_ms(fwd, 10)
+    step_ms = cuda_ms(lambda: _grads(tiled, ps, c), 10)
+    print(f"[gat-generic] {MATRIX}: two GATv2 layers, edge_dim {GEN_EDGE_DIM} ([v, |v|], "
+          f"self-loops the column means), heads {GEN_HEADS} x {GEN_HIDDEN} then 1 x "
+          f"{GEN_HIDDEN}, on the uniform layout (T {graph.tiles.tiles}, S "
+          f"{graph.tiles.slots}): output max abs err vs the per-edge path "
+          f"{float((out - want_out).abs().max()):.3e}, vs float64 {err64:.3e}; "
+          f"gradients max abs err / layer scale {worst_edge:.3e} and {worst64:.3e}; "
+          f"{fwd_ms:.4f} ms per forward, {step_ms:.4f} ms per forward + backward "
+          f"(eager, CUDA events); launches in one forward + backward {launches}",
+          flush=True)
+    return launches
+
+
+def _bell_blocks(m, n, blockshape, rng):
+    """BELL_DENSITY of the (bm, bn) blocks of an m x n matrix, chosen by
+    ``rng`` and filled with standard normals: (block row, block column,
+    blocks), row-major."""
+    bm, bn = blockshape
+    nbc = n // bn
+    total = (m // bm) * nbc
+    pick = np.sort(rng.choice(total, size=int(round(BELL_DENSITY * total)), replace=False))
+    blocks = rng.standard_normal((len(pick), bm, bn), dtype=np.float32)
+    return pick // nbc, pick % nbc, blocks
+
+
+def _bell_direct(m, n, brow, bcol, blocks):
+    """The BELL of row-major sorted blocks, built without CSR (what
+    ``csr_to_bell`` gives for the same matrix)."""
+    nbr = m // blocks.shape[1]
+    per_row = np.bincount(brow, minlength=nbr)
+    W = max(1, int(per_row.max()))
+    slot = np.arange(len(brow)) - np.repeat(np.cumsum(per_row) - per_row, per_row)
+    data = np.zeros((nbr, W) + blocks.shape[1:], np.float32)
+    cols = np.zeros((nbr, W), np.int32)
+    data[brow, slot] = blocks
+    cols[brow, slot] = bcol
+    return bsr.BELL(data=data, bcols=cols, shape=(m, n), nnz=int(blocks.size))
+
+
+def _bell_scipy(a_host, block_rows):
+    """scipy float64 CSR of the first ``block_rows`` block rows."""
+    import scipy.sparse as sp
+
+    data = a_host.data[:block_rows].astype(np.float64)
+    nbr, W, bm, bn = data.shape
+    r, w, i, j = np.nonzero(data)
+    return sp.csr_matrix((data[r, w, i, j], (r * bm + i, a_host.bcols[r, w] * bn + j)),
+                         shape=(nbr * bm, a_host.shape[1]))
+
+
+def _bell_csr(a):
+    """torch.sparse CSR of a BELL on its device (the library yardstick)."""
+    nbr, W, bm, bn = a.data.shape
+    r, w, i, j = a.data.nonzero(as_tuple=True)
+    idx = torch.stack([r * bm + i, a.bcols[r, w].long() * bn + j])
+    return torch.sparse_coo_tensor(idx, a.data[r, w, i, j], a.shape,
+                                   check_invariants=False).coalesce().to_sparse_csr()
+
+
+def phase_bell(dev):
+    """K17 through ``spmm_bell`` at docs/BENCH.md:108-125's configuration
+    (4096², 2% of the (8,128) blocks, K = 256), at blockshapes (32,128)
+    and (128,128), and on a 65,536² matrix of the same density (JAX would
+    stream there, ``_resident_bk`` is None): against ``spmm_bell_ref`` and
+    scipy in float64; ``spmv_bell`` once at 4096²."""
+    from gflownet_spai_tpu_torch.sparse import coo_to_csr
+    from gflownet_spai_tpu_torch.sparse.types import COO
+
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cases = []
+    for m, bs in BELL_CASES:
+        t0 = time.perf_counter()
+        brow, bcol, blocks = _bell_blocks(m, m, bs, rng)
+        direct = _bell_direct(m, m, brow, bcol, blocks)
+        if m <= 4096:
+            # the user path: COO -> CSR -> csr_to_bell, equal to the direct build
+            bm, bn = bs
+            nb, ii, jj = np.nonzero(np.ones_like(blocks, dtype=bool))
+            coo = COO(row=(brow[nb] * bm + ii).astype(np.int32),
+                      col=(bcol[nb] * bn + jj).astype(np.int32),
+                      data=blocks[nb, ii, jj], shape=(m, m))
+            host = bsr.csr_to_bell(coo_to_csr(coo), bs)
+            if not (np.array_equal(host.data, direct.data)
+                    and np.array_equal(host.bcols, direct.bcols)):
+                fail(f"[bell] csr_to_bell differs from the direct block build at {m}, {bs}")
+        else:
+            host = direct
+        cases.append((m, bs, host, host.to(dev), time.perf_counter() - t0))
+    # the path: counters to 0, the user entries once per case, counters read
+    bsr.spmm_bell.launches = 0
+    xs = [torch.randn((m, BELL_K), generator=gen, device=dev) for m, *_ in cases]
+    ys = [bsr.spmm_bell(a, x) for (_, _, _, a, _), x in zip(cases, xs)]
+    v = torch.randn(cases[0][0], generator=gen, device=dev)
+    yv = bsr.spmv_bell(cases[0][3], v)
+    torch.cuda.synchronize()
+    launches = bsr.spmm_bell.launches
+    if launches != len(cases) + 1:
+        fail(f"[bell] spmm_bell / spmv_bell launched K17 {launches} times, not "
+             f"{len(cases) + 1}")
+    want_v = bsr.spmm_bell_ref(cases[0][3], v[:, None])[:, 0]
+    absa0 = dataclasses.replace(cases[0][3], data=cases[0][3].data.abs())
+    _elementwise(yv, want_v, SEG_RTOL * want_v.abs() + SEG_EPS_SUMS * EPS32
+                 * bsr.spmm_bell_ref(absa0, v.abs()[:, None])[:, 0], "spmv_bell")
+    recs = {}
+    for (m, bs, host, a, build_s), x, y in zip(cases, xs, ys):
+        nbr, W, bm, bn = a.data.shape
+        want = bsr.spmm_bell_ref(a, x)
+        absa = dataclasses.replace(a, data=a.data.abs())
+        mag = bsr.spmm_bell_ref(absa, x.abs())
+        err, checked = _elementwise(y, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32
+                                    * mag, f"K17 at {m}, {bs}")
+        # float64: scipy on the whole matrix, or on its first block rows
+        rows = nbr if m <= 4096 else BELL_SCIPY_BLOCK_ROWS
+        ref64 = _bell_scipy(host, rows) @ x.double().cpu().numpy()
+        got64 = y[:rows * bm].double().cpu().numpy()
+        mag64 = mag[:rows * bm].double().cpu().numpy()
+        worst64 = float(np.max(np.abs(got64 - ref64) / np.maximum(
+            SEG_RTOL * np.abs(ref64) + SEG_EPS_SUMS * EPS32 * mag64, 1e-30)))
+        if not worst64 <= 1.0:
+            fail(f"[bell] K17 at {m}, {bs} vs scipy float64: {worst64:.2f} of the bound")
+        real = int((a.data.abs().amax(dim=(2, 3)) > 0).sum())
+        ncols = int(torch.unique(a.bcols[a.data.abs().amax(dim=(2, 3)) > 0]).numel())
+        nbytes = 4 * (real * bm * bn + nbr * W + ncols * bn * BELL_K + m * BELL_K)
+        ops = 2 * real * bm * bn * BELL_K
+        n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
+        copies = [(a, x)] + [(dataclasses.replace(a, data=a.data.clone()), x.clone())
+                             for _ in range(n_copies - 1)]
+        csrs = [_bell_csr(aa) for aa, _ in copies]
+        lib_got = csrs[0] @ x
+        _elementwise(lib_got, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * mag,
+                     "the torch.sparse CSR yardstick")
+        regime = bsr._resident_bk(a, BELL_K)
+        label = (f"{m} x {m}, blocks {bs}, {real} of {(m // bm) * (m // bn)} stored "
+                 f"(W {W}), K {BELL_K}, JAX regime "
+                 + (f"X-resident (bk {regime})" if regime else "streamed")
+                 + f"; set-up {build_s:.1f} s; vs scipy float64 on {rows * bm} rows "
+                 f"{100 * worst64:.1f}% of the bound")
+        recs[(m, bs)] = _timed("K17", label, checked, err,
+                               lambda i: (lambda: bsr.spmm_bell(*copies[i])),
+                               lambda: bsr.spmm_bell_ref(a, x), nbytes, ops,
+                               lambda i: (lambda: csrs[i] @ copies[i][1]),
+                               "torch.sparse CSR A@X", reps=10)
+        del copies, csrs
+    rec = dict(recs[BELL_CASES[0]])
+    rec["err"] = max(r["err"] for r in recs.values())
+    return rec, launches
+
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1693,6 +2090,9 @@ def main() -> int:
     multi_launches = timed("multirhs", phase_multirhs, dev)
     _, vc_launches = timed("vcycle", phase_vcycle, dev)
     timed("validate-cli", phase_validate_cli)
+    seg_recs = timed("segment", phase_segment, graph, dev)
+    gen_launches = timed("gat-generic", phase_gat_generic, seed, graph, dev)
+    bell_rec, bell_launches = timed("bell", phase_bell, dev)
     bwd_ms = k2["ms"] + k4["ms"]
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
           f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "
@@ -1743,6 +2143,21 @@ def main() -> int:
                         "launches": path_launches[k], "max_abs_err": max(errs),
                         "ms": d["ms"], "plain_ms": d["plain"], "bound_ms": d["bound"][0],
                         "bound_by": d["bound"][1], "library_ms": d["lib"]})
+    for nm, k, rep in (("segment_softmax_tiles_mh (K5)", "K5", "segment.py:247"),
+                       ("segment_sum_tiles (K6)", "K6", "segment.py:361"),
+                       ("segment_broadcast_tiles (K7)", "K7", "segment.py:398")):
+        d = seg_recs[k]
+        kernels.append({"name": nm, "route": "cuda", "source": src + "segment.cu",
+                        "replaces": "gflownet_spai_tpu/ops/" + rep,
+                        "launches": gen_launches[k], "max_abs_err": d["err"],
+                        "ms": d["ms"], "plain_ms": d["plain"], "bound_ms": d["bound"][0],
+                        "bound_by": d["bound"][1], "library_ms": d["lib"]})
+    kernels.append({"name": "spmm_bell (K17a, K17b)", "route": "cuda",
+                    "source": src + "bsr.cu", "replaces": "gflownet_spai_tpu/ops/bsr.py:104",
+                    "launches": bell_launches, "max_abs_err": bell_rec["err"],
+                    "ms": bell_rec["ms"], "plain_ms": bell_rec["plain"],
+                    "bound_ms": bell_rec["bound"][0], "bound_by": bell_rec["bound"][1],
+                    "library_ms": bell_rec["lib"]})
     n_b = len(graph.gat_buckets)
     print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps (the sampling "
           f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
@@ -1757,7 +2172,13 @@ def main() -> int:
           f"K16 the multirhs phase {multi_launches}; their ms are one call at "
           f"poisson1024 (K10, K11 scale 0.2; K14 16 right-hand sides, k = 1, "
           f"affine; K15 256 right-hand sides; K16 cg_multi's A at its K_pad "
-          f"for 16), max_abs_err the largest over the dia-multi cases. ms and "
+          f"for 16), max_abs_err the largest over the dia-multi cases. K5-K7 "
+          f"launches count one forward + backward of the [gat-generic] stack, "
+          f"their ms, plain_ms, library_ms and bound_ms the sums over that "
+          f"forward + backward's calls {GEN_CALLS} at the [segment] phase's "
+          f"widths. K17 launches count the [bell] path (four spmm_bell calls, "
+          f"one spmv_bell); its ms are one call at 4096 x 4096, blocks (8, 128), "
+          f"K {BELL_K}, max_abs_err the largest over the [bell] cases. ms and "
           f"library_ms are CUDA-graph replays (device "
           f"time; the DIA kernels and their library calls cycle through input "
           f"copies larger than L2); plain_ms are eager calls. Eager calls of the "
@@ -1766,7 +2187,8 @@ def main() -> int:
           f"ms, K4 {k4['eager']:.5f} ms, K8 {dk['K8']['eager']:.5f} ms, K12 "
           f"{dk['K12']['eager']:.5f} ms, K13 {dk['K13']['eager']:.5f} ms, "
           + ", ".join(f"{k} {dm[k]['eager']:.5f} ms" for k in MULTI_COUNTERS)
-          + "; training "
+          + ", " + ", ".join(f"{k} {seg_recs[k]['eager']:.5f} ms" for k in GEN_CALLS)
+          + f", K17 {bell_rec['eager']:.5f} ms; training "
           f"peak memory {peak / 2**20:.1f} MiB; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

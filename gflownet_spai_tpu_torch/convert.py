@@ -1,9 +1,11 @@
-"""Carry parameters over from the JAX package.
+"""Carry parameters and matrices over from the JAX package.
 
 ``params_from_jax(tree)`` turns a JAX ``GFlowNetParams`` tree whose leaves
 are numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) into the
-port's ``GFlowNetParams``.  It reads fields by name and imports nothing of
-JAX, so the parameter layouts stay one-to-one.
+port's ``GFlowNetParams``; ``gatv2_params_from_jax`` does the same for one
+``GATv2Params`` (any edge_dim), and ``bell_from_jax`` for a block-ELL
+matrix.  They read fields by name and import nothing of JAX, so the
+layouts stay one-to-one.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from ._device import resolve_device
 from .gfn.gflownet import GFlowNetParams
 from .models import policies as pol
 from .models.gat import GATv2Params
+from .ops.bsr import BELL
 
 
 def _tensor(x, device):
@@ -28,12 +31,24 @@ def _fields(cls, node, device, **given):
                   for name in cls._fields})
 
 
+def gatv2_params_from_jax(node, device=None) -> GATv2Params:
+    """One GATv2 layer's parameters (numpy leaves) on ``device``."""
+    return _fields(GATv2Params, node, resolve_device(device))
+
+
+def bell_from_jax(bell) -> BELL:
+    """A JAX ``BELL``'s ``data``, ``bcols``, ``shape`` and ``nnz`` as a
+    numpy-backed port ``BELL`` (``.to(device)`` moves it)."""
+    return BELL(data=np.asarray(bell.data), bcols=np.asarray(bell.bcols, np.int32),
+                shape=tuple(bell.shape), nnz=int(bell.nnz))
+
+
 def params_from_jax(tree, device=None) -> GFlowNetParams:
     device = resolve_device(device)
     fwd = tree.forward
     forward = _fields(pol.ForwardPolicyParams, fwd, device,
-                      gat1=_fields(GATv2Params, fwd.gat1, device),
-                      gat2=_fields(GATv2Params, fwd.gat2, device))
+                      gat1=gatv2_params_from_jax(fwd.gat1, device),
+                      gat2=gatv2_params_from_jax(fwd.gat2, device))
     backward = tree.backward
     if backward is not None:
         cls = (pol.LinearBackwardParams if hasattr(backward, "emb_g")

@@ -6,8 +6,10 @@ output.  Two substrates with the same semantics:
 
 * ``gatv2_apply``       — per-edge tensors with ``scatter_reduce`` /
   ``index_add_`` segment ops (small graphs, and the plain reference);
-* ``gatv2_apply_tiled`` — the node-tile layout (``ops.segment``) with the
-  fused tile kernel K1 and, for non-uniform layers, the windowed gather K3.
+* ``gatv2_apply_tiled`` — the node-tile layout (``ops.segment``): for
+  edge_dim = 1 the fused tile kernel K1, for wider edge features the
+  unfused segment softmax (K5), sum (K6) and broadcast (K7); for
+  non-uniform layers the windowed gather K3.
 
 Parameters keep the JAX layout (``w_src`` is [in, H·out], and so on).
 """
@@ -19,7 +21,8 @@ from typing import NamedTuple
 import torch
 
 from ..ops.gat_fused import gat_tile_fused
-from ..ops.segment import gather_rows_windows
+from ..ops.segment import (gather_rows_windows, segment_broadcast_tiles,
+                           segment_softmax_tiles_mh, segment_sum_tiles)
 
 
 class GATv2Params(NamedTuple):
@@ -114,30 +117,32 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
     declares uniform node features (layer 1 of the policy): xs/xd are one
     broadcast row each.  Non-uniform source rows are gathered by K3 through
     the window plan, which such layers must be given (``srcwin``, or each
-    bucket's).  Each bucket (or the single layout) is one K1 launch."""
-    if p.w_edge.shape[0] != 1:
-        raise NotImplementedError(
-            "gatv2_apply_tiled with edge_dim != 1 needs the unfused segment "
-            "kernels K5-K7, which a later slice of the port brings")
+    bucket's).  With edge_dim = 1 each bucket (or the single layout) is one
+    K1 launch; wider edge features take the unfused chain on the single
+    layout (``buckets`` unused), as the JAX package does."""
     H, D = heads, out_dim
     HD = H * D
     T = tiles.tiles
     uniform = x.shape[0] == 1
     xs = x @ p.w_src + p.b_src                     # [N or 1, H*D]
     xd = x @ p.w_dst
-    w_e, att = p.w_edge[0].contiguous(), p.att.reshape(H, D).contiguous()
 
     def src_rows(plan, tl, s_t):
         if uniform:
             return xs
         return gather_rows_windows(plan, tl, s_t, xs)
 
-    if not uniform and (srcwin is None if buckets is None
+    generic = p.w_edge.shape[0] != 1
+    if not uniform and (srcwin is None if buckets is None or generic
                         else any(bk.srcwin is None for bk in buckets)):
         raise ValueError("gatv2_apply_tiled: non-uniform node features need "
                          "the window plan (srcwin) of every layout they run "
                          "on; build it with tiled_graph_from_seed")
-    if buckets is not None:
+    w_e, att = p.w_edge[0].contiguous(), p.att.reshape(H, D).contiguous()
+    if generic:
+        out = _generic_tiled(p, tiles, src_rows(srcwin, tiles, src_t), xd, attr_t,
+                             uniform, H, D, negative_slope)[:num_nodes]
+    elif buckets is not None:
         # one fused launch per slot-width class; node blocks are stitched
         # through global tile order with one [T_b, TN, HD] gather/scatter
         TN = tiles.tile_nodes
@@ -163,3 +168,28 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
                              negative_slope=negative_slope)[:num_nodes]
     out = out if concat else out.reshape(num_nodes, H, D).mean(dim=1)
     return out + p.bias
+
+
+def _generic_tiled(p: GATv2Params, tiles, xs_slot: torch.Tensor, xd: torch.Tensor,
+                   attr_t: torch.Tensor, uniform: bool, H: int, D: int,
+                   negative_slope: float) -> torch.Tensor:
+    """The unfused GATv2 tile chain for any edge_dim (``models/gat.py``
+    :203-231 in JAX): destination rows by K7 (non-uniform layers), scores,
+    the segment softmax K5 on [T, H, S], the weighted values and their
+    per-node sums K6 → [T·TN, H·D]."""
+    T, S, HD = tiles.tiles, tiles.slots, H * D
+    ea = attr_t @ p.w_edge                         # [T·S, H*D]
+    if uniform:
+        xd_slot = xd                               # [1, H*D] broadcasts
+    else:
+        xd_pad = torch.nn.functional.pad(xd, (0, 0, 0, tiles.n_pad - xd.shape[0]))
+        xd_slot = segment_broadcast_tiles(
+            tiles, xd_pad.reshape(T, tiles.tile_nodes, HD)).reshape(T * S, HD)
+    msg = (xs_slot + xd_slot + ea).reshape(-1, H, D)
+    act = torch.nn.functional.leaky_relu(msg, negative_slope)
+    scores = torch.einsum("ehd,hd->eh", act, p.att)                # [T·S, H]
+    alpha_t = segment_softmax_tiles_mh(tiles, scores.reshape(T, S, H).permute(0, 2, 1))
+    alpha = alpha_t.permute(0, 2, 1).reshape(T * S, H)
+    src_feat = xs_slot.expand(T * S, HD).reshape(-1, H, D)
+    weighted = (src_feat * alpha[..., None]).reshape(T, S, HD)
+    return segment_sum_tiles(tiles, weighted)

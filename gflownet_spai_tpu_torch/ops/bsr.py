@@ -1,0 +1,194 @@
+"""Block-ELL sparse × dense products (counterpart of
+``gflownet_spai_tpu/ops/bsr.py``).
+
+Matrices whose nonzeros cluster into dense (bm × bn) blocks are stored
+block-ELL: ``data`` [n_block_rows, W, bm, bn] with W the longest block
+row's block count, and ``bcols`` int32 [n_block_rows, W] block-column ids.
+Padded blocks point at block-column 0 with zero data, so they add nothing
+and need no mask.
+
+``spmm_bell`` launches K17 (``csrc/bsr.cu``) on CUDA tensors.  One kernel
+serves both TPU variants, the streamed ``_spmm_bell_pallas`` and the
+X-resident ``_spmm_bell_pallas_resident``: their split is a VMEM matter
+(``_resident_bk`` is kept verbatim so the regime JAX would pick can be
+named).  CPU tensors take the plain version ``spmm_bell_ref``.  Only
+float32 blocks run on the card; bf16 storage is not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+from torch.utils.weak import WeakIdKeyDictionary
+
+from .. import _build
+from ..sparse.ops import f32_exact
+from ..sparse.types import CSR, Shape, to_numpy
+
+_BMS = (8, 16, 32, 64, 128)   # block heights the kernel is built for
+_BN_STEP = 32                 # block widths: multiples of the kernel's staged chunk
+_REF_WORDS = 1 << 28          # plain version: gathered X words per chunk of block rows
+
+
+@dataclasses.dataclass(frozen=True)
+class BELL:
+    """Block-ELL sparse matrix: ``data`` [nbr, W, bm, bn], ``bcols`` int32
+    [nbr, W], as numpy arrays (host) or torch tensors (``.to(device)``)."""
+
+    data: Any
+    bcols: Any
+    shape: Shape
+    nnz: int
+
+    @property
+    def blockshape(self) -> Tuple[int, int]:
+        return (int(self.data.shape[2]), int(self.data.shape[3]))
+
+    @property
+    def width(self) -> int:
+        return int(self.data.shape[1])
+
+    def to(self, device) -> "BELL":
+        """Torch tensors on ``device`` (``bcols`` stays int32, the kernel's
+        index type)."""
+        return dataclasses.replace(
+            self, data=torch.as_tensor(to_numpy(self.data), device=device),
+            bcols=torch.as_tensor(to_numpy(self.bcols), dtype=torch.int32,
+                                  device=device))
+
+    def todense(self) -> torch.Tensor:
+        data = torch.as_tensor(self.data)
+        nbr, W, bm, bn = data.shape
+        bcols = torch.as_tensor(self.bcols, device=data.device).long()
+        out = data.new_zeros((nbr, self.shape[1] // bn, bm, bn))
+        rows = torch.arange(nbr, device=data.device)[:, None].expand(nbr, W)
+        out.index_put_((rows.reshape(-1), bcols.reshape(-1)),
+                       data.reshape(-1, bm, bn), accumulate=True)
+        return out.permute(0, 2, 1, 3).reshape(self.shape)
+
+
+def csr_to_bell(csr: CSR, blockshape=(8, 128)) -> BELL:
+    """Host-side conversion (the pattern is static, so it runs once);
+    returns a numpy-backed BELL."""
+    bm, bn = blockshape
+    m, n = csr.shape
+    if m % bm or n % bn:
+        raise ValueError(f"shape {csr.shape} not divisible by block {blockshape}")
+    indptr = to_numpy(csr.indptr)
+    indices = to_numpy(csr.indices)
+    data = to_numpy(csr.data)
+    counts = np.diff(indptr)
+    row = np.repeat(np.arange(m, dtype=np.int64), counts)
+    brow, bcol = row // bm, indices // bn
+    key = brow * (n // bn) + bcol
+    uniq, inv = np.unique(key, return_inverse=True)
+    ub_row = (uniq // (n // bn)).astype(np.int64)
+    ub_col = (uniq % (n // bn)).astype(np.int64)
+    per_row = np.bincount(ub_row, minlength=m // bm)
+    W = max(1, int(per_row.max()))
+    nbr = m // bm
+    bell_data = np.zeros((nbr, W, bm, bn), data.dtype)
+    bell_cols = np.zeros((nbr, W), np.int32)
+    slot_of_block = np.zeros(len(uniq), np.int64)
+    next_slot = np.zeros(nbr, np.int64)
+    for b in np.argsort(ub_row, kind="stable"):
+        r = ub_row[b]
+        slot_of_block[b] = next_slot[r]
+        bell_cols[r, next_slot[r]] = ub_col[b]
+        next_slot[r] += 1
+    bell_data[ub_row[inv], slot_of_block[inv], row % bm, indices % bn] = data
+    return BELL(data=bell_data, bcols=bell_cols, shape=csr.shape, nnz=int(len(data)))
+
+
+def spmm_bell_ref(a: BELL, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K17 (the JAX package's ``spmm_bell_jnp``): gather
+    the X blocks each block row needs and multiply them batched, in full
+    float32.  Block rows go in chunks, so the gathered blocks stay under
+    ``_REF_WORDS`` words."""
+    nbr, W, bm, bn = a.data.shape
+    K = x.shape[1]
+    xb = x.reshape(-1, bn, K)
+    bcols = a.bcols.long()
+    step = max(1, _REF_WORDS // (W * bn * K))
+    parts = []
+    with f32_exact():
+        for r0 in range(0, nbr, step):
+            g = xb[bcols[r0:r0 + step]]                     # [r, W, bn, K]
+            parts.append(torch.einsum("rwij,rwjk->rik", a.data[r0:r0 + step], g))
+    return torch.cat(parts).reshape(nbr * bm, K)
+
+
+_BELL_VMEM_BUDGET = 10 * 1024 * 1024   # X-tile budget of the TPU's 16 MiB/core
+
+
+def _resident_bk(a: BELL, K: int) -> int | None:
+    """Largest 128-multiple K-tile whose [n, bk] X column tile fits the TPU
+    kernel's VMEM budget (None: X is too tall even at bk = 128, and JAX
+    takes the streamed kernel)."""
+    n = a.shape[1]
+    for bk in (512, 384, 256, 128):
+        if K % bk == 0 and n * bk * 4 <= _BELL_VMEM_BUDGET:
+            return bk
+    return None
+
+
+_BCOLS_CHECKED = WeakIdKeyDictionary()   # bcols tensor → its ids are in range
+
+
+def _check(a: BELL, x: torch.Tensor):
+    for t, what in ((a.data, "data"), (a.bcols, "bcols"), (x, "X")):
+        if not isinstance(t, torch.Tensor) or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"spmm_bell: {what} must be a contiguous tensor on "
+                             f"{x.device} (BELL.to(device))")
+    if a.data.dtype != torch.float32 or x.dtype != torch.float32:
+        raise ValueError(f"spmm_bell: expected float32 blocks and X, got "
+                         f"{a.data.dtype} and {x.dtype} (bf16 BELL storage is "
+                         "not ported)")
+    nbr, W, bm, bn = a.data.shape
+    if a.bcols.dtype != torch.int32 or tuple(a.bcols.shape) != (nbr, W):
+        raise ValueError(f"spmm_bell: bcols must be int32 [{nbr}, {W}]")
+    if bm not in _BMS or bn % _BN_STEP or x.dim() != 2 or x.shape[0] != a.shape[1] \
+            or x.shape[1] < 1 or nbr * bm != a.shape[0] or a.shape[1] % bn:
+        raise ValueError(f"spmm_bell: the kernel takes bm in {_BMS}, bn a multiple of "
+                         f"{_BN_STEP} and X [{a.shape[1]}, K >= 1]; got blocks "
+                         f"{(bm, bn)}, X {tuple(x.shape)}")
+    # the kernel reads X rows bcols·bn .. + bn: ids out of range would read
+    # outside X (checked once per bcols tensor; the pattern is static)
+    if a.bcols not in _BCOLS_CHECKED:
+        _BCOLS_CHECKED[a.bcols] = a.bcols.numel() == 0 or bool(
+            (a.bcols.min() >= 0) & (a.bcols.max() < a.shape[1] // bn))
+    if not _BCOLS_CHECKED[a.bcols]:
+        raise ValueError(f"spmm_bell: bcols holds block-column ids outside "
+                         f"[0, {a.shape[1] // bn})")
+
+
+def spmm_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for dense X [n, K] → [m, K].  K17 (``csrc/bsr.cu``) on
+    CUDA tensors, ``spmm_bell_ref`` on CPU tensors."""
+    if x.device.type == "cpu":
+        return spmm_bell_ref(a, x)
+    _check(a, x)
+    nbr, W, bm, bn = a.data.shape
+    y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    fn = _build.load("bsr").bell_spmm
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    _build.check(fn(a.data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn,
+                    x.data_ptr(), x.shape[1], y.data_ptr(),
+                    torch.cuda.current_stream(x.device).cuda_stream), "spmm_bell")
+    spmm_bell.launches += 1
+    return y
+
+
+def spmv_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x through the SpMM with one right-hand side."""
+    return spmm_bell(a, x[:, None])[:, 0]
+
+
+spmm_bell.launches = 0

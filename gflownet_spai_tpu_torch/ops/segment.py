@@ -1,14 +1,16 @@
-"""Node-tile layouts of the GAT's segment structure and the windowed
-source-row gather K3 (counterpart of ``gflownet_spai_tpu/ops/segment.py``:
-the layout builders :41-186, ``SrcWindows`` :511-609 and
-``gather_rows_windows`` :612-655, :734-789).
+"""Node-tile layouts of the GAT's segment structure, the tile segment ops
+and the windowed source-row gather (counterpart of
+``gflownet_spai_tpu/ops/segment.py``).
 
 The layouts are built once on the host (numpy): edges grouped by
 destination node into tiles of ``TN`` consecutive nodes × ``S`` slots
 (padded), optionally bucketed by slot width.  The fused GAT kernel
-(``ops.gat_fused``) consumes them.  The layer-2 source-row gather runs as
-the CUDA kernel ``csrc/segment.cu`` on CUDA tensors; on CPU tensors
-``gather_rows_windows`` computes its plain version.
+(``ops.gat_fused``) consumes them, and so do the unfused segment ops of
+the generic GAT layer: softmax (K5), sum (K6) and node → slot broadcast
+(K7), each differentiable with the JAX package's custom VJP.  The layer-2
+source-row gather is K3 and its transpose K4.  All five run as CUDA
+kernels (``csrc/segment.cu``) on CUDA tensors; on CPU tensors each
+computes its plain version (``*_ref``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
 from .._device import resolve_device
@@ -136,6 +139,225 @@ def to_tiles(tiles: SegTiles, vals: torch.Tensor) -> torch.Tensor:
     appended zero row."""
     ext = torch.cat([vals, vals.new_zeros((1,) + tuple(vals.shape[1:]))])
     return ext[tiles.perm.long()]
+
+
+def from_tiles(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``to_tiles`` for per-edge outputs: [T·S, ...] slot
+    values back to [E, ...] edge order (padding slots dropped)."""
+    out = vals_t.new_zeros((tiles.num_edges + 1,) + tuple(vals_t.shape[1:]))
+    out[tiles.perm.long()] = vals_t
+    return out[:tiles.num_edges]
+
+
+# ---------------------------------------------------------------------------
+# Tile segment ops: softmax (K5), sum (K6), node → slot broadcast (K7)
+# ---------------------------------------------------------------------------
+
+def _slot_rows(tiles: SegTiles) -> torch.Tensor:
+    """int64[T·S]: each slot's row in a per-tile layout of TN + 1 rows
+    (row TN of each tile collects its padding slots)."""
+    lid = tiles.local_dst.long()
+    tile = torch.arange(lid.shape[0], device=lid.device)[:, None]
+    return (tile * (tiles.tile_nodes + 1) + lid).reshape(-1)
+
+
+def _node_rows(tiles: SegTiles, per_row: torch.Tensor) -> torch.Tensor:
+    """[T·(TN + 1), ...] per-row values → [T·TN, ...] (padding rows dropped)."""
+    tn = tiles.tile_nodes
+    return per_row.reshape((-1, tn + 1) + tuple(per_row.shape[1:]))[:, :tn] \
+        .reshape((-1,) + tuple(per_row.shape[1:]))
+
+
+def segment_softmax_tiles_ref(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: softmax within each node's slots of [T, S] (or
+    [T, H, S], per head) scores; padding slots → 0."""
+    s = scores_t[:, None] if scores_t.dim() == 2 else scores_t
+    T, H, S = s.shape
+    rows = _slot_rows(tiles)
+    flat = s.permute(0, 2, 1).reshape(T * S, H)
+    m = flat.new_full((T * (tiles.tile_nodes + 1), H), float("-inf"))
+    m = m.scatter_reduce(0, rows[:, None].expand(-1, H), flat, "amax")
+    ex = torch.exp(flat - m[rows])
+    den = torch.zeros_like(m).index_add_(0, rows, ex)
+    y = ex / torch.clamp_min(den[rows], 1e-30)
+    real = (tiles.local_dst.reshape(-1) < tiles.tile_nodes)[:, None]
+    y = torch.where(real, y, 0.0).reshape(T, S, H).permute(0, 2, 1)
+    return y if scores_t.dim() == 3 else y[:, 0]
+
+
+def segment_sum_tiles_ref(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6: [T, S, D] slot values → [T·TN, D] per-node
+    sums (padding slots add nothing)."""
+    T, S, D = vals_t.shape
+    out = vals_t.new_zeros((T * (tiles.tile_nodes + 1), D))
+    return _node_rows(tiles, out.index_add_(0, _slot_rows(tiles),
+                                            vals_t.reshape(T * S, D)))
+
+
+def segment_max_tiles_ref(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
+    """[T, S] slot values → [T·TN] per-node max (−inf where a node has no
+    slot)."""
+    out = vals_t.new_full((vals_t.shape[0] * (tiles.tile_nodes + 1),), float("-inf"))
+    return _node_rows(tiles, out.scatter_reduce(0, _slot_rows(tiles),
+                                                vals_t.reshape(-1), "amax"))
+
+
+def segment_broadcast_tiles_ref(tiles: SegTiles, node_vals: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: [T, TN, D] node values → [T, S, D] slot values
+    (each slot reads its node's row; padding slots → 0)."""
+    T, TN, D = node_vals.shape
+    ext = torch.cat([node_vals, node_vals.new_zeros((T, 1, D))], dim=1)
+    return ext.reshape(T * (TN + 1), D)[_slot_rows(tiles)].reshape(T, tiles.slots, D)
+
+
+_RUNS_CHECKED = WeakIdKeyDictionary()   # local_dst tensor → the run invariant holds
+
+
+def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str, runs: bool):
+    """The kernels take contiguous float32 values of ``shape`` and the
+    layout's int32 local_dst on their device; K5 and K6 also need each
+    node's slots to form one run (local_dst non-decreasing in [0, TN] per
+    tile), checked once per layout."""
+    lid = tiles.local_dst
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() \
+            or tuple(x.shape) != shape:
+        raise ValueError(f"{what}: expected a contiguous float32 CUDA tensor of shape "
+                         f"{shape}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if lid.device != x.device or lid.dtype != torch.int32 or not lid.is_contiguous() \
+            or tuple(lid.shape) != (tiles.tiles, tiles.slots) or tiles.tile_nodes > 4096:
+        raise ValueError(f"{what}: the layout's local_dst must be a contiguous int32 "
+                         f"[T, S] tensor on {x.device}, with TN <= 4096")
+    if runs:
+        if lid not in _RUNS_CHECKED:
+            _RUNS_CHECKED[lid] = bool(
+                ((lid >= 0) & (lid <= tiles.tile_nodes)).all()
+                & (lid[:, 1:] >= lid[:, :-1]).all())
+        if not _RUNS_CHECKED[lid]:
+            raise ValueError(f"{what}: local_dst is not non-decreasing in [0, TN] per "
+                             "tile, so a node's slots do not form one run (build the "
+                             "layout with build_seg_tiles or build_seg_buckets)")
+
+
+_TILE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _tile_launch(name: str, tiles: SegTiles, x: torch.Tensor, out_shape, d: int):
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    _build.check(_seg_fn(name, _TILE_ARGTYPES)(
+        tiles.local_dst.data_ptr(), x.data_ptr(), out.data_ptr(), tiles.tiles,
+        tiles.slots, d, tiles.tile_nodes,
+        torch.cuda.current_stream(x.device).cuda_stream), name)
+    return out
+
+
+def _softmax_fwd(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
+    """K5 on CUDA tensors ([T, H, S]), its plain version on CPU tensors."""
+    if scores_t.device.type == "cpu":
+        return segment_softmax_tiles_ref(tiles, scores_t)
+    T, H, S = scores_t.shape
+    _check_tiles(tiles, scores_t, (tiles.tiles, H, tiles.slots),
+                 "segment_softmax_tiles", runs=True)
+    out = _tile_launch("segment_softmax_tiles_fwd", tiles, scores_t, (T, H, S), H)
+    segment_softmax_tiles_mh.launches += 1
+    return out
+
+
+def _sum_fwd(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
+    """K6 ([T, S, D] → [T, TN, D]) on CUDA tensors, its plain version on
+    CPU tensors."""
+    T, S, D = vals_t.shape
+    if vals_t.device.type == "cpu":
+        return segment_sum_tiles_ref(tiles, vals_t).reshape(T, tiles.tile_nodes, D)
+    _check_tiles(tiles, vals_t, (tiles.tiles, tiles.slots, D), "segment_sum_tiles",
+                 runs=True)
+    out = _tile_launch("segment_sum_tiles_fwd", tiles, vals_t,
+                       (T, tiles.tile_nodes, D), D)
+    segment_sum_tiles.launches += 1
+    return out
+
+
+def _broadcast_fwd(tiles: SegTiles, node_vals: torch.Tensor) -> torch.Tensor:
+    """K7 ([T, TN, D] → [T, S, D]) on CUDA tensors, its plain version on
+    CPU tensors."""
+    if node_vals.device.type == "cpu":
+        return segment_broadcast_tiles_ref(tiles, node_vals)
+    T, TN, D = node_vals.shape
+    _check_tiles(tiles, node_vals, (tiles.tiles, tiles.tile_nodes, D),
+                 "segment_broadcast_tiles", runs=False)
+    out = _tile_launch("segment_broadcast_tiles_fwd", tiles, node_vals,
+                       (T, tiles.slots, D), D)
+    segment_broadcast_tiles.launches += 1
+    return out
+
+
+class _SoftmaxTiles(torch.autograd.Function):
+    """K5 forward; backward ``y ⊙ (g − K7(K6(y·g)))`` with the heads as
+    the feature axis (``_softmax_tiles_bwd`` in JAX)."""
+
+    @staticmethod
+    def forward(ctx, scores_t, tiles):
+        y = _softmax_fwd(tiles, scores_t)
+        ctx.save_for_backward(y)
+        ctx.tiles = tiles
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = (y * g).permute(0, 2, 1).contiguous()                  # [T, S, H]
+        dot = _broadcast_fwd(ctx.tiles, _sum_fwd(ctx.tiles, yg))     # [T, S, H]
+        return y * (g - dot.permute(0, 2, 1)), None
+
+
+class _SumTiles(torch.autograd.Function):
+    """K6 forward, K7 backward (the two are each other's transpose)."""
+
+    @staticmethod
+    def forward(ctx, vals_t, tiles):
+        ctx.tiles = tiles
+        return _sum_fwd(tiles, vals_t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _broadcast_fwd(ctx.tiles, g.contiguous()), None
+
+
+class _BroadcastTiles(torch.autograd.Function):
+    """K7 forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, node_vals, tiles):
+        ctx.tiles = tiles
+        return _broadcast_fwd(tiles, node_vals)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fwd(ctx.tiles, g.contiguous()), None
+
+
+def segment_softmax_tiles_mh(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
+    """Multi-head segment softmax [T, H, S] → [T, H, S] (padding → 0):
+    K5 on CUDA tensors, differentiable (backward K6 and K7)."""
+    return _SoftmaxTiles.apply(scores_t.contiguous(), tiles)
+
+
+def segment_softmax_tiles(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
+    """Segment softmax over the tile layout: [T, S] → [T, S]."""
+    return segment_softmax_tiles_mh(tiles, scores_t[:, None, :])[:, 0, :]
+
+
+def segment_sum_tiles(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
+    """Per-node sums [T, S, D] → [T·TN, D]: K6 on CUDA tensors,
+    differentiable (backward K7)."""
+    out = _SumTiles.apply(vals_t.contiguous(), tiles)
+    return out.reshape(tiles.n_pad, vals_t.shape[-1])
+
+
+def segment_broadcast_tiles(tiles: SegTiles, node_vals: torch.Tensor) -> torch.Tensor:
+    """Node → slot broadcast [T, TN, D] → [T, S, D] (padding → 0), the
+    gather ``vals[dst]`` of per-node values needed per edge: K7 on CUDA
+    tensors, differentiable (backward K6)."""
+    return _BroadcastTiles.apply(node_vals.contiguous(), tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -280,9 +502,9 @@ def _check_rows(x: torch.Tensor, what: str):
 _WIN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def _seg_fn(name: str):
+def _seg_fn(name: str, argtypes=_WIN_ARGTYPES):
     fn = getattr(_build.load("segment"), name)
-    fn.argtypes, fn.restype = _WIN_ARGTYPES, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
@@ -353,3 +575,6 @@ def gather_rows_windows(plan: SrcWindows, tiles: SegTiles, src_t,
 
 gather_rows_windows.launches = 0
 scatter_rows_windows.launches = 0
+segment_softmax_tiles_mh.launches = 0
+segment_sum_tiles.launches = 0
+segment_broadcast_tiles.launches = 0

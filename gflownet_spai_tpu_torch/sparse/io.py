@@ -10,8 +10,8 @@ from pathlib import Path
 
 import numpy as np
 
-from .convert import coo_sort_dedup
-from .types import COO, to_numpy
+from .convert import coo_sort_dedup, coo_to_csr
+from .types import COO, CSR, to_numpy
 
 
 def _open(path):
@@ -88,3 +88,13 @@ def write_mtx(path, coo: COO, comment: str = "") -> None:
         f.write(f"{coo.shape[0]} {coo.shape[1]} {len(data)}\n")
         for r, c, v in zip(row, col, data):
             f.write(f"{r} {c} {v:.17g}\n")
+
+
+def read_mtx_vector(path, dtype=np.float64) -> np.ndarray:
+    """A dense vector from .mtx (densified and flattened)."""
+    return to_numpy(read_mtx(path, dtype=dtype).todense()).ravel()
+
+
+def read_mtx_csr(path, dtype=np.float64) -> CSR:
+    """A .mtx file straight to CSR."""
+    return coo_to_csr(read_mtx(path, dtype=dtype), canonical=True)

@@ -1,6 +1,10 @@
-"""COO SpMV, the fixed-pattern SpGEMM and the ‖C − I‖_F² norm
-(counterpart of ``gflownet_spai_tpu/sparse/ops.py``: ``spmv_coo`` :23 and
-:112-214).
+"""SpMV and SpMM over the COO / CSR / ELL / BSR containers, the
+fixed-pattern SpGEMM and the ‖C − I‖_F² norm (counterpart of
+``gflownet_spai_tpu/sparse/ops.py``), in plain PyTorch.
+
+The containers' arrays must be tensors on the right-hand side's device
+(``.to(device)``).  BSR's block products (and ELL's SpMM) run in full
+float32, without TF32, as the JAX package's ``precision="highest"``.
 
 The patterns of A and B never change while a model trains or samples, only
 their values, so the symbolic product runs once on the host (numpy) and
@@ -10,18 +14,67 @@ A GPU gathers natively, so this pair plan is the reward path of the port.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from .types import COO
+from .types import BSR, COO, CSR, ELL
 
 
-def spmv(a: COO, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for a COO matrix of tensors on x's device: a gather of x,
-    a product and one ``index_add_`` into the rows (``spmv_coo``)."""
-    prod = a.data * x[a.col]
-    return prod.new_zeros((a.shape[0],)).index_add_(0, a.row, prod)
+@contextlib.contextmanager
+def f32_exact():
+    """Float32 matrix products without TF32 inside the block (the JAX
+    package's ``precision="highest"``); the caller's setting is restored."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
+def _rows_sum(vals: torch.Tensor, rows, nrows: int) -> torch.Tensor:
+    out = vals.new_zeros((nrows,) + tuple(vals.shape[1:]))
+    return out.index_add_(0, rows.long(), vals)
+
+
+def spmv(a, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x for a COO, CSR, ELL or BSR matrix (or a dense one)."""
+    if isinstance(a, CSR):
+        a = a.tocoo()
+    if isinstance(a, COO):
+        # a gather of x, a product and one index_add_ into the rows
+        return _rows_sum(a.data * x[a.col], a.row, a.shape[0])
+    if isinstance(a, ELL):
+        # gather + product + row sum; padded slots add 0
+        return torch.sum(a.data * x[a.cols], dim=1)
+    if isinstance(a, BSR):
+        xb = x.reshape(-1, a.blockshape[1])[a.indices]          # [nblocks, bn]
+        yb = torch.sum(a.data * xb[:, None, :], dim=2)          # [nblocks, bm]
+        return _rows_sum(yb, a.block_rows(), a.shape[0] // a.blockshape[0]) \
+            .reshape(a.shape[0])
+    return a @ x
+
+
+def spmm(a, b: torch.Tensor) -> torch.Tensor:
+    """Y = A·B for a COO, CSR, ELL or BSR matrix (or a dense one) and a
+    dense B [n, K]."""
+    if isinstance(a, CSR):
+        a = a.tocoo()
+    if isinstance(a, COO):
+        return _rows_sum(a.data[:, None] * b[a.col], a.row, a.shape[0])
+    with f32_exact():
+        if isinstance(a, ELL):
+            return torch.einsum("rw,rwc->rc", a.data, b[a.cols])
+        if isinstance(a, BSR):
+            bm, bn = a.blockshape
+            bb = b.reshape(-1, bn, b.shape[1])[a.indices]      # [nblocks, bn, K]
+            yb = torch.bmm(a.data, bb)                           # [nblocks, bm, K]
+            return _rows_sum(yb, a.block_rows(), a.shape[0] // bm) \
+                .reshape(a.shape[0], b.shape[1])
+        return a @ b
 
 
 class SpGEMMPlan:
@@ -74,6 +127,18 @@ class SpGEMMPlan:
         out = prod.new_zeros(prod.shape[:-1] + (self.out_nnz,))
         return out.index_add_(-1, self.pair_out, prod)
 
+    def out_coo(self, c_data: torch.Tensor) -> COO:
+        return COO(row=self.out_row, col=self.out_col, data=c_data, shape=self.shape)
+
+
+def spgemm(a: COO, b: COO) -> COO:
+    """General sparse × sparse product (symbolic and numeric in one call),
+    on the device of ``a``'s values (the CPU for numpy arrays)."""
+    device = a.data.device if isinstance(a.data, torch.Tensor) else "cpu"
+    plan = SpGEMMPlan(a, b, device=device)
+    as_t = lambda x: torch.as_tensor(x, device=device)
+    return plan.out_coo(plan.numeric(as_t(a.data), as_t(b.data)))
+
 
 def frobenius_sq_minus_identity(row, col, data: torch.Tensor, n: int) -> torch.Tensor:
     """``‖C − I‖_F²`` for sparse C in COO arrays (static pattern), by the
@@ -83,3 +148,17 @@ def frobenius_sq_minus_identity(row, col, data: torch.Tensor, n: int) -> torch.T
     s2 = torch.sum(data * data, dim=-1)
     sd = torch.sum(diag * data, dim=-1)
     return s2 - 2.0 * sd + n
+
+
+def transpose_perm(coo: COO) -> np.ndarray:
+    """Host-side permutation from COO entries to the transposed
+    (column-major) order."""
+    h = coo.numpy()
+    key = h.col.astype(np.int64) * coo.shape[0] + h.row
+    return np.argsort(key, kind="stable")
+
+
+def eye_coo(n: int, dtype=np.float32) -> COO:
+    """The n × n identity as a host COO."""
+    idx = np.arange(n, dtype=np.int32)
+    return COO(row=idx, col=idx, data=np.ones(n, dtype), shape=(n, n))

@@ -24,13 +24,24 @@ mode (a reach too wide for one block's shared memory, or forced).  K10,
 K11, K15 and K16 as K8 (one pass, sums from zero in offset order), with
 atol 1e-5 times the largest output magnitude.  Each kernel test also
 replaces the plain version by one that fails, so a CUDA tensor that
-reached it would show."""
+reached it would show.
+
+K7 only moves values: exact.  K6 sums each node's run in slot order, the
+plain version with index_add_: rtol 1e-5 and per element 4·eps32·Σ|v|
+over the run's terms, as K4.  K5 divides by a sum of positive terms whose
+rounding grows with the run: rtol 1e-5 + 4·eps32·(run length), atol 1e-6.
+K17 sums W·bn products per output in another order than the plain
+version's batched matmul: rtol 1e-5 and per element 4·eps32·(|A|·|X|)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from gflownet_spai_tpu_torch.models import gat
 from gflownet_spai_tpu_torch.models import policies as pol
+from gflownet_spai_tpu_torch.ops import bsr
 from gflownet_spai_tpu_torch.ops import dia
 from gflownet_spai_tpu_torch.ops import gat_fused as gf
 from gflownet_spai_tpu_torch.ops import segment as seg
@@ -571,3 +582,220 @@ def test_vcycle_and_bicgstab_on_card(cuda):
             assert dia.spmv_dia_power.launches + dia.spmv_dia_cheby.launches \
                 > before["K12"] + before["K13"]
     assert all(abs(g - w) <= 1 for g, w in zip(its[str(cuda)], its["cpu"])), its
+
+
+# ---------------------------------------------------------------------------
+# K5, K6, K7 (tile segment ops) and K17 (block-ELL SpMM)
+# ---------------------------------------------------------------------------
+
+EPS32 = torch.finfo(torch.float32).eps
+
+
+@pytest.fixture
+def no_plain_mod(monkeypatch):
+    """``no_plain`` for any module: the named plain versions fail, the
+    originals are returned."""
+    def patch(mod, *names):
+        saved = {nm: getattr(mod, nm) for nm in names}
+
+        def fail(*_, **__):
+            raise AssertionError("a CUDA tensor reached the plain version")
+
+        for nm in names:
+            monkeypatch.setattr(mod, nm, fail)
+        return saved
+    return patch
+
+
+def _seg_layout(dev, kind):
+    """``empty``: node ids skip tiles 2 and 5 (two empty tiles) and a hub
+    owns 300 slots; ``padded``: one tile holds a 1,000-slot hub, so the
+    padding fills most of S in every other tile."""
+    rng = np.random.default_rng(3)
+    n, tn = 1500, 128
+    if kind == "empty":
+        ids = rng.integers(0, n, 12000)
+        ids = ids[(ids // tn != 2) & (ids // tn != 5)]
+        ids = np.concatenate([ids, np.full(300, 900)])
+    else:
+        ids = np.concatenate([rng.integers(0, n, 3000), np.full(1000, 40)])
+    tiles = seg.build_seg_tiles(ids, n, tile_nodes=tn, device=dev)
+    real = (tiles.local_dst < tn).sum(dim=1)
+    if kind == "empty":
+        assert int((real == 0).sum()) == 2
+    else:
+        assert float(real.float().mean()) < 0.3 * tiles.slots
+    return rng, tiles
+
+
+def _run_len(tiles, ref_sum, ref_bcast):
+    """[T, S, 1]: the length of each slot's run (0 for padding)."""
+    ones = tiles.local_dst.new_ones((tiles.tiles, tiles.slots, 1), dtype=torch.float32)
+    per_node = ref_sum(tiles, ones).reshape(tiles.tiles, tiles.tile_nodes, 1)
+    return ref_bcast(tiles, per_node)
+
+
+@pytest.mark.parametrize("kind", ["empty", "padded"])
+@pytest.mark.parametrize("H", [4, 1])
+def test_k5_matches_plain(cuda, no_plain_mod, kind, H):
+    rng, tiles = _seg_layout(cuda, kind)
+    ref = no_plain_mod(seg, "segment_softmax_tiles_ref", "segment_sum_tiles_ref",
+                       "segment_broadcast_tiles_ref")
+    scores = torch.as_tensor(rng.standard_normal((tiles.tiles, H, tiles.slots)) * 3,
+                             dtype=torch.float32, device=cuda)
+    before = seg.segment_softmax_tiles_mh.launches
+    got = seg.segment_softmax_tiles_mh(tiles, scores)
+    torch.cuda.synchronize()
+    assert seg.segment_softmax_tiles_mh.launches == before + 1
+    want = ref["segment_softmax_tiles_ref"](tiles, scores)
+    runs = _run_len(tiles, ref["segment_sum_tiles_ref"],
+                    ref["segment_broadcast_tiles_ref"]).permute(0, 2, 1)
+    bound = 1e-6 + (1e-5 + 4 * EPS32 * runs) * want.abs()
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), f"max err {float(err.max()):.3e}"
+    assert not got[(tiles.local_dst == tiles.tile_nodes)[:, None].expand_as(got)].any()
+
+
+@pytest.mark.parametrize("kind", ["empty", "padded"])
+@pytest.mark.parametrize("D", [16, 4, 1])
+def test_k6_k7_match_plain(cuda, no_plain_mod, kind, D):
+    """K6 and K7 forward and as each other's backward."""
+    rng, tiles = _seg_layout(cuda, kind)
+    ref = no_plain_mod(seg, "segment_sum_tiles_ref", "segment_broadcast_tiles_ref")
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                   device=cuda)
+    vals, nodes = f(T, S, D).requires_grad_(True), f(T, TN, D).requires_grad_(True)
+    k6, k7 = seg.segment_sum_tiles.launches, seg.segment_broadcast_tiles.launches
+    got_sum = seg.segment_sum_tiles(tiles, vals)
+    got_bc = seg.segment_broadcast_tiles(tiles, nodes)
+    g_sum, g_bc = f(T * TN, D), f(T, S, D)
+    (d_vals,) = torch.autograd.grad(got_sum, vals, g_sum)       # K7
+    (d_nodes,) = torch.autograd.grad(got_bc, nodes, g_bc)       # K6
+    torch.cuda.synchronize()
+    assert (seg.segment_sum_tiles.launches - k6, seg.segment_broadcast_tiles.launches
+            - k7) == (2, 2)
+    v = vals.detach()
+    want = ref["segment_sum_tiles_ref"](tiles, v)
+    bound = 1e-5 * want.abs() + 4 * EPS32 * ref["segment_sum_tiles_ref"](tiles, v.abs())
+    assert bool(((got_sum - want).abs() <= bound).all())
+    want_nodes = ref["segment_sum_tiles_ref"](tiles, g_bc).reshape(T, TN, D)
+    bound = 1e-5 * want_nodes.abs() + 4 * EPS32 * ref["segment_sum_tiles_ref"](
+        tiles, g_bc.abs()).reshape(T, TN, D)
+    assert bool(((d_nodes - want_nodes).abs() <= bound).all())
+    assert torch.equal(got_bc, ref["segment_broadcast_tiles_ref"](tiles, nodes.detach()))
+    assert torch.equal(d_vals, ref["segment_broadcast_tiles_ref"](
+        tiles, g_sum.reshape(T, TN, D)))
+
+
+def test_segment_kernels_refuse_broken_runs(cuda):
+    """K5 and K6 need each node's slots to form one run: a layout whose
+    local_dst is not sorted within a tile raises (K7 does not need it)."""
+    rng, tiles = _seg_layout(cuda, "empty")
+    lid = tiles.local_dst.clone()
+    lid[0] = lid[0].flip(0)
+    broken = dataclasses.replace(tiles, local_dst=lid)
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    with pytest.raises(ValueError, match="run"):
+        seg.segment_softmax_tiles_mh(broken, torch.zeros((T, 2, S), device=cuda))
+    with pytest.raises(ValueError, match="run"):
+        seg.segment_sum_tiles(broken, torch.zeros((T, S, 4), device=cuda))
+    out = seg.segment_broadcast_tiles(broken, torch.ones((T, TN, 4), device=cuda))
+    assert torch.equal(out, seg.segment_broadcast_tiles_ref(broken, torch.ones(
+        (T, TN, 4), device=cuda)))
+    seg.segment_sum_tiles(tiles, torch.zeros((T, S, 4), device=cuda))  # intact: runs
+
+
+def test_generic_gat_gradient_on_card(cuda):
+    """Two generic GATv2 layers (edge_dim 2) on orsirr_like24's tile layout
+    through K3-K7, values and parameter gradients against the per-edge
+    path on the card (rtol 2e-4, atol 2e-5; gradients rtol 5e-3, atol
+    5e-4 times the group's largest: the repo's bounds)."""
+    seed = gallery.orsirr_like(24)
+    seed = seed.with_data(seed.data.astype(np.float32))
+    tg = pol.tiled_graph_from_seed(seed, tile_nodes=128, bucket_step=None, device=cuda)
+    n2 = tg.tiles.num_nodes
+    v = seed.data
+    feats = np.stack([v, np.abs(v)], axis=1)
+    attr = torch.as_tensor(np.concatenate([feats, np.broadcast_to(feats.mean(0), (n2, 2))]))
+    attr_t = seg.to_tiles(tg.tiles.to("cpu"), attr).to(cuda)
+    gen = torch.Generator().manual_seed(5)
+    ps = [gat.gatv2_init(gen, 1, 4, 4, edge_dim=2), gat.gatv2_init(gen, 16, 4, 1, edge_dim=2)]
+    ps = [[x.to(cuda).requires_grad_(True) for x in p] for p in ps]
+    c = torch.randn((n2, 4), generator=gen).to(cuda)
+    edges = seed.to(cuda)
+    ea = attr[:seed.nnz].to(cuda)
+
+    def tiled(p1, p2):
+        h = torch.relu(gat.gatv2_apply_tiled(p1, tg.x, tg.tiles, tg.src_t, tg.dst_t,
+                                             attr_t, n2, 4, 4, srcwin=tg.srcwin))
+        return gat.gatv2_apply_tiled(p2, h, tg.tiles, tg.src_t, tg.dst_t, attr_t, n2, 1,
+                                     4, srcwin=tg.srcwin)
+
+    def per_edge(p1, p2):
+        x = torch.ones((n2, 1), device=cuda)
+        h = torch.relu(gat.gatv2_apply(p1, x, edges.row, edges.col, ea, n2, 4, 4))
+        return gat.gatv2_apply(p2, h, edges.row, edges.col, ea, n2, 1, 4)
+
+    counters = (seg.gather_rows_windows, seg.scatter_rows_windows,
+                seg.segment_softmax_tiles_mh, seg.segment_sum_tiles,
+                seg.segment_broadcast_tiles)
+    before = [fn.launches for fn in counters]
+    flat = ps[0] + ps[1]
+    out = tiled(gat.GATv2Params(*ps[0]), gat.GATv2Params(*ps[1]))
+    got = torch.autograd.grad((out * c).sum(), flat)
+    torch.cuda.synchronize()
+    assert all(fn.launches > b for fn, b in zip(counters, before))
+    want_out = per_edge(gat.GATv2Params(*ps[0]), gat.GATv2Params(*ps[1]))
+    want = torch.autograd.grad((want_out * c).sum(), flat)
+    torch.testing.assert_close(out, want_out, rtol=2e-4, atol=2e-5)
+    for group in (slice(0, 6), slice(6, 12)):
+        scale = max(float(w.abs().max()) for w in want[group])
+        for a, b in zip(got[group], want[group]):
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-4 * scale)
+
+
+def _bell_case(dev, blockshape, m=1024, n=2048, density=0.1, seed=0):
+    """A random matrix with ``density`` of its blocks dense (standard
+    normals), as a BELL on ``dev``."""
+    rng = np.random.default_rng(seed)
+    bm, bn = blockshape
+    mask = rng.random((m // bm, n // bn)) < density
+    dense = np.kron(mask, np.ones(blockshape)) * rng.standard_normal((m, n))
+    from gflownet_spai_tpu_torch.sparse import coo_to_csr
+    from gflownet_spai_tpu_torch.sparse.types import COO
+
+    a = COO.fromdense(dense.astype(np.float32))
+    return rng, bsr.csr_to_bell(coo_to_csr(a, canonical=True), blockshape).to(dev)
+
+
+@pytest.mark.parametrize("blockshape", [(8, 128), (32, 128), (128, 128)])
+@pytest.mark.parametrize("K", [256, 100, 1])
+def test_k17_matches_plain(cuda, no_plain_mod, blockshape, K):
+    rng, a = _bell_case(cuda, blockshape)
+    ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
+    x = torch.as_tensor(rng.standard_normal((a.shape[1], K)), dtype=torch.float32,
+                        device=cuda)
+    before = bsr.spmm_bell.launches
+    got = bsr.spmm_bell(a, x) if K > 1 else bsr.spmv_bell(a, x[:, 0])[:, None]
+    torch.cuda.synchronize()
+    assert bsr.spmm_bell.launches == before + 1 and got.shape == (a.shape[0], K)
+    want = ref(a, x)
+    absa = dataclasses.replace(a, data=a.data.abs())
+    bound = 1e-5 * want.abs() + 4 * EPS32 * ref(absa, x.abs())
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), f"max err {float(err.max()):.3e}"
+
+
+def test_k17_refuses_what_it_does_not_take(cuda):
+    _, a = _bell_case(cuda, (8, 128), m=64, n=256, density=0.3)
+    x = torch.zeros((256, 8), device=cuda)
+    for bad, xx in ((dataclasses.replace(a, data=a.data.to(torch.bfloat16)), x),
+                    (dataclasses.replace(a, bcols=a.bcols.long()), x),
+                    (dataclasses.replace(a, bcols=torch.full_like(a.bcols, 2)), x),
+                    (a, x.double()), (a, x[:128]), (a.to("cpu"), x)):
+        with pytest.raises(ValueError, match="spmm_bell"):
+            bsr.spmm_bell(bad, xx)
+    _, odd = _bell_case(cuda, (12, 128), m=96, n=256, density=0.3)
+    with pytest.raises(ValueError, match="bm in"):
+        bsr.spmm_bell(odd, x)

@@ -139,12 +139,23 @@ def test_non_uniform_layer_without_window_plan_raises(case, bucketed):
 
 
 def test_edge_dim_other_than_one_raises(case):
+    """An edge_dim 2 layer takes the generic tile chain (K5-K7): it raises
+    on the graph's one-column edge features and on a non-uniform input
+    without the window plan, and runs on [T·S, 2] features."""
     gen = torch.Generator().manual_seed(0)
     p = t_gat.gatv2_init(gen, 1, HIDDEN, HEADS, edge_dim=2)
     tg = case["tg"]
-    with pytest.raises(NotImplementedError, match="K5"):
+    n2 = tg.tiles.num_nodes
+    with pytest.raises(RuntimeError):
         t_gat.gatv2_apply_tiled(p, tg.x, tg.tiles, tg.src_t, tg.dst_t,
-                                tg.attr_t, tg.tiles.num_nodes, HEADS, HIDDEN)
+                                tg.attr_t, n2, HEADS, HIDDEN)
+    attr2 = torch.cat([tg.attr_t, tg.attr_t.abs()], dim=1)
+    with pytest.raises(ValueError, match="window plan"):
+        t_gat.gatv2_apply_tiled(p, torch.ones((n2, 1)), tg.tiles, tg.src_t, tg.dst_t,
+                                attr2, n2, HEADS, HIDDEN, buckets=tg.gat_buckets)
+    out = t_gat.gatv2_apply_tiled(p, tg.x, tg.tiles, tg.src_t, tg.dst_t, attr2,
+                                  n2, HEADS, HIDDEN, buckets=tg.gat_buckets)
+    assert out.shape == (n2, HEADS * HIDDEN) and torch.isfinite(out).all()
 
 
 def test_gatv2_apply_tiled_buckets_grads_match(case):

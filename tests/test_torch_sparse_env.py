@@ -141,3 +141,108 @@ def test_unported_paths_raise():
     # the spai seed is ported (tests/test_torch_validate.py)
     with pytest.raises(NotImplementedError, match="env_format='dia'"):
         setup(TrainConfig(matrix="LF10_like", env_format="dia", platform="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# CSR / ELL / BSR containers, conversions, SpMV / SpMM, SpGEMM and utils
+# ---------------------------------------------------------------------------
+
+def _formats(name):
+    """Each format of the same float32 matrix from both packages."""
+    from gflownet_spai_tpu import sparse as js
+    from gflownet_spai_tpu_torch import sparse as ts
+
+    j, t = _f32_pair(name)
+    jc, tc = js.coo_to_csr(j), ts.coo_to_csr(t)
+    m, n = t.shape
+    pad = (-m % 8, -n % 16)
+    jp = JCOO(row=j.row, col=j.col, data=j.data, shape=(m + pad[0], n + pad[1]))
+    tp = TCOO(row=t.row, col=t.col, data=t.data, shape=(m + pad[0], n + pad[1]))
+    return dict(coo=(j, t), csr=(jc, tc),
+                ell=(js.csr_to_ell(jc, pad_multiple=4), ts.csr_to_ell(tc, pad_multiple=4)),
+                bsr=(js.csr_to_bsr(js.coo_to_csr(jp), (8, 16)),
+                     ts.csr_to_bsr(ts.coo_to_csr(tp), (8, 16))))
+
+
+@pytest.mark.parametrize("name", ["LF10_like", "orsirr_like12"])
+def test_sparse_formats_match(name):
+    """CSR / ELL / BSR conversions field by field, ``todense``, ``to_coo``
+    and ``spmv`` / ``spmm`` of every format against the JAX package
+    (float32, rtol 1e-5, atol 1e-5: sums in other orders)."""
+    from gflownet_spai_tpu import sparse as js
+    from gflownet_spai_tpu_torch import sparse as ts
+
+    fields = dict(coo=("row", "col", "data"), csr=("indptr", "indices", "data"),
+                  ell=("cols", "data"), bsr=("indptr", "indices", "data"))
+    rng = np.random.default_rng(0)
+    for fmt, (j, t) in _formats(name).items():
+        for f in fields[fmt]:
+            np.testing.assert_array_equal(np.asarray(getattr(t, f)),
+                                          np.asarray(getattr(j, f)), err_msg=fmt + f)
+        np.testing.assert_array_equal(t.todense().numpy(), np.asarray(j.todense()))
+        jc, tc = js.to_coo(j), ts.to_coo(t)
+        np.testing.assert_array_equal(np.asarray(tc.row), np.asarray(jc.row))
+        np.testing.assert_array_equal(np.asarray(tc.data), np.asarray(jc.data))
+        x = rng.standard_normal(t.shape[1]).astype(np.float32)
+        b = rng.standard_normal((t.shape[1], 5)).astype(np.float32)
+        td = t.to("cpu")
+        np.testing.assert_allclose(ts.spmv(td, torch.as_tensor(x)).numpy(),
+                                   np.asarray(js.spmv(j, jnp.asarray(x))),
+                                   rtol=1e-5, atol=1e-5, err_msg=fmt)
+        np.testing.assert_allclose(ts.spmm(td, torch.as_tensor(b)).numpy(),
+                                   np.asarray(js.spmm(j, jnp.asarray(b))),
+                                   rtol=1e-5, atol=1e-5, err_msg=fmt)
+
+
+def test_spgemm_transpose_eye_and_io_match(tmp_path):
+    from gflownet_spai_tpu import sparse as js
+    from gflownet_spai_tpu.sparse import ops as j_ops
+    from gflownet_spai_tpu_torch import sparse as ts
+    from gflownet_spai_tpu_torch.sparse import ops as t_ops
+
+    j, t = _f32_pair("bcsstk03_like")
+    jc, tc = js.spgemm(j, j), ts.spgemm(t, t)
+    np.testing.assert_array_equal(tc.row.numpy(), np.asarray(jc.row))
+    np.testing.assert_array_equal(tc.col.numpy(), np.asarray(jc.col))
+    np.testing.assert_allclose(tc.data.numpy(), np.asarray(jc.data), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(t_ops.transpose_perm(t), j_ops.transpose_perm(j))
+    je, te = js.eye_coo(7), ts.eye_coo(7)
+    np.testing.assert_array_equal(te.todense().numpy(), np.asarray(je.todense()))
+    a = t_gallery.get("orsirr_like12")
+    path = tmp_path / "a.mtx"
+    scipy.io.mmwrite(str(path), scipy.sparse.coo_matrix((a.data, (a.row, a.col)),
+                                                        shape=a.shape))
+    jr, tr = js.read_mtx_csr(path), ts.read_mtx_csr(path)
+    for f in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(tr, f), np.asarray(getattr(jr, f)))
+    vpath = tmp_path / "b.mtx"
+    scipy.io.mmwrite(str(vpath), np.arange(1.0, 6.0)[:, None])
+    np.testing.assert_array_equal(ts.read_mtx_vector(vpath),
+                                  np.asarray(js.read_mtx_vector(vpath)))
+
+
+def test_sparse_utils_match():
+    from gflownet_spai_tpu.sparse import utils as ju
+    from gflownet_spai_tpu_torch.sparse import utils as tu
+
+    j, t = _f32_pair("LF10_like")
+    td = t.to("cpu")
+
+    def same(tc, jc):
+        assert tuple(tc.shape) == tuple(jc.shape)
+        for f in ("row", "col", "data"):
+            np.testing.assert_array_equal(getattr(tc, f).numpy(),
+                                          np.asarray(getattr(jc, f)))
+
+    jf, tf = ju.flatten_coo(j), tu.flatten_coo(td)
+    same(tf, jf)
+    same(tu.unflatten_coo(tf, t.shape), ju.unflatten_coo(jf, j.shape))
+    with pytest.raises(ValueError, match="element counts"):
+        tu.unflatten_coo(tf, (3, 3))
+    idx = np.array([3, 0, 5, 1])
+    same(tu.sparse_one_hot(torch.as_tensor(idx), 7), ju.sparse_one_hot(jnp.asarray(idx), 7))
+    for axis in (0, 1):
+        same(tu.concat_coo([td, td], axis=axis), ju.concat_coo([j, j], axis=axis))
+    pos = np.array([0, 5, -1, t.nnz + 3, 17])
+    same(tu.delete_edges_flat(td, torch.as_tensor(pos)),
+         ju.delete_edges_flat(j, jnp.asarray(pos)))
