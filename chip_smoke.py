@@ -69,7 +69,9 @@ Phases (any failure exits non-zero before the result line):
                float64 versions on two vectors.
 14. dia-multi — K10 (padded-IO SpMV) and K11 (ping-pong SpMV) as chains of
                8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
-               SpMMs) at 256 right-hand sides, K14 (multi-RHS fused k-step)
+               SpMMs) at 256 right-hand sides (K15 also held at K 7, its
+               word-by-word path, and 16, and timed on orsirr_like150's
+               230 diagonals at K 64), K14 (multi-RHS fused k-step)
                at k = 1 with 16 right-hand sides and at k = 8 on
                poisson512 with 2 (tiled, and forced streamed), all on
                poisson1024 unless named, against their plain versions;
@@ -107,9 +109,12 @@ Phases (any failure exits non-zero before the result line):
                block-ELL configuration (4096^2, 2% of the (8,128) blocks,
                K = 256), at blockshapes (32,128) and (128,128), and on a
                65,536^2 matrix of the same density (JAX's streamed regime),
-               and ``spmv_bell`` once, counters read; each against
+               ``spmv_bell`` once, and the 4096^2 (8,128) matrix again with
+               its slots shuffled and 3 explicit zero blocks added per row
+               (correctness only), counters read; each against
                ``spmm_bell_ref`` and scipy float64; times as [dia], the
-               library call torch.sparse CSR A @ X.
+               library call torch.sparse CSR A @ X; per case the real
+               against stored block slots and kernel / CSR.
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
@@ -1201,6 +1206,7 @@ def phase_poisson(dev):
 
 MULTI_K = 16                # right-hand sides of the [multirhs] phase
 SPMM_K = 256                # the wide-K SpMM configuration (docs/BENCH.md:97-104)
+SPMM_K_MANY = 64            # K15 on orsirr_like150's 230 diagonals
 CHAIN = 8                   # K10 / K11: chained calls at scale 0.2
 MULTI_ITER_TOL = 0.05       # cg_multi vs single cg per column at rtol 1e-5
 BICGSTAB_ITER_TOL = 0.10    # port BiCGStab (float64) vs scipy's iteration count
@@ -1334,6 +1340,38 @@ def phase_dia_multi(dev):
         lambda: dia.spmm_dia_ref(d, X), 4 * (nd * d.n_pad + 2 * n * SPMM_K),
         2 * nd * n * SPMM_K, make_lib=make_lib15, lib_name="torch.sparse CSR A@X", reps=5)
     del X, y, want
+    # K15 at K 7 (the word-by-word path) and 16 (held), and on the 230
+    # diagonals of orsirr_like150 at K 64 (held and timed)
+    for k in (7, 16):
+        Xk = rnd(n, k)
+        yk, wk = dia.spmm_dia(d, Xk), dia.spmm_dia_ref(d, Xk)
+        torch.cuda.synchronize()
+        err = float((yk - wk).abs().max())
+        if not err <= _dia_tol(wk, 1):
+            fail(f"K15 at {name}, K {k}: max abs err {err:.3e} > {_dia_tol(wk, 1):.3e}")
+        print(f"[K15] {name}, X [{n}, {k}]: max abs err {err:.3e}", flush=True)
+        out[f"K15 K={k}"] = dict(err=err)
+    a150 = gallery.get(MATRIX)
+    d150 = dia.coo_to_dia(a150.with_data(a150.data.astype(np.float32)), device=dev)
+    csr150 = _csr(d150)
+    X150 = rnd(d150.n, SPMM_K_MANY)
+    y150, want150 = dia.spmm_dia(d150, X150), dia.spmm_dia_ref(d150, X150)
+
+    def make15b(i):
+        di, xi = (d150, X150) if i == 0 else (_dia_copy(d150), X150.clone())
+        return lambda: dia.spmm_dia(di, xi)
+
+    def make_lib15b(i):
+        ci, xi = (csr150, X150) if i == 0 else (csr150.clone(), X150.clone())
+        return lambda: ci @ xi
+
+    out["K15 orsirr"] = _record(
+        "K15", f"{MATRIX} ({d150.ndiags} diagonals), X [{d150.n}, {SPMM_K_MANY}]",
+        [y150], [want150], 1, make15b, lambda: dia.spmm_dia_ref(d150, X150),
+        4 * (d150.ndiags * d150.n_pad + 2 * d150.n * SPMM_K_MANY),
+        2 * d150.ndiags * d150.n * SPMM_K_MANY, make_lib=make_lib15b,
+        lib_name="torch.sparse CSR A@X")
+    del X150, y150, want150, csr150
 
     def k16(dd, label, xtp, reps=20):
         """K16 on the [K_pad, h + n_pad + h] buffer ``xtp``; the library
@@ -1707,6 +1745,7 @@ BELL_K = 256                # docs/BENCH.md:108-125
 BELL_DENSITY = 0.02         # of the blocks
 BELL_CASES = ((4096, (8, 128)), (4096, (32, 128)), (4096, (128, 128)), (65536, (8, 128)))
 BELL_SCIPY_BLOCK_ROWS = 64  # rows of the 65,536 case held against scipy float64
+BELL_ZERO_SLOTS = 3         # explicit zero blocks added per row of the irregular BELL
 
 
 def _elementwise(got, want, bound, what):
@@ -1939,6 +1978,21 @@ def _bell_direct(m, n, brow, bcol, blocks):
     return bsr.BELL(data=data, bcols=cols, shape=(m, n), nnz=int(blocks.size))
 
 
+def _bell_irregular(a, extra, rng):
+    """``a`` with ``extra`` explicit all-zero blocks added to every block
+    row (random block columns) and each row's slots shuffled, padding
+    included: a BELL ``csr_to_bell`` never gives, for K17's chunk skip."""
+    nbr, W = a.bcols.shape
+    W2 = W + extra
+    data = np.zeros((nbr, W2) + a.data.shape[2:], np.float32)
+    cols = rng.integers(0, a.shape[1] // a.data.shape[3], (nbr, W2)).astype(np.int32)
+    perm = np.argsort(rng.random((nbr, W2)), axis=1)[:, :W]
+    rows = np.arange(nbr)[:, None]
+    data[rows, perm] = a.data
+    cols[rows, perm] = a.bcols
+    return bsr.BELL(data=data, bcols=cols, shape=a.shape, nnz=a.nnz)
+
+
 def _bell_scipy(a_host, block_rows):
     """scipy float64 CSR of the first ``block_rows`` block rows."""
     import scipy.sparse as sp
@@ -1957,6 +2011,23 @@ def _bell_csr(a):
     idx = torch.stack([r * bm + i, a.bcols[r, w].long() * bn + j])
     return torch.sparse_coo_tensor(idx, a.data[r, w, i, j], a.shape,
                                    check_invariants=False).coalesce().to_sparse_csr()
+
+
+def _bell_tail(a, x, ms):
+    """What bounds K17 on the benchmark matrix: its time with only the
+    block row of the most real blocks kept, and with no real block (the
+    scan of every padded slot and the Y writes), beside the whole."""
+    real = a.data.abs().amax(dim=(2, 3)) > 0
+    heavy = int(real.sum(dim=1).argmax())
+    keep = torch.zeros_like(real[:, 0])
+    keep[heavy] = True
+    for what, mask in ((f"block row {heavy} alone ({int(real[heavy].sum())} real "
+                        f"blocks)", keep), ("no real block", torch.zeros_like(keep))):
+        d = a.data * mask[:, None, None, None]
+        copies = [(dataclasses.replace(a, data=d.clone()), x.clone()) for _ in range(16)]
+        t = graph_ms(_cycle([lambda c=c: bsr.spmm_bell(*c) for c in copies]), 10)
+        print(f"[bell] same W, {what}: kernel {t:.5f} ms (the whole matrix {ms:.5f})",
+              flush=True)
 
 
 def phase_bell(dev):
@@ -1989,21 +2060,41 @@ def phase_bell(dev):
         else:
             host = direct
         cases.append((m, bs, host, host.to(dev), time.perf_counter() - t0))
+    # the first case with its slots shuffled and explicit zero blocks added
+    irr_host = _bell_irregular(cases[0][2], BELL_ZERO_SLOTS, rng)
+    irr = irr_host.to(dev)
     # the path: counters to 0, the user entries once per case, counters read
     bsr.spmm_bell.launches = 0
     xs = [torch.randn((m, BELL_K), generator=gen, device=dev) for m, *_ in cases]
     ys = [bsr.spmm_bell(a, x) for (_, _, _, a, _), x in zip(cases, xs)]
     v = torch.randn(cases[0][0], generator=gen, device=dev)
     yv = bsr.spmv_bell(cases[0][3], v)
+    y_irr = bsr.spmm_bell(irr, xs[0])
     torch.cuda.synchronize()
     launches = bsr.spmm_bell.launches
-    if launches != len(cases) + 1:
+    if launches != len(cases) + 2:
         fail(f"[bell] spmm_bell / spmv_bell launched K17 {launches} times, not "
-             f"{len(cases) + 1}")
+             f"{len(cases) + 2}")
     want_v = bsr.spmm_bell_ref(cases[0][3], v[:, None])[:, 0]
     absa0 = dataclasses.replace(cases[0][3], data=cases[0][3].data.abs())
     _elementwise(yv, want_v, SEG_RTOL * want_v.abs() + SEG_EPS_SUMS * EPS32
                  * bsr.spmm_bell_ref(absa0, v.abs()[:, None])[:, 0], "spmv_bell")
+    # the irregular BELL (correctness only): against the plain version on it
+    # and scipy float64 of the same matrix
+    want = bsr.spmm_bell_ref(irr, xs[0])
+    mag = bsr.spmm_bell_ref(dataclasses.replace(irr, data=irr.data.abs()), xs[0].abs())
+    _, checked = _elementwise(y_irr, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32
+                              * mag, "K17 on the irregular BELL")
+    ref64 = _bell_scipy(irr_host, irr_host.bcols.shape[0]) @ xs[0].double().cpu().numpy()
+    worst64 = float(np.max(np.abs(y_irr.double().cpu().numpy() - ref64) / np.maximum(
+        SEG_RTOL * np.abs(ref64) + SEG_EPS_SUMS * EPS32 * mag.double().cpu().numpy(),
+        1e-30)))
+    if not worst64 <= 1.0:
+        fail(f"[bell] K17 on the irregular BELL vs scipy float64: {worst64:.2f} of the bound")
+    print(f"[bell] irregular {cases[0][0]}², blocks {cases[0][1]}: slots shuffled, "
+          f"{BELL_ZERO_SLOTS} explicit zero blocks per row (W {irr_host.width}); "
+          f"{checked}; vs scipy float64 {100 * worst64:.1f}% of the bound", flush=True)
+    del irr, y_irr, want, mag
     recs = {}
     for (m, bs, host, a, build_s), x, y in zip(cases, xs, ys):
         nbr, W, bm, bn = a.data.shape
@@ -2043,7 +2134,12 @@ def phase_bell(dev):
                                lambda: bsr.spmm_bell_ref(a, x), nbytes, ops,
                                lambda i: (lambda: csrs[i] @ copies[i][1]),
                                "torch.sparse CSR A@X", reps=10)
+        print(f"[bell] {m}², blocks {bs}: {real} real of {nbr * W} stored slots "
+              f"({100 * real / (nbr * W):.1f}%); kernel / CSR "
+              f"{recs[(m, bs)]['ms'] / recs[(m, bs)]['lib']:.3f}", flush=True)
         del copies, csrs
+        if (m, bs) == BELL_CASES[0]:
+            _bell_tail(a, x, recs[(m, bs)]["ms"])
     rec = dict(recs[BELL_CASES[0]])
     rec["err"] = max(r["err"] for r in recs.values())
     return rec, launches
@@ -2176,7 +2272,7 @@ def main() -> int:
           f"launches count one forward + backward of the [gat-generic] stack, "
           f"their ms, plain_ms, library_ms and bound_ms the sums over that "
           f"forward + backward's calls {GEN_CALLS} at the [segment] phase's "
-          f"widths. K17 launches count the [bell] path (four spmm_bell calls, "
+          f"widths. K17 launches count the [bell] path (five spmm_bell calls, "
           f"one spmv_bell); its ms are one call at 4096 x 4096, blocks (8, 128), "
           f"K {BELL_K}, max_abs_err the largest over the [bell] cases. ms and "
           f"library_ms are CUDA-graph replays (device "

@@ -14,91 +14,335 @@
 // the W blocks reduced inside the kernel).  Their split is a VMEM matter; a
 // GPU block reads X through L2 either way, so one kernel serves both.
 //
-// A block owns one block row i and one tile of kCols columns of X.  It walks
-// the W blocks of the row in chunks of kJ block columns: each chunk stages
-// the [bm, kJ] slice of A and the [kJ, kCols] rows of X that bcols selects in
-// shared memory, then every thread adds bm / 4 outputs of one column in
-// registers with float32 FMAs (no TF32, no tensor cores: the JAX package
-// computes float32 blocks at precision="highest").  The column tiles of one
-// block row are neighbouring blocks, so A's block is read from device memory
-// about once and from L2 for the other tiles.
+// A block owns one block row i and one tile of kCols columns of X.  The row's
+// W blocks are cut into chunks of kJ block columns ([bm, kJ] of A and the
+// [kJ, kCols] rows of X that bcols selects).  The design follows what bounds
+// the product on an H100:
 //
-// What bounds it on an H100: operations or bytes, by the density.  A stored
-// block costs 2.bm.bn.K flops against bm.bn words of A, and X and Y move once
-// at best; chip_smoke.py computes which bound holds for each run.  Padded
-// blocks (rows with fewer than W blocks) cost their FMAs too.  This first
-// kernel issues one shared-memory load per FMA and runs well below the
-// float32 rate.
+// - Padding.  A row with fewer real blocks than W is padded with zero
+//   blocks, and a real block may be zero in some chunks.  The block first
+//   reads all of its row's A words in one pass (several independent 16-byte
+//   loads per thread) and flags every chunk that holds a nonzero word; then
+//   it stages and multiplies only the flagged chunks, in order.  This is
+//   exact for any block-ELL (padded slots, explicit zero blocks, unsorted or
+//   repeated block columns) and keeps no state between calls.  Skipped
+//   chunks add no products: where X holds inf or NaN under an all-zero
+//   chunk, the kernel gives a finite sum and the plain version NaN.
+// - Shared-memory traffic.  Each thread keeps a register tile of kRm rows
+//   (all of bm up to 16) x 4 adjacent columns: an X float4 read from shared
+//   memory serves kRm rows, and A is read as broadcast float4.  Float32 FMAs
+//   only (no TF32, no tensor cores: the JAX package computes float32 blocks
+//   at precision="highest").
+// - Warps per chunk.  kS warps split every chunk's kJ block columns, so a
+//   chunk's FMAs are spread over kS warps; at the end the splits' sums are
+//   added in split order (deterministic; each split sums its terms in
+//   (w, j) order).
+// - Latency.  The flagged chunks go through a cp.async ring of kStages
+//   slots, the next two chunks' A and X arriving while this one's FMAs run
+//   (one barrier per chunk); each listed chunk carries its first X row, so
+//   staging waits on no global load.  A row's chunks are still a serial
+//   chain: at a few percent of dense blocks the rows with the most real
+//   blocks end the kernel.
+// - L2.  A column tile of kCols = 128 is the grid's outer index: the blocks
+//   that run at once share one [n, 128] slice of X (33.5 MB at n = 65,536,
+//   inside the 50 MB L2), and A is read once per column tile.
+//
+// What bounds it: at a few percent of dense blocks, the X rows fetched from
+// L2 (kJ.kCols words per flagged chunk) and the A words, padded ones
+// included, read once per column tile; chip_smoke.py prints the byte and
+// operation bounds of each run.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 64;                  // X columns per block
-constexpr int kGroups = kThreads / kCols;  // row groups: thread t owns column t % kCols
-constexpr int kJ = 32;                     // block columns staged per chunk
+constexpr int kCols = 128;        // X columns per block: a warp's 32 lanes x 4
+constexpr int kJ = 32;            // block columns per chunk
+constexpr int kAStride = kJ + 4;  // A row pitch in shared memory
+constexpr int kMaxChunks = 256;   // chunks flagged per scan pass
+constexpr int kScanLoads = 8;     // scan loads in flight per thread
+constexpr int kStages = 3;        // chunks in the cp.async ring
+
+// Register tile rows per thread (kRm) and warps splitting each chunk's kJ
+// block columns (kS), by bm; a block has bm / kRm x kS warps.
+template <int BM> struct Tile;
+template <> struct Tile<8> { static constexpr int kRm = 8, kS = 4; };
+template <> struct Tile<16> { static constexpr int kRm = 16, kS = 4; };
+template <> struct Tile<32> { static constexpr int kRm = 16, kS = 4; };
+template <> struct Tile<64> { static constexpr int kRm = 16, kS = 2; };
+template <> struct Tile<128> { static constexpr int kRm = 16, kS = 2; };
 
 template <int BM>
-__global__ void __launch_bounds__(kThreads)
-bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols,
-                 int W, int bn, const float* __restrict__ x, int K,
-                 int col_tiles, float* __restrict__ y) {
-  constexpr int kRowsPerThread = BM / kGroups;
-  __shared__ float a_s[BM][kJ];
-  __shared__ float x_s[kJ][kCols];
-  const long long i = blockIdx.x / col_tiles;
-  const int c0 = static_cast<int>(blockIdx.x % col_tiles) * kCols;
-  const int tid = threadIdx.x;
-  const int col = tid % kCols;
-  const int grp = tid / kCols;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) acc[q] = 0.f;
+__host__ __device__ constexpr int threads() {
+  return 32 * (BM / Tile<BM>::kRm) * Tile<BM>::kS;
+}
 
-  for (int w = 0; w < W; ++w) {
-    const float* blk = data + (i * W + w) * static_cast<long long>(BM) * bn;
-    const long long xrow0 = static_cast<long long>(bcols[i * W + w]) * bn;
-    for (int j0 = 0; j0 < bn; j0 += kJ) {
-      for (int e = tid; e < BM * kJ; e += kThreads)
-        a_s[e / kJ][e % kJ] = blk[(e / kJ) * static_cast<long long>(bn) + j0 + e % kJ];
-      for (int e = tid; e < kJ * kCols; e += kThreads) {
-        const int jj = e / kCols, c = c0 + e % kCols;
-        x_s[jj][e % kCols] = c < K ? x[(xrow0 + j0 + jj) * K + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) {
-        const float xv = x_s[jj][col];
-#pragma unroll
-        for (int q = 0; q < kRowsPerThread; ++q)
-          acc[q] = fmaf(a_s[grp + kGroups * q][jj], xv, acc[q]);
-      }
-      __syncthreads();
-    }
-  }
-  const int c = c0 + col;
-  if (c >= K) return;
-#pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q)
-    y[(i * BM + grp + kGroups * q) * K + c] = acc[q];
+// the ring's slots of A and X (reused for the split sums), then the flags,
+// the list of nonzero chunks and their first X rows
+template <int BM>
+__host__ __device__ constexpr int ring_floats() {
+  return kStages * (BM * kAStride + kJ * kCols) > BM * kCols
+             ? kStages * (BM * kAStride + kJ * kCols)
+             : BM * kCols;
 }
 
 template <int BM>
-void launch(const float* data, const int* bcols, int nbr, int W, int bn,
-            const float* x, int K, float* y, cudaStream_t st) {
-  const int col_tiles = (K + kCols - 1) / kCols;
-  bell_spmm_kernel<BM><<<static_cast<unsigned>(static_cast<long long>(nbr) * col_tiles),
-                         kThreads, 0, st>>>(data, bcols, W, bn, x, K, col_tiles, y);
+__host__ __device__ constexpr int smem_bytes() {
+  return ring_floats<BM>() * 4 + 3 * kMaxChunks * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16_l1(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ bool nonzero(const float4& v) {
+  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+
+// Block (i, t): block row i, columns t.kCols + 0..kCols-1.  Warp w: row
+// group g = w % (bm / kRm) (rows g.kRm + 0..kRm-1) and split s = w / (bm /
+// kRm) (block columns s.kJ/kS + 0..kJ/kS-1 of every chunk); lane l: columns
+// 4l + 0..3.  VEC: K % 4 == 0 and X, Y 16-byte aligned (X staged and Y
+// stored as float4); else element by element.
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(threads<BM>())
+bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, int W,
+                 int bn, const float* __restrict__ x, int K, float* __restrict__ y) {
+  constexpr int kRm = Tile<BM>::kRm, kS = Tile<BM>::kS, kG = BM / kRm;
+  constexpr int kT = threads<BM>();
+  constexpr int kJS = kJ / kS;        // block columns per split
+  constexpr int kF = BM * kJ / 4;     // float4 of A per chunk
+  extern __shared__ float4 smem4[];
+  float* a_s = reinterpret_cast<float*>(smem4);       // [kStages][BM][kAStride]
+  float* x_s = a_s + kStages * BM * kAStride;         // [kStages][kJ][kCols]
+  int* flag_s = reinterpret_cast<int*>(a_s + ring_floats<BM>());   // [kMaxChunks]
+  int* list_s = flag_s + kMaxChunks;                  // [kMaxChunks]
+  int* xrow_s = list_s + kMaxChunks;                  // [kMaxChunks]
+  __shared__ int count_s;
+
+  const long long i = blockIdx.x;
+  const int c0 = blockIdx.y * kCols;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = warp % kG, s = warp / kG;
+  const int cj = bn / kJ, n_chunks = W * cj;
+  const float* arow = data + i * W * static_cast<long long>(BM) * bn;
+  const int* brow = bcols + i * W;
+
+  float4 acc[kRm];
+#pragma unroll
+  for (int q = 0; q < kRm; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // float4 f (row f / 8, block columns 4.(f % 8) + 0..3) of chunk c
+  auto a_ptr = [&](int c, int f) {
+    const int w = c / cj, j0 = (c - w * cj) * kJ;
+    return reinterpret_cast<const float4*>(
+        arow + (static_cast<long long>(w) * BM + (f >> 3)) * bn + j0 + (f & 7) * 4);
+  };
+  // flag the chunks s0 .. s0 + nch - 1 that hold a nonzero A word and list
+  // them in order, each with its first X row; returns how many
+  auto scan = [&](int s0, int nch) {
+    for (int c = tid; c < nch; c += kT) flag_s[c] = 0;
+    __syncthreads();
+    for (int e0 = tid; e0 < nch * kF; e0 += kScanLoads * kT) {
+      float4 v[kScanLoads];
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u) {
+        const int e = e0 + u * kT;
+        v[u] = e < nch * kF ? __ldg(a_ptr(s0 + e / kF, e % kF))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kScanLoads; ++u)
+        if (nonzero(v[u])) flag_s[(e0 + u * kT) / kF] = 1;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int base = 0;
+      for (int c = 0; c < nch; c += 32) {
+        const bool f = c + lane < nch && flag_s[c + lane];
+        const unsigned m = __ballot_sync(0xffffffffu, f);
+        if (f) {
+          const int k = base + __popc(m & ((1u << lane) - 1u)), ch = s0 + c + lane;
+          const int w = ch / cj;
+          list_s[k] = ch;
+          xrow_s[k] = __ldg(brow + w) * bn + (ch - w * cj) * kJ;
+        }
+        base += __popc(m);
+      }
+      if (lane == 0) count_s = base;
+    }
+    __syncthreads();
+    return count_s;
+  };
+  // stage listed chunk k into ring slot b (cp.async, not committed)
+  auto stage = [&](int k, int b) {
+    float* as = a_s + b * BM * kAStride;
+    const int c = list_s[k];
+    for (int f = tid; f < kF; f += kT)
+      cp_async16_l1(as + (f >> 3) * kAStride + (f & 7) * 4, a_ptr(c, f));
+    const long long xrow0 = xrow_s[k];
+    float* xs = x_s + b * kJ * kCols;
+    if constexpr (VEC) {
+      for (int e = tid; e < kJ * kCols / 4; e += kT) {
+        const int jj = e / (kCols / 4), col = c0 + (e % (kCols / 4)) * 4;
+        const float* src = col < K ? x + (xrow0 + jj) * K + col : x;
+        cp_async16(xs + e * 4, src, col < K ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kJ * kCols; e += kT) {
+        const int jj = e / kCols, col = c0 + e % kCols;
+        const float* src = col < K ? x + (xrow0 + jj) * K + col : x;
+        cp_async4(xs + e, src, col < K ? 4 : 0);
+      }
+    }
+  };
+  // this warp's rows x its block columns of ring slot b
+  auto compute = [&](int b) {
+    const float* as = a_s + b * BM * kAStride + g * kRm * kAStride + s * kJS;
+    const float* xs = x_s + b * kJ * kCols + s * kJS * kCols + lane * 4;
+#pragma unroll
+    for (int j4 = 0; j4 < kJS; j4 += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        xv[u] = *reinterpret_cast<const float4*>(xs + (j4 + u) * kCols);
+#pragma unroll
+      for (int q = 0; q < kRm; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(as + q * kAStride + j4);
+        fma4(acc[q], a.x, xv[0]);
+        fma4(acc[q], a.y, xv[1]);
+        fma4(acc[q], a.z, xv[2]);
+        fma4(acc[q], a.w, xv[3]);
+      }
+    }
+  };
+
+  // scan passes of kMaxChunks; the nonzero chunks of each go through a
+  // cp.async ring, kStages - 1 staged ahead of the one being multiplied
+  for (int s0 = 0; s0 < n_chunks; s0 += kMaxChunks) {
+    const int L = scan(s0, min(kMaxChunks, n_chunks - s0));
+#pragma unroll
+    for (int u = 0; u < kStages - 1; ++u) {
+      if (u < L) stage(u, u);
+      cp_async_commit();
+    }
+    for (int t = 0; t < L; ++t) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();   // chunk t is in; every thread is done with chunk t - 1
+      if (t + kStages - 1 < L) stage(t + kStages - 1, (t + kStages - 1) % kStages);
+      cp_async_commit();
+      compute(t % kStages);
+    }
+    cp_async_wait<0>();
+    __syncthreads();     // the ring and the list are free again
+  }
+
+  // add the splits' sums in split order (through the ring's memory), and
+  // split 0 writes Y
+  float* red = a_s;                                   // [BM][kCols]
+  for (int t = 1; t < kS; ++t) {
+    if (s == t) {
+#pragma unroll
+      for (int q = 0; q < kRm; ++q)
+        *reinterpret_cast<float4*>(red + (g * kRm + q) * kCols + lane * 4) = acc[q];
+    }
+    __syncthreads();
+    if (s == 0) {
+#pragma unroll
+      for (int q = 0; q < kRm; ++q) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(red + (g * kRm + q) * kCols + lane * 4);
+        acc[q].x += p.x;
+        acc[q].y += p.y;
+        acc[q].z += p.z;
+        acc[q].w += p.w;
+      }
+    }
+    __syncthreads();
+  }
+  if (s != 0) return;
+  const int c = c0 + lane * 4;
+#pragma unroll
+  for (int q = 0; q < kRm; ++q) {
+    float* yr = y + (i * BM + g * kRm + q) * K;
+    if constexpr (VEC) {
+      if (c < K) *reinterpret_cast<float4*>(yr + c) = acc[q];
+    } else {
+      if (c < K) yr[c] = acc[q].x;
+      if (c + 1 < K) yr[c + 1] = acc[q].y;
+      if (c + 2 < K) yr[c + 2] = acc[q].z;
+      if (c + 3 < K) yr[c + 3] = acc[q].w;
+    }
+  }
+}
+
+template <int BM, bool VEC>
+int launch(const float* data, const int* bcols, int nbr, int W, int bn, const float* x,
+           int K, float* y, cudaStream_t st) {
+  constexpr int smem = smem_bytes<BM>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bell_spmm_kernel<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const dim3 grid(static_cast<unsigned>(nbr), static_cast<unsigned>((K + kCols - 1) / kCols));
+  bell_spmm_kernel<BM, VEC><<<grid, threads<BM>(), smem, st>>>(data, bcols, W, bn, x, K, y);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int dispatch(const float* d, const int* b, int nbr, int W, int bm, int bn, const float* x,
+             int K, float* y, cudaStream_t st) {
+  switch (bm) {
+    case 8: return launch<8, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 16: return launch<16, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 32: return launch<32, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 64: return launch<64, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 128: return launch<128, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// K17.  data [nbr, W, bm, bn], bcols [nbr, W], x [nbc.bn, K], y [nbr.bm, K];
-// bm in {8, 16, 32, 64, 128}, bn a multiple of 32.
+// K17.  data [nbr, W, bm, bn] (16-byte aligned), bcols [nbr, W], x [nbc.bn, K],
+// y [nbr.bm, K]; bm in {8, 16, 32, 64, 128}, bn a multiple of 32, at most
+// 65,535 column tiles of kCols.  vec: K % 4 == 0 and x, y 16-byte aligned.
 extern "C" int bell_spmm(const void* data, const void* bcols, int nbr, int W, int bm,
-                         int bn, const void* x, int K, void* y, void* stream) {
-  if (nbr < 0 || W < 1 || bn < kJ || bn % kJ || K < 1)
+                         int bn, const void* x, int K, void* y, int vec, void* stream) {
+  if (nbr < 0 || W < 1 || bn < kJ || bn % kJ || K < 1 || (K + kCols - 1) / kCols > 65535
+      || reinterpret_cast<unsigned long long>(data) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nbr == 0) return static_cast<int>(cudaGetLastError());
   const auto* d = static_cast<const float*>(data);
@@ -106,13 +350,6 @@ extern "C" int bell_spmm(const void* data, const void* bcols, int nbr, int W, in
   const auto* xx = static_cast<const float*>(x);
   auto* yy = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (bm) {
-    case 8: launch<8>(d, b, nbr, W, bn, xx, K, yy, st); break;
-    case 16: launch<16>(d, b, nbr, W, bn, xx, K, yy, st); break;
-    case 32: launch<32>(d, b, nbr, W, bn, xx, K, yy, st); break;
-    case 64: launch<64>(d, b, nbr, W, bn, xx, K, yy, st); break;
-    case 128: launch<128>(d, b, nbr, W, bn, xx, K, yy, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec ? dispatch<true>(d, b, nbr, W, bm, bn, xx, K, yy, st)
+             : dispatch<false>(d, b, nbr, W, bm, bn, xx, K, yy, st);
 }

@@ -9,11 +9,18 @@
 //
 // K15 replaces gflownet_spai_tpu/ops/dia.py `_spmm_dia_pallas`, which
 // double-buffers [tr + 2h, kb] windows of X into VMEM because a TPU core
-// cannot address HBM from its vector unit.  Here a warp owns one row and its
-// lanes walk the K columns, so X's rows are read as coalesced 128-byte
-// segments; a block of kRows rows first stages its data[s, i] words in shared
-// memory, so each diagonal word is read from device memory once per row.
-// The rows i + off of X that neighbouring warps read again come from L2.
+// cannot address HBM from its vector unit.  Here a thread owns 4 adjacent
+// columns of kR consecutive rows: per diagonal it issues kR independent
+// 16-byte loads of X (rows i + off, neighbouring threads on neighbouring
+// columns), and it stores kR float4 of Y.  A block of qx x ty threads covers
+// 4.qx columns of ty.kR rows and first stages those rows' data[s, i] words in
+// shared memory,
+// so each diagonal word is read from device memory once per column tile.  The
+// grid walks the column tiles of a row block, then the next row block, so
+// the rows i + off that neighbouring blocks read again come from L2 (at
+// poisson1024 a halo of 1,024 rows x 1 KB).  A scalar path (4 single loads
+// per thread) serves a K that is not a multiple of 4 or an X or Y that is
+// not 16-byte aligned.
 //
 // K16 replaces `_spmm_dia_t_pallas` (window DMAs of [kb, tr + 2h] so each
 // right-hand side is one contiguous burst).  Here a thread owns one row of
@@ -25,43 +32,117 @@
 //
 // Both take any K (the TPU's K >= 128, K % 128 == 0 rule is a VMEM
 // condition).  What bounds them on an H100: bytes of X and Y (2.ndiags flops
-// per 8 bytes moved per element at ndiags = 5).
+// per 8 bytes moved per element at ndiags = 5); K15 also reads each X row
+// ndiags times, from L1 or L2 after the first.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRows = 8;         // K15: rows per block, one warp each
-constexpr int kMaxDiags = 1024;  // K15: staged diagonal words per block
+constexpr int kMaxDiags = 1024;  // K15: staged diagonals per block
+constexpr int kSpmmThreads = 256;  // K15: threads per block (at most)
+constexpr int kSpmmSmem = 227 * 1024;  // K15: shared memory a block may use
+constexpr int kR = 4;            // K15: rows per thread (4 ran faster than 8 on an H100)
 constexpr int kThreads = 256;    // K16
 constexpr int kRhs = 16;         // K16: right-hand sides per thread
 
-__global__ void __launch_bounds__(32 * kRows)
+// Block (qx, ty) of K15: row block b / col_tiles, column tile b % col_tiles;
+// thread (tx, ty) owns columns 4.(tile.qx + tx) + 0..3 of rows
+// row0 + ty.kR + 0..kR-1.  Shared memory: dv [ndiags][rows] and the offsets.
+template <bool VEC>
+__global__ void __launch_bounds__(kSpmmThreads)
 dia_spmm_kernel(const float* __restrict__ data, long long n_pad,
                 const int* __restrict__ offs, int ndiags,
-                const float* __restrict__ x, long long n, int K,
+                const float* __restrict__ x, long long n, int K, int col_tiles,
                 float* __restrict__ y) {
-  __shared__ float dv[kMaxDiags * kRows];
-  __shared__ int off_s[kMaxDiags];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int tid = threadIdx.y * 32 + threadIdx.x;
-  for (int e = tid; e < ndiags * kRows; e += 32 * kRows) {
-    const long long i = row0 + e % kRows;
-    dv[e] = i < n ? data[(e / kRows) * n_pad + i] : 0.f;
+  extern __shared__ float dv[];
+  const int rows = blockDim.y * kR;
+  int* off_s = reinterpret_cast<int*>(dv + ndiags * rows);
+  const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * rows;
+  const int c = 4 * ((blockIdx.x % col_tiles) * blockDim.x + threadIdx.x);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  for (int e = tid; e < ndiags * rows; e += nt) {
+    const long long i = row0 + e % rows;
+    dv[e] = i < n ? data[(e / rows) * n_pad + i] : 0.f;
   }
-  for (int s = tid; s < ndiags; s += 32 * kRows) off_s[s] = offs[s];
+  for (int s = tid; s < ndiags; s += nt) off_s[s] = offs[s];
   __syncthreads();
-  const long long i = row0 + threadIdx.y;
-  if (i >= n) return;
-  for (int col = threadIdx.x; col < K; col += 32) {
-    float acc = 0.f;
-    for (int s = 0; s < ndiags; ++s) {
-      const long long j = i + off_s[s];
-      const float xv = (j >= 0 && j < n) ? x[j * K + col] : 0.f;
-      acc += dv[s * kRows + threadIdx.y] * xv;
+  const int r0 = threadIdx.y * kR;
+  const long long ib = row0 + r0;
+  if (ib >= n || c >= K) return;
+  float4 acc[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int s = 0; s < ndiags; ++s) {
+    const long long j0 = ib + off_s[s];
+    const float* dvs = dv + s * rows + r0;
+    float4 xv[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const long long j = j0 + r;
+      const bool in = j >= 0 && j < n;
+      if constexpr (VEC) {
+        xv[r] = in ? __ldg(reinterpret_cast<const float4*>(x + j * K + c))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        const float* xr = x + j * K + c;
+        xv[r].x = in ? __ldg(xr) : 0.f;
+        xv[r].y = in && c + 1 < K ? __ldg(xr + 1) : 0.f;
+        xv[r].z = in && c + 2 < K ? __ldg(xr + 2) : 0.f;
+        xv[r].w = in && c + 3 < K ? __ldg(xr + 3) : 0.f;
+      }
     }
-    y[i * K + col] = acc;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float d = dvs[r];
+      acc[r].x = fmaf(d, xv[r].x, acc[r].x);
+      acc[r].y = fmaf(d, xv[r].y, acc[r].y);
+      acc[r].z = fmaf(d, xv[r].z, acc[r].z);
+      acc[r].w = fmaf(d, xv[r].w, acc[r].w);
+    }
   }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const long long i = ib + r;
+    if (i >= n) break;
+    float* yr = y + i * K + c;
+    if constexpr (VEC) {
+      *reinterpret_cast<float4*>(yr) = acc[r];
+    } else {
+      yr[0] = acc[r].x;
+      if (c + 1 < K) yr[1] = acc[r].y;
+      if (c + 2 < K) yr[2] = acc[r].z;
+      if (c + 3 < K) yr[3] = acc[r].w;
+    }
+  }
+}
+
+template <bool VEC>
+int launch_spmm(const float* data, long long n_pad, const int* offs, int ndiags,
+                const float* x, long long n, int K, float* y, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dia_spmm_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpmmSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  // qx threads along the columns (a power of two up to 32, covering K / 4),
+  // ty row groups: as many as the threads and the staged diagonals allow
+  const int quads = (K + 3) / 4;
+  int qx = 1;
+  while (qx < 32 && qx < quads) qx *= 2;
+  int ty = kSpmmThreads / qx;
+  while (ty > 1 && static_cast<long long>(ndiags) * (ty * kR + 1) * 4 > kSpmmSmem) ty /= 2;
+  const int rows = ty * kR;
+  const int col_tiles = (quads + qx - 1) / qx;
+  const long long blocks = (n + rows - 1) / rows * col_tiles;
+  const size_t smem = static_cast<size_t>(ndiags) * (rows + 1) * 4;
+  dia_spmm_kernel<VEC><<<static_cast<unsigned>(blocks), dim3(qx, ty), smem, st>>>(
+      data, n_pad, offs, ndiags, x, n, K, col_tiles, y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Block b covers kThreads rows and right-hand sides [kRhs.(b % rhs_blocks),
@@ -95,19 +176,21 @@ dia_spmm_t_kernel(const float* __restrict__ data, long long n_pad,
 
 }  // namespace
 
-// K15.  x, y: [n, K] row-major; ndiags <= kMaxDiags.
+// K15.  x, y: [n, K] row-major; ndiags <= kMaxDiags; vec: K % 4 == 0 and
+// x, y 16-byte aligned.
 extern "C" int dia_spmm(const void* data, long long n_pad, const void* offs,
-                        int ndiags, const void* x, long long n, int K, void* y,
+                        int ndiags, const void* x, long long n, int K, void* y, int vec,
                         void* stream) {
   if (ndiags < 1 || ndiags > kMaxDiags || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n > 0) {
-    dia_spmm_kernel<<<static_cast<unsigned>((n + kRows - 1) / kRows), dim3(32, kRows), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-        static_cast<const float*>(x), n, K, static_cast<float*>(y));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const auto* d = static_cast<const float*>(data);
+  const auto* o = static_cast<const int*>(offs);
+  const auto* xx = static_cast<const float*>(x);
+  auto* yy = static_cast<float*>(y);
+  auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_spmm<true>(d, n_pad, o, ndiags, xx, n, K, yy, st)
+             : launch_spmm<false>(d, n_pad, o, ndiags, xx, n, K, yy, st);
 }
 
 // K16.  xt points at column h of a [K][ldx] buffer, ldx = h + n_pad + h;

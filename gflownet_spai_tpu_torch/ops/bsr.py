@@ -31,6 +31,7 @@ from ..sparse.types import CSR, Shape, to_numpy
 
 _BMS = (8, 16, 32, 64, 128)   # block heights the kernel is built for
 _BN_STEP = 32                 # block widths: multiples of the kernel's staged chunk
+_MAX_K = 65535 * 128          # the kernel's grid holds 65,535 tiles of 128 columns
 _REF_WORDS = 1 << 28          # plain version: gathered X words per chunk of block rows
 
 
@@ -153,10 +154,11 @@ def _check(a: BELL, x: torch.Tensor):
     if a.bcols.dtype != torch.int32 or tuple(a.bcols.shape) != (nbr, W):
         raise ValueError(f"spmm_bell: bcols must be int32 [{nbr}, {W}]")
     if bm not in _BMS or bn % _BN_STEP or x.dim() != 2 or x.shape[0] != a.shape[1] \
-            or x.shape[1] < 1 or nbr * bm != a.shape[0] or a.shape[1] % bn:
+            or not 1 <= x.shape[1] <= _MAX_K or nbr * bm != a.shape[0] \
+            or a.shape[1] % bn:
         raise ValueError(f"spmm_bell: the kernel takes bm in {_BMS}, bn a multiple of "
-                         f"{_BN_STEP} and X [{a.shape[1]}, K >= 1]; got blocks "
-                         f"{(bm, bn)}, X {tuple(x.shape)}")
+                         f"{_BN_STEP} and X [{a.shape[1]}, 1 <= K <= {_MAX_K}]; got "
+                         f"blocks {(bm, bn)}, X {tuple(x.shape)}")
     # the kernel reads X rows bcols·bn .. + bn: ids out of range would read
     # outside X (checked once per bcols tensor; the pattern is static)
     if a.bcols not in _BCOLS_CHECKED:
@@ -169,18 +171,28 @@ def _check(a: BELL, x: torch.Tensor):
 
 def spmm_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
     """Y = A·X for dense X [n, K] → [m, K].  K17 (``csrc/bsr.cu``) on
-    CUDA tensors, ``spmm_bell_ref`` on CPU tensors."""
+    CUDA tensors, ``spmm_bell_ref`` on CPU tensors.
+
+    The kernel skips the products of every all-zero [bm, 32] chunk of A
+    (padded slots, zero blocks).  So where X holds inf or NaN in the rows
+    under such a chunk, the kernel's sum stays finite and the plain
+    version's is NaN (0·inf); for finite X the two agree to rounding."""
     if x.device.type == "cpu":
         return spmm_bell_ref(a, x)
     _check(a, x)
     nbr, W, bm, bn = a.data.shape
-    y = torch.empty((a.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
+    K = x.shape[1]
+    # the kernel reads A as 16-byte words: a view at an unaligned offset is copied
+    data = a.data if a.data.data_ptr() % 16 == 0 else a.data.clone()
+    y = torch.empty((a.shape[0], K), dtype=x.dtype, device=x.device)
+    vec = K % 4 == 0 and x.data_ptr() % 16 == 0
     fn = _build.load("bsr").bell_spmm
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _build.check(fn(a.data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn,
-                    x.data_ptr(), x.shape[1], y.data_ptr(),
+    _build.check(fn(data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn,
+                    x.data_ptr(), K, y.data_ptr(), int(vec),
                     torch.cuda.current_stream(x.device).cuda_stream), "spmm_bell")
     spmm_bell.launches += 1
     return y

@@ -525,12 +525,12 @@ _ARGTYPES = {
                     _PTR],
     "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
                       _INT, ctypes.c_float, _INT, _INT, _PTR, _PTR],
-    "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _PTR],
+    "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _PTR],
     "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _PTR],
 }
 _LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_spmm"}   # else csrc/dia.cu
 _RHS_BLOCK = 8         # K14: right-hand sides per block in the tiled mode
-_SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in static shared memory
+_SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in shared memory
 
 
 def _lib_fn(name: str):
@@ -797,7 +797,8 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
 def spmm_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
     """Y = A·X for dense X [n, K] (any K) → [n, K].  K15
     (``csrc/dia_spmm.cu``) on CUDA tensors, ``spmm_dia_ref`` on CPU
-    tensors."""
+    tensors.  The kernel moves X and Y as 16-byte words when K is a
+    multiple of 4 and X is 16-byte aligned, else word by word."""
     if x.device.type == "cpu":
         return spmm_dia_ref(d, x)
     _check_cuda(d, "spmm_dia", x)
@@ -805,10 +806,12 @@ def spmm_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spmm_dia: X {tuple(x.shape)} for n = {d.n}, and at most "
                          f"{_SPMM_MAX_DIAGS} diagonals ({d.ndiags})")
     y = torch.empty_like(x)
+    K = x.shape[1]
+    vec = K % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_lib_fn("dia_spmm")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, x.data_ptr(),
-        d.n, x.shape[1], y.data_ptr(), stream), "spmm_dia")
+        d.n, K, y.data_ptr(), int(vec), stream), "spmm_dia")
     spmm_dia.launches += 1
     return y
 

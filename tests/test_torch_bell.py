@@ -115,3 +115,59 @@ def test_spmm_bell_ref_chunks_block_rows(monkeypatch):
     monkeypatch.setattr(t_bsr, "_REF_WORDS", 1)
     torch.testing.assert_close(t_bsr.spmm_bell_ref(tb.to("cpu"), x), whole,
                                rtol=0, atol=0)
+
+
+def _irregular_bell(blockshape, m, n, W, seed):
+    """Host arrays of a BELL that ``csr_to_bell`` never gives: slots in
+    shuffled order, explicit all-zero blocks between real ones, a real
+    block in column 0 at a slot > 0, a repeated block column, block rows
+    with no real block, and blocks zero in some 32-column chunks only (the
+    semantics K17 must keep while it skips all-zero chunks)."""
+    rng = np.random.default_rng(seed)
+    bm, bn = blockshape
+    nbr, nbc = m // bm, n // bn
+    data = np.zeros((nbr, W, bm, bn), np.float32)
+    cols = np.zeros((nbr, W), np.int32)
+    for r in range(nbr):
+        if r % 5 == 0:
+            continue                                    # no real block
+        slots = rng.permutation(W)[:rng.integers(2, W + 1)]
+        for t, w in enumerate(slots):
+            cols[r, w] = rng.integers(0, nbc)
+            if t % 3 == 2:
+                continue                                # explicit zero block
+            blk = rng.standard_normal((bm, bn)).astype(np.float32)
+            if t % 3 == 1 and bn > 32:                  # zero 32-column chunks
+                for j0 in range(0, bn, 64):
+                    blk[:, j0:j0 + 32] = 0.0
+            data[r, w] = blk
+        cols[r, slots[1]] = cols[r, slots[0]]           # a repeated column
+        if r % 7 == 1 and slots.max() > 0:
+            w = int(slots.max())
+            cols[r, w] = 0                              # column 0 at a slot > 0
+            data[r, w] = rng.standard_normal((bm, bn))
+    return rng, data, cols
+
+
+@pytest.mark.parametrize("blockshape", [(8, 128), (16, 32), (64, 64)])
+@pytest.mark.parametrize("K", [1, 3, 100])
+def test_spmm_bell_ref_matches_jnp_on_irregular_bells(blockshape, K):
+    """The plain K17 against ``spmm_bell_jnp`` and dense float64 on BELLs
+    with shuffled slots, zero blocks and chunks, repeated columns and
+    empty block rows; ``spmv_bell`` at K = 1."""
+    m, n = 128, 256
+    rng, data, cols = _irregular_bell(blockshape, m, n, W=5, seed=K)
+    nnz = int(np.count_nonzero(data))
+    jb = j_bsr.BELL(data=jnp.asarray(data), bcols=jnp.asarray(cols), shape=(m, n), nnz=nnz)
+    tb = t_bsr.BELL(data=data, bcols=cols, shape=(m, n), nnz=nnz).to("cpu")
+    x = rng.standard_normal((n, K)).astype(np.float32)
+    got = t_bsr.spmm_bell_ref(tb, torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_bsr.spmm_bell_jnp(jb, jnp.asarray(x))),
+                               **TOL)
+    np.testing.assert_allclose(got, tb.todense().double().numpy() @ x, **TOL)
+    empty = np.repeat(~data.any(axis=(1, 2, 3)), blockshape[0])
+    assert empty.any() and not got[empty].any()
+    if K == 1:
+        np.testing.assert_allclose(
+            t_bsr.spmv_bell(tb, torch.as_tensor(x[:, 0])).numpy(),
+            np.asarray(j_bsr.spmv_bell(jb, jnp.asarray(x[:, 0]))), **TOL)

@@ -217,6 +217,22 @@ def test_k15_plain_matches_pallas_interpret(monkeypatch):
                                **SPMM_TOL)
 
 
+@pytest.mark.parametrize("K", [1, 7, 260])
+def test_k15_plain_matches_jnp_many_diagonals(K):
+    """K15's plain version on orsirr_like24 (10 diagonals, a wide halo)
+    at K = 1 and 7 (the kernel's word-by-word path) and 260 (past its
+    16-byte column tiles) against ``spmm_dia_jnp``."""
+    a = t_gallery.get("orsirr_like24")
+    t0 = T.coo_to_dia(a.with_data(a.data.astype(np.float32)), device="cpu")
+    jd, td = _pair(t0.data.numpy(), t0.offsets, t0.n)
+    assert td.ndiags == 10
+    x = np.random.default_rng(K).standard_normal((td.n, K)).astype(np.float32)
+    got = T.spmm_dia(td, torch.as_tensor(x))
+    assert got.shape == (td.n, K)
+    np.testing.assert_allclose(_np(got), np.asarray(J.spmm_dia_jnp(jd, jnp.asarray(x))),
+                               **SPMM_TOL)
+
+
 def test_k16_plain_matches_pallas_interpret(monkeypatch):
     """K16 on Poisson 64² with 200 right-hand sides; the budget is shrunk
     so only (kb 8, tr 2048) fits: 25 RHS tiles × 2 row tiles, and K_pad

@@ -31,7 +31,8 @@ plain version with index_add_: rtol 1e-5 and per element 4·eps32·Σ|v|
 over the run's terms, as K4.  K5 divides by a sum of positive terms whose
 rounding grows with the run: rtol 1e-5 + 4·eps32·(run length), atol 1e-6.
 K17 sums W·bn products per output in another order than the plain
-version's batched matmul: rtol 1e-5 and per element 4·eps32·(|A|·|X|)."""
+version's batched matmul (and skips the all-zero chunks of A): rtol 1e-5
+and per element 4·eps32·(|A|·|X|)."""
 
 import dataclasses
 
@@ -494,13 +495,19 @@ def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
     assert (got[:, :tr] == 5.0).all() and (got[:, tr + m.n_pad:] == 5.0).all()
 
 
-@pytest.mark.parametrize("name,K", [("poisson96", 7), ("poisson96", 256),
-                                    ("orsirr_like24", 16)])
-def test_k15_matches_plain(cuda, no_plain, name, K):
+@pytest.mark.parametrize("name,K", [("poisson96", 1), ("poisson96", 7), ("poisson96", 16),
+                                    ("poisson96", 256), ("poisson96", 260),
+                                    ("orsirr_like24", 7), ("orsirr_like24", 16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k15_matches_plain(cuda, no_plain, name, K, offset):
+    """K15 on a banded and on a many-diagonal matrix; ``offset`` 1 puts X
+    one float into its storage (not 16-byte aligned: the word-by-word
+    path, as is any K % 4 != 0)."""
     a = gallery.get(name)
     d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=cuda)
     ref = no_plain("spmm_dia_ref")["spmm_dia_ref"]
-    x = torch.randn((d.n, K), device=cuda)
+    x = torch.randn(d.n * K + offset, device=cuda)[offset:].view(d.n, K)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     before = dia.spmm_dia.launches
     got = dia.spmm_dia(d, x)
     torch.cuda.synchronize()
@@ -769,17 +776,86 @@ def _bell_case(dev, blockshape, m=1024, n=2048, density=0.1, seed=0):
     return rng, bsr.csr_to_bell(coo_to_csr(a, canonical=True), blockshape).to(dev)
 
 
-@pytest.mark.parametrize("blockshape", [(8, 128), (32, 128), (128, 128)])
-@pytest.mark.parametrize("K", [256, 100, 1])
-def test_k17_matches_plain(cuda, no_plain_mod, blockshape, K):
-    rng, a = _bell_case(cuda, blockshape)
+def _irregular_bell(blockshape, m=1024, n=2048, W=6, seed=0):
+    """A hand-built BELL that ``csr_to_bell`` never gives: slots in shuffled
+    order, explicit all-zero blocks between real ones, a real block in
+    column 0 at a slot > 0, a repeated block column, block rows with no
+    real block, and blocks that are zero in some 32-column chunks only."""
+    rng = np.random.default_rng(seed)
+    bm, bn = blockshape
+    nbr, nbc = m // bm, n // bn
+    data = np.zeros((nbr, W, bm, bn), np.float32)
+    cols = np.zeros((nbr, W), np.int32)
+    for r in range(nbr):
+        if r % 5 == 0:
+            continue                                    # no real block
+        slots = rng.permutation(W)[:rng.integers(2, W + 1)]
+        for t, w in enumerate(slots):
+            cols[r, w] = rng.integers(0, nbc)
+            if t % 3 == 2:
+                continue                                # explicit zero block
+            blk = rng.standard_normal((bm, bn)).astype(np.float32)
+            if t % 3 == 1 and bn > 32:                  # zero 32-column chunks
+                for j0 in range(0, bn, 64):
+                    blk[:, j0:j0 + 32] = 0.0
+            data[r, w] = blk
+        cols[r, slots[1]] = cols[r, slots[0]]           # a repeated column
+        if r % 7 == 1 and slots.max() > 0:
+            w = int(slots.max())
+            cols[r, w] = 0                              # column 0 at a slot > 0
+            data[r, w] = rng.standard_normal((bm, bn))
+    return rng, bsr.BELL(data=data, bcols=cols, shape=(m, n),
+                         nnz=int(np.count_nonzero(data)))
+
+
+@pytest.mark.parametrize("blockshape", [(8, 128), (16, 32), (32, 128), (64, 64),
+                                        (128, 128)])
+@pytest.mark.parametrize("K", [256, 260, 100, 64, 3, 1])
+@pytest.mark.parametrize("kind", ["random", "irregular", "unaligned"])
+def test_k17_matches_plain(cuda, no_plain_mod, blockshape, K, kind):
+    """K17 at every bm of the kernel on a random block pattern and on the
+    irregular BELL; ``unaligned`` puts X and A's blocks one float into
+    their storage (X: the kernel's element-by-element path, as is any
+    K % 4 != 0; A: copied by the wrapper)."""
+    if kind == "random":
+        rng, a = _bell_case(cuda, blockshape)
+    else:
+        rng, host = _irregular_bell(blockshape)
+        a = host.to(cuda)
+    off = int(kind == "unaligned")
+    if off:
+        data = torch.empty(a.data.numel() + 1, device=cuda)[1:].view_as(a.data)
+        a = dataclasses.replace(a, data=data.copy_(a.data))
+        assert a.data.is_contiguous() and a.data.data_ptr() % 16
     ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
-    x = torch.as_tensor(rng.standard_normal((a.shape[1], K)), dtype=torch.float32,
-                        device=cuda)
+    x = torch.as_tensor(rng.standard_normal(a.shape[1] * K + off), dtype=torch.float32,
+                        device=cuda)[off:].view(a.shape[1], K)
     before = bsr.spmm_bell.launches
     got = bsr.spmm_bell(a, x) if K > 1 else bsr.spmv_bell(a, x[:, 0])[:, None]
     torch.cuda.synchronize()
     assert bsr.spmm_bell.launches == before + 1 and got.shape == (a.shape[0], K)
+    want = ref(a, x)
+    absa = dataclasses.replace(a, data=a.data.abs())
+    bound = 1e-5 * want.abs() + 4 * EPS32 * ref(absa, x.abs())
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), f"max err {float(err.max()):.3e}"
+    if kind != "random":
+        # rows with no real block are exactly zero
+        empty = (a.data.abs().amax(dim=(1, 2, 3)) == 0).repeat_interleave(blockshape[0])
+        assert bool(empty.any()) and not got[empty].any()
+
+
+@pytest.mark.parametrize("W", [64, 70])
+def test_k17_many_chunks(cuda, no_plain_mod, W):
+    """Block rows of as many chunks as one scan pass flags (W 64 at bn 128:
+    256) and of more (W 70: 280, two passes)."""
+    rng, host = _irregular_bell((8, 128), m=64, n=1024, W=W)
+    a = host.to(cuda)
+    ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
+    x = torch.as_tensor(rng.standard_normal((a.shape[1], 260)), dtype=torch.float32,
+                        device=cuda)
+    got = bsr.spmm_bell(a, x)
+    torch.cuda.synchronize()
     want = ref(a, x)
     absa = dataclasses.replace(a, data=a.data.abs())
     bound = 1e-5 * want.abs() + 4 * EPS32 * ref(absa, x.abs())
