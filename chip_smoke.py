@@ -41,17 +41,21 @@ Phases (any failure exits non-zero before the result line):
 11. dia      — K8 (DIA SpMV), K12 (fused k-step SpMV) and K13 (fused
                Chebyshev steps) against their plain versions at the
                validation path's shapes: K8 on poisson1024 and on the
-               orsirr_like150 DIA (230 diagonals), K12 on poisson1024's
+               orsirr_like150 DIA (230 diagonals); K12 on poisson1024's
                Jacobi iteration matrix at k = 8 and k = 2 with and without
-               the affine term, K13 on poisson1024 at k = 2 with Chebyshev
-               coefficients from the estimated spectrum, each in the tiled
-               mode (k passes in shared memory); K12 at k = 8 and K13 also
-               forced into the streamed mode (one launch per pass), and K12
-               on poisson2048's Jacobi 16 sweeps (k = 8 at reach 2048, which
-               needs the streamed mode).  Kernel (CUDA-graph
-               replays cycling through input copies larger than L2 together,
-               and one L2-warm copy), eager, plain, bound and (K8)
-               torch.sparse CSR times.
+               the affine term, on poisson2048's Jacobi 16 sweeps (k = 8 at
+               reach 2048) and on poisson128's Jacobi 4 (k = 2, where the
+               selection streams) and 16 sweeps (k = 8); K13 on
+               poisson1024 at k = 2 with Chebyshev coefficients from the
+               estimated spectrum, and at the Chebyshev V-cycle's coarser
+               levels (k 4 on poisson512, k 8 on poisson256).  Each shape
+               runs in both modes, fused (clusters stage a window once and
+               run the k passes in shared memory) and streamed (one launch
+               per pass): the two must agree bit for bit, and the mode the
+               selection picks must not be more than 3% slower than the
+               other.  Kernel (CUDA-graph replays cycling through input
+               copies larger than L2 together, and one L2-warm copy),
+               eager, plain, bound and (K8) torch.sparse CSR times.
 12. validate — launch counters to 0, then the orsirr_like150 harness from
                the training run's checkpoint: restore, sample 256, the best
                sampled M, GMRES(20) (x0 = 0, b = ones, rtol 1e-5, maxiter
@@ -65,8 +69,10 @@ Phases (any failure exits non-zero before the result line):
                each row's residual history held against float64 scipy CG
                with the same operators in float64 (the first iteration at
                rtol 1e-1 and 1e-2 within 3%; the ladder down to 1e-5
-               printed), and the polynomial operators against their
-               float64 versions on two vectors.
+               printed), the polynomial operators against their float64
+               versions on two vectors, K12's and K13's launches by mode,
+               and the polynomial rows' iteration counts again with the
+               streamed mode forced (they must be equal).
 14. dia-multi — K10 (padded-IO SpMV) and K11 (ping-pong SpMV) as chains of
                8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
                SpMMs) at 256 right-hand sides (K15 also held at K 7, its
@@ -771,6 +777,9 @@ CG_ITER_TOL = 0.03          # float32 CG vs float64 scipy CG: iterations within 
 # ladder printed per row shows where); the 3% parity is held down to 1e-2
 CG_PARITY_RTOLS = (1e-1, 1e-2)
 CG_LADDER = (1e-1, 1e-2, 1e-3, 1e-4, 1e-5)
+# K12 / K13: the selection's mode may time this much above the other mode
+# before [dia] fails (CUDA-graph replays of one shape moved up to ~2% between runs)
+RULE_MARGIN = 0.03
 POLY_OP_RTOL = 1e-4         # float32 polynomial operator vs float64, ‖·‖₂ relative
 DIA_COUNTERS = {"K8": dia.spmv_dia, "K12": dia.spmv_dia_power, "K13": dia.spmv_dia_cheby}
 CLI_ARGS = ["--matrix", "bcsstk03_like", "--epochs", "8", "--batch-size", "4",
@@ -805,6 +814,75 @@ def _streamed():
         yield
     finally:
         dia._SMEM_BYTES = saved
+
+
+def _rule(kind, d, k):
+    """The fused plan the selection takes for K12 / K13 on ``d`` at k on
+    this card (aligned buffers), or None: the streamed mode."""
+    return dia._fused_plan(kind, d.ndiags, k, d.reach, d.n_pad,
+                           dia._card_active(kind, d.ndiags, d.data.device), dia._SMEM_BYTES)
+
+
+def _mode_label(plan):
+    return (f"fused (clusters of {plan.cluster} CTAs x {plan.rows} rows, {plan.windows} "
+            f"windows on {min(plan.windows, plan.clusters)} clusters)" if plan
+            else "streamed (one launch per pass)")
+
+
+@contextlib.contextmanager
+def _forced(plan):
+    """K12 and K13 in the fused mode with ``plan``, whatever the rule says."""
+    saved = dia._fused_for
+    dia._fused_for = lambda *a: plan
+    try:
+        yield
+    finally:
+        dia._fused_for = saved
+
+
+def _both_modes(key, label, kind, d, k, call, want, make, plain, nbytes, ops):
+    """K12 / K13 at one shape in both modes.  ``call()`` returns the
+    outputs on fresh output buffers, ``want`` the plain version's; ``make``
+    and the rest as ``_timed``.  The fused mode (the rule's plan, or where
+    the rule streams the candidate the model times fastest) must equal the
+    streamed mode bit for bit; both are timed, and the rule's pick must not
+    be slower than the other mode by more than ``RULE_MARGIN``.  Returns
+    the records of the rule's mode and of the streamed mode."""
+    plan = _rule(kind, d, k)
+    fused = plan or min(dia._fused_candidates(
+        kind, d.ndiags, k, d.reach, d.n_pad, dia._card_active(kind, d.ndiags, d.data.device),
+        dia._SMEM_BYTES), key=lambda c: c.fused_us, default=None)
+    with _streamed():
+        got_s = call()
+        rec_s = _record(key, f"{label}, {_mode_label(None)}", got_s, want, k, make, plain,
+                        nbytes, ops)
+    if fused is None:
+        print(f"[{key}] {label}: the rule streams; no fused window fits", flush=True)
+        return rec_s, rec_s
+    with _forced(fused):
+        got_f = call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(f, s_) for f, s_ in zip(got_f, got_s)):
+            fail(f"{key} fused mode differs from the streamed mode ({label})")
+        rec_f = _record(key, f"{label}, {_mode_label(fused)}", got_f, want, k, make, plain,
+                        nbytes, ops)
+    picked, other = (rec_f, rec_s) if plan else (rec_s, rec_f)
+    verdict = "faster" if picked["ms"] <= other["ms"] else \
+        f"slower by {100 * (picked['ms'] / other['ms'] - 1):.1f}%"
+    print(f"[{key}] {label}: fused equals streamed bit for bit; fused {rec_f['ms']:.5f} "
+          f"ms, streamed {rec_s['ms']:.5f} ms (model {fused.fused_us / 1e3:.5f} / "
+          f"{fused.streamed_us / 1e3:.5f}); the rule picks the "
+          f"{'fused' if plan else 'streamed'} mode: {verdict}", flush=True)
+    if picked["ms"] > (1 + RULE_MARGIN) * other["ms"]:
+        fail(f"{key} ({label}): the rule's mode is {verdict} than the other")
+    return picked, rec_s
+
+
+def _mode_counts():
+    """K12's and K13's launches by mode."""
+    return {f"{key} {mode}": n for key, fn in (("K12", dia.spmv_dia_power),
+                                               ("K13", dia.spmv_dia_cheby))
+            for mode, n in fn.mode_launches.items()}
 
 
 def _counts(counters=DIA_COUNTERS):
@@ -864,7 +942,6 @@ def phase_dia(dev):
     from gflownet_spai_tpu_torch.solvers.stationary import (
         _pick_power_config, chebyshev_coeffs, estimate_lmax, jacobi_iteration_matrix)
     from gflownet_spai_tpu_torch.sparse import gallery
-
     gen = torch.Generator(device=dev).manual_seed(2024)
     rnd = lambda n: torch.randn(n, generator=gen, device=dev)
     pois = gallery.poisson2d(POISSON, dtype=np.float32)
@@ -903,87 +980,97 @@ def phase_dia(dev):
         out[f"K8 {name}"] = r
 
     def k12(mm, name, k, tr, affine):
-        """K12 on ``mm`` (a Jacobi iteration matrix) at the selection's k."""
+        """K12 on ``mm`` (a Jacobi iteration matrix) at the selection's k,
+        in both modes (``_both_modes``)."""
         xq = dia.dia_pad_pp(mm, rnd(mm.n), tr=tr)
         add = dia.dia_pad_pp(mm, rnd(mm.n), tr=tr) if affine else None
-        zq, zref = torch.zeros_like(xq), torch.zeros_like(xq)
-        got = dia.spmv_dia_power(mm, None, xq, zq, k=k, add=add)
+        zref = torch.zeros_like(xq)
         want = dia.spmv_dia_power_ref(mm, xq, zref, k=k, add=add)
-        nbytes = 4 * (mm.ndiags * mm.n_pad + (2 + affine) * mm.n_pad)
-        ops = k * (2 * mm.ndiags + 1 + affine) * mm.n_pad
-        rows = dia._tile_rows(lambda t: 2 * (t + 2 * k * mm.reach) + mm.ndiags)
 
         def make(i):
-            if i == 0:
-                return lambda: dia.spmv_dia_power(mm, None, xq, zq, k=k, add=add)
-            mi, xi, zi = _dia_copy(mm), xq.clone(), zq.clone()
-            ci = None if add is None else add.clone()
+            mi, xi, zi = (mm, xq, torch.zeros_like(xq)) if i == 0 else \
+                (_dia_copy(mm), xq.clone(), torch.zeros_like(xq))
+            ci = add if i == 0 or add is None else add.clone()
             return lambda: dia.spmv_dia_power(mi, None, xi, zi, k=k, add=ci)
 
-        return record(
+        return _both_modes(
             "K12", f"{name} Jacobi M, k = {k}, P = {tr}, "
-            f"{'affine' if affine else 'plain power'}, "
-            + (f"tiled ({rows} rows per block)" if rows else f"streamed ({k} launches)"),
-            [got], [want], k, make,
-            lambda: dia.spmv_dia_power_ref(mm, xq, zref, k=k, add=add), nbytes, ops)
+            f"{'affine' if affine else 'plain power'}",
+            dia._FUSED_AFFINE if affine else dia._FUSED_POWER, mm, k,
+            lambda: [dia.spmv_dia_power(mm, None, xq, torch.zeros_like(xq), k=k, add=add)],
+            [want], make, lambda: dia.spmv_dia_power_ref(mm, xq, zref, k=k, add=add),
+            4 * (mm.ndiags * mm.n_pad + (2 + affine) * mm.n_pad),
+            k * (2 * mm.ndiags + 1 + affine) * mm.n_pad)
 
     # K12 on the Jacobi iteration matrix at the two fused configurations
     m = jacobi_iteration_matrix(d)
     for sweeps in (16, 4):
         k, tr = _pick_power_config(m, 8, sweeps)
         for affine in (True, False):
-            r = k12(m, f"poisson{POISSON}", k, tr, affine)
-            out[f"K12 k={k} {'affine' if affine else 'power'}"] = r
-            out.setdefault("K12", r)      # the Jacobi-16 row's call stands for K12
-    with _streamed():
-        out["K12 k=8 affine streamed"] = k12(m, f"poisson{POISSON}", 8,
-                                             _pick_power_config(m, 8, 16)[1], True)
-    # K12's streamed mode where the selection needs it: poisson2048's
-    # Jacobi 16 sweeps pick k = 8, whose window (reach 2048) fits no block
+            picked, streamed = k12(m, f"poisson{POISSON}", k, tr, affine)
+            tag = f"K12 k={k} {'affine' if affine else 'power'}"
+            out[tag], out[tag + " streamed"] = picked, streamed
+            out.setdefault("K12", picked)      # the Jacobi-16 row's call stands for K12
+    # poisson2048's Jacobi 16 sweeps pick k = 8 at reach 2048 (the TPU's
+    # streamed kernel; which side of the rule it lies on is printed)
     t0 = time.perf_counter()
     m2 = jacobi_iteration_matrix(
         dia.coo_to_dia(gallery.poisson2d(2 * POISSON, dtype=np.float32), device=dev))
     k, tr = _pick_power_config(m2, 8, 16)
     print(f"[K12] poisson{2 * POISSON}: Jacobi M built in {time.perf_counter() - t0:.1f} s "
-          f"(n {m2.n}, halo {m2.halo}); Jacobi-16 selection k = {k}, P = {tr}", flush=True)
-    if k != 8 or dia._tile_rows(lambda t: 2 * (t + 2 * k * m2.reach) + m2.ndiags):
-        fail(f"poisson{2 * POISSON} Jacobi-16 should stream K12 at k = 8 (k = {k})")
-    out[f"K12 k=8 affine poisson{2 * POISSON}"] = k12(m2, f"poisson{2 * POISSON}", k,
-                                                       tr, True)
+          f"(n {m2.n}, halo {m2.halo}); Jacobi-16 selection k = {k}, P = {tr}; the "
+          f"rule's side: {_mode_label(_rule(dia._FUSED_AFFINE, m2, k))}", flush=True)
+    if k != 8:
+        fail(f"poisson{2 * POISSON} Jacobi-16 should fuse k = 8 (k = {k})")
+    out[f"K12 k=8 affine poisson{2 * POISSON}"], _ = k12(m2, f"poisson{2 * POISSON}", k,
+                                                          tr, True)
     del m2
+    # both sides of the rule on one small grid, poisson128 (n 16,384): its
+    # Jacobi-4 sweeps (k = 2) stream, two launches costing less than one
+    # fused launch's fixed part; its Jacobi-16 sweeps (k = 8) fuse
+    m128 = jacobi_iteration_matrix(
+        dia.coo_to_dia(gallery.poisson2d(POISSON // 8, dtype=np.float32), device=dev))
+    for sweeps in (4, 16):
+        k, tr = _pick_power_config(m128, 8, sweeps)
+        out[f"K12 k={k} affine poisson{POISSON // 8}"], _ = k12(
+            m128, f"poisson{POISSON // 8}", k, tr, True)
+    del m128
 
-    # K13 at k = 2 with the Chebyshev coefficients of the estimated spectrum
-    lmax = 1.05 * float(estimate_lmax(d, iters=30))
-    coeffs = chebyshev_coeffs(lmax / 30, lmax, 16)[2:4]      # the second fused call
-    q = lambda: dia.dia_pad_pp(d, rnd(d.n))
-    zq, ddq, rq = q(), q(), q()
-    nbytes = 4 * (d.ndiags * d.n_pad + 5 * d.n_pad)
-
-    def k13():
-        bufs = [torch.zeros_like(zq) for _ in range(4)]
-        got = dia.spmv_dia_cheby(d, None, zq, ddq, rq, bufs[0], bufs[1], coeffs, 2)
-        want = dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2)
-        rows = dia._tile_rows(lambda t: 3 * t + 10 * d.reach + d.ndiags)
+    def k13(dd, name, coeffs):
+        """K13 on ``dd`` with the coefficient pairs ``coeffs`` (k of them),
+        in both modes."""
+        k = len(coeffs)
+        q = lambda: dia.dia_pad_pp(dd, rnd(dd.n))
+        zq, ddq, rq = q(), q(), q()
+        zero = lambda: [torch.zeros_like(zq) for _ in range(2)]
+        want = list(dia.spmv_dia_cheby_ref(dd, zq, ddq, rq, *zero(), coeffs, k))
 
         def make(i):
-            if i == 0:
-                di, ins, outs = d, (zq, ddq, rq), bufs[:2]
-            else:
-                di, ins, outs = _dia_copy(d), (zq.clone(), ddq.clone(), rq.clone()), \
-                    (bufs[0].clone(), bufs[1].clone())
-            return lambda: dia.spmv_dia_cheby(di, None, *ins, *outs, coeffs, 2)
+            di, ins = (dd, (zq, ddq, rq)) if i == 0 else \
+                (_dia_copy(dd), (zq.clone(), ddq.clone(), rq.clone()))
+            outs = zero()
+            return lambda: dia.spmv_dia_cheby(di, None, *ins, *outs, coeffs, k)
 
-        return record(
-            "K13", f"poisson{POISSON}, k = 2, lmax {lmax:.4f}, (a, b) = "
-            f"{[(round(a, 5), round(b, 5)) for a, b in coeffs]}, "
-            + (f"tiled ({rows} rows per block)" if rows else "streamed (2 launches)"),
-            got, want, 2, make,
-            lambda: dia.spmv_dia_cheby_ref(d, zq, ddq, rq, bufs[2], bufs[3], coeffs, 2),
-            nbytes, 2 * (2 * d.ndiags + 5) * d.n_pad)
+        return _both_modes(
+            "K13", f"{name}, k = {k}, (a, b) = "
+            f"{[(round(a, 5), round(b, 5)) for a, b in coeffs]}", dia._FUSED_CHEBY, dd, k,
+            lambda: list(dia.spmv_dia_cheby(dd, None, zq, ddq, rq, *zero(), coeffs, k)),
+            want, make, lambda: dia.spmv_dia_cheby_ref(dd, zq, ddq, rq, *zero(), coeffs, k),
+            4 * (dd.ndiags * dd.n_pad + 5 * dd.n_pad), k * (2 * dd.ndiags + 5) * dd.n_pad)
 
-    out["K13"] = k13()
-    with _streamed():
-        out["K13 streamed"] = k13()
+    # K13 at k = 2 with the Chebyshev coefficients of the estimated spectrum
+    # (the [poisson] row's second fused call), then at the Chebyshev
+    # V-cycle's coarser levels: k 4 (degree 8 on [lmax/4, lmax]) on
+    # poisson512 and k 8 (the coarsest level's degree 32 on [lmax/30,
+    # lmax]) on poisson256
+    lmax = 1.05 * float(estimate_lmax(d, iters=30))
+    out["K13"], out["K13 streamed"] = k13(d, f"poisson{POISSON} lmax {lmax:.4f}",
+                                          chebyshev_coeffs(lmax / 30, lmax, 16)[2:4])
+    for n, k, ratio, degree in ((POISSON // 2, 4, 4.0, 8), (POISSON // 4, 8, 30.0, 32)):
+        dl = dia.coo_to_dia(gallery.poisson2d(n, dtype=np.float32), device=dev)
+        lm = 1.05 * float(estimate_lmax(dl, iters=20))
+        out[f"K13 k={k} poisson{n}"], _ = k13(dl, f"poisson{n} lmax {lm:.4f}",
+                                             chebyshev_coeffs(lm / ratio, lm, degree)[:k])
     return out
 
 
@@ -992,6 +1079,7 @@ def _row_print(tag, name, rec):
           f"{rec['cold_s']:.3f} s  steady {rec['steady_s']:.3f} s  "
           f"({1e3 * rec['steady_s'] / max(rec['iterations'], 1):.4f} ms/iteration)  "
           f"true residual {rec['true_residual']:.3e}  launches {rec['launches']}"
+          + (f" (by mode {rec['modes']})" if rec.get("modes") else "")
           + (f"  {rec['note']}" if rec.get("note") else ""), flush=True)
 
 
@@ -1163,7 +1251,7 @@ def phase_poisson(dev):
               flush=True)
     report = {}
     for name, op in ops.items():
-        before = _counts()
+        before, before_m = _counts(), _mode_counts()
         walls = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1175,6 +1263,16 @@ def phase_poisson(dev):
         true_res = float(torch.linalg.vector_norm(b.double() - A64(x.double()))
                          / torch.linalg.vector_norm(b.double()))
         launches = {k: v - before[k] for k, v in _counts().items()}
+        modes = {k: v - before_m[k] for k, v in _mode_counts().items() if v - before_m[k]}
+        if op is not None:
+            # the streamed mode gives the same iterates: K12 and K13 sum alike
+            # in both modes, bit for bit
+            with _streamed():
+                its_s = cg(d, b, m_op=op, maxiter=CG_MAXITER, rtol=1e-5).iterations
+            if its_s != res.iterations:
+                fail(f"[poisson] {name}: {res.iterations} iterations, {its_s} with K12 / "
+                     f"K13 forced into the streamed mode")
+            modes["streamed-forced iterations"] = its_s
         t0 = time.perf_counter()
         ref_it, info, ref_hist = _cg_ref(A64, refs[name], n, CG_MAXITER, dev)
         ref_s = time.perf_counter() - t0
@@ -1182,7 +1280,7 @@ def phase_poisson(dev):
         ref_x = _crossings(ref_hist)
         ladder = ", ".join(f"{t:g}: {got_x[t]} vs {ref_x[t]}" for t in CG_LADDER)
         rec = dict(iterations=res.iterations, cold_s=walls[0], steady_s=walls[1],
-                   true_residual=true_res, launches=launches,
+                   true_residual=true_res, launches=launches, modes=modes,
                    note=f"float64 scipy CG {ref_it} iterations (info {info}, "
                         f"{ref_s:.1f} s); first iteration at rtol (float32 vs "
                         f"float64) {ladder}")
@@ -1596,7 +1694,7 @@ def phase_vcycle(dev):
         t0 = time.perf_counter()
         op = vcycle_op(d, **kw) if kw else None
         setup_s = time.perf_counter() - t0
-        before = _counts()
+        before, before_m = _counts(), _mode_counts()
         walls = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1605,6 +1703,8 @@ def phase_vcycle(dev):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         launches = {k: (v - before[k]) // 2 for k, v in _counts().items()}
+        modes = {k: (v - before_m[k]) // 2 for k, v in _mode_counts().items()
+                 if v - before_m[k]}
         true_res = float(torch.linalg.vector_norm(b - dia.spmv_dia(d, res.x))
                          / torch.linalg.vector_norm(b))
         got_x = {t: _crossing(res.residuals.cpu().numpy(), np.sqrt(n), t)
@@ -1623,7 +1723,7 @@ def phase_vcycle(dev):
         else:
             bad = []
         rec = dict(iterations=res.iterations, cold_s=walls[0], steady_s=walls[1],
-                   true_residual=true_res, launches=launches, note=note)
+                   true_residual=true_res, launches=launches, modes=modes, note=note)
         _row_print("vcycle", name, rec)
         if not res.converged or bad:
             fail(f"[vcycle] {name}: converged {res.converged}; float32 vs float64 "

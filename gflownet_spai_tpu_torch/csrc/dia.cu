@@ -24,29 +24,51 @@
 //
 // K12 replaces `_spmv_pallas_power` (x resident) and `_spmv_pallas_power_stream`
 // (x and c streamed by window DMAs); K13 replaces `_spmv_pallas_cheby`.  Each
-// has two modes, chosen by the caller through `tr`:
+// has two modes, chosen by the caller (`ops/dia.py` `_fused_plan`):
 //
-// - tiled (tr > 0): temporal blocking.  Each block owns `tr` output rows and
-//   computes k dependent passes in shared memory over a window that shrinks
-//   by the matrix's true reach R = max|off| per pass (rows t0 - (k-p).R ..
-//   t0 + tr + (k-p).R at pass p), so the iterate never goes back to device
-//   memory between passes.  The overlap rows are computed redundantly by the
-//   neighbouring blocks.  The window is 2.(tr + 2.k.R) words, so this mode
-//   needs k.R below about 14,000 words of shared memory.
-// - streamed (tr == 0): k launches of a one-pass kernel, the iterate
+// - fused (rows > 0): one launch of thread-block clusters of C CTAs (1024
+//   threads, one per SM), each cluster walking windows of C.S rows.  CTA
+//   `rank` owns the S rows from row0 = w.out - Hk + rank.S of window w and
+//   stages them once per call with 16-byte cp.async copies: each row's
+//   diagonal words and its c (K12 with `add`) or its r and dd (K13), and
+//   the input iterate with a halo of Rh = R rounded up to 4 words each
+//   side.  The k passes then run in shared memory, so the diagonals are
+//   read from device memory once for all k passes; only the iterate moves,
+//   between two shared buffers.  Each pass computes the CTA's Rh rows at
+//   either edge first and stores them into its neighbours' halos
+//   (st.async into distributed shared memory, completing bytes on the
+//   neighbour's mbarrier), then its interior rows, which read no halo,
+//   while those stores travel; the next pass waits only for its two
+//   neighbours' bytes.  Only the two ends of a window see stale halos, one
+//   reach further in per pass, so a window yields out = C.S - 2.Hk output
+//   rows, Hk = (k-1).R rounded up to 4: the halo is paid per cluster window,
+//   and a pass computes only the rows that still reach an output row.  The
+//   last pass writes the output rows to device memory.  With two staging
+//   areas the next window loads while this one runs.  The caller picks C,
+//   S, the stages and the clusters launched from the shared-memory budget,
+//   cudaOccupancyMaxActiveClusters and a cost model of this card; it needs
+//   1 <= ndiags <= 9 (the diagonals are unrolled), P a multiple of 4, 16-byte
+//   aligned staged buffers and, when C > 1, S >= Rh.
+// - streamed (rows == 0): k launches of a one-pass kernel, the iterate
 //   ping-ponging through global memory between the output buffer and a
 //   caller-given [n_pad] scratch buffer, ordered so that the last pass
-//   lands in the output.  It serves any reach and k (a 2D Poisson grid
-//   above ~1800^2 at k = 8), which is what the TPU's streamed variant is for.
+//   lands in the output.  It serves any reach, k and ndiags, and the shapes
+//   where no window fits, where k short launches cost less than one fused
+//   launch, or where a window would repeat most of its rows.
 //
-// In both, rows outside [0, n_pad) read as zero at every pass after the
-// first, as the reference's zero re-padding does.  The diagonals are read
-// from global memory (d.data directly: the per-tile widened copy
-// `dia_power_data` existed only for Mosaic's block mapping).  What bounds
-// them on an H100: bytes of the diagonals, once per k passes when tiled
-// (while the redundant overlap rows stay small against tr; at the slice's
-// shapes the overlap re-reads hit L2), k times when streamed.
-//
+// Both modes run each row update through the same arithmetic (`PowerRow`,
+// `cheby_dn`): the sum over the diagonals from zero in offset order as
+// fused multiply-adds, then x scale, then + c; for K13 dn = a.dd +
+// b.(r - t), then z + dn, each rounding explicit, so the two modes agree
+// bit for bit and a solver's iteration count never depends on the mode.
+// Rows outside [0, n_pad) read as zero at every pass after the first, as
+// the reference's zero re-padding does; the first pass reads x on
+// [-P, n_pad + P).  What bounds them on an H100: bytes, the diagonals once
+// per call in the fused mode (plus the window ends' rows) and k times in
+// the streamed one; in the fused mode also the passes' shared-memory
+// traffic (2.ndiags + 2 words per row update) and the wait for the
+// neighbours' edge rows.
+
 // K10 and K11 (dia_spmv_pp) replace `_spmv_pallas_io` / `_spmv_pallas_io_stream`
 // (y in x's padded layout, halo blocks zeroed) and `_spmv_pallas_pp` /
 // `_spmv_pallas_pp_stream` (y into the interior of a second buffer, whose
@@ -59,25 +81,50 @@
 // right-hand sides, [K, P + n_pad + P] row-major buffers.  Each thread owns
 // one row and keeps up to kRhs sums in registers, so a diagonal word read
 // once serves every right-hand side of its block: the diagonals' traffic
-// drops by that factor, which is what the TPU kernel is for.  Modes as K12:
+// drops by that factor, which is what the TPU kernel is for.  Two modes:
 // tiled (one block per row tile and block of kb <= kRhs right-hand sides,
-// their kb windows in shared memory across the k passes) or streamed (k
-// launches of the batched one-pass kernel through a [K, n_pad] scratch
-// buffer); k = 1 is one batched pass.  Bound by bytes.
+// their kb windows in shared memory across the k passes, shrinking by R per
+// pass, the overlap rows computed again by the neighbouring blocks) or
+// streamed (k launches of the batched one-pass kernel through a [K, n_pad]
+// scratch buffer); k = 1 is one batched pass.  Bound by bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;      // K8, K10, K11, K14's one-pass kernel
-constexpr int kTileThreads = 512;  // K12, K13, K14 tiled
+constexpr int kTileThreads = 512;  // K14 tiled
+constexpr int kFusedThreads = 1024;    // K12, K13 fused: one CTA per SM
 constexpr int kMaxPasses = 32;
+constexpr int kMaxCluster = 16;
 constexpr int kRhs = 8;            // K14: right-hand sides per block
 
 struct Coeffs {
   float a[kMaxPasses];
   float b[kMaxPasses];
 };
+
+// One row of K12: scale.sum_s d_s.x_s (+ c), the sum from zero in offset
+// order.  Every rounding is explicit, so the fused and the streamed mode
+// (and K8, at scale 1 with no c) compute each row alike.
+struct PowerRow {
+  float acc = 0.f;
+  __device__ __forceinline__ void add(float d, float x) { acc = __fmaf_rn(d, x, acc); }
+  __device__ __forceinline__ float done(float scale) const { return __fmul_rn(acc, scale); }
+  __device__ __forceinline__ float done(float scale, float c) const {
+    return __fadd_rn(__fmul_rn(acc, scale), c);
+  }
+};
+
+// K13's update of one row from t = (A.z)_i: dn = a.dd + b.(r - t).
+__device__ __forceinline__ float cheby_dn(float a, float dd, float b, float r, float t) {
+  return __fadd_rn(__fmul_rn(a, dd), __fmul_rn(b, __fsub_rn(r, t)));
+}
 
 // y[i] = scale.sum_s data[s, i].x[i + offs[s]] (+ c[i]) for i < rows: K8 at
 // scale 1 with no c, and one pass of K12's streamed mode.
@@ -89,15 +136,12 @@ dia_spmv_kernel(const float* __restrict__ data, long long ld,
                 float* __restrict__ y, long long rows) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= rows) return;
-  float acc = 0.f;
+  PowerRow row;
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
-    const float xv = (j >= x_lo && j < x_hi) ? x[j] : 0.f;
-    acc += data[s * ld + i] * xv;
+    row.add(data[s * ld + i], (j >= x_lo && j < x_hi) ? x[j] : 0.f);
   }
-  float v = acc * scale;
-  if (c != nullptr) v += c[i];
-  y[i] = v;
+  y[i] = c != nullptr ? row.done(scale, c[i]) : row.done(scale);
 }
 
 // K10 and K11: thread t owns buffer row i = t - pad.  Rows in [0, rows) get
@@ -172,62 +216,291 @@ dia_cheby_pass_kernel(const float* __restrict__ data, long long n_pad,
                       float* __restrict__ z_out, float* dd_out, float a, float b) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= n_pad) return;
-  float t = 0.f;
+  PowerRow t;
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
-    const float zv = (j >= z_lo && j < z_hi) ? z[j] : 0.f;
-    t += data[s * n_pad + i] * zv;
+    t.add(data[s * n_pad + i], (j >= z_lo && j < z_hi) ? z[j] : 0.f);
   }
-  const float dn = a * dd_in[i] + b * (r[i] - t);
-  z_out[i] = z[i] + dn;
+  const float dn = cheby_dn(a, dd_in[i], b, r[i], t.acc);
+  z_out[i] = __fadd_rn(z[i], dn);
   dd_out[i] = dn;
 }
 
-// One block per `tr` output rows.  smem: cur[W], nxt[W], offs[ndiags] with
-// W = tr + 2.k.R; window index i holds row base + i, base = t0 - k.R.
-template <bool kAffine>
-__global__ void __launch_bounds__(kTileThreads)
-dia_power_kernel(const float* __restrict__ data, long long n_pad,
-                 const int* __restrict__ offs, int ndiags, int reach,
-                 const float* __restrict__ xq, const float* __restrict__ cq,
-                 float* __restrict__ zq, long long P, int k, float scale,
-                 int tr) {
-  extern __shared__ float smem[];
-  const int W = tr + 2 * k * reach;
-  float* cur = smem;
-  float* nxt = smem + W;
-  int* offs_s = reinterpret_cast<int*>(smem + 2 * W);
-  const long long t0 = static_cast<long long>(blockIdx.x) * tr;
-  const long long base = t0 - static_cast<long long>(k) * reach;
-  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    const long long row = base + i;
-    cur[i] = (row >= -P && row < n_pad + P) ? xq[P + row] : 0.f;
+// --- K12 / K13 fused: cp.async staging, st.async halos, mbarriers ------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Stage rows [lo, lo + len) of a vector whose rows [vlo, vhi) exist (`src`
+// points at row 0) into dst[0, len) with 16-byte cp.async copies spread
+// over the CTA's threads; the rows that do not exist are zero-filled.  lo,
+// len, vlo and vhi are multiples of 4, so each 16-byte chunk lies wholly
+// inside or outside.  The caller commits the group.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long lo, int len,
+                                           long long vlo, long long vhi) {
+  for (int q = threadIdx.x; q < len / 4; q += blockDim.x) {
+    const long long g = lo + 4LL * q;
+    const bool in = g >= vlo && g < vhi;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst + 4 * q)), "l"(src + (in ? g : vlo)), "r"(in ? 16 : 0)
+                 : "memory");
   }
-  __syncthreads();
-  for (int p = 1; p <= k; ++p) {
-    const int hi = W - p * reach;
-    for (int i = p * reach + threadIdx.x; i < hi; i += blockDim.x) {
-      const long long row = base + i;
-      float v = 0.f;
-      if (row >= 0 && row < n_pad) {
-        float acc = 0.f;
-        for (int s = 0; s < ndiags; ++s)
-          acc += data[s * n_pad + row] * cur[i + offs_s[s]];
-        v = acc * scale;
-        if (kAffine) v += cq[P + row];
-      }
-      nxt[i] = v;
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Arrive on the mbarrier at shared::cluster address `bar` of another CTA,
+// releasing this thread's (and, through a CTA barrier before, its CTA's)
+// earlier accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(unsigned bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of `parity` to complete, with cluster-scope acquire:
+// the bytes other CTAs stored here with st.async, and what they released
+// before arriving, are then visible.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// The shared::cluster address of `p` (a shared memory address of this CTA)
+// in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Store v at `addr` in another CTA of the cluster and complete 4 bytes of
+// the transaction count of its mbarrier `bar` (both shared::cluster).
+__device__ __forceinline__ void push_word(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// Window w of a fused launch.  Buffers of Wb = S + 2.Rh words hold rows
+// row0 - Rh + j at index j; CTA `rank` of the cluster owns rows
+// [row0, row0 + S) and writes the output rows [out0, out_end) among them.
+struct FusedCta {
+  long long out0, out_end, row0;
+  int lo, hi;   // its rows [lo, hi) lie in [0, n_pad); the others stay zero
+  __device__ FusedCta(int rank, int S, int Hk, long long out, long long n_pad, long long w) {
+    out0 = w * out;
+    out_end = min(out0 + out, n_pad);
+    row0 = out0 - Hk + static_cast<long long>(rank) * S;
+    lo = static_cast<int>(min(max(-row0, 0LL), static_cast<long long>(S)));
+    hi = static_cast<int>(max(min(n_pad - row0, static_cast<long long>(S)),
+                              static_cast<long long>(lo)));
+  }
+};
+
+// Shared memory of a fused CTA: three mbarriers (the halos of A and B,
+// and the neighbours' "done with the last window"; 32 bytes with padding),
+// the iterate's two buffers A and B ([Wb] each), then `stages` staging
+// areas, each x[Wb] (the window's input iterate with its halos), dg[nd][S]
+// and aux[kind][S] (K12 with c: c; K13: r, dd).
+__host__ __device__ inline size_t fused_stage_words(int nd, int kind, int S, int Rh) {
+  return static_cast<size_t>(S) + 2 * Rh + static_cast<size_t>(nd + kind) * S;
+}
+
+__host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int Rh,
+                                                   int stages) {
+  return 32 + 4 * (2 * (static_cast<size_t>(S) + 2 * Rh)
+                   + stages * fused_stage_words(nd, kind, S, Rh));
+}
+
+// K12 (kKind 0, or 1 with c) and K13 (kKind 2) fused, for ND diagonals:
+// see the header.  x is xq (K12) or zq (K13), a is cq or rq, ddq and dd_out
+// only K13's.  Cluster blockIdx.x / C walks windows first, first + step, ...
+// (step = the clusters launched); with two stages the next window is
+// staged (cp.async) while this one runs.  Pass 1 reads the staged x and
+// writes A; the next passes alternate between A and B, and the last one
+// writes the output rows to device memory.  A pass computes only the rows
+// that reach an output row of the window, (k - p).R around them.  Each
+// pass but the last computes the rows within Rh of the CTA's two edges
+// first and stores them into the neighbours' halos too (st.async,
+// completing bytes on the neighbour's mbarrier of that buffer), then the
+// interior rows, which read no halo; the next pass first waits for the
+// neighbours' bytes on its own mbarrier.  A neighbour stores pass p + 1
+// into a halo only after it has received this CTA's pass p edge rows,
+// which this CTA computes, from the halo of pass p - 1, before it sends
+// them: no halo is overwritten before it is read.  After a window each CTA
+// tells its neighbours (a remote mbarrier arrive) that its halos are free
+// for the next window's first stores.
+template <int kKind, int ND>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+dia_fused_kernel(const float* __restrict__ data, long long n_pad,
+                 const int* __restrict__ offs, int reach, const float* __restrict__ xq,
+                 const float* __restrict__ aq, const float* __restrict__ ddq,
+                 float* __restrict__ zq, float* __restrict__ dd_out, long long P, int k,
+                 float scale, Coeffs cf, int S, int Rh, int Hk, long long out,
+                 long long windows, int stages) {
+  extern __shared__ __align__(16) float fused_smem[];
+  const int Wb = S + 2 * Rh;
+  uint64_t* halo_bar = reinterpret_cast<uint64_t*>(fused_smem);   // [2]: A's and B's halos
+  uint64_t* free_bar = halo_bar + 2;     // the neighbours are done with their last window
+  float* A = fused_smem + 8;
+  float* B = A + Wb;
+  const long long stage_words = static_cast<long long>(fused_stage_words(ND, kKind, S, Rh));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long first = blockIdx.x / C, step = gridDim.x / C;
+  const int n_win = first < windows ? static_cast<int>((windows - first + step - 1) / step) : 0;
+  const int n_nbr = (rank > 0) + (rank < C - 1);
+  const int tid = threadIdx.x;
+
+  auto stage_window = [&](int t, int s) {
+    const FusedCta c(rank, S, Hk, out, n_pad, first + t * step);
+    float* x = B + Wb + s * stage_words;
+    stage_rows(x, xq + P, c.row0 - Rh, Wb, -P, n_pad + P);
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      stage_rows(x + Wb + d * S, data + d * n_pad, c.row0, S, 0, n_pad);
+    if (kKind >= 1) stage_rows(x + Wb + ND * S, aq + P, c.row0, S, 0, n_pad);
+    if (kKind == 2) stage_rows(x + Wb + (ND + 1) * S, ddq + P, c.row0, S, 0, n_pad);
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+    mbar_init(&halo_bar[0], 1);
+    mbar_init(&halo_bar[1], 1);
+    mbar_init(free_bar, n_nbr > 0 ? n_nbr : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int j = tid; j < Rh; j += blockDim.x)   // halos no neighbour writes
+    A[j] = A[Rh + S + j] = B[j] = B[Rh + S + j] = 0.f;
+  if (n_win > 0) stage_window(0, 0);
+  // every CTA of the cluster runs, its barriers initialised, before any
+  // stores into it
+  if (C > 1) cluster.sync(); else __syncthreads();
+
+  int off[ND];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) off[d] = offs[d];
+  const int e_lo = min(Rh, S), e_hi = max(S - Rh, e_lo);   // edge rows: [0, e_lo) U [e_hi, S)
+  const int n_edge = e_lo + (S - e_hi);
+  const bool has_left = C > 1 && rank > 0, has_right = C > 1 && rank < C - 1;
+  unsigned phases = 0;   // bit j: the parity of halo_bar[j]'s phase; bit 2: free_bar's
+  for (int t = 0; t < n_win; ++t) {
+    const int s = stages == 2 ? (t & 1) : 0;
+    const bool next = t + 1 < n_win;
+    if (stages == 2 && next) {
+      stage_window(t + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    float* const done = cur;
-    cur = nxt;
-    nxt = done;
+    __syncthreads();   // the staged window, from every thread's copies
+    if (t > 0 && C > 1) {   // the neighbours' halos are free
+      mbar_wait_cluster(free_bar, (phases >> 2) & 1);
+      phases ^= 4u;
+    }
+    const FusedCta c(rank, S, Hk, out, n_pad, first + t * step);
+    const float* sx = B + Wb + s * stage_words;
+    const float* dg = sx + Wb;
+    const float* aux = dg + ND * S;
+    float* dd = const_cast<float*>(aux) + S;
+    int lo = c.lo, hi = c.hi;   // the rows this pass computes, the others give 0
+    // row i's value at pass p from the previous iterate `src`
+    auto row = [&](int p, int i, const float* src) -> float {
+      if (i < lo || i >= hi) {
+        if (kKind == 2) dd[i] = 0.f;
+        return 0.f;
+      }
+      PowerRow acc;
+      const float* x = src + Rh + i;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) acc.add(dg[d * S + i], x[off[d]]);
+      if (kKind == 2) {
+        const float dn = cheby_dn(cf.a[p - 1], dd[i], cf.b[p - 1], aux[i], acc.acc);
+        dd[i] = dn;   // only this thread reads or writes row i of dd in a pass
+        return __fadd_rn(x[0], dn);
+      }
+      return kKind == 1 ? acc.done(scale, aux[i]) : acc.done(scale);
+    };
+    const float* src = sx;
+    float* dst = A;
+    for (int p = 1; p <= k; ++p) {
+      // the rows that reach an output row, (k - p).R around [out0, out_end):
+      // [clo, chi); of them, those outside [0, n_pad) are zero
+      const long long cone = static_cast<long long>(k - p) * reach;
+      const int clo = static_cast<int>(min(max(c.out0 - cone - c.row0, 0LL),
+                                           static_cast<long long>(S)));
+      const int chi = static_cast<int>(max(min(c.out_end + cone - c.row0,
+                                               static_cast<long long>(S)),
+                                           static_cast<long long>(clo)));
+      lo = max(c.lo, clo);
+      hi = min(c.hi, chi);
+      const int b = (p & 1) ? 0 : 1;   // dst is A at odd passes, B at even ones
+      if (p > 1 && C > 1) {            // the neighbours' pass p - 1 edge rows
+        mbar_wait_cluster(&halo_bar[b ^ 1], (phases >> (b ^ 1)) & 1);
+        phases ^= 1u << (b ^ 1);
+      }
+      if (p == k) {   // the output rows, to device memory
+        for (int i = max(lo, static_cast<int>(c.out0 - c.row0)) + tid; i < hi;
+             i += blockDim.x) {
+          const float v = row(p, i, src);
+          zq[P + c.row0 + i] = v;
+          if (kKind == 2) dd_out[P + c.row0 + i] = dd[i];
+        }
+        break;
+      }
+      if (tid == 0 && C > 1) mbar_expect_tx(&halo_bar[b], 4u * Rh * n_nbr);
+      const unsigned left = has_left ? cluster_addr(dst + Rh + S, rank - 1) : 0;
+      const unsigned left_bar = has_left ? cluster_addr(&halo_bar[b], rank - 1) : 0;
+      const unsigned right = has_right ? cluster_addr(dst, rank + 1) : 0;
+      const unsigned right_bar = has_right ? cluster_addr(&halo_bar[b], rank + 1) : 0;
+      for (int q = tid; q < n_edge; q += blockDim.x) {
+        const int i = q < e_lo ? q : e_hi + (q - e_lo);
+        const float v = row(p, i, src);
+        dst[Rh + i] = v;
+        if (has_left && i < Rh) push_word(left + 4u * i, v, left_bar);
+        if (has_right && i >= S - Rh) push_word(right + 4u * (i - (S - Rh)), v, right_bar);
+      }
+      for (int i = max(e_lo, clo) + tid; i < min(e_hi, chi); i += blockDim.x)
+        dst[Rh + i] = row(p, i, src);
+      __syncthreads();   // the next pass overwrites src
+      src = dst;
+      dst = dst == A ? B : A;
+    }
+    __syncthreads();   // the buffers and the stage are read
+    if (tid == 0 && next) {
+      if (has_left) mbar_arrive_remote(cluster_addr(free_bar, rank - 1));
+      if (has_right) mbar_arrive_remote(cluster_addr(free_bar, rank + 1));
+    }
+    if (stages == 1 && next) stage_window(t + 1, 0);
   }
-  for (int i = threadIdx.x; i < tr; i += blockDim.x) {
-    const long long row = t0 + i;
-    if (row < n_pad) zq[P + row] = cur[k * reach + i];
-  }
+  // no CTA exits while a neighbour may still store into it: the last
+  // window's stores all arrived before its last pass
 }
 
 // K14 tiled: block (blockIdx.x, blockIdx.y) owns rows [t0, t0 + tr) of
@@ -299,65 +572,6 @@ dia_power_rhs_kernel(const float* __restrict__ data, long long n_pad,
   }
 }
 
-// One block per `tr` output rows.  smem: z0[Wz], z1[Wz], dd[Wd], offs with
-// Wz = tr + 2.k.R (rows from t0 - k.R) and Wd = tr + 2.(k-1).R (rows from
-// t0 - (k-1).R): z window index iz is dd index iz - R.
-__global__ void __launch_bounds__(kTileThreads)
-dia_cheby_kernel(const float* __restrict__ data, long long n_pad,
-                 const int* __restrict__ offs, int ndiags, int reach,
-                 const float* __restrict__ zq, const float* __restrict__ ddq,
-                 const float* __restrict__ rq, float* __restrict__ z_out,
-                 float* __restrict__ dd_out, long long P, int k, Coeffs cf,
-                 int tr) {
-  extern __shared__ float smem[];
-  const int Wz = tr + 2 * k * reach;
-  const int Wd = tr + 2 * (k - 1) * reach;
-  float* cur = smem;
-  float* nxt = smem + Wz;
-  float* dd = smem + 2 * Wz;
-  int* offs_s = reinterpret_cast<int*>(dd + Wd);
-  const long long t0 = static_cast<long long>(blockIdx.x) * tr;
-  const long long base = t0 - static_cast<long long>(k) * reach;
-  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
-  for (int i = threadIdx.x; i < Wz; i += blockDim.x) {
-    const long long row = base + i;
-    cur[i] = (row >= -P && row < n_pad + P) ? zq[P + row] : 0.f;
-  }
-  for (int i = threadIdx.x; i < Wd; i += blockDim.x) {
-    const long long row = base + reach + i;
-    dd[i] = (row >= 0 && row < n_pad) ? ddq[P + row] : 0.f;
-  }
-  __syncthreads();
-  for (int p = 1; p <= k; ++p) {
-    const float a = cf.a[p - 1], b = cf.b[p - 1];
-    const int hi = Wz - p * reach;
-    for (int i = p * reach + threadIdx.x; i < hi; i += blockDim.x) {
-      const long long row = base + i;
-      float zn = 0.f, dn = 0.f;
-      if (row >= 0 && row < n_pad) {
-        float t = 0.f;
-        for (int s = 0; s < ndiags; ++s)
-          t += data[s * n_pad + row] * cur[i + offs_s[s]];
-        dn = a * dd[i - reach] + b * (rq[P + row] - t);
-        zn = cur[i] + dn;
-      }
-      dd[i - reach] = dn;   // only this thread reads or writes this index
-      nxt[i] = zn;
-    }
-    __syncthreads();
-    float* const done = cur;
-    cur = nxt;
-    nxt = done;
-  }
-  for (int i = threadIdx.x; i < tr; i += blockDim.x) {
-    const long long row = t0 + i;
-    if (row < n_pad) {
-      z_out[P + row] = cur[k * reach + i];
-      dd_out[P + row] = dd[(k - 1) * reach + i];
-    }
-  }
-}
-
 // Dynamic shared memory above 48 KB needs an opt-in per kernel; raise it
 // only when a launch needs more than the last one set.
 template <typename Kernel>
@@ -369,9 +583,94 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, size_t* granted) {
   return err;
 }
 
-size_t g_power_smem[2] = {0, 0};
 size_t g_power_rhs_smem[2] = {0, 0};
-size_t g_cheby_smem = 0;
+
+// The fused kernel's instances: kind (0 K12, 1 K12 with c, 2 K13) by
+// ndiags in [1, kFusedMaxDiags]; wider matrices take the streamed mode.
+constexpr int kFusedMaxDiags = 9;
+size_t g_fused_smem[3][kFusedMaxDiags + 1] = {};
+bool g_fused_wide[3][kFusedMaxDiags + 1] = {};
+
+template <int kKind, typename F>
+cudaError_t with_fused_nd(int nd, F f) {
+  switch (nd) {
+    case 1: return f(dia_fused_kernel<kKind, 1>);
+    case 2: return f(dia_fused_kernel<kKind, 2>);
+    case 3: return f(dia_fused_kernel<kKind, 3>);
+    case 4: return f(dia_fused_kernel<kKind, 4>);
+    case 5: return f(dia_fused_kernel<kKind, 5>);
+    case 6: return f(dia_fused_kernel<kKind, 6>);
+    case 7: return f(dia_fused_kernel<kKind, 7>);
+    case 8: return f(dia_fused_kernel<kKind, 8>);
+    case 9: return f(dia_fused_kernel<kKind, 9>);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f(kernel) on the instance of (kind, nd), after raising its shared memory
+// limit to `smem` (and allowing clusters above 8 CTAs) where needed.
+template <typename F>
+cudaError_t with_fused_kernel(int kind, int nd, size_t smem, int C, F f) {
+  if (kind < 0 || kind > 2 || nd < 1 || nd > kFusedMaxDiags) return cudaErrorInvalidValue;
+  auto g = [&](auto kern) {
+    cudaError_t err = opt_in_smem(kern, smem, &g_fused_smem[kind][nd]);
+    if (err == cudaSuccess && C > 8 && !g_fused_wide[kind][nd]) {
+      err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      g_fused_wide[kind][nd] = err == cudaSuccess;
+    }
+    return err != cudaSuccess ? err : f(kern);
+  };
+  return kind == 0 ? with_fused_nd<0>(nd, g) : kind == 1 ? with_fused_nd<1>(nd, g)
+                                                         : with_fused_nd<2>(nd, g);
+}
+
+struct FusedLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  FusedLaunch(unsigned grid, int C, size_t smem, cudaStream_t st) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(C);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kFusedThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// One fused launch of `kind` from the caller's C (cluster), S (rows),
+// stages (1 or 2) and cap on the clusters launched (those the card holds at
+// once); each launched cluster walks its windows.  Refuses what the kernel
+// cannot take: S a multiple of 4, S >= Rh when C > 1, a window yielding an
+// output row, P a multiple of 4 and 16-byte aligned staged buffers.
+cudaError_t fused_launch(int kind, const float* data, long long n_pad, const int* offs,
+                         int ndiags, int reach, const float* x, const float* a,
+                         const float* ddq, float* z, float* ddo, long long P, int k,
+                         float scale, const Coeffs& cf, int C, int S, int stages,
+                         int clusters, cudaStream_t st) {
+  if (k < 2 || k > kMaxPasses || C < 1 || C > kMaxCluster || S <= 0 || S % 4 != 0
+      || stages < 1 || stages > 2 || clusters < 1 || reach < 0 || ndiags < 1
+      || ndiags > kFusedMaxDiags || P % 4 != 0 || !aligned16(data) || !aligned16(x)
+      || (kind >= 1 && !aligned16(a)) || (kind == 2 && !aligned16(ddq)))
+    return cudaErrorInvalidValue;
+  const int Rh = (reach + 3) / 4 * 4;
+  const int Hk = static_cast<int>((static_cast<long long>(k - 1) * reach + 3) / 4 * 4);
+  const long long out = static_cast<long long>(C) * S - 2LL * Hk;
+  if (out <= 0 || (C > 1 && S < Rh)) return cudaErrorInvalidValue;
+  const long long windows = (n_pad + out - 1) / out;
+  const long long launched = windows < clusters ? windows : clusters;
+  const size_t smem = fused_smem_bytes(ndiags, kind, S, Rh, stages);
+  FusedLaunch l(static_cast<unsigned>(launched * C), C, smem, st);
+  return with_fused_kernel(kind, ndiags, smem, C, [&](auto kern) {
+    return cudaLaunchKernelEx(&l.cfg, kern, data, n_pad, offs, reach, x, a, ddq, z, ddo, P, k,
+                              scale, cf, S, Rh, Hk, out, windows, stages);
+  });
+}
 
 unsigned row_blocks(long long rows) {
   return static_cast<unsigned>((rows + kThreads - 1) / kThreads);
@@ -394,19 +693,22 @@ extern "C" int dia_spmv(const void* data, long long ld, const void* offs,
 }
 
 // K12.  xq, cq (nullable) and zq are [P + n_pad + P] buffers; only zq's
-// interior [P, P + n_pad) is written.  tr > 0: tiled, `tr` rows per block;
-// tr == 0: streamed, through `tmp` ([n_pad] floats; unused when k == 1).
+// interior [P, P + n_pad) is written.  rows > 0: fused, at most `clusters`
+// clusters of `cluster` CTAs owning `rows` rows each with `stages` staging
+// areas (`fused_launch` says what it takes); rows == 0: streamed, through
+// `tmp` ([n_pad] floats; unused when k == 1).
 extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* xq, const void* cq,
-                         void* zq, long long P, int k, float scale, int tr,
-                         void* tmp, void* stream) {
+                         void* zq, long long P, int k, float scale, int cluster,
+                         int rows, int stages, int clusters, void* tmp, void* stream) {
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dat = static_cast<const float*>(data);
   const int* off = static_cast<const int*>(offs);
   const float* x = static_cast<const float*>(xq);
   const float* c = static_cast<const float*>(cq);
   float* z = static_cast<float*>(zq);
-  if (tr == 0) {
+  if (rows == 0) {
     const float* src = x + P;
     for (int p = 1; p <= k; ++p) {
       float* dst = (k - p) % 2 == 0 ? z + P : static_cast<float*>(tmp);
@@ -418,43 +720,34 @@ extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
     }
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = sizeof(float) * 2 * (tr + 2 * static_cast<size_t>(k) * reach)
-                      + sizeof(int) * ndiags;
-  const unsigned blocks = static_cast<unsigned>((n_pad + tr - 1) / tr);
-  cudaError_t err;
-  if (c != nullptr) {
-    err = opt_in_smem(dia_power_kernel<true>, smem, &g_power_smem[1]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dia_power_kernel<true><<<blocks, kTileThreads, smem, st>>>(
-        dat, n_pad, off, ndiags, reach, x, c, z, P, k, scale, tr);
-  } else {
-    err = opt_in_smem(dia_power_kernel<false>, smem, &g_power_smem[0]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dia_power_kernel<false><<<blocks, kTileThreads, smem, st>>>(
-        dat, n_pad, off, ndiags, reach, x, nullptr, z, P, k, scale, tr);
-  }
+  const cudaError_t err = fused_launch(c != nullptr ? 1 : 0, dat, n_pad, off, ndiags, reach,
+                                       x, c, nullptr, z, nullptr, P, k, scale, Coeffs{},
+                                       cluster, rows, stages, clusters, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K13.  zq, ddq, rq, z_out, dd_out are [P + n_pad + P] buffers; `coeffs`
 // is a host array a_1, b_1, ..., a_k, b_k (k <= 32).  Only the interiors of
-// z_out and dd_out are written.  tr > 0: tiled, `tr` rows per block;
-// tr == 0: streamed, through `tmp` ([n_pad] floats; unused when k == 1).
+// z_out and dd_out are written.  rows > 0: fused as K12; rows == 0:
+// streamed, through `tmp` ([n_pad] floats; unused when k == 1).
 extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* zq, const void* ddq,
                          const void* rq, void* z_out, void* dd_out, long long P,
-                         int k, const float* coeffs, int tr, void* tmp, void* stream) {
+                         int k, const float* coeffs, int cluster, int rows, int stages,
+                         int clusters, void* tmp, void* stream) {
   if (k < 1 || k > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dat = static_cast<const float*>(data);
   const int* off = static_cast<const int*>(offs);
   const float* z = static_cast<const float*>(zq);
+  const float* ddi = static_cast<const float*>(ddq);
   const float* r = static_cast<const float*>(rq);
   float* zo = static_cast<float*>(z_out);
   float* ddo = static_cast<float*>(dd_out);
-  if (tr == 0) {
+  if (rows == 0) {
     const float* src = z + P;
-    const float* dd = static_cast<const float*>(ddq) + P;
+    const float* dd = ddi + P;
     for (int p = 1; p <= k; ++p) {
       float* dst = (k - p) % 2 == 0 ? zo + P : static_cast<float*>(tmp);
       const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
@@ -471,17 +764,24 @@ extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
     cf.a[p] = coeffs[2 * p];
     cf.b[p] = coeffs[2 * p + 1];
   }
-  const size_t smem =
-      sizeof(float) * (2 * (tr + 2 * static_cast<size_t>(k) * reach)
-                       + tr + 2 * static_cast<size_t>(k - 1) * reach)
-      + sizeof(int) * ndiags;
-  cudaError_t err = opt_in_smem(dia_cheby_kernel, smem, &g_cheby_smem);
+  const cudaError_t err = fused_launch(2, dat, n_pad, off, ndiags, reach, z, r, ddi, zo, ddo, P,
+                                       k, 1.f, cf, cluster, rows, stages, clusters, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n_pad + tr - 1) / tr);
-  dia_cheby_kernel<<<blocks, kTileThreads, smem, st>>>(
-      dat, n_pad, off, ndiags, reach, z, static_cast<const float*>(ddq), r, zo, ddo, P,
-      k, cf, tr);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `cluster` CTAs with `smem` bytes of shared memory
+// each of the fused kind (0 K12, 1 K12 with c, 2 K13) for `ndiags`
+// diagonals the card holds at once, into *active.
+extern "C" int dia_fused_clusters(int kind, int ndiags, int cluster, long long smem,
+                                  int* active) {
+  if (cluster < 1 || cluster > kMaxCluster || smem <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FusedLaunch l(static_cast<unsigned>(cluster), cluster, static_cast<size_t>(smem), nullptr);
+  return static_cast<int>(with_fused_kernel(kind, ndiags, l.cfg.dynamicSmemBytes, cluster,
+                                            [&](auto kern) {
+    return cudaOccupancyMaxActiveClusters(active, kern, &l.cfg);
+  }));
 }
 
 // K10 (zero_halo != 0) and K11.  xq and yq are [P + n_pad + P] buffers.

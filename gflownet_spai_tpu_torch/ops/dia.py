@@ -19,11 +19,19 @@ Entry points and the kernels they launch on CUDA tensors:
   (K16, X in [K, n] layout): ``csrc/dia_spmm.cu``.
 
 On CPU tensors each computes its plain version (``*_ref``), the JAX
-package's jnp fallback.  Only float32 diagonals run on the card.  K12, K13
-and K14 keep the iterate in shared memory across their k passes when the
-window fits one block, and else stream it through global memory one pass
-per launch (``_tile_rows``), so every k the selection picks runs on the
-card.
+package's jnp fallback.  Only float32 diagonals run on the card.  K12 and
+K13 have two modes (``csrc/dia.cu``'s header): fused, where clusters of
+CTAs stage each window's diagonals once and run all k passes in shared
+memory, trading edge rows through distributed shared memory; and
+streamed, one launch per pass through global memory.  ``_fused_plan``
+picks the fused launch (cluster size, rows per CTA, staging areas) that a
+cost model fitted on the card times fastest, and takes it only where a
+window fits (at most 9 diagonals, reach below the shared memory) and the
+model times it below the streamed mode; the two modes agree bit for bit.
+``_SMEM_BYTES = 0`` forces the streamed mode (tests, ``chip_smoke.py``).
+K14 keeps the iterate of a row tile in one block's shared memory when its
+window fits (``_tile_rows``) and else streams, so every k the selection
+picks runs on the card.
 
 The selection functions (``dia_pp_tile``, ``dia_power_ok``,
 ``dia_power_stream_ok``, ``dia_power_tile``, ``dia_cheby_ok``,
@@ -52,8 +60,9 @@ from ..sparse.types import COO, to_numpy
 
 _ALIGN = 1024          # Mosaic vector-load alignment for f32 1-D refs
 _MAX_VMEM_BYTES = 15 * 1024 * 1024   # of the 16 MiB/core on v5e
-_SMEM_BYTES = 232448   # dynamic shared memory one H100 block may use
-_TILE_ROWS = 4096      # K12/K13 output rows per block, halved until it fits
+_SMEM_BYTES_MAX = 232448
+_SMEM_BYTES = _SMEM_BYTES_MAX   # shared memory K12-K14 may give a block (0: they stream)
+_TILE_ROWS = 4096      # K14 output rows per block, halved until it fits
 
 
 def _round_up(x: int, m: int) -> int:
@@ -518,9 +527,11 @@ _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _PTR],
     "dia_power": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                  ctypes.c_float, _INT, _PTR, _PTR],
+                  ctypes.c_float, _INT, _INT, _INT, _INT, _PTR, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _PTR, _PTR],
+                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _INT, _INT, _INT,
+                  _PTR, _PTR],
+    "dia_fused_clusters": [_INT, _INT, _INT, _I64, ctypes.POINTER(_INT)],
     "dia_spmv_pp": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _I64, ctypes.c_float, _INT,
                     _PTR],
     "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
@@ -568,7 +579,7 @@ def _check_pp(d: DIA, what: str, *bufs: torch.Tensor, ndim: int = 1) -> int:
 
 
 def _tile_rows(words) -> int:
-    """K12/K13 rows per block in the tiled mode: 4096, halved until the
+    """K14 rows per block in the tiled mode: 4096, halved until the
     block's shared memory (``words(tr)`` 4-byte words) fits; 0 (the
     streamed mode) when not even 128 rows fit."""
     tr = _TILE_ROWS
@@ -577,10 +588,183 @@ def _tile_rows(words) -> int:
     return tr if 4 * words(tr) <= _SMEM_BYTES else 0
 
 
-def _scratch(like: torch.Tensor, n_pad: int, tr: int, k: int):
+# --- K12 / K13: fused or streamed (``csrc/dia.cu``'s header) ---------------
+
+_FUSED_POWER, _FUSED_AFFINE, _FUSED_CHEBY = 0, 1, 2   # K12, K12 with add, K13
+_FUSED_MAX_DIAGS = 9                 # wider matrices stream
+_FUSED_CLUSTERS = (16, 8, 4, 2, 1)   # CTAs per cluster tried (16 is non-portable)
+# Clusters an H100 SXM (132 SMs) holds at once by cluster size, one
+# 1024-thread CTA per SM (cudaOccupancyMaxActiveClusters on the card): the
+# rule's view where no card is asked (CPU tensors, tests); on the card
+# `_card_active` asks.
+_H100_ACTIVE = ((16, 7), (8, 15), (4, 30), (2, 66), (1, 132))
+# The rule's cost model (µs, bytes), fitted on an H100 80GB HBM3 at 700 W
+# to both modes' times over the fused launches `_fused_candidates` yields;
+# `chip_smoke.py` holds its picks to the faster mode
+_STREAM_BYTES_PER_US = 3.16e6   # a streamed pass (its iterate stays in L2)
+_STREAM_FIRST = 0.66            # the first pass's extra, in passes
+_PASS_US = 1.9                  # least time of one streamed pass (a launch)
+_HBM_BYTES_PER_US = 3.0e6       # the fused mode's staging, all SMs together
+_SM_BYTES_PER_US = 2.5e4        # ... and one SM's
+_LOAD_US = 0.5                  # latency of one staging round
+_FUSED_US = 3.0                 # fixed cost of one fused launch
+_BARRIER_US = 1.0               # per pass of a cluster of C > 1: the neighbours' rows
+_WORD_US = 3.0e-5               # one shared-memory word of a row update, per CTA
+_OVERLAP = 0.3                  # two stages hide this share of the shorter of load, passes
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """One fused launch of K12 / K13: ``windows`` windows of ``cluster``
+    CTAs owning ``rows`` rows each, walked by at most ``clusters`` clusters
+    at once with ``stages`` staging areas per CTA (2: the next window loads
+    while this one runs), ``smem`` bytes of shared memory per CTA, and the
+    modeled times (µs) of both modes."""
+
+    cluster: int
+    rows: int
+    stages: int
+    clusters: int
+    windows: int
+    smem: int
+    fused_us: float
+    streamed_us: float
+
+
+def _fused_geometry(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
+                    cluster: int, rows: int, stages: int = 1):
+    """(output rows per window, windows, shared bytes per CTA) of a fused
+    launch, as ``fused_launch`` in ``csrc/dia.cu`` computes them; None
+    where the kernel cannot take it."""
+    rh, hk = _round_up(reach, 4), _round_up((k - 1) * reach, 4)
+    out = cluster * rows - 2 * hk
+    if not 2 <= k <= 32 or not 1 <= ndiags <= _FUSED_MAX_DIAGS or rows <= 0 or rows % 4 \
+            or out <= 0 or (cluster > 1 and rows < rh):
+        return None
+    wb = rows + 2 * rh
+    smem = 32 + 4 * (2 * wb + stages * (wb + (ndiags + kind) * rows))
+    return out, -(-n_pad // out), smem
+
+
+def _streamed_us(kind: int, ndiags: int, k: int, n_pad: int) -> float:
+    """The cost model's streamed mode: k passes, each moving the diagonals
+    and the words per row the pass reads from and writes to HBM (c for K12
+    with add; r, dd for K13, partly from L2), at least ``_PASS_US`` each,
+    and the first pass's extra reads."""
+    bytes_us = 4 * n_pad * (ndiags + (1.0, 2.0, 4.5)[kind]) / _STREAM_BYTES_PER_US
+    return k * max(bytes_us, _PASS_US) + _STREAM_FIRST * bytes_us
+
+
+def _fused_us(kind: int, ndiags: int, k: int, reach: int, cluster: int, rows: int,
+              stages: int, windows: int, clusters: int) -> float:
+    """The cost model's fused mode.  Per round of windows every launched CTA
+    stages its rows (diagonals, aux, x and its halo) at its share of the
+    HBM rate, at most one SM's rate; a window's k passes take the row
+    updates' shared-memory words (2·ndiags + 2 for K12, + 1 with c;
+    2·ndiags + 5 for K13) or, in a cluster, at least the wait for the
+    neighbours' rows.  One stage loads and computes in turn; two hide
+    ``_OVERLAP`` of the shorter."""
+    launched = min(windows, clusters)
+    rounds = -(-windows // launched)
+    load = 4 * (rows * (ndiags + kind + 1) + 2 * _round_up(reach, 4)) \
+        / min(_SM_BYTES_PER_US, _HBM_BYTES_PER_US / (launched * cluster)) + _LOAD_US
+    update = 2 * ndiags + (2, 3, 5)[kind]
+    passes = k * max(rows * update * _WORD_US, _BARRIER_US if cluster > 1 else 0.0)
+    if stages == 1:
+        return _FUSED_US + rounds * (load + passes)
+    return _FUSED_US + load + passes + (rounds - 1) * (
+        max(load, passes) + (1 - _OVERLAP) * min(load, passes))
+
+
+def _fused_candidates(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
+                      active, smem_bytes: int):
+    """The fused launches `_fused_plan` weighs: for each cluster size C and
+    number of stages, the most rows per CTA that fit (S, a multiple of 32;
+    the window C·S yields C·S − 2·(k−1)·R output rows, so wide reaches and
+    large k need long windows), and as many windows as whole rounds of
+    co-resident clusters hold, each as short as that allows."""
+    if not 1 <= ndiags <= _FUSED_MAX_DIAGS:
+        return
+    streamed = _streamed_us(kind, ndiags, k, n_pad)
+    rh, hk = _round_up(reach, 4), _round_up((k - 1) * reach, 4)
+    for stages in (1, 2):
+        # 32 + 4·(2·(S + 2Rh) + stages·(S + 2Rh + (ndiags + kind)·S)) bytes
+        most = (smem_bytes - 32 - 8 * rh * (2 + stages)) \
+            // (4 * (2 + stages * (1 + ndiags + kind))) // 32 * 32
+        for cluster, clusters in active:
+            geom = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, most, stages) \
+                if clusters > 0 else None
+            if geom is None:
+                continue
+            rounds = -(-geom[1] // clusters)
+            per_window = -(-n_pad // (rounds * clusters))
+            rows = max(_round_up(-(-(per_window + 2 * hk) // cluster), 32),
+                       _round_up(rh, 32) if cluster > 1 else 32)
+            for r in dict.fromkeys((most, min(rows, most))):
+                _, windows, smem = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster,
+                                                   r, stages)
+                yield FusedPlan(cluster=cluster, rows=r, stages=stages, clusters=clusters,
+                                windows=windows, smem=smem,
+                                fused_us=_fused_us(kind, ndiags, k, reach, cluster, r,
+                                                   stages, windows, clusters),
+                                streamed_us=streamed)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fused_plan(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
+                active=_H100_ACTIVE, smem_bytes: int = _SMEM_BYTES):
+    """The selection between K12's / K13's two modes: the fused launch of
+    ``_fused_candidates`` the cost model times fastest, or None (the
+    streamed mode).  It depends on the kind, ndiags (at most 9 fuse), k,
+    the reach R and n_pad, and on the card through ``active`` ((cluster
+    size, co-resident clusters) pairs) and ``smem_bytes`` (one CTA's shared
+    memory; 0 forces the streamed mode).  A shape goes to the fused mode
+    only where a window fits and the model times it below the streamed
+    mode."""
+    if k < 2:
+        return None
+    best = min(_fused_candidates(kind, ndiags, k, reach, n_pad, active, smem_bytes),
+               key=lambda c: c.fused_us, default=None)
+    return best if best is not None and best.fused_us < best.streamed_us else None
+
+
+@functools.lru_cache(maxsize=256)
+def _card_active(kind: int, ndiags: int, device: torch.device):
+    """``_fused_plan``'s ``active`` for this card: cudaOccupancyMaxActiveClusters
+    of the kernel that would run, at each cluster size, at the most shared
+    memory a CTA may take (none for more than 9 diagonals)."""
+    if not 1 <= ndiags <= _FUSED_MAX_DIAGS:
+        return ()
+    fn = _lib_fn("dia_fused_clusters")
+    out = []
+    with torch.cuda.device(device):
+        for cluster in _FUSED_CLUSTERS:
+            n = ctypes.c_int(0)
+            _build.check(fn(kind, ndiags, cluster, _SMEM_BYTES_MAX, ctypes.byref(n)),
+                         "dia_fused_clusters")
+            out.append((cluster, n.value))
+    return tuple(out)
+
+
+def _fused_for(kind: int, d: DIA, k: int, p: int, staged) -> "FusedPlan | None":
+    """This call's fused plan, or None (streamed): the 16-byte staging copies
+    need P a multiple of 4 and the staged buffers 16-byte aligned."""
+    if k < 2 or _SMEM_BYTES <= 0 or p % 4 \
+            or any(t.data_ptr() % 16 for t in (d.data, *staged)):
+        return None
+    return _fused_plan(kind, d.ndiags, k, d.reach, d.n_pad,
+                       _card_active(kind, d.ndiags, d.data.device), _SMEM_BYTES)
+
+
+def _plan_args(plan) -> Tuple[int, int, int, int]:
+    """(cluster, rows, stages, clusters) of the C entry; rows 0 streams."""
+    return (plan.cluster, plan.rows, plan.stages, plan.clusters) if plan else (0, 0, 0, 0)
+
+
+def _scratch(like: torch.Tensor, n_pad: int, rows: int, k: int):
     """The streamed mode's [n_pad] ping-pong buffer (None when unused)."""
     return torch.empty((n_pad,), dtype=like.dtype, device=like.device) \
-        if tr == 0 and k > 1 else None
+        if rows == 0 and k > 1 else None
 
 
 def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int,
@@ -667,16 +851,17 @@ def spmv_dia_power(d: DIA, datak: torch.Tensor, xq: torch.Tensor,
     p = _check_pp(d, "spmv_dia_power", *bufs)
     if zq.data_ptr() == xq.data_ptr() or k < 1:
         raise ValueError("spmv_dia_power: zq must be another buffer than xq, k >= 1")
-    R = d.reach
-    tr = _tile_rows(lambda t: 2 * (t + 2 * k * R) + d.ndiags)
-    tmp = _scratch(xq, d.n_pad, tr, k)
+    plan = _fused_for(_FUSED_POWER if add is None else _FUSED_AFFINE, d, k, p,
+                      (xq,) if add is None else (xq, add))
+    tmp = _scratch(xq, d.n_pad, plan.rows if plan else 0, k)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_power")(
-        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
         xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(),
-        p, k, float(scale), tr, None if tmp is None else tmp.data_ptr(), stream),
-        "spmv_dia_power")
+        p, k, float(scale), *_plan_args(plan), None if tmp is None else tmp.data_ptr(),
+        stream), "spmv_dia_power")
     spmv_dia_power.launches += 1
+    spmv_dia_power.mode_launches["fused" if plan else "streamed"] += 1
     return zq
 
 
@@ -701,17 +886,17 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
                                 zq.data_ptr(), ddq.data_ptr()}) != 4:
         raise ValueError("spmv_dia_cheby: 1..32 coefficient pairs, and outputs "
                          "in buffers other than the inputs")
-    R = d.reach
-    tr = _tile_rows(lambda t: 3 * t + (6 * k - 2) * R + d.ndiags)
-    tmp = _scratch(zq, d.n_pad, tr, k)
+    plan = _fused_for(_FUSED_CHEBY, d, k, p, (zq, ddq, rq))
+    tmp = _scratch(zq, d.n_pad, plan.rows if plan else 0, k)
     cf = (ctypes.c_float * (2 * k))(*(float(v) for ab in coeffs for v in ab))
     stream = torch.cuda.current_stream(zq.device).cuda_stream
     _build.check(_lib_fn("dia_cheby")(
-        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
         zq.data_ptr(), ddq.data_ptr(), rq.data_ptr(), z_dead.data_ptr(),
-        dd_dead.data_ptr(), p, k, cf, tr, None if tmp is None else tmp.data_ptr(),
-        stream), "spmv_dia_cheby")
+        dd_dead.data_ptr(), p, k, cf, *_plan_args(plan),
+        None if tmp is None else tmp.data_ptr(), stream), "spmv_dia_cheby")
     spmv_dia_cheby.launches += 1
+    spmv_dia_cheby.mode_launches["fused" if plan else "streamed"] += 1
     return z_dead, dd_dead
 
 
@@ -849,6 +1034,8 @@ def spmm_dia_t(d: DIA, xt: torch.Tensor) -> torch.Tensor:
 spmv_dia.launches = 0
 spmv_dia_power.launches = 0
 spmv_dia_cheby.launches = 0
+spmv_dia_power.mode_launches = {"fused": 0, "streamed": 0}    # K12's launches by mode
+spmv_dia_cheby.mode_launches = {"fused": 0, "streamed": 0}    # K13's
 spmv_dia_padded_io.launches = 0
 spmv_dia_pingpong.launches = 0
 spmv_dia_power_rhs.launches = 0

@@ -256,15 +256,180 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         T._check_pp(td, "spmv_dia_power", xq)                     # P < halo
     assert T._check_pp(td, "spmv_dia_power",
                        torch.zeros(td.n_pad + 2 * td.halo)) == td.halo
-    # K12/K13 tiles shrink with the reach; where not even 128 rows fit
-    # (poisson2048's Jacobi-16 at k = 8, reach 2048) the wrappers stream
-    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 1024) + 5) == 4096
-    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 1792) + 5) == 256
-    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 2048) + 5) == 0
-    assert T._tile_rows(lambda t: 2 * (t + 2 * 8 * 21504)) == 0
+    # K12's Jacobi-16 call (k = 8, with c) on a 5-point grid of side R: the
+    # rule fuses it in windows of 16 CTAs up to poisson2048 and streams
+    # where no window fits (a 21504² grid)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 1024, 1 << 20) == (16, 5600, 1)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 1792, 1792 ** 2) == (16, 5152, 1)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 2048, 1 << 22) == (16, 4928, 1)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 21504, 21504 ** 2) is None
     assert T._scratch(xq, td.n_pad, 0, 8).shape == (td.n_pad,)
     assert T._scratch(xq, td.n_pad, 0, 1) is None
     assert T._scratch(xq, td.n_pad, 4096, 8) is None
+
+
+# --- K12 / K13: the fused mode's window schedule and the selection rule ----
+
+def _emulate_fused(d, kind, k, cluster, rows, src_q, *, scale=1.0, add=None,
+                   ddq=None, rq=None, coeffs=()):
+    """The schedule of ``dia_power_fused_kernel`` / ``dia_cheby_fused_kernel``
+    (csrc/dia.cu) on the host: window w's CTAs stage their rows and a
+    reach-wide halo of the input, run k passes, and after each pass take
+    their neighbours' boundary rows; the halos beyond the window's two ends
+    hold NaN (the kernel's zeros are never read into an output row).
+    Returns the output interiors ([n_pad] z, and dd for K13)."""
+    n_pad, p = d.n_pad, (src_q.shape[0] - d.n_pad) // 2
+    out, windows, _ = T._fused_geometry(kind, d.ndiags, k, d.reach, n_pad, cluster, rows)
+    rh = -(-d.reach // 4) * 4
+    hk = -(-((k - 1) * d.reach) // 4) * 4
+    data = torch.nn.functional.pad(d.data, (rows + hk, rows + hk + cluster * rows))
+    at = lambda v, lo, n, vlo, vhi: torch.where(
+        (torch.arange(lo, lo + n) >= vlo) & (torch.arange(lo, lo + n) < vhi),
+        torch.nn.functional.pad(v, (rows + hk + rh, rows + hk + rh + cluster * rows))[
+            p + lo + rows + hk + rh:p + lo + n + rows + hk + rh], 0.0)
+    z_out, dd_out = torch.full((n_pad,), float("nan"), dtype=src_q.dtype), None
+    if kind == T._FUSED_CHEBY:
+        dd_out = z_out.clone()
+    for w in range(windows):
+        row0 = [w * out - hk + r * rows for r in range(cluster)]
+        cur = [at(src_q, r0 - rh, rows + 2 * rh, -p, n_pad + p) for r0 in row0]
+        dd = [at(ddq, r0, rows, 0, n_pad) for r0 in row0] if ddq is not None else None
+        for step in range(k):
+            new = []
+            for r, r0 in enumerate(row0):
+                g = torch.arange(r0, r0 + rows)
+                inside = (g >= 0) & (g < n_pad)
+                acc = torch.zeros(rows, dtype=src_q.dtype)
+                for s, off in enumerate(d.offsets):
+                    acc = acc + data[s, r0 + rows + hk:r0 + 2 * rows + hk] \
+                        * cur[r][rh + off:rh + off + rows]
+                if kind == T._FUSED_CHEBY:
+                    a, b = coeffs[step]
+                    dn = a * dd[r] + b * (at(rq, r0, rows, 0, n_pad) - acc)
+                    v = cur[r][rh:rh + rows] + dn
+                    dd[r] = torch.where(inside, dn, 0.0)
+                else:
+                    v = acc * scale
+                    if add is not None:
+                        v = v + at(add, r0, rows, 0, n_pad)
+                nb = torch.full((rows + 2 * rh,), float("nan"), dtype=src_q.dtype)
+                nb[rh:rh + rows] = torch.where(inside, v, 0.0)
+                new.append(nb)
+            for r in range(cluster):
+                if r > 0:
+                    new[r][:rh] = new[r - 1][rows:rows + rh]
+                if r < cluster - 1:
+                    new[r][rh + rows:] = new[r + 1][rh:2 * rh]
+            cur = new
+        for r, r0 in enumerate(row0):
+            lo, hi = max(r0, w * out), min(r0 + rows, w * out + out, n_pad)
+            if hi > lo:
+                z_out[lo:hi] = cur[r][rh + lo - r0:rh + hi - r0]
+                if dd_out is not None:
+                    dd_out[lo:hi] = dd[r][lo - r0:hi - r0]
+    return z_out, dd_out
+
+
+def _banded(n, offsets, seed, dtype=torch.float64):
+    n_pad = -(-n // 1024) * 1024
+    data = np.random.default_rng(seed).standard_normal((len(offsets), n_pad))
+    data[:, n:] = 0.0
+    return T.DIA(data=torch.as_tensor(data, dtype=dtype), offsets=tuple(offsets),
+                 shape=(n, n), nnz=len(offsets) * n)
+
+
+@pytest.mark.parametrize("offsets,n,k,cluster,rows", [
+    ((-37, -1, 0, 2, 37), 3000, 3, 4, 160),     # n neither a multiple of S nor of the window
+    ((-37, -1, 0, 2, 37), 3000, 2, 1, 1100),    # one CTA per window
+    ((-5, 0, 13), 1500, 4, 2, 64),              # irregular offsets
+    ((-50, 0, 50), 700, 8, 16, 64),             # the matrix inside one window
+    ((-3, 0, 3), 200, 2, 1, 512),               # n smaller than one CTA's slice
+])
+@pytest.mark.parametrize("affine", [False, True])
+def test_k12_fused_schedule_equals_plain(offsets, n, k, cluster, rows, affine):
+    """The fused mode's windows, halos and output ranges give the plain
+    version's rows exactly (float64, the same summation order), also with
+    nonzero halo blocks in x (the first pass reads [-P, n_pad + P))."""
+    d = _banded(n, offsets, seed=n + k)
+    p = 2048
+    rng = np.random.default_rng(k)
+    xq = torch.as_tensor(rng.standard_normal(d.n_pad + 2 * p))
+    add = torch.as_tensor(rng.standard_normal(d.n_pad + 2 * p)) if affine else None
+    want = T.spmv_dia_power_ref(d, xq, torch.zeros_like(xq), scale=0.7, k=k, add=add)
+    got, _ = _emulate_fused(d, T._FUSED_AFFINE if affine else T._FUSED_POWER, k,
+                            cluster, rows, xq, scale=0.7, add=add)
+    assert torch.equal(got, want[p:p + d.n_pad])
+
+
+@pytest.mark.parametrize("offsets,n,k,cluster,rows", [
+    ((-37, -1, 0, 2, 37), 3000, 2, 4, 160),
+    ((-5, 0, 13), 1500, 4, 2, 64),
+    ((-16, -1, 0, 1, 16), 256, 8, 1, 512),      # a coarse level smaller than one CTA
+])
+def test_k13_fused_schedule_equals_plain(offsets, n, k, cluster, rows):
+    """As K12, for the Chebyshev steps: dd stays per row, z takes halos."""
+    d = _banded(n, offsets, seed=n)
+    p = 1024
+    rng = np.random.default_rng(n)
+    zq, ddq, rq = (torch.as_tensor(rng.standard_normal(d.n_pad + 2 * p)) for _ in range(3))
+    coeffs = tuple(t_st.chebyshev_coeffs(0.3, 8.2, k))
+    wz, wdd = T.spmv_dia_cheby_ref(d, zq, ddq, rq, torch.zeros_like(zq),
+                                   torch.zeros_like(zq), coeffs, k)
+    gz, gdd = _emulate_fused(d, T._FUSED_CHEBY, k, cluster, rows, zq, ddq=ddq, rq=rq,
+                             coeffs=coeffs)
+    assert torch.equal(gz, wz[p:p + d.n_pad]) and torch.equal(gdd, wdd[p:p + d.n_pad])
+
+
+
+def _rule(kind, ndiags, k, reach, n_pad):
+    """(cluster, rows, stages) of the rule's fused plan on an H100, or None
+    (the streamed mode)."""
+    plan = T._fused_plan(kind, ndiags, k, reach, n_pad)
+    return plan and (plan.cluster, plan.rows, plan.stages)
+
+
+@pytest.mark.parametrize("kind,ndiags,k,reach,n_pad,want", [
+    (T._FUSED_AFFINE, 5, 8, 1024, 1 << 20, (16, 5600, 1)),   # poisson1024, Jacobi-16
+    (T._FUSED_AFFINE, 5, 2, 1024, 1 << 20, (8, 4640, 1)),    # poisson1024, Jacobi-4
+    (T._FUSED_CHEBY, 5, 2, 1024, 1 << 20, (8, 4640, 1)),     # poisson1024, Chebyshev
+    (T._FUSED_AFFINE, 5, 8, 2048, 1 << 22, (16, 4928, 1)),   # poisson2048, Jacobi-16
+    (T._FUSED_AFFINE, 5, 4, 10_000, 1 << 20, None),          # reach 10,000: no window fits
+    (T._FUSED_CHEBY, 5, 8, 256, 1 << 16, (16, 832, 1)),      # Chebyshev V-cycle coarsest level
+    (T._FUSED_AFFINE, 5, 8, 32, 32768, (1, 704, 2)),          # Jacobi V-cycle coarse level
+    (T._FUSED_AFFINE, 5, 2, 128, 16384, None),               # poisson128 Jacobi-4: two launches
+    (T._FUSED_AFFINE, 12, 8, 1024, 1 << 20, None),           # more than 9 diagonals stream
+])
+def test_fused_rule_answers(kind, ndiags, k, reach, n_pad, want):
+    """The selection between K12's / K13's modes at the shapes that decide
+    it, on an H100's co-resident clusters (the card's own count replaces
+    them there)."""
+    assert _rule(kind, ndiags, k, reach, n_pad) == want
+
+
+@pytest.mark.parametrize("kind,ndiags,k,reach,n_pad", [
+    (T._FUSED_POWER, 5, 8, 1024, 1 << 20), (T._FUSED_AFFINE, 3, 3, 37, 3072),
+    (T._FUSED_CHEBY, 9, 4, 700, 61440), (T._FUSED_CHEBY, 5, 32, 16, 1024),
+    (T._FUSED_AFFINE, 1, 2, 0, 1024), (T._FUSED_POWER, 7, 8, 4096, 1 << 21),
+])
+def test_fused_plan_is_a_launch_the_kernel_takes(kind, ndiags, k, reach, n_pad):
+    """Every candidate the rule weighs fits a CTA's shared memory, owns a
+    multiple of 32 rows (at least the halo in a cluster), and its windows
+    cover n_pad; the rule fuses only below the streamed model, never at
+    k = 1, and never without shared memory (the documented way to force
+    the streamed mode)."""
+    cands = list(T._fused_candidates(kind, ndiags, k, reach, n_pad, T._H100_ACTIVE,
+                                     T._SMEM_BYTES))
+    for c in cands:
+        out, windows, smem = T._fused_geometry(kind, ndiags, k, reach, n_pad, c.cluster,
+                                               c.rows, c.stages)
+        assert smem == c.smem <= T._SMEM_BYTES and c.rows % 32 == 0
+        assert c.cluster == 1 or c.rows >= reach
+        assert windows == c.windows and windows * out >= n_pad > (windows - 1) * out
+    plan = T._fused_plan(kind, ndiags, k, reach, n_pad)
+    assert plan is None or (plan in cands and plan.fused_us < plan.streamed_us
+                            and plan.fused_us == min(c.fused_us for c in cands))
+    assert T._fused_plan(kind, ndiags, 1, reach, n_pad) is None
+    assert T._fused_plan(kind, ndiags, k, reach, n_pad, T._H100_ACTIVE, 0) is None
 
 
 def test_offsets_tensor_is_made_with_the_matrix():

@@ -19,8 +19,10 @@ sum of the magnitudes; rows 0 and n − 1 collect hundreds of slots).
 K8 rtol 1e-5, atol 1e-5 (the kernel's sums contract to FMAs and start
 from zero in offset order like the plain version: float32 rounding only).
 K12, K13 and K14 carry k dependent passes: atol 1e-5 times k times the
-largest output magnitude, rtol 1e-5, in the tiled mode and in the streamed
-mode (a reach too wide for one block's shared memory, or forced).  K10,
+largest output magnitude, rtol 1e-5, in every mode (K12 and K13 fused or
+streamed, K14 tiled or streamed; a reach too wide for shared memory, or
+forced).  K12's and K13's two modes round every row alike, so they must
+agree exactly (``torch.equal``).  K10,
 K11, K15 and K16 as K8 (one pass, sums from zero in offset order), with
 atol 1e-5 times the largest output magnitude.  Each kernel test also
 replaces the plain version by one that fails, so a CUDA tensor that
@@ -313,13 +315,22 @@ def _pp(d, dev, seed):
     return dia.dia_pad_pp(d, x)
 
 
+def _mode(d, kind, k):
+    """The mode K12 / K13 take for ``d`` at k on this card (P and the
+    buffers aligned, as ``dia_pad_pp`` makes them)."""
+    plan = dia._fused_plan(kind, d.ndiags, k, d.reach, d.n_pad,
+                           dia._card_active(kind, d.ndiags, d.data.device),
+                           dia._SMEM_BYTES)
+    return "fused" if plan is not None else "streamed"
+
+
 @pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("affine", [False, True])
 def test_k12_streamed_matches_plain(cuda, k, affine):
     """Reach 10,000: the k-pass window needs more shared memory than a
     block has, so K12 streams its passes through global memory."""
     d = _banded_dia(cuda, 50_000, 10_000)
-    assert dia._tile_rows(lambda t: 2 * (t + 2 * k * d.reach) + d.ndiags) == 0
+    assert _mode(d, dia._FUSED_AFFINE if affine else dia._FUSED_POWER, k) == "streamed"
     xq, cq = _pp(d, cuda, 1), (_pp(d, cuda, 2) if affine else None)
     before = dia.spmv_dia_power.launches
     got = dia.spmv_dia_power(d, None, xq, torch.zeros_like(xq), scale=0.3, k=k, add=cq)
@@ -336,7 +347,7 @@ def test_k13_streamed_matches_plain(cuda, k):
     from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
 
     d = _banded_dia(cuda, 50_000, 10_000, seed=3)
-    assert dia._tile_rows(lambda t: 3 * t + (6 * k - 2) * d.reach + d.ndiags) == 0
+    assert _mode(d, dia._FUSED_CHEBY, k) == "streamed"
     zq, ddq, rq = (_pp(d, cuda, s) for s in (4, 5, 6))
     coeffs = tuple(chebyshev_coeffs(0.3, 8.2, k))
     before = dia.spmv_dia_cheby.launches
@@ -350,10 +361,179 @@ def test_k13_streamed_matches_plain(cuda, k):
         _close_k(a, b, k)
 
 
-def test_k12_poisson2048_jacobi16_streams(cuda):
+def _plan(cluster, rows, clusters=132, stages=1):
+    """A fused plan of the given shape (the rule's timings are not read)."""
+    return dia.FusedPlan(cluster=cluster, rows=rows, stages=stages, clusters=clusters,
+                         windows=0, smem=0, fused_us=0.0, streamed_us=0.0)
+
+
+def _both_modes(monkeypatch, call, plan=None):
+    """``call()`` in the fused mode (the rule's plan, or ``plan``) and in
+    the streamed mode (shared memory taken away): the two results and the
+    fused call's launches by mode."""
+    with monkeypatch.context() as mp:
+        if plan is not None:
+            mp.setattr(dia, "_fused_for", lambda *a: plan)
+        counts = (dict(dia.spmv_dia_power.mode_launches),
+                  dict(dia.spmv_dia_cheby.mode_launches))
+        fused = call()
+        torch.cuda.synchronize()
+        moved = [{m: after[m] - c[m] for m in c} for c, after in
+                 zip(counts, (dia.spmv_dia_power.mode_launches,
+                              dia.spmv_dia_cheby.mode_launches))]
+    with monkeypatch.context() as mp:
+        mp.setattr(dia, "_SMEM_BYTES", 0)
+        streamed = call()
+        torch.cuda.synchronize()
+    return fused, streamed, moved
+
+
+def _halo_noise(q, d, seed):
+    """Nonzero values in a [P + n_pad + P] buffer's halo blocks: the first
+    pass reads x on [-P, n_pad + P)."""
+    p = (q.shape[0] - d.n_pad) // 2
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    q[:p] = torch.randn(p, generator=gen, device=q.device)
+    q[p + d.n_pad:] = torch.randn(p, generator=gen, device=q.device)
+    return q
+
+
+# (matrix, k, plan): poisson-like 5-diagonal matrices at k 2, 3, 4, 8 through
+# the rule's plan; an irregular banded DIA (4 diagonals); n a multiple of
+# neither S nor the window; n smaller than one CTA's slice; plans as
+# (C, S, clusters launched, stages): fewer clusters than windows walk
+# several, with one or two staging areas
+K12_FUSED_CASES = [
+    ("poisson96", 2, (1, 2048)), ("poisson96", 3, None), ("poisson96", 4, None),
+    ("poisson96", 8, None), ("poisson256", 8, None), ("banded 60000 r700", 4, (16, 1024)),
+    ("irregular 20000", 3, (4, 1024)), ("banded 60000 r700", 3, (4, 1504, 2)),
+    ("banded 60000 r700", 2, (16, 736)), ("banded 3000 r37", 4, (1, 4096)),
+    ("irregular 20000", 2, (2, 2048, 3)), ("banded 60000 r700", 4, (4, 1504, 2, 2)),
+    ("irregular 20000", 8, (4, 2048, 2, 2)),
+]
+
+
+def _fused_case_matrix(name, dev):
+    if name.startswith("poisson"):
+        return _poisson_dia(dev, int(name[len("poisson"):]))[1]
+    if name.startswith("irregular"):
+        d = _banded_dia(dev, int(name.split()[1]), 1, seed=5)
+        return dia.DIA(data=d.data[:4].contiguous(), offsets=(-301, -7, 0, 129),
+                       shape=d.shape, nnz=4 * d.n)
+    n, r = name.split()[1:]
+    return _banded_dia(dev, int(n), int(r[1:]), seed=int(n) % 97)
+
+
+@pytest.mark.parametrize("name,k,plan", K12_FUSED_CASES)
+@pytest.mark.parametrize("affine,scale", [(False, 1.0), (True, 0.9), (True, -0.35)])
+def test_k12_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, plan, affine,
+                                   scale):
+    """K12's fused mode equals its streamed mode bit for bit and the plain
+    version within ``_close_k``, with nonzero halo blocks in x and c."""
+    ref = no_plain("spmv_dia_power_ref")["spmv_dia_power_ref"]
+    d = _fused_case_matrix(name, cuda)
+    if plan is None:
+        assert _mode(d, dia._FUSED_AFFINE if affine else dia._FUSED_POWER, k) == "fused"
+    xq = _halo_noise(_pp(d, cuda, 1), d, 11)
+    cq = _halo_noise(_pp(d, cuda, 2), d, 12) if affine else None
+    p = (xq.shape[0] - d.n_pad) // 2
+    call = lambda: dia.spmv_dia_power(d, None, xq, torch.full_like(xq, 5.0), scale=scale,
+                                      k=k, add=cq)
+    fused, streamed, moved = _both_modes(monkeypatch, call,
+                                         plan and _plan(*plan))
+    assert moved[0] == {"fused": 1, "streamed": 0}
+    assert torch.equal(fused, streamed)
+    _close_k(fused, ref(d, xq, torch.full_like(xq, 5.0), scale=scale, k=k, add=cq), k)
+    assert (fused[:p] == 5.0).all() and (fused[p + d.n_pad:] == 5.0).all()
+
+
+K13_FUSED_CASES = [("poisson96", 2, (2, 1024)), ("poisson96", 4, None), ("poisson256", 8, None),
+                   ("irregular 20000", 3, (8, 512)), ("banded 60000 r700", 2, (16, 736)),
+                   ("banded 3000 r37", 4, (1, 4096)), ("irregular 20000", 8, (4, 2048, 3)),
+                   ("banded 60000 r700", 3, (4, 1504, 2, 2))]
+
+
+@pytest.mark.parametrize("name,k,plan", K13_FUSED_CASES)
+def test_k13_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, plan):
+    """K13's fused mode equals its streamed mode bit for bit (z and dd)
+    and the plain version within ``_close_k``."""
+    from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
+
+    ref = no_plain("spmv_dia_cheby_ref")["spmv_dia_cheby_ref"]
+    d = _fused_case_matrix(name, cuda)
+    if plan is None:
+        assert _mode(d, dia._FUSED_CHEBY, k) == "fused"
+    zq, ddq, rq = (_halo_noise(_pp(d, cuda, s), d, s + 20) for s in (4, 5, 6))
+    coeffs = tuple(chebyshev_coeffs(0.3, 8.2, k))
+    call = lambda: dia.spmv_dia_cheby(d, None, zq, ddq, rq, torch.zeros_like(zq),
+                                      torch.zeros_like(zq), coeffs, k)
+    fused, streamed, moved = _both_modes(monkeypatch, call, plan and _plan(*plan))
+    assert moved[1] == {"fused": 1, "streamed": 0}
+    want = ref(d, zq, ddq, rq, torch.zeros_like(zq), torch.zeros_like(zq), coeffs, k)
+    for f, s_, w in zip(fused, streamed, want):
+        assert torch.equal(f, s_)
+        _close_k(f, w, k)
+
+
+@pytest.mark.parametrize("n,k", [(1024, 2), (512, 4), (256, 8)])
+def test_k13_fused_vcycle_coefficients(cuda, monkeypatch, n, k):
+    """K13 at the Chebyshev V-cycle's k (2, 4, 8) on its levels' shapes
+    (poisson1024, 512, 256) with the coefficients of a degree-16 apply:
+    every call of the apply, fused against streamed, bit for bit."""
+    from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
+
+    _, d = _poisson_dia(cuda, n)
+    assert _mode(d, dia._FUSED_CHEBY, k) == "fused"
+    coeffs = chebyshev_coeffs(8.0 / 30, 8.0, 16)
+    zq, ddq, rq = (_pp(d, cuda, s) for s in (7, 8, 9))
+    for i in range(0, 16, k):
+        cc = tuple(coeffs[i:i + k])
+        call = lambda: dia.spmv_dia_cheby(d, None, zq, ddq, rq, torch.zeros_like(zq),
+                                          torch.zeros_like(zq), cc, k)
+        fused, streamed, moved = _both_modes(monkeypatch, call)
+        assert moved[1]["fused"] == 1
+        assert all(torch.equal(f, s_) for f, s_ in zip(fused, streamed))
+        zq, ddq = fused
+
+
+def test_fused_selection_on_both_sides(cuda):
+    """The rule on this card at the shapes that decide it: poisson1024's
+    Jacobi-16 (k 8) and Jacobi-4 (k 2) and Chebyshev (k 2) calls fuse, and
+    poisson128's Jacobi-16 (k 8); poisson128's Jacobi-4 (k 2, two short
+    launches) streams, as does a 5-diagonal band of reach 10,000 over a
+    million rows at k 4 (no window fits), and any k of 1."""
+    _, d = _poisson_dia(cuda, 1024)
+    assert _mode(d, dia._FUSED_AFFINE, 8) == "fused"
+    assert _mode(d, dia._FUSED_AFFINE, 2) == "fused"
+    assert _mode(d, dia._FUSED_CHEBY, 2) == "fused"
+    _, d128 = _poisson_dia(cuda, 128)
+    assert _mode(d128, dia._FUSED_AFFINE, 8) == "fused"
+    assert _mode(d128, dia._FUSED_AFFINE, 2) == "streamed"
+    band = _banded_dia(cuda, 1 << 20, 10_000)
+    assert _mode(band, dia._FUSED_AFFINE, 4) == "streamed"
+    assert _mode(d, dia._FUSED_AFFINE, 1) == "streamed"
+
+
+def test_k12_fused_refuses_what_it_cannot_take(cuda):
+    """The fused entry point returns an error (and the wrapper raises) for
+    a plan the kernel cannot take: S not a multiple of 4, or a window
+    yielding no output row; nothing falls back."""
+    _, d = _poisson_dia(cuda, 96)
+    xq = _pp(d, cuda, 3)
+    with pytest.raises(RuntimeError):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dia, "_fused_for", lambda *a: _plan(4, 130))
+            dia.spmv_dia_power(d, None, xq, torch.zeros_like(xq), k=2)
+    with pytest.raises(RuntimeError):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dia, "_fused_for", lambda *a: _plan(1, 96))
+            dia.spmv_dia_power(d, None, xq, torch.zeros_like(xq), k=8)
+
+
+def test_k12_poisson2048_jacobi16_streams(cuda, monkeypatch):
     """poisson2048's Jacobi 16 sweeps: the TPU selection picks k = 8 (its
-    streamed kernel), whose window does not fit a block at reach 2048; K12
-    streams, and the operator matches the plain sweeps."""
+    streamed kernel); K12 in its streamed mode (forced where the rule would
+    fuse) matches the plain sweeps."""
     from gflownet_spai_tpu_torch.solvers.stationary import (
         _pick_power_config, jacobi_iteration_matrix, jacobi_sweeps_op)
 
@@ -369,15 +549,19 @@ def test_k12_poisson2048_jacobi16_streams(cuda):
     m = jacobi_iteration_matrix(d)
     fk, tile = _pick_power_config(m, 8, 16)
     assert (fk, tile) == (8, 65536)
-    assert dia._tile_rows(lambda t: 2 * (t + 2 * fk * m.reach) + m.ndiags) == 0
+    if _mode(m, dia._FUSED_AFFINE, fk) == "fused":
+        monkeypatch.setattr(dia, "_SMEM_BYTES", 0)
+    assert _mode(m, dia._FUSED_AFFINE, fk) == "streamed"
     op = jacobi_sweeps_op(d, sweeps=16)
     assert op.info["k"] == 8 and op.info["sweeps"] == 16
     rhs = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(7),
                       device=cuda)
     before = dia.spmv_dia_power.launches
+    streamed = dia.spmv_dia_power.mode_launches["streamed"]
     got = op(rhs)
     torch.cuda.synchronize()
     assert dia.spmv_dia_power.launches == before + 2
+    assert dia.spmv_dia_power.mode_launches["streamed"] == streamed + 2
     c = torch.where(d.data[2] != 0, (2.0 / 3.0) * rhs / d.data[2], 0.0)
     xq = dia.dia_pad_pp(m, torch.zeros(n, device=cuda), tr=tile)
     cq = dia.dia_pad_pp(m, c, tr=tile)
