@@ -889,6 +889,27 @@ def _counts(counters=DIA_COUNTERS):
     return {k: fn.launches for k, fn in counters.items()}
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """A check run beside the main path (the streamed-forced re-solve):
+    K8's, K12's and K13's launch counts, and K12's and K13's by mode, are
+    set back after it, so they count the main path only; the dict it
+    yields gets what the check launched."""
+    saved = _counts()
+    saved_m = {fn: dict(fn.mode_launches) for fn in (dia.spmv_dia_power, dia.spmv_dia_cheby)}
+    moved = {}
+    try:
+        yield moved
+    finally:
+        moved.update({k: v - saved[k] for k, v in _counts().items() if v - saved[k]})
+        for key, fn in DIA_COUNTERS.items():
+            fn.launches = saved[key]
+        for fn, modes in saved_m.items():
+            moved.update({f"{'K12' if fn is dia.spmv_dia_power else 'K13'} {m}": v - modes[m]
+                          for m, v in fn.mode_launches.items() if v - modes[m]})
+            fn.mode_launches.update(modes)
+
+
 def _reset(counters=DIA_COUNTERS):
     for fn in counters.values():
         fn.launches = 0
@@ -939,6 +960,7 @@ def _timed(key, label, checked, err, make, plain, nbytes, ops, make_lib=None,
 def phase_dia(dev):
     """K8, K12 and K13 against their plain versions at the validation
     path's shapes."""
+    from gflownet_spai_tpu_torch.solvers import vcycle_op
     from gflownet_spai_tpu_torch.solvers.stationary import (
         _pick_power_config, chebyshev_coeffs, estimate_lmax, jacobi_iteration_matrix)
     from gflownet_spai_tpu_torch.sparse import gallery
@@ -1035,6 +1057,17 @@ def phase_dia(dev):
         out[f"K12 k={k} affine poisson{POISSON // 8}"], _ = k12(
             m128, f"poisson{POISSON // 8}", k, tr, True)
     del m128
+    # the Jacobi V-cycle's coarsest level as [vcycle] builds it (poisson1024
+    # aggregated five times: n 32,768, reach 32), whose 16 sweeps run as
+    # k = 8 calls on every cycle
+    vc = vcycle_op(d, **dict(VCYCLE_ROWS)["vcycle(levels=6)"])
+    mc, meta = vc.data[-1][1], vc.fn.keywords["metas"][-1]
+    if (meta["k"], mc.reach) != (8, POISSON // 32):
+        fail(f"the Jacobi V-cycle's coarsest level: k {meta['k']}, reach {mc.reach}")
+    out["K12 k=8 affine vcycle coarsest"], _ = k12(
+        mc, f"V-cycle coarsest level (n {mc.n}, reach {mc.reach})", meta["k"], meta["tr"],
+        True)
+    del vc, mc
 
     def k13(dd, name, coeffs):
         """K13 on ``dd`` with the coefficient pairs ``coeffs`` (k of them),
@@ -1249,6 +1282,19 @@ def phase_poisson(dev):
         print(f"[poisson] {name} operator (float32, kernels) vs float64 on two random "
               f"vectors: relative 2-norm error {rel:.3e} (tolerance {POLY_OP_RTOL})",
               flush=True)
+    # the device time of one preconditioner apply (CUDA-graph replays of one
+    # vector, L2-warm), in the rule's modes and with the streamed mode
+    # forced: the K12 / K13 part of an iteration without the host clock's
+    # spread.  Not the path: its launches are not counted
+    v = torch.randn(n, generator=gen, device=dev)
+    with _uncounted():
+        for name in ("jacobi_poly", "chebyshev"):
+            rule_ms = graph_ms(lambda: ops[name](v), 10)
+            with _streamed():
+                forced_ms = graph_ms(lambda: ops[name](v), 10)
+            print(f"[poisson] {name} apply, device time: {rule_ms:.5f} ms in the rule's "
+                  f"modes, {forced_ms:.5f} ms with K12 / K13 forced into the streamed mode",
+                  flush=True)
     report = {}
     for name, op in ops.items():
         before, before_m = _counts(), _mode_counts()
@@ -1266,13 +1312,16 @@ def phase_poisson(dev):
         modes = {k: v - before_m[k] for k, v in _mode_counts().items() if v - before_m[k]}
         if op is not None:
             # the streamed mode gives the same iterates: K12 and K13 sum alike
-            # in both modes, bit for bit
-            with _streamed():
+            # in both modes, bit for bit.  A check, not the path: its
+            # launches are printed and left out of the counts
+            with _uncounted() as forced, _streamed():
                 its_s = cg(d, b, m_op=op, maxiter=CG_MAXITER, rtol=1e-5).iterations
             if its_s != res.iterations:
                 fail(f"[poisson] {name}: {res.iterations} iterations, {its_s} with K12 / "
                      f"K13 forced into the streamed mode")
-            modes["streamed-forced iterations"] = its_s
+            print(f"[poisson] {name} with K12 / K13 forced into the streamed mode: "
+                  f"{its_s} iterations, as the rule's modes give; launches {forced} "
+                  f"(not counted)", flush=True)
         t0 = time.perf_counter()
         ref_it, info, ref_hist = _cg_ref(A64, refs[name], n, CG_MAXITER, dev)
         ref_s = time.perf_counter() - t0
@@ -1296,7 +1345,8 @@ def phase_poisson(dev):
     if min(total.values()) == 0:
         fail(f"[poisson] a kernel of the path did not launch: {total}")
     print(f"[poisson] kernel launches over the three rows (two solves each, plus "
-          f"estimate_lmax): {total}", flush=True)
+          f"estimate_lmax; the streamed-forced re-solves not counted): {total}",
+          flush=True)
     return report, total
 
 

@@ -43,12 +43,14 @@
 //   reach further in per pass, so a window yields out = C.S - 2.Hk output
 //   rows, Hk = (k-1).R rounded up to 4: the halo is paid per cluster window,
 //   and a pass computes only the rows that still reach an output row.  The
-//   last pass writes the output rows to device memory.  With two staging
-//   areas the next window loads while this one runs.  The caller picks C,
-//   S, the stages and the clusters launched from the shared-memory budget,
-//   cudaOccupancyMaxActiveClusters and a cost model of this card; it needs
-//   1 <= ndiags <= 9 (the diagonals are unrolled), P a multiple of 4, 16-byte
-//   aligned staged buffers and, when C > 1, S >= Rh.
+//   last pass writes the output rows to device memory, and the CTA then
+//   stages its rows of the next window.  (A second staging area, loading
+//   the next window during this one's passes, measured no faster on an
+//   H100: it halves the rows a CTA holds, so a window repeats more rows.)
+//   The caller picks C, S and the clusters launched from the shared-memory
+//   budget, cudaOccupancyMaxActiveClusters and a cost model of this card;
+//   it needs 1 <= ndiags <= 9 (the diagonals are unrolled), P a multiple
+//   of 4, 16-byte aligned staged buffers and, when C > 1, S >= Rh.
 // - streamed (rows == 0): k launches of a one-pass kernel, the iterate
 //   ping-ponging through global memory between the output buffer and a
 //   caller-given [n_pad] scratch buffer, ordered so that the last pass
@@ -324,26 +326,21 @@ struct FusedCta {
 
 // Shared memory of a fused CTA: three mbarriers (the halos of A and B,
 // and the neighbours' "done with the last window"; 32 bytes with padding),
-// the iterate's two buffers A and B ([Wb] each), then `stages` staging
-// areas, each x[Wb] (the window's input iterate with its halos), dg[nd][S]
-// and aux[kind][S] (K12 with c: c; K13: r, dd).
-__host__ __device__ inline size_t fused_stage_words(int nd, int kind, int S, int Rh) {
-  return static_cast<size_t>(S) + 2 * Rh + static_cast<size_t>(nd + kind) * S;
-}
-
-__host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int Rh,
-                                                   int stages) {
-  return 32 + 4 * (2 * (static_cast<size_t>(S) + 2 * Rh)
-                   + stages * fused_stage_words(nd, kind, S, Rh));
+// the iterate's two buffers A and B ([Wb] each), then the staging area:
+// x[Wb] (the window's input iterate with its halos), dg[nd][S] and
+// aux[kind][S] (K12 with c: c; K13: r, dd).
+__host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int Rh) {
+  return 32 + 4 * (3 * (static_cast<size_t>(S) + 2 * Rh)
+                   + static_cast<size_t>(nd + kind) * S);
 }
 
 // K12 (kKind 0, or 1 with c) and K13 (kKind 2) fused, for ND diagonals:
 // see the header.  x is xq (K12) or zq (K13), a is cq or rq, ddq and dd_out
 // only K13's.  Cluster blockIdx.x / C walks windows first, first + step, ...
-// (step = the clusters launched); with two stages the next window is
-// staged (cp.async) while this one runs.  Pass 1 reads the staged x and
-// writes A; the next passes alternate between A and B, and the last one
-// writes the output rows to device memory.  A pass computes only the rows
+// (step = the clusters launched), staging each (cp.async) once the
+// previous one's passes are done.  Pass 1 reads the staged x and writes A;
+// the next passes alternate between A and B, and the last one writes the
+// output rows to device memory.  A pass computes only the rows
 // that reach an output row of the window, (k - p).R around them.  Each
 // pass but the last computes the rows within Rh of the CTA's two edges
 // first and stores them into the neighbours' halos too (st.async,
@@ -362,14 +359,14 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
                  const float* __restrict__ aq, const float* __restrict__ ddq,
                  float* __restrict__ zq, float* __restrict__ dd_out, long long P, int k,
                  float scale, Coeffs cf, int S, int Rh, int Hk, long long out,
-                 long long windows, int stages) {
+                 long long windows) {
   extern __shared__ __align__(16) float fused_smem[];
   const int Wb = S + 2 * Rh;
   uint64_t* halo_bar = reinterpret_cast<uint64_t*>(fused_smem);   // [2]: A's and B's halos
   uint64_t* free_bar = halo_bar + 2;     // the neighbours are done with their last window
   float* A = fused_smem + 8;
   float* B = A + Wb;
-  const long long stage_words = static_cast<long long>(fused_stage_words(ND, kKind, S, Rh));
+  float* sx = B + Wb;   // the staging area
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -378,15 +375,14 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
   const int n_nbr = (rank > 0) + (rank < C - 1);
   const int tid = threadIdx.x;
 
-  auto stage_window = [&](int t, int s) {
+  auto stage_window = [&](int t) {
     const FusedCta c(rank, S, Hk, out, n_pad, first + t * step);
-    float* x = B + Wb + s * stage_words;
-    stage_rows(x, xq + P, c.row0 - Rh, Wb, -P, n_pad + P);
+    stage_rows(sx, xq + P, c.row0 - Rh, Wb, -P, n_pad + P);
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      stage_rows(x + Wb + d * S, data + d * n_pad, c.row0, S, 0, n_pad);
-    if (kKind >= 1) stage_rows(x + Wb + ND * S, aq + P, c.row0, S, 0, n_pad);
-    if (kKind == 2) stage_rows(x + Wb + (ND + 1) * S, ddq + P, c.row0, S, 0, n_pad);
+      stage_rows(sx + Wb + d * S, data + d * n_pad, c.row0, S, 0, n_pad);
+    if (kKind >= 1) stage_rows(sx + Wb + ND * S, aq + P, c.row0, S, 0, n_pad);
+    if (kKind == 2) stage_rows(sx + Wb + (ND + 1) * S, ddq + P, c.row0, S, 0, n_pad);
     cp_async_commit();
   };
 
@@ -398,7 +394,7 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
   }
   for (int j = tid; j < Rh; j += blockDim.x)   // halos no neighbour writes
     A[j] = A[Rh + S + j] = B[j] = B[Rh + S + j] = 0.f;
-  if (n_win > 0) stage_window(0, 0);
+  if (n_win > 0) stage_window(0);
   // every CTA of the cluster runs, its barriers initialised, before any
   // stores into it
   if (C > 1) cluster.sync(); else __syncthreads();
@@ -411,21 +407,14 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
   const bool has_left = C > 1 && rank > 0, has_right = C > 1 && rank < C - 1;
   unsigned phases = 0;   // bit j: the parity of halo_bar[j]'s phase; bit 2: free_bar's
   for (int t = 0; t < n_win; ++t) {
-    const int s = stages == 2 ? (t & 1) : 0;
     const bool next = t + 1 < n_win;
-    if (stages == 2 && next) {
-      stage_window(t + 1, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();   // the staged window, from every thread's copies
     if (t > 0 && C > 1) {   // the neighbours' halos are free
       mbar_wait_cluster(free_bar, (phases >> 2) & 1);
       phases ^= 4u;
     }
     const FusedCta c(rank, S, Hk, out, n_pad, first + t * step);
-    const float* sx = B + Wb + s * stage_words;
     const float* dg = sx + Wb;
     const float* aux = dg + ND * S;
     float* dd = const_cast<float*>(aux) + S;
@@ -497,7 +486,7 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
       if (has_left) mbar_arrive_remote(cluster_addr(free_bar, rank - 1));
       if (has_right) mbar_arrive_remote(cluster_addr(free_bar, rank + 1));
     }
-    if (stages == 1 && next) stage_window(t + 1, 0);
+    if (next) stage_window(t + 1);
   }
   // no CTA exits while a neighbour may still store into it: the last
   // window's stores all arrived before its last pass
@@ -643,18 +632,17 @@ struct FusedLaunch {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// One fused launch of `kind` from the caller's C (cluster), S (rows),
-// stages (1 or 2) and cap on the clusters launched (those the card holds at
-// once); each launched cluster walks its windows.  Refuses what the kernel
+// One fused launch of `kind` from the caller's C (cluster), S (rows) and
+// cap on the clusters launched (those the card holds at once); each launched cluster walks its windows.  Refuses what the kernel
 // cannot take: S a multiple of 4, S >= Rh when C > 1, a window yielding an
 // output row, P a multiple of 4 and 16-byte aligned staged buffers.
 cudaError_t fused_launch(int kind, const float* data, long long n_pad, const int* offs,
                          int ndiags, int reach, const float* x, const float* a,
                          const float* ddq, float* z, float* ddo, long long P, int k,
-                         float scale, const Coeffs& cf, int C, int S, int stages,
-                         int clusters, cudaStream_t st) {
+                         float scale, const Coeffs& cf, int C, int S, int clusters,
+                         cudaStream_t st) {
   if (k < 2 || k > kMaxPasses || C < 1 || C > kMaxCluster || S <= 0 || S % 4 != 0
-      || stages < 1 || stages > 2 || clusters < 1 || reach < 0 || ndiags < 1
+      || clusters < 1 || reach < 0 || ndiags < 1
       || ndiags > kFusedMaxDiags || P % 4 != 0 || !aligned16(data) || !aligned16(x)
       || (kind >= 1 && !aligned16(a)) || (kind == 2 && !aligned16(ddq)))
     return cudaErrorInvalidValue;
@@ -664,11 +652,11 @@ cudaError_t fused_launch(int kind, const float* data, long long n_pad, const int
   if (out <= 0 || (C > 1 && S < Rh)) return cudaErrorInvalidValue;
   const long long windows = (n_pad + out - 1) / out;
   const long long launched = windows < clusters ? windows : clusters;
-  const size_t smem = fused_smem_bytes(ndiags, kind, S, Rh, stages);
+  const size_t smem = fused_smem_bytes(ndiags, kind, S, Rh);
   FusedLaunch l(static_cast<unsigned>(launched * C), C, smem, st);
   return with_fused_kernel(kind, ndiags, smem, C, [&](auto kern) {
     return cudaLaunchKernelEx(&l.cfg, kern, data, n_pad, offs, reach, x, a, ddq, z, ddo, P, k,
-                              scale, cf, S, Rh, Hk, out, windows, stages);
+                              scale, cf, S, Rh, Hk, out, windows);
   });
 }
 
@@ -694,13 +682,13 @@ extern "C" int dia_spmv(const void* data, long long ld, const void* offs,
 
 // K12.  xq, cq (nullable) and zq are [P + n_pad + P] buffers; only zq's
 // interior [P, P + n_pad) is written.  rows > 0: fused, at most `clusters`
-// clusters of `cluster` CTAs owning `rows` rows each with `stages` staging
-// areas (`fused_launch` says what it takes); rows == 0: streamed, through
+// clusters of `cluster` CTAs owning `rows` rows each (`fused_launch` says
+// what it takes); rows == 0: streamed, through
 // `tmp` ([n_pad] floats; unused when k == 1).
 extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* xq, const void* cq,
                          void* zq, long long P, int k, float scale, int cluster,
-                         int rows, int stages, int clusters, void* tmp, void* stream) {
+                         int rows, int clusters, void* tmp, void* stream) {
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dat = static_cast<const float*>(data);
@@ -722,7 +710,7 @@ extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
   }
   const cudaError_t err = fused_launch(c != nullptr ? 1 : 0, dat, n_pad, off, ndiags, reach,
                                        x, c, nullptr, z, nullptr, P, k, scale, Coeffs{},
-                                       cluster, rows, stages, clusters, st);
+                                       cluster, rows, clusters, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -734,8 +722,8 @@ extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
 extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* zq, const void* ddq,
                          const void* rq, void* z_out, void* dd_out, long long P,
-                         int k, const float* coeffs, int cluster, int rows, int stages,
-                         int clusters, void* tmp, void* stream) {
+                         int k, const float* coeffs, int cluster, int rows, int clusters,
+                         void* tmp, void* stream) {
   if (k < 1 || k > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dat = static_cast<const float*>(data);
@@ -765,7 +753,7 @@ extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
     cf.b[p] = coeffs[2 * p + 1];
   }
   const cudaError_t err = fused_launch(2, dat, n_pad, off, ndiags, reach, z, r, ddi, zo, ddo, P,
-                                       k, 1.f, cf, cluster, rows, stages, clusters, st);
+                                       k, 1.f, cf, cluster, rows, clusters, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,8 +24,8 @@ K13 have two modes (``csrc/dia.cu``'s header): fused, where clusters of
 CTAs stage each window's diagonals once and run all k passes in shared
 memory, trading edge rows through distributed shared memory; and
 streamed, one launch per pass through global memory.  ``_fused_plan``
-picks the fused launch (cluster size, rows per CTA, staging areas) that a
-cost model fitted on the card times fastest, and takes it only where a
+picks the fused launch (cluster size, rows per CTA, clusters launched)
+that a cost model fitted on the card times fastest, and takes it only where a
 window fits (at most 9 diagonals, reach below the shared memory) and the
 model times it below the streamed mode; the two modes agree bit for bit.
 ``_SMEM_BYTES = 0`` forces the streamed mode (tests, ``chip_smoke.py``).
@@ -527,9 +527,9 @@ _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _PTR],
     "dia_power": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                  ctypes.c_float, _INT, _INT, _INT, _INT, _PTR, _PTR],
+                  ctypes.c_float, _INT, _INT, _INT, _PTR, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _INT, _INT, _INT,
+                  _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _INT, _INT,
                   _PTR, _PTR],
     "dia_fused_clusters": [_INT, _INT, _INT, _I64, ctypes.POINTER(_INT)],
     "dia_spmv_pp": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _I64, ctypes.c_float, _INT,
@@ -610,20 +610,17 @@ _LOAD_US = 0.5                  # latency of one staging round
 _FUSED_US = 3.0                 # fixed cost of one fused launch
 _BARRIER_US = 1.0               # per pass of a cluster of C > 1: the neighbours' rows
 _WORD_US = 3.0e-5               # one shared-memory word of a row update, per CTA
-_OVERLAP = 0.3                  # two stages hide this share of the shorter of load, passes
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
     """One fused launch of K12 / K13: ``windows`` windows of ``cluster``
     CTAs owning ``rows`` rows each, walked by at most ``clusters`` clusters
-    at once with ``stages`` staging areas per CTA (2: the next window loads
-    while this one runs), ``smem`` bytes of shared memory per CTA, and the
-    modeled times (µs) of both modes."""
+    at once, ``smem`` bytes of shared memory per CTA, and the modeled times
+    (µs) of both modes."""
 
     cluster: int
     rows: int
-    stages: int
     clusters: int
     windows: int
     smem: int
@@ -632,7 +629,7 @@ class FusedPlan:
 
 
 def _fused_geometry(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
-                    cluster: int, rows: int, stages: int = 1):
+                    cluster: int, rows: int):
     """(output rows per window, windows, shared bytes per CTA) of a fused
     launch, as ``fused_launch`` in ``csrc/dia.cu`` computes them; None
     where the kernel cannot take it."""
@@ -642,7 +639,7 @@ def _fused_geometry(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
             or out <= 0 or (cluster > 1 and rows < rh):
         return None
     wb = rows + 2 * rh
-    smem = 32 + 4 * (2 * wb + stages * (wb + (ndiags + kind) * rows))
+    smem = 32 + 4 * (3 * wb + (ndiags + kind) * rows)
     return out, -(-n_pad // out), smem
 
 
@@ -656,58 +653,51 @@ def _streamed_us(kind: int, ndiags: int, k: int, n_pad: int) -> float:
 
 
 def _fused_us(kind: int, ndiags: int, k: int, reach: int, cluster: int, rows: int,
-              stages: int, windows: int, clusters: int) -> float:
+              windows: int, clusters: int) -> float:
     """The cost model's fused mode.  Per round of windows every launched CTA
     stages its rows (diagonals, aux, x and its halo) at its share of the
-    HBM rate, at most one SM's rate; a window's k passes take the row
-    updates' shared-memory words (2·ndiags + 2 for K12, + 1 with c;
+    HBM rate, at most one SM's rate, then runs the window's k passes: the
+    row updates' shared-memory words (2·ndiags + 2 for K12, + 1 with c;
     2·ndiags + 5 for K13) or, in a cluster, at least the wait for the
-    neighbours' rows.  One stage loads and computes in turn; two hide
-    ``_OVERLAP`` of the shorter."""
+    neighbours' rows."""
     launched = min(windows, clusters)
     rounds = -(-windows // launched)
     load = 4 * (rows * (ndiags + kind + 1) + 2 * _round_up(reach, 4)) \
         / min(_SM_BYTES_PER_US, _HBM_BYTES_PER_US / (launched * cluster)) + _LOAD_US
     update = 2 * ndiags + (2, 3, 5)[kind]
     passes = k * max(rows * update * _WORD_US, _BARRIER_US if cluster > 1 else 0.0)
-    if stages == 1:
-        return _FUSED_US + rounds * (load + passes)
-    return _FUSED_US + load + passes + (rounds - 1) * (
-        max(load, passes) + (1 - _OVERLAP) * min(load, passes))
+    return _FUSED_US + rounds * (load + passes)
 
 
 def _fused_candidates(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
                       active, smem_bytes: int):
-    """The fused launches `_fused_plan` weighs: for each cluster size C and
-    number of stages, the most rows per CTA that fit (S, a multiple of 32;
-    the window C·S yields C·S − 2·(k−1)·R output rows, so wide reaches and
-    large k need long windows), and as many windows as whole rounds of
-    co-resident clusters hold, each as short as that allows."""
+    """The fused launches `_fused_plan` weighs: for each cluster size C, the
+    most rows per CTA that fit (S, a multiple of 32; the window C·S yields
+    C·S − 2·(k−1)·R output rows, so wide reaches and large k need long
+    windows), and as many windows as whole rounds of co-resident clusters
+    hold, each as short as that allows."""
     if not 1 <= ndiags <= _FUSED_MAX_DIAGS:
         return
     streamed = _streamed_us(kind, ndiags, k, n_pad)
     rh, hk = _round_up(reach, 4), _round_up((k - 1) * reach, 4)
-    for stages in (1, 2):
-        # 32 + 4·(2·(S + 2Rh) + stages·(S + 2Rh + (ndiags + kind)·S)) bytes
-        most = (smem_bytes - 32 - 8 * rh * (2 + stages)) \
-            // (4 * (2 + stages * (1 + ndiags + kind))) // 32 * 32
-        for cluster, clusters in active:
-            geom = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, most, stages) \
-                if clusters > 0 else None
-            if geom is None:
-                continue
-            rounds = -(-geom[1] // clusters)
-            per_window = -(-n_pad // (rounds * clusters))
-            rows = max(_round_up(-(-(per_window + 2 * hk) // cluster), 32),
-                       _round_up(rh, 32) if cluster > 1 else 32)
-            for r in dict.fromkeys((most, min(rows, most))):
-                _, windows, smem = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster,
-                                                   r, stages)
-                yield FusedPlan(cluster=cluster, rows=r, stages=stages, clusters=clusters,
-                                windows=windows, smem=smem,
-                                fused_us=_fused_us(kind, ndiags, k, reach, cluster, r,
-                                                   stages, windows, clusters),
-                                streamed_us=streamed)
+    # 32 + 4·(3·(S + 2Rh) + (ndiags + kind)·S) bytes
+    most = (smem_bytes - 32 - 24 * rh) // (4 * (3 + ndiags + kind)) // 32 * 32
+    for cluster, clusters in active:
+        geom = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, most) \
+            if clusters > 0 else None
+        if geom is None:
+            continue
+        rounds = -(-geom[1] // clusters)
+        per_window = -(-n_pad // (rounds * clusters))
+        rows = max(_round_up(-(-(per_window + 2 * hk) // cluster), 32),
+                   _round_up(rh, 32) if cluster > 1 else 32)
+        for r in dict.fromkeys((most, min(rows, most))):
+            _, windows, smem = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, r)
+            yield FusedPlan(cluster=cluster, rows=r, clusters=clusters, windows=windows,
+                            smem=smem,
+                            fused_us=_fused_us(kind, ndiags, k, reach, cluster, r,
+                                               windows, clusters),
+                            streamed_us=streamed)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -756,9 +746,9 @@ def _fused_for(kind: int, d: DIA, k: int, p: int, staged) -> "FusedPlan | None":
                        _card_active(kind, d.ndiags, d.data.device), _SMEM_BYTES)
 
 
-def _plan_args(plan) -> Tuple[int, int, int, int]:
-    """(cluster, rows, stages, clusters) of the C entry; rows 0 streams."""
-    return (plan.cluster, plan.rows, plan.stages, plan.clusters) if plan else (0, 0, 0, 0)
+def _plan_args(plan) -> Tuple[int, int, int]:
+    """(cluster, rows, clusters) of the C entry; rows 0 streams."""
+    return (plan.cluster, plan.rows, plan.clusters) if plan else (0, 0, 0)
 
 
 def _scratch(like: torch.Tensor, n_pad: int, rows: int, k: int):

@@ -259,9 +259,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     # K12's Jacobi-16 call (k = 8, with c) on a 5-point grid of side R: the
     # rule fuses it in windows of 16 CTAs up to poisson2048 and streams
     # where no window fits (a 21504² grid)
-    assert _rule(T._FUSED_AFFINE, 5, 8, 1024, 1 << 20) == (16, 5600, 1)
-    assert _rule(T._FUSED_AFFINE, 5, 8, 1792, 1792 ** 2) == (16, 5152, 1)
-    assert _rule(T._FUSED_AFFINE, 5, 8, 2048, 1 << 22) == (16, 4928, 1)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 1024, 1 << 20) == (16, 5600)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 1792, 1792 ** 2) == (16, 5152)
+    assert _rule(T._FUSED_AFFINE, 5, 8, 2048, 1 << 22) == (16, 4928)
     assert _rule(T._FUSED_AFFINE, 5, 8, 21504, 21504 ** 2) is None
     assert T._scratch(xq, td.n_pad, 0, 8).shape == (td.n_pad,)
     assert T._scratch(xq, td.n_pad, 0, 1) is None
@@ -272,12 +272,15 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
 
 def _emulate_fused(d, kind, k, cluster, rows, src_q, *, scale=1.0, add=None,
                    ddq=None, rq=None, coeffs=()):
-    """The schedule of ``dia_power_fused_kernel`` / ``dia_cheby_fused_kernel``
-    (csrc/dia.cu) on the host: window w's CTAs stage their rows and a
-    reach-wide halo of the input, run k passes, and after each pass take
-    their neighbours' boundary rows; the halos beyond the window's two ends
-    hold NaN (the kernel's zeros are never read into an output row).
-    Returns the output interiors ([n_pad] z, and dd for K13)."""
+    """The window schedule of ``dia_fused_kernel`` (csrc/dia.cu) on the
+    host: window w's CTAs stage their rows and a reach-wide halo of the
+    input, run k passes, and after each pass take their neighbours'
+    boundary rows; the halos beyond the window's two ends hold NaN (the
+    kernel's zeros are never read into an output row).  Every pass computes
+    every row of a CTA: the kernel's skipping of the rows outside the
+    output rows' dependency cone is held only by the ``gpu`` tests (fused
+    against streamed, bit for bit).  Returns the output interiors ([n_pad]
+    z, and dd for K13)."""
     n_pad, p = d.n_pad, (src_q.shape[0] - d.n_pad) // 2
     out, windows, _ = T._fused_geometry(kind, d.ndiags, k, d.reach, n_pad, cluster, rows)
     rh = -(-d.reach // 4) * 4
@@ -382,20 +385,20 @@ def test_k13_fused_schedule_equals_plain(offsets, n, k, cluster, rows):
 
 
 def _rule(kind, ndiags, k, reach, n_pad):
-    """(cluster, rows, stages) of the rule's fused plan on an H100, or None
+    """(cluster, rows) of the rule's fused plan on an H100, or None
     (the streamed mode)."""
     plan = T._fused_plan(kind, ndiags, k, reach, n_pad)
-    return plan and (plan.cluster, plan.rows, plan.stages)
+    return plan and (plan.cluster, plan.rows)
 
 
 @pytest.mark.parametrize("kind,ndiags,k,reach,n_pad,want", [
-    (T._FUSED_AFFINE, 5, 8, 1024, 1 << 20, (16, 5600, 1)),   # poisson1024, Jacobi-16
-    (T._FUSED_AFFINE, 5, 2, 1024, 1 << 20, (8, 4640, 1)),    # poisson1024, Jacobi-4
-    (T._FUSED_CHEBY, 5, 2, 1024, 1 << 20, (8, 4640, 1)),     # poisson1024, Chebyshev
-    (T._FUSED_AFFINE, 5, 8, 2048, 1 << 22, (16, 4928, 1)),   # poisson2048, Jacobi-16
+    (T._FUSED_AFFINE, 5, 8, 1024, 1 << 20, (16, 5600)),      # poisson1024, Jacobi-16
+    (T._FUSED_AFFINE, 5, 2, 1024, 1 << 20, (8, 4640)),       # poisson1024, Jacobi-4
+    (T._FUSED_CHEBY, 5, 2, 1024, 1 << 20, (8, 4640)),        # poisson1024, Chebyshev
+    (T._FUSED_AFFINE, 5, 8, 2048, 1 << 22, (16, 4928)),      # poisson2048, Jacobi-16
     (T._FUSED_AFFINE, 5, 4, 10_000, 1 << 20, None),          # reach 10,000: no window fits
-    (T._FUSED_CHEBY, 5, 8, 256, 1 << 16, (16, 832, 1)),      # Chebyshev V-cycle coarsest level
-    (T._FUSED_AFFINE, 5, 8, 32, 32768, (1, 704, 2)),          # Jacobi V-cycle coarse level
+    (T._FUSED_CHEBY, 5, 8, 256, 1 << 16, (16, 832)),         # Chebyshev V-cycle coarsest level
+    (T._FUSED_AFFINE, 5, 8, 32, 32768, (1, 704)),            # Jacobi V-cycle coarsest level
     (T._FUSED_AFFINE, 5, 2, 128, 16384, None),               # poisson128 Jacobi-4: two launches
     (T._FUSED_AFFINE, 12, 8, 1024, 1 << 20, None),           # more than 9 diagonals stream
 ])
@@ -421,7 +424,7 @@ def test_fused_plan_is_a_launch_the_kernel_takes(kind, ndiags, k, reach, n_pad):
                                      T._SMEM_BYTES))
     for c in cands:
         out, windows, smem = T._fused_geometry(kind, ndiags, k, reach, n_pad, c.cluster,
-                                               c.rows, c.stages)
+                                               c.rows)
         assert smem == c.smem <= T._SMEM_BYTES and c.rows % 32 == 0
         assert c.cluster == 1 or c.rows >= reach
         assert windows == c.windows and windows * out >= n_pad > (windows - 1) * out

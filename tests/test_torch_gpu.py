@@ -361,9 +361,9 @@ def test_k13_streamed_matches_plain(cuda, k):
         _close_k(a, b, k)
 
 
-def _plan(cluster, rows, clusters=132, stages=1):
+def _plan(cluster, rows, clusters=132):
     """A fused plan of the given shape (the rule's timings are not read)."""
-    return dia.FusedPlan(cluster=cluster, rows=rows, stages=stages, clusters=clusters,
+    return dia.FusedPlan(cluster=cluster, rows=rows, clusters=clusters,
                          windows=0, smem=0, fused_us=0.0, streamed_us=0.0)
 
 
@@ -401,15 +401,14 @@ def _halo_noise(q, d, seed):
 # (matrix, k, plan): poisson-like 5-diagonal matrices at k 2, 3, 4, 8 through
 # the rule's plan; an irregular banded DIA (4 diagonals); n a multiple of
 # neither S nor the window; n smaller than one CTA's slice; plans as
-# (C, S, clusters launched, stages): fewer clusters than windows walk
-# several, with one or two staging areas
+# (C, S, clusters launched): fewer clusters than windows walk several
 K12_FUSED_CASES = [
     ("poisson96", 2, (1, 2048)), ("poisson96", 3, None), ("poisson96", 4, None),
     ("poisson96", 8, None), ("poisson256", 8, None), ("banded 60000 r700", 4, (16, 1024)),
     ("irregular 20000", 3, (4, 1024)), ("banded 60000 r700", 3, (4, 1504, 2)),
     ("banded 60000 r700", 2, (16, 736)), ("banded 3000 r37", 4, (1, 4096)),
-    ("irregular 20000", 2, (2, 2048, 3)), ("banded 60000 r700", 4, (4, 1504, 2, 2)),
-    ("irregular 20000", 8, (4, 2048, 2, 2)),
+    ("irregular 20000", 2, (2, 2048, 3)), ("banded 60000 r700", 4, (4, 1504, 2)),
+    ("irregular 20000", 8, (4, 2048, 2)),
 ]
 
 
@@ -450,7 +449,7 @@ def test_k12_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, plan, a
 K13_FUSED_CASES = [("poisson96", 2, (2, 1024)), ("poisson96", 4, None), ("poisson256", 8, None),
                    ("irregular 20000", 3, (8, 512)), ("banded 60000 r700", 2, (16, 736)),
                    ("banded 3000 r37", 4, (1, 4096)), ("irregular 20000", 8, (4, 2048, 3)),
-                   ("banded 60000 r700", 3, (4, 1504, 2, 2))]
+                   ("banded 60000 r700", 3, (4, 1504, 2))]
 
 
 @pytest.mark.parametrize("name,k,plan", K13_FUSED_CASES)
