@@ -1,6 +1,6 @@
 """Fused GATv2 tile forward K1 and backward K2: score → segment softmax →
-weighted segment sum in one launch, one block per node tile (counterpart
-of ``gflownet_spai_tpu/ops/gat_fused.py``: ``gat_tile_fused_jnp`` :70, the
+weighted segment sum in one launch per bucket (counterpart of
+``gflownet_spai_tpu/ops/gat_fused.py``: ``gat_tile_fused_jnp`` :70, the
 Pallas ``_fwd_kernel`` :167 / ``_run_fwd`` :269, its custom VJP :396-418
 and ``gat_tile_fused`` :438).
 
@@ -14,9 +14,17 @@ Per tile::
     out     = Σ_{slots of v} xs_slot ⊙ α        ([TN, H·D])
 
 The backward K2 (``_bwd_kernel`` :211 / ``_run_bwd`` :315 in JAX) recomputes
-this per tile and emits ∂xs, ∂xd and per-tile ∂att, ∂w_e.  CUDA tensors
-launch ``csrc/gat_fused.cu`` for both directions; CPU tensors take
+this per node and emits ∂xs, ∂xd, ∂att and ∂w_e.  CUDA tensors launch
+``csrc/gat_fused.cu`` for both directions; CPU tensors take
 ``gat_tile_fused_ref`` and ``gat_tile_fused_bwd_ref``.
+
+The kernels work node by node over each node's run of slots: the wrapper
+derives once per layout where each run starts and, where a node's slots
+are not adjacent, the slot order that makes them runs (``layout_runs``).
+A node gets P channel lanes per head times Q slot lanes (``_lane_plan``).
+K2 sums its per-tile terms
+in a fixed order inside the launch, so both kernels give the same bits on
+every launch.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
 from .segment import SegTiles
@@ -93,12 +102,13 @@ def gat_tile_fused_bwd_ref(tiles: SegTiles, attr: torch.Tensor,
         return torch.autograd.grad(out, ins, g)
 
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                  + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
                  + [ctypes.c_float, ctypes.c_void_p])
 _MAX_HEADS = 8          # kMaxHeads in csrc/gat_fused.cu
-_MAX_SMEM = 48 * 1024   # static launch limit without the opt-in attribute
+_MAX_CHANNELS = 8       # kMaxC: channels of one head per lane
+_THREADS = 128          # kThreads: lanes per block
 
 
 def _lib_fn(name: str, argtypes):
@@ -107,9 +117,79 @@ def _lib_fn(name: str, argtypes):
     return fn
 
 
-def _check_cuda_args(what: str, tiles: SegTiles, attr, xs_slot, xd, w_e, att,
-                     smem_floats: int):
-    """Device, shape, dtype and limit checks shared by K1 and K2."""
+_RUNS = WeakIdKeyDictionary()   # local_dst tensor → (starts, order, mean run)
+
+
+def layout_runs(tiles: SegTiles):
+    """Where each node's run of slots starts, per tile: ``starts`` int32
+    [T, TN + 1], node v's slots at positions ``starts[t, v]`` to
+    ``starts[t, v + 1] − 1`` and ``starts[t, TN]`` real slots in the tile.
+    ``order`` is None when every node's slots are already adjacent, padding
+    (local_dst outside [0, TN)) last; else int32 [T, S], the slot within
+    the tile at each position (a stable sort by node, padding last).
+    Computed once per layout (the local_dst tensor) and cached."""
+    lid = tiles.local_dst
+    hit = _RUNS.get(lid)
+    if hit is not None:
+        return hit[:2]
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    key = torch.where((lid >= 0) & (lid < TN), lid, TN).long()
+    counts = torch.zeros((T, TN + 1), dtype=torch.long, device=lid.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    starts = torch.zeros((T, TN + 1), dtype=torch.int32, device=lid.device)
+    starts[:, 1:] = counts[:, :TN].cumsum(1)
+    in_runs = S < 2 or bool((key[:, 1:] >= key[:, :-1]).all())
+    order = None if in_runs else \
+        torch.sort(key, dim=1, stable=True).indices.to(torch.int32).contiguous()
+    nodes = int((counts[:, :TN] > 0).sum())
+    _RUNS[lid] = (starts, order, int(starts[:, TN].sum()) / max(nodes, 1))
+    return starts, order
+
+
+def _mean_run(tiles: SegTiles) -> float:
+    """Mean slots per node that has slots (cached with ``layout_runs``)."""
+    layout_runs(tiles)
+    return _RUNS[tiles.local_dst][2]
+
+
+def _lane_plan(H: int, D: int, mean_run: float = 1.0,
+               max_lanes: float | None = None) -> tuple[int, int, int]:
+    """Channel lanes per head P (the fewest, a power of two, that hold D
+    channels at ≤ 8 a lane), slot lanes Q (a power of two at or above the
+    mean run / 2.4, so a lane walks two or three slots; the constant is
+    from the card's timings of each plan, ``chip_smoke.py``'s
+    ``[K1-plans]`` / ``[K2-plans]``) and lanes per node G (H·P·Q rounded
+    up to a power of two).  Q shrinks while G passes a warp or
+    ``max_lanes`` (lanes per node that fit one wave of the card).  Raises
+    where even Q = 1 passes a warp."""
+    P = 1
+    while -(-D // P) > _MAX_CHANNELS:
+        P *= 2
+    pow2 = lambda x: 1 << (max(int(x), 1) - 1).bit_length()
+    if H < 1 or H > _MAX_HEADS or D < 1 or pow2(H * P) > 32:
+        raise ValueError(f"gat_tile_fused: H={H}, D={D} exceed the kernel's limits "
+                         f"(1 ≤ H ≤ 8, ⌈D/8⌉ rounded up to a power of two times "
+                         f"H at most 32)")
+    Q = pow2(-(-mean_run // 2.4))
+    while Q > 1 and (pow2(H * P * Q) > 32
+                     or max_lanes is not None and pow2(H * P * Q) > max_lanes):
+        Q //= 2
+    return P, Q, pow2(H * P * Q)
+
+
+_SMS: dict = {}
+_WAVE_WARPS = 16        # warps per SM a bucket's lanes may fill before Q shrinks
+
+
+def _sms(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _check_cuda_args(what: str, tiles: SegTiles, attr, xs_slot, xd, w_e, att):
+    """Device, shape, dtype and limit checks shared by K1 and K2; returns
+    the lane plan (P, Q, G) for the layout."""
     args = (attr, xs_slot, xd, w_e, att)
     dev = attr.device
     if dev.type != "cuda" or any(a.device != dev for a in args) \
@@ -134,9 +214,15 @@ def _check_cuda_args(what: str, tiles: SegTiles, attr, xs_slot, xd, w_e, att,
     if any(a.dtype != torch.float32 or not a.is_contiguous() for a in args) \
             or not tiles.local_dst.is_contiguous():
         raise ValueError(f"{what}: inputs must be contiguous float32")
-    if H > _MAX_HEADS or 4 * smem_floats > _MAX_SMEM or T * S * HD >= 2**31:
-        raise ValueError(f"{what}: H={H}, TN·H·D={TN * HD} exceed the "
-                         "kernel's limits (H ≤ 8, 48 KB of shared memory)")
+    return _lane_plan(H, D, _mean_run(tiles),
+                      _sms(dev) * _WAVE_WARPS * 32 / max(T * TN, 1))
+
+
+def _vec(D: int, P: int, *tensors) -> int:
+    """16-byte loads and stores: a lane's channels come in fours and every
+    row starts on 16 bytes."""
+    return int(D % 4 == 0 and -(-D // P) % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _fwd(tiles: SegTiles, attr, xs_slot, xd, w_e, att, negative_slope):
@@ -147,14 +233,16 @@ def _fwd(tiles: SegTiles, attr, xs_slot, xd, w_e, att, negative_slope):
     T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
     H, D = att.shape
     HD = H * D
-    _check_cuda_args("gat_tile_fused", tiles, attr, xs_slot, xd, w_e, att,
-                     2 * TN * H + TN * HD + 2 * HD)
+    P, Q, G = _check_cuda_args("gat_tile_fused", tiles, attr, xs_slot, xd, w_e, att)
+    starts, order = layout_runs(tiles)
     out = torch.empty((T * TN, HD), dtype=attr.dtype, device=attr.device)
     stream = torch.cuda.current_stream(attr.device).cuda_stream
     _build.check(_lib_fn("gat_tile_fused_fwd", _FWD_ARGTYPES)(
-        tiles.local_dst.data_ptr(), attr.data_ptr(), xs_slot.data_ptr(),
-        xd.data_ptr(), w_e.data_ptr(), att.data_ptr(), out.data_ptr(),
-        T, S, TN, H, D, int(xs_slot.shape[0] == 1), int(xd.shape[0] == 1),
+        starts.data_ptr(), None if order is None else order.data_ptr(),
+        attr.data_ptr(), xs_slot.data_ptr(), xd.data_ptr(), w_e.data_ptr(),
+        att.data_ptr(), out.data_ptr(), T, S, TN, H, D, P, Q,
+        int(xs_slot.shape[0] == 1), int(xd.shape[0] == 1),
+        _vec(D, P, xs_slot, xd, w_e, att, out),
         float(negative_slope), stream), "gat_tile_fused")
     gat_tile_fused.launches += 1
     return out
@@ -167,8 +255,9 @@ def gat_tile_fused_bwd(tiles: SegTiles, attr: torch.Tensor,
     """K2: the VJP of ``gat_tile_fused`` at cotangent ``g`` [n_pad, H·D],
     recomputing the forward.  Returns ``(dxs, dxd, dw_e, datt)`` shaped as
     ``(xs_slot, xd, w_e, att)``.  CUDA tensors launch ``csrc/gat_fused.cu``
-    (per-tile partials summed here, as ``_run_bwd`` sums them in JAX); CPU
-    tensors take ``gat_tile_fused_bwd_ref``."""
+    (the per-tile sums, which ``_run_bwd`` sums outside its kernel in JAX,
+    are summed in a fixed order by a second kernel launched with it);
+    CPU tensors take ``gat_tile_fused_bwd_ref``."""
     if all(a.device.type == "cpu" for a in (attr, xs_slot, xd, w_e, att, g)):
         return gat_tile_fused_bwd_ref(tiles, attr, xs_slot, xd, w_e, att, g,
                                       negative_slope)
@@ -176,30 +265,31 @@ def gat_tile_fused_bwd(tiles: SegTiles, attr: torch.Tensor,
     H, D = att.shape
     HD = H * D
     xs_uni, xd_uni = xs_slot.shape[0] == 1, xd.shape[0] == 1
-    _check_cuda_args("gat_tile_fused_bwd", tiles, attr, xs_slot, xd, w_e, att,
-                     3 * TN * H + 6 * HD + (0 if xd_uni else TN * HD))
+    P, Q, G = _check_cuda_args("gat_tile_fused_bwd", tiles, attr, xs_slot, xd, w_e, att)
     if g.shape != (T * TN, HD) or g.dtype != torch.float32 \
             or g.device != attr.device or not g.is_contiguous():
         raise ValueError(f"gat_tile_fused_bwd: g must be a contiguous float32 "
                          f"[{T * TN}, {HD}] tensor on {attr.device}, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    starts, order = layout_runs(tiles)
     new = lambda *shape: torch.empty(shape, dtype=g.dtype, device=g.device)
-    dxs = new(T, HD) if xs_uni else new(T * S, HD)
-    dxd = new(T, HD) if xd_uni else new(T * TN, HD)
-    datt, dwe = new(T, HD), new(T, HD)
+    dxs = new(1, HD) if xs_uni else new(T * S, HD)
+    dxd = new(1, HD) if xd_uni else new(T * TN, HD)
+    datt, dwe = new(HD), new(HD)
+    if T * TN == 0:
+        return (dxs.zero_(), dxd.zero_(), dwe.zero_(), datt.zero_().reshape(H, D))
+    sums = 2 + xs_uni + xd_uni        # datt, dwe, and the uniform rows' dxs, dxd
+    part = new(T * -(-TN // (_THREADS // G)), -(-sums * HD // 4) * 4)   # a row a block
     stream = torch.cuda.current_stream(g.device).cuda_stream
     _build.check(_lib_fn("gat_tile_fused_bwd", _BWD_ARGTYPES)(
-        tiles.local_dst.data_ptr(), attr.data_ptr(), xs_slot.data_ptr(),
-        xd.data_ptr(), w_e.data_ptr(), att.data_ptr(), g.data_ptr(),
-        dxs.data_ptr(), dxd.data_ptr(), datt.data_ptr(), dwe.data_ptr(),
-        T, S, TN, H, D, int(xs_uni), int(xd_uni), float(negative_slope),
-        stream), "gat_tile_fused_bwd")
+        starts.data_ptr(), None if order is None else order.data_ptr(),
+        attr.data_ptr(), xs_slot.data_ptr(), xd.data_ptr(), w_e.data_ptr(),
+        att.data_ptr(), g.data_ptr(), dxs.data_ptr(), dxd.data_ptr(),
+        datt.data_ptr(), dwe.data_ptr(), part.data_ptr(), T, S, TN, H, D, P, Q,
+        int(xs_uni), int(xd_uni), _vec(D, P, xs_slot, xd, w_e, att, g, dxs, dxd),
+        float(negative_slope), stream), "gat_tile_fused_bwd")
     gat_tile_fused_bwd.launches += 1
-    if xs_uni:
-        dxs = dxs.sum(0, keepdim=True)
-    if xd_uni:
-        dxd = dxd.sum(0, keepdim=True)
-    return dxs, dxd, dwe.sum(0), datt.sum(0).reshape(H, D)
+    return dxs, dxd, dwe, datt.reshape(H, D)
 
 
 class _GatTileFused(torch.autograd.Function):
@@ -222,7 +312,8 @@ class _GatTileFused(torch.autograd.Function):
 def gat_tile_fused(tiles: SegTiles, attr: torch.Tensor, xs_slot: torch.Tensor,
                    xd: torch.Tensor, w_e: torch.Tensor, att: torch.Tensor,
                    negative_slope: float = 0.2) -> torch.Tensor:
-    """One-launch-per-tile fused GATv2 step (see the module docstring).
+    """One-launch fused GATv2 step over a tile layout (see the module
+    docstring).
 
     ``attr``: [T·S] edge scalars in slot order; ``xs_slot``: [T·S, H·D]
     source slot features or [1, H·D] uniform; ``xd``: [n_pad, H·D] target

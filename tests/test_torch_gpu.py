@@ -3,14 +3,17 @@
 Marked ``gpu``: run with ``python -m pytest tests/ -m gpu -q`` on a machine
 with an NVIDIA GPU; without one every test skips (decided in a fixture).
 
-K1 tolerance rtol 1e-5, atol 1e-5: its normaliser and output sums are
-shared-memory float atomics, whose order changes from run to run.  K3 only
-moves values, so it must match exactly.  K2 sums its segment and per-tile
-terms with atomics too (and reduces the per-tile weight gradients over up
-to 1152 slots per tile): rtol 1e-4, and atol 1e-4 times the largest
-magnitude of the gradient (at least 1), because the uniform rows' gradients
-are float32 sums of ~24,000 slot terms of mixed sign, which two summation
-orders round apart by ~1e-5 absolute (measured on the card).  K4 adds each
+K1 tolerance rtol 1e-5, atol 1e-5: its online softmax rescales running
+sums and divides once per node, where the plain version divides per slot
+and sums by matmuls (float32 rounding, over runs of up to 300 slots here).
+K3 only moves values, so it must match exactly.  K2 sums its segment and
+per-tile terms in a fixed order, another than the plain version's (the
+per-tile weight gradients over up to 1152 slots per tile): rtol 1e-4, and
+atol 1e-4 times the largest magnitude of the gradient (at least 1),
+because the uniform rows' gradients are float32 sums of ~24,000 slot terms
+of mixed sign, which two summation orders round apart by ~1e-5 absolute
+(measured on the card).  K1 and K2 use no atomics, so two launches on the
+same inputs must give the same bits (``torch.equal``).  K4 adds each
 row's slots with float atomics in run-dependent order: rtol 1e-5, and per
 element an atol of 4·eps32·Σ|g| over the slots that row and column sums
 (two orders of the same float32 sum differ by at most a few eps times the
@@ -115,6 +118,104 @@ def test_k2_matches_plain(cuda, uniform, H, D):
     for a, b in zip(got, want):
         scale = max(float(b.abs().max()), 1.0)
         torch.testing.assert_close(a, b, rtol=K2_RTOL, atol=K2_ATOL * scale)
+
+
+def _gat_layout(dev, kind, seed=2):
+    """Tile layouts K1 and K2 must take beside the builder's sorted one:
+    ``graph`` the [graph] case's; ``shuffled`` each tile's slots permuted
+    and part of the padding marked -1 or TN + 5 (no node's slots form a
+    run); ``long`` a node with 40 slots and one with 300 (longer than a
+    warp and than a block); ``empty`` few edges (empty nodes) and no node id
+    in tile 3 (an all-padding tile); ``T1`` one tile."""
+    rng = np.random.default_rng(seed)
+    n, tn = 1500, 128
+    if kind == "graph":
+        return _graph_case(dev, seed=seed)[2]
+    if kind == "T1":
+        ids = rng.integers(0, 100, 700)
+    elif kind == "long":
+        ids = np.concatenate([rng.integers(0, n, 6000), np.full(40, 70),
+                              np.full(300, 900)])
+    elif kind == "empty":
+        ids = rng.integers(0, n, 900)
+        ids = ids[ids // tn != 3]
+    else:
+        ids = rng.integers(0, n, 12000)
+    tiles = seg.build_seg_tiles(ids, 100 if kind == "T1" else n, tile_nodes=tn,
+                                device=dev)
+    if kind == "shuffled":
+        lid = tiles.local_dst.cpu().numpy().copy()
+        for t in range(tiles.tiles):
+            lid[t] = lid[t][rng.permutation(tiles.slots)]
+            pad = np.flatnonzero(lid[t] == tn)
+            lid[t, pad[::3]] = -1
+            lid[t, pad[1::3]] = tn + 5
+        tiles = dataclasses.replace(tiles, local_dst=torch.as_tensor(lid, device=dev))
+        assert gf.layout_runs(tiles)[1] is not None
+    return tiles
+
+
+def _gat_inputs(tiles, uniform, H, D, dev, seed=5):
+    rng = np.random.default_rng(seed)
+    T, S, HD = tiles.tiles, tiles.slots, H * D
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                   device=dev)
+    args = (f(T * S), f(1 if uniform else T * S, HD),
+            f(1 if uniform else tiles.n_pad, HD), f(HD), f(H, D))
+    return args, f(tiles.n_pad, HD)
+
+
+GAT_LAYOUTS = [("shuffled", 4, 4), ("shuffled", 1, 4), ("long", 4, 4), ("long", 1, 4),
+               ("empty", 4, 4), ("empty", 1, 4), ("T1", 4, 4), ("T1", 1, 4),
+               ("graph", 8, 4), ("shuffled", 8, 16), ("long", 3, 5), ("graph", 2, 24)]
+
+
+@pytest.mark.parametrize("kind,H,D", GAT_LAYOUTS)
+@pytest.mark.parametrize("uniform", [True, False])
+def test_k1_k2_match_plain_on_every_layout(cuda, kind, H, D, uniform):
+    """K1 and K2 (called directly) against their plain versions on layouts
+    whose slots are not in runs, long runs, empty nodes and tiles, one tile,
+    8 heads and lane plans with idle lanes or 2 lanes per head."""
+    tiles = _gat_layout(cuda, kind)
+    args, g = _gat_inputs(tiles, uniform, H, D, cuda)
+    k1, k2 = gf.gat_tile_fused.launches, gf.gat_tile_fused_bwd.launches
+    got = gf.gat_tile_fused(tiles, *args)
+    got_b = gf.gat_tile_fused_bwd(tiles, *args, g)
+    torch.cuda.synchronize()
+    assert (gf.gat_tile_fused.launches - k1, gf.gat_tile_fused_bwd.launches - k2) == (1, 1)
+    torch.testing.assert_close(got, gf.gat_tile_fused_ref(tiles, *args), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(got_b, gf.gat_tile_fused_bwd_ref(tiles, *args, g)):
+        scale = max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, rtol=K2_RTOL, atol=K2_ATOL * scale)
+
+
+@pytest.mark.parametrize("kind,H,D", [("graph", 4, 4), ("graph", 1, 4), ("shuffled", 4, 4),
+                                      ("long", 1, 4), ("shuffled", 8, 16)])
+@pytest.mark.parametrize("uniform", [True, False])
+def test_k1_k2_deterministic(cuda, kind, H, D, uniform):
+    """Two launches on the same inputs give the same bits: K1's output and
+    each of K2's four outputs."""
+    tiles = _gat_layout(cuda, kind)
+    args, g = _gat_inputs(tiles, uniform, H, D, cuda, seed=6)
+    assert torch.equal(gf.gat_tile_fused(tiles, *args), gf.gat_tile_fused(tiles, *args))
+    first = gf.gat_tile_fused_bwd(tiles, *args, g)
+    second = gf.gat_tile_fused_bwd(tiles, *args, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k1_k2_refuse_what_they_do_not_take(cuda):
+    tiles = _gat_layout(cuda, "T1")
+    for H, D in ((9, 4), (8, 40), (4, 65)):
+        args, g = _gat_inputs(tiles, True, H, D, cuda)
+        with pytest.raises(ValueError, match="limits"):
+            gf.gat_tile_fused(tiles, *args)
+        with pytest.raises(ValueError, match="limits"):
+            gf.gat_tile_fused_bwd(tiles, *args, g)
+    args, g = _gat_inputs(tiles, True, 4, 4, cuda)
+    with pytest.raises(ValueError, match="shapes"):
+        gf.gat_tile_fused(tiles, args[0][:-1], *args[1:])
 
 
 @pytest.mark.parametrize("D", [4, 16])
