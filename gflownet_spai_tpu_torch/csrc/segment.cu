@@ -1,166 +1,257 @@
-// K3: windowed source-row gather, vals[src] per edge slot, and its
-// transpose K4 (the windowed scatter-add of the backward pass, below); then
-// the tile segment ops K5 (softmax), K6 (sum) and K7 (broadcast) at the end
-// of the file.
+// K3: the windowed source-row gather, vals[src] per edge slot, and its
+// transpose K4 (the scatter-add of the backward pass), each one launch over
+// every slot-width bucket of a layer; then the tile segment ops K5
+// (softmax), K6 (sum) and K7 (broadcast) at the end of the file.
 //
-// Replaces the TPU kernel gflownet_spai_tpu/ops/segment.py
+// K3 replaces the TPU kernel gflownet_spai_tpu/ops/segment.py
 // `_gather_win_kernel` (launched by `_gather_win_pallas`) together with the
-// outlier overwrite that follows it in `_gather_rows_p`.  The TPU has no
-// vector gather, so its kernel turns each tile's gather into onehot matmuls
-// over two W-row windows; a GPU gathers natively, so this kernel reads the
-// same window plan (blk, lsrc) and loads each row directly:
+// outlier overwrite that follows it in `_gather_rows_p`; K4 replaces
+// `_scatter_win_kernel` (launched by `_scatter_win_pallas`) together with
+// the outlier fixup of `_gather_rows_bwd`.  The TPU has no vector gather or
+// scatter, so those turn each tile's rows into onehot matmuls over two
+// W-row windows, one pallas_call per bucket, and patch the outliers
+// afterwards.  A GPU gathers natively.  The wrapper (ops/segment.py
+// `row_plan`) folds the buckets' window plans (blk, lsrc, the outlier
+// lists) once per layout into one effective source row per slot, over the
+// buckets' slots laid end to end (bucket b's from off[b]), with n meaning
+// "no row", and into its inverse in CSR form (row_ptr [n + 1]; each row's
+// slots in ascending order):
 //
-//   out[t*S + s, c] = vals[blk[t]*win + lsrc[t, s], c]   if 0 <= lsrc < 2*win
-//                                                       and the row is < n
-//                   = 0                                  otherwise
+//   K3:  out_b[s - off[b], :] = vals[rows[s], :]    (0 where rows[s] == n)
+//   K4:  dv[r, :] = sum of g_b[s - off[b], :] over the slots s of row r
 //
-// then a second launch writes the outlier list over it:
-//   out[out_slot[o], c] = vals[out_src[o], c]   for out_slot[o] < T*S.
+// What bounds both on an H100: bytes (K3 does no arithmetic, K4 one add per
+// word read), about 5 MB a call on the slice's layout, 1.5 us at 3.35 TB/s:
+// as long as one launch's fixed cost, so one launch serves every bucket,
+// with the buckets' row pointers and slot offsets passed by value.  A
+// thread moves one 16-byte chunk of a row (float4) where D % 4 == 0 and
+// every row pointer is 16-byte aligned, one float otherwise (another
+// instance of the same kernel).
 //
-// What bounds it on an H100: bytes (no arithmetic at all).  One thread per
-// (slot, channel): neighbouring threads write neighbouring output words, so
-// the stores coalesce; the rows read are clustered by the window plan, so
-// the loads hit L1/L2 after the first touch of each window.
+// K4 uses no atomics and no memset.  A thread owns one chunk of one row of
+// dv: it issues the loads of up to kBatch of the row's slot indices, then
+// of their cotangents, then adds them in ascending slot order starting
+// from 0, and writes the row (0 where no slot reads it).  That is the order
+// in which index_add_ on the CPU sums, so the plain version gives the same
+// bits.  A row read by more than kHubSlots slots (a hub) is summed by a
+// warp: lane l adds the row's slots l, l + 32, l + 64, ... in ascending
+// order, then the 32 lane sums merge by an xor butterfly over lane
+// distances 16, 8, 4, 2, 1.  Every order is fixed, so two launches give the
+// same bits.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // K5-K7
+constexpr int kRowThreads = 128;   // K3, K4: small blocks, to spread ~45k rows over every SM
+constexpr int kMaxBuckets = 8;
+constexpr int kHubSlots = 32;      // rows read by more slots are summed by a warp
+constexpr int kBatch = 16;         // slots of a row whose loads are in flight together
 
-__global__ void __launch_bounds__(kThreads)
-gather_win_kernel(const int* __restrict__ lsrc, const int* __restrict__ blk,
-                  const float* __restrict__ vals, float* __restrict__ out,
-                  long long total, int S, int D, int win, int n) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= total) return;
-  const long long slot = i / D;
-  const int c = static_cast<int>(i - slot * D);
-  const int l = lsrc[slot];
-  float v = 0.f;
-  if (l >= 0 && l < 2 * win) {
-    const long long r = static_cast<long long>(blk[slot / S]) * win + l;
-    if (r < n) v = vals[r * D + c];
+// Each bucket's [T_b*S_b, D] slot rows (K3's outputs, K4's cotangents; a
+// null K4 cotangent reads as zeros) and the global slot where it starts.
+struct Buckets {
+  float* ptr[kMaxBuckets];
+  int off[kMaxBuckets];
+  int nb;
+};
+
+template <typename V> struct Chunk;
+
+template <> struct Chunk<float> {
+  static constexpr int kWords = 1;
+  __device__ static float zero() { return 0.f; }
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static float add(float a, float b) { return a + b; }
+  __device__ static float shfl_xor(float a, int m) {
+    return __shfl_xor_sync(0xffffffffu, a, m);
   }
-  out[i] = v;
+};
+
+template <> struct Chunk<float4> {
+  static constexpr int kWords = 4;
+  __device__ static float4 zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static float4 load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float4 add(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+  __device__ static float4 shfl_xor(float4 a, int m) {
+    return make_float4(__shfl_xor_sync(0xffffffffu, a.x, m),
+                       __shfl_xor_sync(0xffffffffu, a.y, m),
+                       __shfl_xor_sync(0xffffffffu, a.z, m),
+                       __shfl_xor_sync(0xffffffffu, a.w, m));
+  }
+};
+
+// The bucket that global slot s lies in: its row pointer, and s's index
+// within it.  Constant indices only, so the table stays in parameter space.
+__device__ __forceinline__ float* bucket_row(const Buckets& bt, int s, int& local) {
+  float* p = bt.ptr[0];
+  int o = 0;
+#pragma unroll
+  for (int b = 1; b < kMaxBuckets; ++b)
+    if (b < bt.nb && s >= bt.off[b]) {
+      p = bt.ptr[b];
+      o = bt.off[b];
+    }
+  local = s - o;
+  return p;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_fix_kernel(const int* __restrict__ out_slot,
-                  const int* __restrict__ out_src,
-                  const float* __restrict__ vals, float* __restrict__ out,
-                  long long total, long long n_slots, int D, int n) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= total) return;
-  const long long o = i / D;
-  const int c = static_cast<int>(i - o * D);
-  const long long slot = out_slot[o];
-  if (slot < 0 || slot >= n_slots) return;   // padding entries are dropped
-  const int src = out_src[o];
-  out[slot * D + c] = (src >= 0 && src < n)
-                          ? vals[static_cast<long long>(src) * D + c] : 0.f;
+template <typename V>
+__device__ __forceinline__ V slot_chunk(const Buckets& bt, int s, int q, int c) {
+  int local;
+  const float* g = bucket_row(bt, s, local);
+  return g ? Chunk<V>::load(g + (static_cast<long long>(local) * q + c) * Chunk<V>::kWords)
+           : Chunk<V>::zero();
 }
 
-// K4, the transpose of K3: one thread per (slot, channel) of the cotangent
-// g; in-window slots add their row into dv[blk*win + lsrc] (rows >= n are
-// dropped), misses and padding add nothing.
-__global__ void __launch_bounds__(kThreads)
-scatter_win_kernel(const int* __restrict__ lsrc, const int* __restrict__ blk,
-                   const float* __restrict__ g, float* __restrict__ dv,
-                   long long total, int S, int D, int win, int n) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+// K3: one thread per (slot, chunk) of the buckets' slots; q chunks a row.
+template <typename V>
+__global__ void __launch_bounds__(kRowThreads)
+gather_rows_kernel(const int* __restrict__ rows, const float* __restrict__ vals,
+                   const Buckets bt, int total, int q, int n) {
+  const int i = blockIdx.x * kRowThreads + threadIdx.x;
   if (i >= total) return;
-  const long long slot = i / D;
-  const int c = static_cast<int>(i - slot * D);
-  const int l = lsrc[slot];
-  if (l < 0 || l >= 2 * win) return;
-  const long long r = static_cast<long long>(blk[slot / S]) * win + l;
-  if (r < n) atomicAdd(&dv[r * D + c], g[i]);
+  const int s = i / q, c = i - s * q;
+  const int r = __ldg(rows + s);
+  const V v = static_cast<unsigned>(r) < static_cast<unsigned>(n)
+                  ? Chunk<V>::load(vals + (static_cast<long long>(r) * q + c) * Chunk<V>::kWords)
+                  : Chunk<V>::zero();
+  int local;
+  float* out = bucket_row(bt, s, local);
+  *reinterpret_cast<V*>(out + (static_cast<long long>(local) * q + c) * Chunk<V>::kWords) = v;
 }
 
-// The outliers' share of K4: dv[out_src[o]] += g[out_slot[o]].
-__global__ void __launch_bounds__(kThreads)
-scatter_fix_kernel(const int* __restrict__ out_slot,
-                   const int* __restrict__ out_src,
-                   const float* __restrict__ g, float* __restrict__ dv,
-                   long long total, long long n_slots, int D, int n) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= total) return;
-  const long long o = i / D;
-  const int c = static_cast<int>(i - o * D);
-  const long long slot = out_slot[o];
-  const int src = out_src[o];
-  if (slot < 0 || slot >= n_slots || src < 0 || src >= n) return;
-  atomicAdd(&dv[static_cast<long long>(src) * D + c], g[slot * D + c]);
+// K4: blocks [0, row_blocks) give a thread to each (row, chunk) of dv and
+// skip hubs; the blocks after them give a warp to each hub row in `hubs`.
+template <typename V>
+__global__ void __launch_bounds__(kRowThreads)
+scatter_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ slots,
+                    const int* __restrict__ hubs, const Buckets bt,
+                    float* __restrict__ dv, int n, int q, int row_blocks, int n_hubs) {
+  constexpr int W = Chunk<V>::kWords;
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    const int i = blockIdx.x * kRowThreads + threadIdx.x;
+    if (i >= n * q) return;
+    const int r = i / q, c = i - r * q;
+    const int beg = __ldg(row_ptr + r), end = __ldg(row_ptr + r + 1);
+    if (end - beg > kHubSlots) return;
+    V acc = Chunk<V>::zero();
+    for (int k0 = beg; k0 < end; k0 += kBatch) {
+      int idx[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) idx[j] = k0 + j < end ? __ldg(slots + k0 + j) : -1;
+      V x[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        x[j] = idx[j] >= 0 ? slot_chunk<V>(bt, idx[j], q, c) : Chunk<V>::zero();
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (k0 + j < end) acc = Chunk<V>::add(acc, x[j]);
+    }
+    *reinterpret_cast<V*>(dv + (static_cast<long long>(r) * q + c) * W) = acc;
+    return;
+  }
+  const int w = ((blockIdx.x - row_blocks) * kRowThreads + threadIdx.x) >> 5;
+  if (w >= n_hubs) return;                      // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int r = __ldg(hubs + w);
+  const int beg = __ldg(row_ptr + r), end = __ldg(row_ptr + r + 1);
+  for (int c = 0; c < q; ++c) {
+    V acc = Chunk<V>::zero();
+    for (int k = beg + lane; k < end; k += 32)
+      acc = Chunk<V>::add(acc, slot_chunk<V>(bt, __ldg(slots + k), q, c));
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) acc = Chunk<V>::add(acc, Chunk<V>::shfl_xor(acc, m));
+    if (lane == 0) *reinterpret_cast<V*>(dv + (static_cast<long long>(r) * q + c) * W) = acc;
+  }
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
+
+// The by-value table from the wrapper's arrays (nb row pointers, nb + 1
+// slot offsets from 0, ascending); false where they do not fit.  `vec`:
+// D % 4 == 0 and every row pointer, `other` (vals or dv) too, is 16-byte
+// aligned, so a thread may move 16-byte chunks.
+bool fill_buckets(Buckets& bt, void* const* ptrs, const int* offs, int nb, int D,
+                  const void* other, bool& vec) {
+  if (nb < 1 || nb > kMaxBuckets || D < 1 || offs[0] != 0) return false;
+  vec = D % 4 == 0 && aligned16(other);
+  for (int b = 0; b < kMaxBuckets; ++b) {
+    const bool used = b < nb;
+    if (used && offs[b + 1] < offs[b]) return false;
+    bt.ptr[b] = used ? static_cast<float*>(ptrs[b]) : nullptr;
+    bt.off[b] = used ? offs[b] : 0;
+    vec = vec && aligned16(bt.ptr[b]);
+  }
+  bt.nb = nb;
+  return true;
+}
+
+bool fits_int(long long a, long long b) { return a >= 0 && b >= 0 && a * b < (1LL << 31); }
 
 }  // namespace
 
-// K4: windowed scatter-add, the VJP of K3.  Replaces the TPU kernel
-// gflownet_spai_tpu/ops/segment.py `_scatter_win_kernel` (launched by
-// `_scatter_win_pallas`) together with the outlier fixup of
-// `_gather_rows_bwd`.  The TPU kernel turns each tile's scatter into
-// [D, S] x [S, W] onehot contractions onto two window partials, then adds
-// the partials per window; a GPU scatters natively, so each (slot,
-// channel) adds straight into the output row with a float atomicAdd:
-//
-//   dv[blk[t]*win + lsrc[t, s], c] += g[t*S + s, c]   (in-window, row < n)
-//   dv[out_src[o], c]             += g[out_slot[o], c] (out_slot < T*S)
-//
-// dv [n, D] must be zero on entry (the wrapper allocates it with zeros).
-// What bounds it on an H100: bytes (one add per input word).  Neighbouring
-// threads read neighbouring words of g; the rows they add into cluster by
-// the window plan, so the atomics resolve in L2.  The atomics make the
-// order of each row's sum run-dependent: results differ from a sequential
-// sum by rounding only.
-extern "C" int scatter_rows_windows_bwd(const void* lsrc, const void* blk,
-                                        const void* out_slot,
-                                        const void* out_src, const void* g,
-                                        void* dv, int T, int S, int D,
-                                        int win, int n, int n_out,
-                                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(T) * S * D;
+// K3 over nb buckets: rows int32 [offs[nb]] (the effective source rows),
+// vals [n, D], outs[b] [offs[b + 1] - offs[b], D].
+extern "C" int gather_rows_buckets_fwd(const void* rows, const void* vals,
+                                       void* const* outs, const int* offs, int nb,
+                                       int D, int n, void* stream) {
+  Buckets bt;
+  bool vec = false;
+  if (!fill_buckets(bt, outs, offs, nb, D, vals, vec) || !fits_int(offs[nb], D) ||
+      !fits_int(n, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q = vec ? D / 4 : D;
+  const int total = offs[nb] * q;
   if (total > 0) {
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    scatter_win_kernel<<<blocks, kThreads, 0, st>>>(
-        static_cast<const int*>(lsrc), static_cast<const int*>(blk),
-        static_cast<const float*>(g), static_cast<float*>(dv), total, S, D,
-        win, n);
-  }
-  const long long fix_total = static_cast<long long>(n_out) * D;
-  if (fix_total > 0) {
-    const unsigned blocks = static_cast<unsigned>((fix_total + kThreads - 1) / kThreads);
-    scatter_fix_kernel<<<blocks, kThreads, 0, st>>>(
-        static_cast<const int*>(out_slot), static_cast<const int*>(out_src),
-        static_cast<const float*>(g), static_cast<float*>(dv), fix_total,
-        static_cast<long long>(T) * S, D, n);
+    const unsigned blocks = static_cast<unsigned>((total + kRowThreads - 1) / kRowThreads);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* r = static_cast<const int*>(rows);
+    const float* v = static_cast<const float*>(vals);
+    if (vec)
+      gather_rows_kernel<float4><<<blocks, kRowThreads, 0, st>>>(r, v, bt, total, q, n);
+    else
+      gather_rows_kernel<float><<<blocks, kRowThreads, 0, st>>>(r, v, bt, total, q, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gather_rows_windows_fwd(const void* lsrc, const void* blk,
-                                       const void* out_slot,
-                                       const void* out_src, const void* vals,
-                                       void* out, int T, int S, int D,
-                                       int win, int n, int n_out,
-                                       void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(T) * S * D;
-  if (total > 0) {
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    gather_win_kernel<<<blocks, kThreads, 0, st>>>(
-        static_cast<const int*>(lsrc), static_cast<const int*>(blk),
-        static_cast<const float*>(vals), static_cast<float*>(out), total, S, D,
-        win, n);
-  }
-  const long long fix_total = static_cast<long long>(n_out) * D;
-  if (fix_total > 0) {
-    const unsigned blocks = static_cast<unsigned>((fix_total + kThreads - 1) / kThreads);
-    gather_fix_kernel<<<blocks, kThreads, 0, st>>>(
-        static_cast<const int*>(out_slot), static_cast<const int*>(out_src),
-        static_cast<const float*>(vals), static_cast<float*>(out), fix_total,
-        static_cast<long long>(T) * S, D, n);
+// K4 over nb buckets: row_ptr int32 [n + 1], slots int32 [row_ptr[n]] (the
+// global slots of each row, ascending), hubs int32 [n_hubs] (the rows read
+// by more than kHubSlots slots), gs[b] [offs[b + 1] - offs[b], D] or null
+// (zeros) -> dv [n, D], every row written.
+extern "C" int scatter_rows_buckets_bwd(const void* row_ptr, const void* slots,
+                                        const void* hubs, void* const* gs,
+                                        const int* offs, int nb, int D, int n,
+                                        int n_hubs, void* dv, void* stream) {
+  Buckets bt;
+  bool vec = false;
+  if (!fill_buckets(bt, gs, offs, nb, D, dv, vec) || !fits_int(offs[nb], D) ||
+      !fits_int(n, D) || !fits_int(n_hubs, 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q = vec ? D / 4 : D;
+  const int row_blocks = (n * q + kRowThreads - 1) / kRowThreads;
+  const int hub_blocks = (n_hubs * 32 + kRowThreads - 1) / kRowThreads;
+  if (row_blocks + hub_blocks > 0) {
+    const unsigned blocks = static_cast<unsigned>(row_blocks + hub_blocks);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* rp = static_cast<const int*>(row_ptr);
+    const int* sl = static_cast<const int*>(slots);
+    const int* hb = static_cast<const int*>(hubs);
+    float* out = static_cast<float*>(dv);
+    if (vec)
+      scatter_rows_kernel<float4><<<blocks, kRowThreads, 0, st>>>(
+          rp, sl, hb, bt, out, n, q, row_blocks, n_hubs);
+    else
+      scatter_rows_kernel<float><<<blocks, kRowThreads, 0, st>>>(
+          rp, sl, hb, bt, out, n, q, row_blocks, n_hubs);
   }
   return static_cast<int>(cudaGetLastError());
 }

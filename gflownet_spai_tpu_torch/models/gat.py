@@ -9,7 +9,7 @@ output.  Two substrates with the same semantics:
 * ``gatv2_apply_tiled`` — the node-tile layout (``ops.segment``): for
   edge_dim = 1 the fused tile kernel K1, for wider edge features the
   unfused segment softmax (K5), sum (K6) and broadcast (K7); for
-  non-uniform layers the windowed gather K3.
+  non-uniform layers the windowed gather K3 (one launch for every bucket).
 
 Parameters keep the JAX layout (``w_src`` is [in, H·out], and so on).
 """
@@ -21,8 +21,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops.gat_fused import gat_tile_fused
-from ..ops.segment import (gather_rows_windows, segment_broadcast_tiles,
-                           segment_softmax_tiles_mh, segment_sum_tiles)
+from ..ops.segment import (gather_rows_buckets, gather_rows_windows,
+                           segment_broadcast_tiles, segment_softmax_tiles_mh,
+                           segment_sum_tiles)
 
 
 class GATv2Params(NamedTuple):
@@ -117,9 +118,10 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
     declares uniform node features (layer 1 of the policy): xs/xd are one
     broadcast row each.  Non-uniform source rows are gathered by K3 through
     the window plan, which such layers must be given (``srcwin``, or each
-    bucket's).  With edge_dim = 1 each bucket (or the single layout) is one
-    K1 launch; wider edge features take the unfused chain on the single
-    layout (``buckets`` unused), as the JAX package does."""
+    bucket's: then one K3 launch serves every bucket).  With edge_dim = 1
+    each bucket (or the single layout) is one K1 launch; wider edge
+    features take the unfused chain on the single layout (``buckets``
+    unused), as the JAX package does."""
     H, D = heads, out_dim
     HD = H * D
     T = tiles.tiles
@@ -147,16 +149,18 @@ def gatv2_apply_tiled(p: GATv2Params, x: torch.Tensor, tiles, src_t, dst_t,
         # through global tile order with one [T_b, TN, HD] gather/scatter
         TN = tiles.tile_nodes
         xd_r = None
+        xs_b = (xs,) * len(buckets)
         if not uniform:
             xd_r = torch.nn.functional.pad(
                 xd, (0, 0, 0, tiles.n_pad - xd.shape[0])).reshape(T, TN, HD)
+            # every bucket's source rows in one K3 launch (one K4 backward)
+            xs_b = gather_rows_buckets(tuple(bk.srcwin for bk in buckets), xs)
         out_r = xs.new_zeros((T, TN, HD))
-        for bk in buckets:
+        for bk, xs_slot in zip(buckets, xs_b):
             tb = bk.tiles
             idx = bk.tile_idx.long()
             xd_b = xd if uniform else xd_r[idx].reshape(tb.n_pad, HD)
-            out_b = gat_tile_fused(tb, bk.attr_t.reshape(-1),
-                                   src_rows(bk.srcwin, tb, bk.src_t), xd_b,
+            out_b = gat_tile_fused(tb, bk.attr_t.reshape(-1), xs_slot, xd_b,
                                    w_e, att, negative_slope=negative_slope)
             out_r[idx] = out_b.reshape(tb.tiles, TN, HD)
         out = out_r.reshape(tiles.n_pad, HD)[:num_nodes]

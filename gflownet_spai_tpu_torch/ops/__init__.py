@@ -19,9 +19,11 @@ from .gat_fused import (gat_tile_fused, gat_tile_fused_bwd,
                         gat_tile_fused_bwd_ref, gat_tile_fused_ref)
 from .rcm import bandwidth, n_diagonals
 from .scan import linear_scan, suffix_logsumexp
-from .segment import (SegBuckets, SegTiles, SrcWindows, build_seg_buckets,
+from .segment import (RowPlan, SegBuckets, SegTiles, SrcWindows, build_seg_buckets,
                       build_seg_tiles, build_src_windows, from_tiles,
-                      gather_rows_windows, gather_rows_windows_ref,
+                      gather_rows_buckets, gather_rows_buckets_ref,
+                      gather_rows_windows, gather_rows_windows_ref, row_plan,
+                      scatter_rows_buckets, scatter_rows_buckets_ref,
                       scatter_rows_windows, scatter_rows_windows_ref,
                       segment_broadcast_tiles, segment_broadcast_tiles_ref,
                       segment_max_tiles_ref, segment_softmax_tiles,
@@ -37,10 +39,12 @@ __all__ = [
     "spmv_dia_pingpong", "spmv_dia_power", "spmv_dia_power_rhs", "spmv_dia_ref",
     "gat_tile_fused", "gat_tile_fused_bwd", "gat_tile_fused_bwd_ref",
     "gat_tile_fused_ref", "bandwidth", "n_diagonals", "linear_scan",
-    "suffix_logsumexp", "SegBuckets", "SegTiles", "SrcWindows",
+    "suffix_logsumexp", "RowPlan", "SegBuckets", "SegTiles", "SrcWindows",
     "build_seg_buckets", "build_seg_tiles", "build_src_windows",
-    "gather_rows_windows", "gather_rows_windows_ref", "scatter_rows_windows",
-    "scatter_rows_windows_ref", "to_tiles", "from_tiles",
+    "gather_rows_buckets", "gather_rows_buckets_ref", "gather_rows_windows",
+    "gather_rows_windows_ref", "row_plan", "scatter_rows_buckets",
+    "scatter_rows_buckets_ref", "scatter_rows_windows", "scatter_rows_windows_ref",
+    "to_tiles", "from_tiles",
     "segment_broadcast_tiles", "segment_broadcast_tiles_ref", "segment_max_tiles_ref",
     "segment_softmax_tiles", "segment_softmax_tiles_mh", "segment_softmax_tiles_ref",
     "segment_sum_tiles", "segment_sum_tiles_ref",

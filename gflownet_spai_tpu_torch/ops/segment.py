@@ -8,7 +8,8 @@ destination node into tiles of ``TN`` consecutive nodes × ``S`` slots
 (``ops.gat_fused``) consumes them, and so do the unfused segment ops of
 the generic GAT layer: softmax (K5), sum (K6) and node → slot broadcast
 (K7), each differentiable with the JAX package's custom VJP.  The layer-2
-source-row gather is K3 and its transpose K4.  All five run as CUDA
+source-row gather is K3 and its transpose K4, each one launch over every
+bucket of a layer (``gather_rows_buckets``).  All five run as CUDA
 kernels (``csrc/segment.cu``) on CUDA tensors; on CPU tensors each
 computes its plain version (``*_ref``).
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -361,7 +363,7 @@ def segment_broadcast_tiles(tiles: SegTiles, node_vals: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# Windowed source-row gather (K3)
+# Windowed source-row gather (K3) and its scatter-add transpose (K4)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -474,21 +476,75 @@ def scatter_rows_windows_ref(plan: SrcWindows, g: torch.Tensor,
     """Plain version of K4, the transpose of ``gather_rows_windows``:
     ``dv[r] = Σ_{slots s reading row r} g[s]`` → [n, D], one
     ``index_add_`` over the plan's effective rows."""
-    rows = effective_rows(plan, n)
-    dv = g.new_zeros((n + 1, g.shape[-1]))
-    return dv.index_add_(0, rows, g)[:n]
+    return scatter_rows_buckets_ref((plan,), (g,), n)
 
 
-def _check_plan(plan: SrcWindows, device, what: str):
-    T, S = plan.lsrc.shape
-    idx = (plan.lsrc, plan.blk, plan.out_slot, plan.out_src)
-    for a in idx:
-        if a.device != device or a.dtype != torch.int32 or not a.is_contiguous():
-            raise ValueError(f"{what}: plan arrays must be contiguous int32 "
-                             "tensors on the device of the values")
-    if plan.blk.shape != (T,):
-        raise ValueError(f"{what}: plan shapes do not fit the kernel")
-    return T, S, idx
+def gather_rows_buckets_ref(plans, vals: torch.Tensor) -> list:
+    """Plain version of the all-bucket K3: ``gather_rows_windows_ref`` of
+    each bucket's plan."""
+    return [gather_rows_windows_ref(p, None, vals) for p in plans]
+
+
+def scatter_rows_buckets_ref(plans, gs, n: int) -> torch.Tensor:
+    """Plain version of the all-bucket K4: the buckets' slot cotangents
+    (None for zeros) as one ``index_add_`` onto [n, D] over their effective
+    rows laid end to end; on the CPU it adds each row's slots in slot
+    order."""
+    ref = next(g for g in gs if g is not None)
+    D = ref.shape[-1]
+    rows = torch.cat([effective_rows(p, n) for p in plans])
+    g = torch.cat([ref.new_zeros((p.lsrc.numel(), D)) if g is None else g
+                   for p, g in zip(plans, gs)])
+    return ref.new_zeros((n + 1, D)).index_add_(0, rows, g)[:n]
+
+
+_MAX_BUCKETS = 8        # kMaxBuckets in csrc/segment.cu
+_HUB_SLOTS = 32         # kHubSlots: rows read by more slots are summed by a warp
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """The slots of one or more window plans laid end to end (plan b's from
+    ``offsets[b]``) and the source rows they read.  ``rows``: int32
+    [offsets[-1]], each slot's effective source row (``n``: none);
+    ``row_ptr``: int32[n + 1], row r's slots are ``slots[row_ptr[r]:
+    row_ptr[r + 1]]``, ascending; ``hubs``: int32, the rows read by more
+    than ``_HUB_SLOTS`` slots."""
+
+    offsets: tuple
+    rows: torch.Tensor
+    row_ptr: torch.Tensor
+    slots: torch.Tensor
+    hubs: torch.Tensor
+    n: int
+
+
+_ROW_PLANS = WeakIdKeyDictionary()   # plans[0].lsrc → [(lsrc weakrefs, n, RowPlan)]
+
+
+def row_plan(plans, n: int) -> RowPlan:
+    """The ``RowPlan`` of ``plans`` (one ``SrcWindows`` per bucket) over
+    ``n`` source rows, on the plans' device.  Derived once per layout (the
+    plans' lsrc tensors) and ``n``, then cached; K3 and K4 derive it at
+    their first call, so a CUDA graph that captures them finds it built."""
+    entries = _ROW_PLANS.setdefault(plans[0].lsrc, [])
+    for refs, m, rp in entries:
+        if m == n and len(refs) == len(plans) \
+                and all(r() is p.lsrc for r, p in zip(refs, plans)):
+            return rp
+    rows = torch.cat([effective_rows(p, n) for p in plans])
+    counts = torch.bincount(rows, minlength=n + 1)[:n]
+    row_ptr = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    row_ptr[1:] = counts.cumsum(0)
+    order = torch.sort(rows, stable=True).indices        # by row, then slot
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    rp = RowPlan(offsets=tuple(int(x) for x in np.cumsum(
+                     [0] + [p.lsrc.numel() for p in plans])),
+                 rows=i32(rows), row_ptr=i32(row_ptr),
+                 slots=i32(order[:int(row_ptr[n])]),
+                 hubs=i32(torch.nonzero(counts > _HUB_SLOTS).reshape(-1)), n=n)
+    entries.append((tuple(weakref.ref(p.lsrc) for p in plans), n, rp))
+    return rp
 
 
 def _check_rows(x: torch.Tensor, what: str):
@@ -499,78 +555,132 @@ def _check_rows(x: torch.Tensor, what: str):
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
 
 
-_WIN_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def _cuda_row_plan(plans, n: int, D: int, device, what: str) -> RowPlan:
+    """The plans' ``RowPlan`` after the checks K3 and K4 share."""
+    if not 1 <= len(plans) <= _MAX_BUCKETS:
+        raise ValueError(f"{what}: {len(plans)} buckets; the kernel takes 1 to "
+                         f"{_MAX_BUCKETS}")
+    if any(p.lsrc.device != device for p in plans):
+        raise ValueError(f"{what}: the window plans must be on {device}")
+    rp = row_plan(plans, n)
+    if rp.offsets[-1] * D >= 2**31 or n * D >= 2**31:
+        raise ValueError(f"{what}: {rp.offsets[-1]} slots or {n} rows of width "
+                         f"{D} do not fit the kernel's int32 indices")
+    return rp
 
 
-def _seg_fn(name: str, argtypes=_WIN_ARGTYPES):
-    fn = getattr(_build.load("segment"), name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+_P, _INTS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_GATHER_ARGTYPES = [_P, _P, _PTRS, _INTS] + [ctypes.c_int] * 3 + [_P]
+_SCATTER_ARGTYPES = [_P, _P, _P, _PTRS, _INTS] + [ctypes.c_int] * 4 + [_P, _P]
+_FNS: dict = {}
+
+
+def _seg_fn(name: str, argtypes):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.load("segment"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 
-def _gather_fwd(plan: SrcWindows, tiles: SegTiles, vals: torch.Tensor):
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
+def _table(rp: RowPlan, ptrs):
+    """The kernel's per-bucket table: row pointers (0 for zeros) and slot
+    offsets."""
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(rp.offsets))(*rp.offsets))
+
+
+def _gather_fwd(plans, vals: torch.Tensor) -> list:
+    """K3 over every bucket in one launch on CUDA tensors, the plain
+    versions on CPU tensors."""
     if vals.device.type == "cpu":
-        return gather_rows_windows_ref(plan, tiles, vals)
-    _check_rows(vals, "gather_rows_windows")
-    T, S, idx = _check_plan(plan, vals.device, "gather_rows_windows")
+        return gather_rows_buckets_ref(plans, vals)
+    _check_rows(vals, "gather_rows_buckets")
     n, D = vals.shape
-    if T * S * D >= 2**31:
-        raise ValueError("gather_rows_windows: plan shapes do not fit the kernel")
-    out = torch.empty((T * S, D), dtype=vals.dtype, device=vals.device)
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    _build.check(_seg_fn("gather_rows_windows_fwd")(
-        *(a.data_ptr() for a in idx), vals.data_ptr(), out.data_ptr(),
-        T, S, D, plan.win, n, plan.out_slot.shape[0], stream),
-        "gather_rows_windows")
+    rp = _cuda_row_plan(plans, n, D, vals.device, "gather_rows_buckets")
+    outs = [torch.empty((p.lsrc.numel(), D), dtype=vals.dtype, device=vals.device)
+            for p in plans]
+    ptrs, offs = _table(rp, [o.data_ptr() for o in outs])
+    _build.check(_seg_fn("gather_rows_buckets_fwd", _GATHER_ARGTYPES)(
+        rp.rows.data_ptr(), vals.data_ptr(), ptrs, offs, len(plans), D, n,
+        torch.cuda.current_stream(vals.device).cuda_stream), "gather_rows_buckets")
     gather_rows_windows.launches += 1
-    return out
+    return outs
 
 
-def scatter_rows_windows(plan: SrcWindows, g: torch.Tensor, n: int) -> torch.Tensor:
-    """K4: the windowed scatter-add of [T·S, D] slot cotangents ``g`` onto
-    [n, D] source rows, the outlier fixup included.  CUDA tensors launch
-    ``csrc/segment.cu``; CPU tensors take ``scatter_rows_windows_ref``."""
-    if g.device.type == "cpu":
-        return scatter_rows_windows_ref(plan, g, n)
-    _check_rows(g, "scatter_rows_windows")
-    T, S, idx = _check_plan(plan, g.device, "scatter_rows_windows")
-    D = g.shape[1]
-    if g.shape[0] != T * S or T * S * D >= 2**31 or n * D >= 2**31:
-        raise ValueError(f"scatter_rows_windows: g {tuple(g.shape)} does not "
-                         f"fit the plan (T={T}, S={S}) or the kernel")
-    dv = torch.zeros((n, D), dtype=g.dtype, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    _build.check(_seg_fn("scatter_rows_windows_bwd")(
-        *(a.data_ptr() for a in idx), g.data_ptr(), dv.data_ptr(),
-        T, S, D, plan.win, n, plan.out_slot.shape[0], stream),
-        "scatter_rows_windows")
+def scatter_rows_buckets(plans, gs, n: int):
+    """K4 over every bucket: the buckets' [T_b·S_b, D] slot cotangents
+    ``gs`` (None for zeros) scattered onto [n, D] source rows, the outlier
+    fixup included, in one launch of ``csrc/segment.cu`` on CUDA tensors;
+    ``scatter_rows_buckets_ref`` on CPU tensors.  None where every
+    cotangent is None."""
+    live = [g for g in gs if g is not None]
+    if not live:
+        return None
+    if live[0].device.type == "cpu":
+        return scatter_rows_buckets_ref(plans, gs, n)
+    D = live[0].shape[1]
+    rp = _cuda_row_plan(plans, n, D, live[0].device, "scatter_rows_buckets")
+    for p, g in zip(plans, gs):
+        if g is not None:
+            _check_rows(g, "scatter_rows_buckets")
+            if g.device != live[0].device or tuple(g.shape) != (p.lsrc.numel(), D):
+                raise ValueError(f"scatter_rows_buckets: g {tuple(g.shape)} on "
+                                 f"{g.device} does not fit its plan's "
+                                 f"{p.lsrc.numel()} slots of width {D}")
+    dv = torch.empty((n, D), dtype=live[0].dtype, device=live[0].device)
+    ptrs, offs = _table(rp, [0 if g is None else g.data_ptr() for g in gs])
+    _build.check(_seg_fn("scatter_rows_buckets_bwd", _SCATTER_ARGTYPES)(
+        rp.row_ptr.data_ptr(), rp.slots.data_ptr(), rp.hubs.data_ptr(), ptrs, offs,
+        len(plans), D, n, rp.hubs.numel(), dv.data_ptr(),
+        torch.cuda.current_stream(dv.device).cuda_stream), "scatter_rows_buckets")
     scatter_rows_windows.launches += 1
     return dv
 
 
-class _GatherRowsWindows(torch.autograd.Function):
-    """K3 forward, K4 backward (``_gather_rows_p`` and its VJP in JAX)."""
+def scatter_rows_windows(plan: SrcWindows, g: torch.Tensor, n: int) -> torch.Tensor:
+    """K4 on one layout: the windowed scatter-add of [T·S, D] slot
+    cotangents ``g`` onto [n, D] source rows (``scatter_rows_buckets`` with
+    one bucket)."""
+    return scatter_rows_buckets((plan,), (g,), n)
+
+
+class _GatherRowsBuckets(torch.autograd.Function):
+    """K3 forward over every bucket, K4 backward (``_gather_rows_p`` and
+    its VJP in JAX, there once per bucket); one output per bucket."""
 
     @staticmethod
-    def forward(ctx, vals, plan, tiles):
-        ctx.plan, ctx.n = plan, vals.shape[0]
-        return _gather_fwd(plan, tiles, vals)
+    def forward(ctx, vals, plans):
+        ctx.plans, ctx.n = plans, vals.shape[0]
+        ctx.set_materialize_grads(False)
+        return tuple(_gather_fwd(plans, vals))
 
     @staticmethod
-    def backward(ctx, g):
-        return scatter_rows_windows(ctx.plan, g.contiguous(), ctx.n), None, None
+    def backward(ctx, *gs):
+        gs = tuple(None if g is None else g.contiguous() for g in gs)
+        return scatter_rows_buckets(ctx.plans, gs, ctx.n), None
+
+
+def gather_rows_buckets(plans, vals: torch.Tensor) -> tuple:
+    """``vals[src_t]`` of every bucket of a layer: one [T_b·S_b, D] slot-row
+    tensor per bucket's window plan in ``plans`` (at most 8), each equal to
+    ``gather_rows_windows`` of that bucket.  One K3 launch on CUDA tensors,
+    and one K4 launch for the gradient in ``vals``; the plain versions on
+    CPU tensors."""
+    return _GatherRowsBuckets.apply(vals, tuple(plans))
 
 
 def gather_rows_windows(plan: SrcWindows, tiles: SegTiles, src_t,
                         vals: torch.Tensor) -> torch.Tensor:
     """``vals[src_t]`` as [T·S, D] slot rows through the window plan (same
-    signature and result as the JAX function with ``interpret=True``).
-    Differentiable in ``vals``: the forward is K3 and the backward K4
-    (``csrc/segment.cu``) on CUDA tensors, their plain versions on CPU
-    tensors.  ``src_t`` is the JAX signature's; the plan carries the rows."""
-    del src_t
-    return _GatherRowsWindows.apply(vals, plan, tiles)
+    signature and result as the JAX function with ``interpret=True``):
+    ``gather_rows_buckets`` with one bucket, differentiable in ``vals``.
+    ``src_t`` and ``tiles`` are the JAX signature's; the plan carries the
+    rows."""
+    del tiles, src_t
+    return gather_rows_buckets((plan,), vals)[0]
 
 
 gather_rows_windows.launches = 0
