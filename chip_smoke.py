@@ -110,13 +110,18 @@ Phases (any failure exits non-zero before the result line):
                uniform tile layout, at every width the generic GAT layer
                gives them (K5 at 4 and 1 heads, K6 and K7 at 16, 4 and 1
                features); times as [dia], library calls index_add_ (K6)
-               and index_select (K7).
+               and index_select (K7); per width the kernel's share of its
+               bound and its time over the launch floor; K6 also at every
+               slot-lane count its rule can pick ([K6-plans]).
 19. gat-generic — launch counters to 0, a two-layer generic GATv2 stack
                (edge_dim 2, the forward policy's widths) forward and the
                gradient of sum(c * out) on orsirr_like150's tile graph,
                counters read (K3-K7 each launched); output and gradients
                against the per-edge path on the card and in float64 on the
-               CPU; ms per forward and per forward + backward.
+               CPU; ms per forward and per forward + backward; a
+               ``torch.profiler`` reading of forward + backward passes
+               (device busy, idle share, the device operations with the
+               most time).
 20. bell     — launch counters to 0, ``spmm_bell`` at docs/BENCH.md's
                block-ELL configuration (4096^2, 2% of the (8,128) blocks,
                K = 256), at blockshapes (32,128) and (128,128), and on a
@@ -862,19 +867,19 @@ def phase_step_breakdown(cfg, env, graph, mcfg, opt, state, reps=3):
     return parts
 
 
-def phase_profile(cfg, env, graph, mcfg, opt, state, steps=3):
-    """``torch.profiler`` over a few real train steps: the device's busy
-    share of the wall time and the operators that take the most host and
-    device time."""
+def _profiled(fn, steps):
+    """``fn`` run ``steps`` times under ``torch.profiler`` after one
+    warm-up call: wall ms (host clock, synchronised) and device busy ms per
+    call, and the device kernels and the host operators (self CPU) with the
+    most ms per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = make_train_step(cfg, env, graph, mcfg, opt)
-    state, _ = step(state)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _ = step(state)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     cuda = torch.autograd.DeviceType.CUDA
@@ -882,17 +887,29 @@ def phase_profile(cfg, env, graph, mcfg, opt, state, steps=3):
                   if e.device_type == cuda) / 1e3 / steps
     ka = prof.key_averages()
     top = lambda rows, key: "; ".join(
-        f"{e.key[:56]} {key(e) / 1e3 / steps:.3f}"
+        f"{e.key[:56]} {key(e) / 1e3 / steps:.4f}"
         for e in sorted(rows, key=key, reverse=True)[:8])
-    kernels = [e for e in ka if e.device_type == cuda]
-    ops = [e for e in ka if e.device_type != cuda]
+    return (wall_ms, busy_ms,
+            top([e for e in ka if e.device_type == cuda], lambda e: e.device_time_total),
+            top([e for e in ka if e.device_type != cuda], lambda e: e.self_cpu_time_total))
+
+
+def phase_profile(cfg, env, graph, mcfg, opt, state, steps=3):
+    """``torch.profiler`` over a few real train steps: the device's busy
+    share of the wall time and the operators that take the most host and
+    device time."""
+    step = make_train_step(cfg, env, graph, mcfg, opt)
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0])
+
+    wall_ms, busy_ms, kernels, ops = _profiled(run, steps)
     print(f"[profile] {steps} train steps under torch.profiler: {wall_ms:.3f} "
           f"ms/step wall, device busy {busy_ms:.3f} ms/step (idle share "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%)", flush=True)
-    print(f"[profile] kernels with the most device ms/step: "
-          f"{top(kernels, lambda e: e.device_time_total)}", flush=True)
-    print(f"[profile] operators with the most host (self CPU) ms/step: "
-          f"{top(ops, lambda e: e.self_cpu_time_total)}", flush=True)
+    print(f"[profile] kernels with the most device ms/step: {kernels}", flush=True)
+    print(f"[profile] operators with the most host (self CPU) ms/step: {ops}", flush=True)
 
 
 def phase_restore(run_dir: Path):
@@ -2043,6 +2060,7 @@ GEN_HEADS, GEN_HIDDEN, GEN_EDGE_DIM = 4, 4, 2   # the forward policy's widths
 # stack, by feature width (layer 1: heads 4 x 4 on the uniform x; layer 2:
 # heads 1 x 4 through K3 and K7)
 GEN_CALLS = {"K5": {4: 1, 1: 1}, "K6": {16: 1, 4: 3, 1: 1}, "K7": {16: 1, 4: 3, 1: 1}}
+GEN_PROFILED = 5            # forward + backward passes under torch.profiler
 SEG_COUNTERS = {"K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows,
                 "K5": seg.segment_softmax_tiles_mh, "K6": seg.segment_sum_tiles,
                 "K7": seg.segment_broadcast_tiles}
@@ -2063,6 +2081,30 @@ def _elementwise(got, want, bound, what):
         f"of the elementwise bound)"
 
 
+def _k6_plans(tiles, width, xs, check):
+    """K6 at every slot-lane count R its rule can pick (outputs held by
+    ``check`` first), timed as ``_timed`` times it (graph replays cycling
+    through the input copies ``xs``), beside the rule's pick.  Skipped for
+    a package without K6's lane plan (an older checkout that this script
+    times beside the current one)."""
+    rule = getattr(seg, "_sum_lanes", None)
+    if rule is None:
+        return
+    fns = [functools.partial(seg.segment_sum_tiles, tiles, x) for x in xs]
+    q = width // 4 if width % 4 == 0 else width
+    run = seg._mean_run(tiles)
+    times = []
+    for R in (1, 2, 4, 8):
+        seg._sum_lanes = lambda q, mean_run, R=R: (min(seg._pow2(q), 32 // R), R)
+        try:
+            check(fns[0]())
+            times.append(f"R{R} {graph_ms(_cycle(fns), 20):.5f}")
+        finally:
+            seg._sum_lanes = rule
+    print(f"[K6-plans] D {width}, mean run {run:.2f}: " + ", ".join(times)
+          + f" ms (the rule picks R{rule(q, run)[1]})", flush=True)
+
+
 def phase_segment(graph, dev):
     """K5, K6 and K7 against their plain versions at orsirr_like150's
     uniform tile layout, at every width the generic stack gives them."""
@@ -2074,9 +2116,10 @@ def phase_segment(graph, dev):
     ones = torch.ones((T, S, 1), device=dev)
     run_len = seg.segment_broadcast_tiles_ref(
         tiles, seg.segment_sum_tiles_ref(tiles, ones).reshape(T, TN, 1))   # [T, S, 1]
+    floor = launch_floor()
     print(f"[segment] {MATRIX} uniform layout: T {T}, S {S}, TN {TN}, {real} real "
           f"slots of {T * S}, {nodes} nodes with slots, longest run "
-          f"{int(run_len.max())}", flush=True)
+          f"{int(run_len.max())}; launch floor {floor:.5f} ms", flush=True)
     out = {}
     for key, width in (("K5", 4), ("K5", 1), ("K6", 16), ("K6", 4), ("K6", 1),
                        ("K7", 16), ("K7", 4), ("K7", 1)):
@@ -2095,7 +2138,8 @@ def phase_segment(graph, dev):
             plain = lambda x: seg.segment_sum_tiles_ref(tiles, x)
             want = plain(xs[0])
             bound = SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * plain(xs[0].abs())
-            nbytes, ops = 4 * (T * S + real * width + T * TN * width), real * width
+            # the layout enters as its run starts [T, TN + 1], derived once
+            nbytes, ops = 4 * (T * (TN + 1) + real * width + T * TN * width), real * width
             lib = lambda x: torch.zeros((T * (TN + 1), width), device=dev).index_add_(
                 0, rows, x.reshape(-1, width))
         else:
@@ -2137,9 +2181,16 @@ def phase_segment(graph, dev):
             label = f"D {width}, [{T}, {S}, {width}] -> [{T}, {TN}, {width}]"
         else:
             label = f"D {width}, [{T}, {TN}, {width}] -> [{T}, {S}, {width}]"
-        out[(key, width)] = _timed(key, label, checked, err,
-                                   lambda i: (lambda: call(xs[i])), lambda: plain(xs[0]),
-                                   nbytes, ops, make_lib, lib_name, reps=20)
+        rec = out[(key, width)] = _timed(key, label, checked, err,
+                                         lambda i: (lambda: call(xs[i])),
+                                         lambda: plain(xs[0]), nbytes, ops, make_lib,
+                                         lib_name, reps=20)
+        print(f"[{key}] {label.split(',')[0]}: {100 * rec['bound'][0] / rec['ms']:.1f}% "
+              f"of its bound, {rec['ms'] / floor:.2f}x the launch floor {floor:.5f} ms",
+              flush=True)
+        if key == "K6":
+            _k6_plans(tiles, width, xs, lambda got, want=want, bound=bound: _elementwise(
+                got, want, bound, f"K6 at width {width}, forced plan"))
     # per kernel: the sums over one forward + backward of the generic stack
     total = {}
     for key, calls in GEN_CALLS.items():
@@ -2254,6 +2305,11 @@ def phase_gat_generic(seed, graph, dev):
           f"{fwd_ms:.4f} ms per forward, {step_ms:.4f} ms per forward + backward "
           f"(eager, CUDA events); launches in one forward + backward {launches}",
           flush=True)
+    wall, busy, kernels, _ = _profiled(lambda: _grads(tiled, ps, c), GEN_PROFILED)
+    print(f"[gat-generic] torch.profiler over {GEN_PROFILED} forward + backward: "
+          f"{wall:.4f} ms wall, device busy {busy:.4f} ms (idle share "
+          f"{100 * (1 - busy / wall):.1f}%) per forward + backward; device "
+          f"operations with the most ms per forward + backward: {kernels}", flush=True)
     return launches
 
 

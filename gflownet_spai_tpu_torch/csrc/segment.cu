@@ -45,7 +45,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // K5-K7
+constexpr int kThreads = 256;      // K5
 constexpr int kRowThreads = 128;   // K3, K4: small blocks, to spread ~45k rows over every SM
 constexpr int kMaxBuckets = 8;
 constexpr int kHubSlots = 32;      // rows read by more slots are summed by a warp
@@ -268,26 +268,50 @@ extern "C" int scatter_rows_buckets_bwd(const void* row_ptr, const void* slots,
 // segment op as masked reductions and onehot matmuls: O(TN.S) work per tile
 // for O(S) data.  The layout builders write each tile's local_dst
 // non-decreasing with padding last, so each node's slots are one contiguous
-// run [start, end); these kernels walk the runs instead, O(S.D) per tile, and
-// sum each run in slot order, so the results are deterministic.  The wrapper
-// checks the run invariant once per layout and refuses one that breaks it.
+// run [start, end), and its rows of a [T, S, D] slot array one contiguous
+// span of (end - start).D floats; these kernels walk the runs instead,
+// O(S.D) per tile, in a fixed order, so the results are deterministic.  The
+// wrapper checks the run invariant once per layout and refuses a layout that
+// breaks it (K5, K6).
 //
-// One block per tile.  tile_runs() finds every node's run in shared memory;
-// then
-//   K5: a thread per (node, head) takes the run's max, the sum of exp and
-//       writes exp(s - max) / max(sum, 1e-30); padding slots get 0 (the TPU
-//       kernel masks with -1e30 where its jnp oracle uses -inf: the same for
-//       finite scores);
-//   K6: a thread per (node, feature) sums its run: [T, S, D] -> [T, TN, D];
-//   K7: a thread per (slot, feature) reads its node's row, padding writes 0:
-//       [T, TN, D] -> [T, S, D].
-// What bounds them on an H100: bytes (a handful of operations per word).
-// A hub node that owns hundreds of slots of a tile serialises on its one
-// thread; K6 and K5 read a run's rows with one thread per node, which
-// coalesces only across the features of a node.
+// What bounds them on an H100: bytes (at most one add per word read).  On
+// the generic GATv2 layer's layout (T 352, S 1,152, TN 128) K7 writes 26 MB
+// at D 16 and K6 reads 12.9 MB: a few microseconds, so each call needs a
+// grid that fills every SM and 16-byte accesses, not one block per tile.
+//
+//   K5: one block per tile; tile_runs() finds every node's run in shared
+//       memory, then a thread per (node, head) takes the run's max, the sum
+//       of exp and writes exp(s - max) / max(sum, 1e-30); padding slots get
+//       0 (the TPU kernel masks with -1e30 where its jnp oracle uses -inf:
+//       the same for finite scores).
+//   K6: [T, S, D] -> [T, TN, D].  A grid over (tile, node group).  The
+//       wrapper passes the layout's run starts [T, TN + 1] (computed once per
+//       layout), so no block scans the slot ids.  A node gets G = P.R lanes:
+//       lane (r, p) adds chunks p, p + P, ... of the run's rows start + r,
+//       start + r + R, ... in ascending order (loads batched ahead of the
+//       adds), then the R slot lanes merge by an xor butterfly over lane
+//       distances P, 2P, ..., G/2 and the lanes with r == 0 write the row;
+//       a node with no slot writes 0.  Adjacent lanes read adjacent chunks
+//       of one row, and adjacent nodes' spans are adjacent, so a warp reads
+//       contiguous memory.  The wrapper picks R from the layout's mean run
+//       (two or three slots a lane) and P from the row's chunks; R alone
+//       sets the order of the sums.  No atomics, no memset.
+//   K7: [T, TN, D] -> [T, S, D].  A grid over (tile, slot chunk): a thread
+//       reads its slot's local id once and moves one chunk of the slot's
+//       row; padding slots write 0 without a read.  Bit-exact: it only moves
+//       values.
+//
+// A chunk is 16 bytes (float4) where D % 4 == 0 and the pointers are
+// 16-byte aligned, one float otherwise (a scalar instance of the same
+// kernel); the widths the generic layer uses (16, 4) are template constants,
+// so no thread divides by D.  K7 at D 1 gives a thread 4 adjacent slots (an
+// int4 of ids, a float4 of outputs; S is a multiple of 128).
 // ---------------------------------------------------------------------------
 
 namespace {
+
+constexpr int kTileThreads = 128;   // K6, K7
+constexpr int kSumBatch = 4;        // K6: slots of a lane whose loads are in flight together
 
 // start[v], end[v] of every node's run in tile slots lid[0, S); nodes with no
 // slot get the empty run [0, 0).
@@ -330,39 +354,105 @@ seg_softmax_kernel(const int* __restrict__ local_dst, const float* __restrict__ 
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-seg_sum_kernel(const int* __restrict__ local_dst, const float* __restrict__ vals,
-               float* __restrict__ out, int S, int D, int TN) {
-  extern __shared__ int runs[];
+// K6.  Grid (T, node blocks of a tile); Q chunks a row (0: q_rt, at run
+// time); P = 1 << lp chunk lanes and R = 1 << lr slot lanes a node.  No
+// thread returns early: every lane of a warp takes part in the butterfly.
+template <typename V, int Q>
+__global__ void __launch_bounds__(kTileThreads)
+seg_sum_kernel(const int* __restrict__ starts, const float* __restrict__ vals,
+               float* __restrict__ out, int S, int TN, int q_rt, int lp, int lr) {
+  constexpr int W = Chunk<V>::kWords;
+  const int q = Q > 0 ? Q : q_rt;
+  const int lg = lp + lr, P = 1 << lp, R = 1 << lr;
   const long long t = blockIdx.x;
-  tile_runs(local_dst + t * S, S, TN, runs, runs + TN);
-  const float* v = vals + t * S * D;
-  for (int e = threadIdx.x; e < TN * D; e += blockDim.x) {
-    const int node = e / D, d = e % D;
-    float acc = 0.f;
-    for (int s = runs[node]; s < runs[TN + node]; ++s)
-      acc += v[static_cast<long long>(s) * D + d];
-    out[t * TN * D + e] = acc;
+  const int v = (blockIdx.y * kTileThreads + threadIdx.x) >> lg;
+  const int g = threadIdx.x & ((1 << lg) - 1);
+  const int p = g & (P - 1), r = g >> lp;
+  int beg = 0, end = 0;
+  if (v < TN) {
+    const int* st = starts + t * (TN + 1) + v;
+    beg = __ldg(st);
+    end = __ldg(st + 1);
+  }
+  const float* span = vals + t * S * q * W;
+  for (int c0 = 0; c0 < q; c0 += P) {
+    const int c = c0 + p;
+    V acc = Chunk<V>::zero();
+    if (c < q) {
+      for (int s0 = beg + r; s0 < end; s0 += kSumBatch * R) {
+        V x[kSumBatch];
+#pragma unroll
+        for (int j = 0; j < kSumBatch; ++j) {
+          const int s = s0 + j * R;
+          x[j] = s < end ? Chunk<V>::load(span + (static_cast<long long>(s) * q + c) * W)
+                         : Chunk<V>::zero();
+        }
+#pragma unroll
+        for (int j = 0; j < kSumBatch; ++j)
+          if (s0 + j * R < end) acc = Chunk<V>::add(acc, x[j]);
+      }
+    }
+    for (int m = P; m < (1 << lg); m <<= 1) acc = Chunk<V>::add(acc, Chunk<V>::shfl_xor(acc, m));
+    if (r == 0 && c < q && v < TN)
+      *reinterpret_cast<V*>(out + ((t * TN + v) * q + c) * W) = acc;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K7.  Grid (T, chunk blocks of a tile); a thread moves chunk c of slot s.
+template <typename V, int Q>
+__global__ void __launch_bounds__(kTileThreads)
 seg_broadcast_kernel(const int* __restrict__ local_dst, const float* __restrict__ node_vals,
-                     float* __restrict__ out, int S, int D, int TN) {
+                     float* __restrict__ out, int S, int TN, int q_rt) {
+  constexpr int W = Chunk<V>::kWords;
+  const int q = Q > 0 ? Q : q_rt;
   const long long t = blockIdx.x;
-  const int* lid = local_dst + t * S;
-  const float* nv = node_vals + t * TN * D;
-  float* o = out + t * S * D;
-  for (int e = threadIdx.x; e < S * D; e += blockDim.x) {
-    const int l = lid[e / D];
-    o[e] = (l >= 0 && l < TN) ? nv[static_cast<long long>(l) * D + e % D] : 0.f;
-  }
+  const int i = blockIdx.y * kTileThreads + threadIdx.x;
+  if (i >= S * q) return;
+  const int s = i / q, c = i - s * q;
+  const int l = __ldg(local_dst + t * S + s);
+  const V x = static_cast<unsigned>(l) < static_cast<unsigned>(TN)
+                  ? Chunk<V>::load(node_vals + ((t * TN + l) * q + c) * W)
+                  : Chunk<V>::zero();
+  *reinterpret_cast<V*>(out + ((t * S + s) * q + c) * W) = x;
+}
+
+// K7 at D 1: a thread moves slots 4j .. 4j + 3 of its tile.
+__global__ void __launch_bounds__(kTileThreads)
+seg_broadcast_quad_kernel(const int* __restrict__ local_dst,
+                          const float* __restrict__ node_vals, float* __restrict__ out,
+                          int S, int TN) {
+  const long long t = blockIdx.x;
+  const int j = blockIdx.y * kTileThreads + threadIdx.x;
+  if (4 * j >= S) return;
+  const int4 l = __ldg(reinterpret_cast<const int4*>(local_dst + t * S) + j);
+  const float* row = node_vals + t * TN;
+  const unsigned tn = static_cast<unsigned>(TN);
+  float4 x;
+  x.x = static_cast<unsigned>(l.x) < tn ? __ldg(row + l.x) : 0.f;
+  x.y = static_cast<unsigned>(l.y) < tn ? __ldg(row + l.y) : 0.f;
+  x.z = static_cast<unsigned>(l.z) < tn ? __ldg(row + l.z) : 0.f;
+  x.w = static_cast<unsigned>(l.w) < tn ? __ldg(row + l.w) : 0.f;
+  reinterpret_cast<float4*>(out + t * S)[j] = x;
 }
 
 int tile_launch_check(int T, int S, int D, int TN) {
   if (T < 0 || S < 1 || D < 1 || TN < 1 || TN > 4096)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
+}
+
+// The second grid dimension of a K6 / K7 launch: `work` threads of a tile.
+bool tile_grid(long long work, dim3& grid, int T) {
+  const long long blocks = (work + kTileThreads - 1) / kTileThreads;
+  if (blocks > 65535) return false;
+  grid = dim3(static_cast<unsigned>(T), static_cast<unsigned>(blocks > 0 ? blocks : 1));
+  return true;
+}
+
+bool pow2_log(int x, int& lg) {
+  if (x < 1 || (x & (x - 1))) return false;
+  for (lg = 0; (1 << lg) < x; ++lg) {}
+  return true;
 }
 
 }  // namespace
@@ -380,26 +470,68 @@ extern "C" int segment_softmax_tiles_fwd(const void* local_dst, const void* scor
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6.  vals [T, S, D] -> out [T, TN, D].
-extern "C" int segment_sum_tiles_fwd(const void* local_dst, const void* vals, void* out,
-                                     int T, int S, int D, int TN, void* stream) {
+// K6.  starts [T, TN + 1] int32 (node v's slots are starts[t, v] ..
+// starts[t, v + 1] - 1), vals [T, S, D] -> out [T, TN, D].  vec: 16-byte
+// chunks (D % 4 == 0, vals and out 16-byte aligned); P chunk lanes and R
+// slot lanes a node, powers of two with P.R <= 32.
+extern "C" int segment_sum_tiles_fwd(const void* starts, const void* vals, void* out,
+                                     int T, int S, int D, int TN, int vec, int P, int R,
+                                     void* stream) {
+  int lp = 0, lr = 0;
+  dim3 grid;
   if (int rc = tile_launch_check(T, S, D, TN)) return rc;
-  if (T > 0)
-    seg_sum_kernel<<<T, kThreads, 2 * TN * sizeof(int),
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(local_dst), static_cast<const float*>(vals),
-        static_cast<float*>(out), S, D, TN);
+  if (!pow2_log(P, lp) || !pow2_log(R, lr) || P * R > 32 ||
+      (vec && (D % 4 || !aligned16(vals) || !aligned16(out))) ||
+      !tile_grid(static_cast<long long>(TN) * P * R, grid, T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* s = static_cast<const int*>(starts);
+    const float* v = static_cast<const float*>(vals);
+    float* o = static_cast<float*>(out);
+    if (vec && D == 16)
+      seg_sum_kernel<float4, 4><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 4, lp, lr);
+    else if (vec && D == 4)
+      seg_sum_kernel<float4, 1><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 1, lp, lr);
+    else if (vec)
+      seg_sum_kernel<float4, 0><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, D / 4, lp, lr);
+    else if (D == 1)
+      seg_sum_kernel<float, 1><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 1, lp, lr);
+    else
+      seg_sum_kernel<float, 0><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, D, lp, lr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7.  node_vals [T, TN, D] -> out [T, S, D].
+// K7.  node_vals [T, TN, D] -> out [T, S, D]; the instance follows D and the
+// pointers' alignment.
 extern "C" int segment_broadcast_tiles_fwd(const void* local_dst, const void* node_vals,
                                            void* out, int T, int S, int D, int TN,
                                            void* stream) {
   if (int rc = tile_launch_check(T, S, D, TN)) return rc;
-  if (T > 0)
-    seg_broadcast_kernel<<<T, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(local_dst), static_cast<const float*>(node_vals),
-        static_cast<float*>(out), S, D, TN);
+  const bool quad = D == 1 && S % 4 == 0 && aligned16(local_dst) && aligned16(out);
+  const bool vec = D % 4 == 0 && aligned16(node_vals) && aligned16(out);
+  const int q = vec ? D / 4 : D;
+  dim3 grid;
+  if (!tile_grid(quad ? S / 4 : static_cast<long long>(S) * q, grid, T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* l = static_cast<const int*>(local_dst);
+    const float* v = static_cast<const float*>(node_vals);
+    float* o = static_cast<float*>(out);
+    if (quad)
+      seg_broadcast_quad_kernel<<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN);
+    else if (vec && D == 16)
+      seg_broadcast_kernel<float4, 4><<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN, 4);
+    else if (vec && D == 4)
+      seg_broadcast_kernel<float4, 1><<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN, 1);
+    else if (vec)
+      seg_broadcast_kernel<float4, 0><<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN, q);
+    else if (D == 1)
+      seg_broadcast_kernel<float, 1><<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN, 1);
+    else
+      seg_broadcast_kernel<float, 0><<<grid, kTileThreads, 0, st>>>(l, v, o, S, TN, q);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,8 @@ this per node and emits ∂xs, ∂xd, ∂att and ∂w_e.  CUDA tensors launch
 The kernels work node by node over each node's run of slots: the wrapper
 derives once per layout where each run starts and, where a node's slots
 are not adjacent, the slot order that makes them runs (``layout_runs``).
-A node gets P channel lanes per head times Q slot lanes (``_lane_plan``).
+A node gets P channel lanes per head times Q slot lanes (``_lane_plan``);
+``layout_runs`` lives in ``ops.segment``, which K6 shares it with.
 K2 sums its per-tile terms
 in a fixed order inside the launch, so both kernels give the same bits on
 every launch.
@@ -32,10 +33,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build
-from .segment import SegTiles
+from .segment import _RUNS, SegTiles, _mean_run, _pow2, layout_runs  # noqa: F401
 
 
 def _blockdiag_att(att: torch.Tensor) -> torch.Tensor:
@@ -117,41 +117,6 @@ def _lib_fn(name: str, argtypes):
     return fn
 
 
-_RUNS = WeakIdKeyDictionary()   # local_dst tensor → (starts, order, mean run)
-
-
-def layout_runs(tiles: SegTiles):
-    """Where each node's run of slots starts, per tile: ``starts`` int32
-    [T, TN + 1], node v's slots at positions ``starts[t, v]`` to
-    ``starts[t, v + 1] − 1`` and ``starts[t, TN]`` real slots in the tile.
-    ``order`` is None when every node's slots are already adjacent, padding
-    (local_dst outside [0, TN)) last; else int32 [T, S], the slot within
-    the tile at each position (a stable sort by node, padding last).
-    Computed once per layout (the local_dst tensor) and cached."""
-    lid = tiles.local_dst
-    hit = _RUNS.get(lid)
-    if hit is not None:
-        return hit[:2]
-    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
-    key = torch.where((lid >= 0) & (lid < TN), lid, TN).long()
-    counts = torch.zeros((T, TN + 1), dtype=torch.long, device=lid.device)
-    counts.scatter_add_(1, key, torch.ones_like(key))
-    starts = torch.zeros((T, TN + 1), dtype=torch.int32, device=lid.device)
-    starts[:, 1:] = counts[:, :TN].cumsum(1)
-    in_runs = S < 2 or bool((key[:, 1:] >= key[:, :-1]).all())
-    order = None if in_runs else \
-        torch.sort(key, dim=1, stable=True).indices.to(torch.int32).contiguous()
-    nodes = int((counts[:, :TN] > 0).sum())
-    _RUNS[lid] = (starts, order, int(starts[:, TN].sum()) / max(nodes, 1))
-    return starts, order
-
-
-def _mean_run(tiles: SegTiles) -> float:
-    """Mean slots per node that has slots (cached with ``layout_runs``)."""
-    layout_runs(tiles)
-    return _RUNS[tiles.local_dst][2]
-
-
 def _lane_plan(H: int, D: int, mean_run: float = 1.0,
                max_lanes: float | None = None) -> tuple[int, int, int]:
     """Channel lanes per head P (the fewest, a power of two, that hold D
@@ -165,16 +130,15 @@ def _lane_plan(H: int, D: int, mean_run: float = 1.0,
     P = 1
     while -(-D // P) > _MAX_CHANNELS:
         P *= 2
-    pow2 = lambda x: 1 << (max(int(x), 1) - 1).bit_length()
-    if H < 1 or H > _MAX_HEADS or D < 1 or pow2(H * P) > 32:
+    if H < 1 or H > _MAX_HEADS or D < 1 or _pow2(H * P) > 32:
         raise ValueError(f"gat_tile_fused: H={H}, D={D} exceed the kernel's limits "
                          f"(1 ≤ H ≤ 8, ⌈D/8⌉ rounded up to a power of two times "
                          f"H at most 32)")
-    Q = pow2(-(-mean_run // 2.4))
-    while Q > 1 and (pow2(H * P * Q) > 32
-                     or max_lanes is not None and pow2(H * P * Q) > max_lanes):
+    Q = _pow2(-(-mean_run // 2.4))
+    while Q > 1 and (_pow2(H * P * Q) > 32
+                     or max_lanes is not None and _pow2(H * P * Q) > max_lanes):
         Q //= 2
-    return P, Q, pow2(H * P * Q)
+    return P, Q, _pow2(H * P * Q)
 
 
 _SMS: dict = {}

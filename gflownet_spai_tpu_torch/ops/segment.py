@@ -11,7 +11,8 @@ the generic GAT layer: softmax (K5), sum (K6) and node → slot broadcast
 source-row gather is K3 and its transpose K4, each one launch over every
 bucket of a layer (``gather_rows_buckets``).  All five run as CUDA
 kernels (``csrc/segment.cu``) on CUDA tensors; on CPU tensors each
-computes its plain version (``*_ref``).
+computes its plain version (``*_ref``).  Each layout's run starts
+(``layout_runs``) are derived once and cached; K1, K2 and K6 read them.
 """
 
 from __future__ import annotations
@@ -212,14 +213,71 @@ def segment_broadcast_tiles_ref(tiles: SegTiles, node_vals: torch.Tensor) -> tor
     return ext.reshape(T * (TN + 1), D)[_slot_rows(tiles)].reshape(T, tiles.slots, D)
 
 
-_RUNS_CHECKED = WeakIdKeyDictionary()   # local_dst tensor → the run invariant holds
+_RUNS = WeakIdKeyDictionary()   # local_dst tensor → (starts, order, mean run, in range)
+
+
+def _runs_entry(tiles: SegTiles):
+    """The layout's cached (starts, order, mean run, local_dst in [0, TN]),
+    computed at its first call (``layout_runs``)."""
+    lid = tiles.local_dst
+    hit = _RUNS.get(lid)
+    if hit is not None:
+        return hit
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    key = torch.where((lid >= 0) & (lid < TN), lid, TN).long()
+    counts = torch.zeros((T, TN + 1), dtype=torch.long, device=lid.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    starts = torch.zeros((T, TN + 1), dtype=torch.int32, device=lid.device)
+    starts[:, 1:] = counts[:, :TN].cumsum(1)
+    in_runs = S < 2 or bool((key[:, 1:] >= key[:, :-1]).all())
+    order = None if in_runs else \
+        torch.sort(key, dim=1, stable=True).indices.to(torch.int32).contiguous()
+    nodes = int((counts[:, :TN] > 0).sum())
+    hit = _RUNS[lid] = (starts, order, int(starts[:, TN].sum()) / max(nodes, 1),
+                        bool(((lid >= 0) & (lid <= TN)).all()))
+    return hit
+
+
+def layout_runs(tiles: SegTiles):
+    """Where each node's run of slots starts, per tile: ``starts`` int32
+    [T, TN + 1], node v's slots at positions ``starts[t, v]`` to
+    ``starts[t, v + 1] − 1`` and ``starts[t, TN]`` real slots in the tile.
+    ``order`` is None when every node's slots are already adjacent, padding
+    (local_dst outside [0, TN)) last; else int32 [T, S], the slot within
+    the tile at each position (a stable sort by node, padding last).
+    Computed once per layout (the local_dst tensor) and cached.  K1, K2
+    (``ops.gat_fused``) and K6 read it."""
+    return _runs_entry(tiles)[:2]
+
+
+def _mean_run(tiles: SegTiles) -> float:
+    """Mean slots per node that has slots (cached with ``layout_runs``)."""
+    return _runs_entry(tiles)[2]
+
+
+_SUM_SLOT_LANES = 8     # K6: most slot lanes a node gets
+
+
+def _pow2(x) -> int:
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def _sum_lanes(q: int, mean_run: float) -> tuple[int, int]:
+    """K6's lanes per node for rows of ``q`` chunks: slot lanes R (a power
+    of two at or above the mean run / 2.4, so a lane adds two or three
+    slots of a typical run, at most 8) and chunk lanes P (a power of two
+    at or above q, at most 32 / R; a lane takes chunks p, p + P, ... where
+    q > P).  R alone sets the order of the sums, so it does not depend on
+    the row's width or alignment."""
+    R = min(_pow2(-(-mean_run // 2.4)), _SUM_SLOT_LANES)
+    return min(_pow2(q), 32 // R), R
 
 
 def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str, runs: bool):
     """The kernels take contiguous float32 values of ``shape`` and the
     layout's int32 local_dst on their device; K5 and K6 also need each
     node's slots to form one run (local_dst non-decreasing in [0, TN] per
-    tile), checked once per layout."""
+    tile), checked once per layout with its run starts (``layout_runs``)."""
     lid = tiles.local_dst
     if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() \
             or tuple(x.shape) != shape:
@@ -229,18 +287,17 @@ def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str, runs: bool)
             or tuple(lid.shape) != (tiles.tiles, tiles.slots) or tiles.tile_nodes > 4096:
         raise ValueError(f"{what}: the layout's local_dst must be a contiguous int32 "
                          f"[T, S] tensor on {x.device}, with TN <= 4096")
-    if runs:
-        if lid not in _RUNS_CHECKED:
-            _RUNS_CHECKED[lid] = bool(
-                ((lid >= 0) & (lid <= tiles.tile_nodes)).all()
-                & (lid[:, 1:] >= lid[:, :-1]).all())
-        if not _RUNS_CHECKED[lid]:
-            raise ValueError(f"{what}: local_dst is not non-decreasing in [0, TN] per "
-                             "tile, so a node's slots do not form one run (build the "
-                             "layout with build_seg_tiles or build_seg_buckets)")
+    if not runs:
+        return
+    _, order, _, in_range = _runs_entry(tiles)
+    if order is not None or not in_range:
+        raise ValueError(f"{what}: local_dst is not non-decreasing in [0, TN] per "
+                         "tile, so a node's slots do not form one run (build the "
+                         "layout with build_seg_tiles or build_seg_buckets)")
 
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SUM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def _tile_launch(name: str, tiles: SegTiles, x: torch.Tensor, out_shape, d: int):
@@ -266,14 +323,22 @@ def _softmax_fwd(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
 
 def _sum_fwd(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
     """K6 ([T, S, D] → [T, TN, D]) on CUDA tensors, its plain version on
-    CPU tensors."""
+    CPU tensors.  The kernel walks each node's run from the layout's run
+    starts with ``_sum_lanes`` lanes a node; 16-byte chunks where D % 4 == 0
+    and both pointers allow it."""
     T, S, D = vals_t.shape
     if vals_t.device.type == "cpu":
         return segment_sum_tiles_ref(tiles, vals_t).reshape(T, tiles.tile_nodes, D)
     _check_tiles(tiles, vals_t, (tiles.tiles, tiles.slots, D), "segment_sum_tiles",
                  runs=True)
-    out = _tile_launch("segment_sum_tiles_fwd", tiles, vals_t,
-                       (T, tiles.tile_nodes, D), D)
+    starts, _, mean_run, _ = _runs_entry(tiles)   # in runs (checked above)
+    out = torch.empty((T, tiles.tile_nodes, D), dtype=vals_t.dtype, device=vals_t.device)
+    vec = D % 4 == 0 and vals_t.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    P, R = _sum_lanes(D // 4 if vec else D, mean_run)
+    _build.check(_seg_fn("segment_sum_tiles_fwd", _SUM_ARGTYPES)(
+        starts.data_ptr(), vals_t.data_ptr(), out.data_ptr(), T, S, D,
+        tiles.tile_nodes, int(vec), P, R,
+        torch.cuda.current_stream(vals_t.device).cuda_stream), "segment_sum_tiles")
     segment_sum_tiles.launches += 1
     return out
 

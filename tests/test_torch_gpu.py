@@ -1045,9 +1045,10 @@ def test_k5_matches_plain(cuda, no_plain_mod, kind, H):
 
 
 @pytest.mark.parametrize("kind", ["empty", "padded"])
-@pytest.mark.parametrize("D", [16, 4, 1])
+@pytest.mark.parametrize("D", [16, 4, 3, 2, 1])
 def test_k6_k7_match_plain(cuda, no_plain_mod, kind, D):
-    """K6 and K7 forward and as each other's backward."""
+    """K6 and K7 forward and as each other's backward (D 3 and 2 take the
+    kernels' scalar instances)."""
     rng, tiles = _seg_layout(cuda, kind)
     ref = no_plain_mod(seg, "segment_sum_tiles_ref", "segment_broadcast_tiles_ref")
     T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
@@ -1074,6 +1075,48 @@ def test_k6_k7_match_plain(cuda, no_plain_mod, kind, D):
     assert torch.equal(got_bc, ref["segment_broadcast_tiles_ref"](tiles, nodes.detach()))
     assert torch.equal(d_vals, ref["segment_broadcast_tiles_ref"](
         tiles, g_sum.reshape(T, TN, D)))
+
+
+def _offset(x):
+    """A contiguous copy of ``x`` whose data_ptr is one element past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("kind", ["empty", "padded"])
+@pytest.mark.parametrize("D", [16, 4, 1])
+def test_k6_k7_unaligned_and_repeatable(cuda, no_plain_mod, kind, D):
+    """Inputs and local_dst at a one-element offset take the kernels' scalar
+    paths and give the same bits as the 16-byte paths (K6's order depends
+    only on its slot lanes); K6 gives the same bits on a second launch;
+    each call launches its kernel once."""
+    rng, tiles = _seg_layout(cuda, kind)
+    ref = no_plain_mod(seg, "segment_sum_tiles_ref", "segment_broadcast_tiles_ref")
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32,
+                                   device=cuda)
+    vals, nodes = f(T, S, D), f(T, TN, D)
+    shifted = dataclasses.replace(tiles, local_dst=_offset(tiles.local_dst))
+    sums, bcasts = [], []
+    for lay, v, nv in ((tiles, vals, nodes), (tiles, vals, nodes),
+                       (tiles, _offset(vals), _offset(nodes)),
+                       (shifted, vals, nodes)):
+        k6, k7 = seg.segment_sum_tiles.launches, seg.segment_broadcast_tiles.launches
+        sums.append(seg.segment_sum_tiles(lay, v))
+        assert seg.segment_sum_tiles.launches == k6 + 1
+        bcasts.append(seg.segment_broadcast_tiles(lay, nv))
+        assert seg.segment_broadcast_tiles.launches == k7 + 1
+    torch.cuda.synchronize()
+    want = ref["segment_sum_tiles_ref"](tiles, vals)
+    bound = 1e-5 * want.abs() + 4 * EPS32 * ref["segment_sum_tiles_ref"](tiles, vals.abs())
+    assert bool(((sums[0] - want).abs() <= bound).all())
+    assert all(torch.equal(x, sums[0]) for x in sums[1:])
+    want = ref["segment_broadcast_tiles_ref"](tiles, nodes)
+    assert all(torch.equal(x, want) for x in bcasts)
 
 
 def test_segment_kernels_refuse_broken_runs(cuda):
