@@ -105,18 +105,27 @@ Phases (any failure exits non-zero before the result line):
                bcsstk03_like (with ``--vcycle 2``) in a subprocess on the
                card: every row in validation.json, the vcycle row
                converged; the CLI's verdict printed.
-18. segment  — K5 (segment softmax), K6 (segment sum) and K7 (node -> slot
-               broadcast) against their plain versions at orsirr_like150's
-               uniform tile layout, at every width the generic GAT layer
-               gives them (K5 at 4 and 1 heads, K6 and K7 at 16, 4 and 1
-               features); times as [dia], library calls index_add_ (K6)
-               and index_select (K7); per width the kernel's share of its
-               bound and its time over the launch floor; K6 also at every
-               slot-lane count its rule can pick ([K6-plans]).
+18. segment  — K5 (segment softmax) forward and backward, K6 (segment sum)
+               and K7 (node -> slot broadcast) against their plain
+               versions at orsirr_like150's uniform tile layout, at every
+               width the generic GAT layer gives them (K5 at 4 and 1 heads,
+               K6 and K7 at 16, 4 and 1 features); K5 forward and backward
+               must give the same bits on a second launch; times as [dia],
+               library calls torch.sparse.softmax and its backward on the
+               real slots as a hybrid COO tensor (K5, eager), index_add_
+               (K6) and index_select (K7); K5's backward also as the K6 +
+               K7 chain it replaced; per width the kernel's share of its
+               bound and its time over the launch floor; K5 and K6 at every
+               slot-lane count their rules can pick ([K5-plans],
+               [K5b-plans], [K6-plans]); then the layout with each tile's
+               slots permuted and padding ids -1 and TN + 5: K5 forward
+               and backward and K6 against their plain versions, K7
+               exactly.
 19. gat-generic — launch counters to 0, a two-layer generic GATv2 stack
                (edge_dim 2, the forward policy's widths) forward and the
                gradient of sum(c * out) on orsirr_like150's tile graph,
-               counters read (K3-K7 each launched); output and gradients
+               counters read (K3-K7 and K5's backward each launched, as
+               often as GEN_CALLS says); output and gradients
                against the per-edge path on the card and in float64 on the
                CPU; ms per forward and per forward + backward; a
                ``torch.profiler`` reading of forward + backward passes
@@ -972,6 +981,11 @@ def _cycle(fns):
     return lambda: next(it)()
 
 
+def _copies(nbytes):
+    """Input copies a kernel time cycles through (``_timed``)."""
+    return min(16, max(2, -(-COLD_BYTES // nbytes)))
+
+
 def _dia_copy(d):
     return dataclasses.replace(d, data=d.data.clone())
 
@@ -1109,7 +1123,7 @@ def _timed(key, label, checked, err, make, plain, nbytes, ops, make_lib=None,
     of its inputs (copy 0: the inputs it was checked on).  The kernel time
     cycles through enough copies that a replay reads HBM, not the 50 MB L2
     that holds one copy; the warm time repeats copy 0."""
-    n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
+    n_copies = _copies(nbytes)
     fns = [make(i) for i in range(n_copies)]
     lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
     ms = graph_ms(_cycle(fns), reps)
@@ -2049,7 +2063,9 @@ def phase_validate_cli():
 # K6 and K17 sum in another order than their plain versions: rtol 1e-5 and,
 # per element, 4·eps32 times the sum of the magnitudes of its terms; K5
 # divides by a sum of positive terms whose rounding grows with the run:
-# rtol 1e-5 + 4·eps32·(run length), atol 1e-6.  K7 moves values: exact.
+# rtol 1e-5 + 4·eps32·(run length), atol 1e-6; K5's backward
+# y ⊙ (g − Σ_run y·g) carries K6's bound through the product with y: atol
+# 1e-6, rtol 1e-5 and 4·eps32·|y|·Σ_run|y·g|.  K7 moves values: exact.
 SEG_RTOL, SEG_EPS_SUMS = 1e-5, 4.0
 # the generic stack's gradients against the per-edge path and float64: the
 # repo's bound for tiled vs per-edge GAT gradients (tests/test_segment.py
@@ -2058,12 +2074,13 @@ GEN_GRAD_RTOL, GEN_GRAD_ATOL = 5e-3, 5e-4
 GEN_HEADS, GEN_HIDDEN, GEN_EDGE_DIM = 4, 4, 2   # the forward policy's widths
 # calls of each segment kernel in one forward + backward of the generic
 # stack, by feature width (layer 1: heads 4 x 4 on the uniform x; layer 2:
-# heads 1 x 4 through K3 and K7)
-GEN_CALLS = {"K5": {4: 1, 1: 1}, "K6": {16: 1, 4: 3, 1: 1}, "K7": {16: 1, 4: 3, 1: 1}}
+# heads 1 x 4 through K3 and K7; "K5b" is K5's backward kernel)
+GEN_CALLS = {"K5": {4: 1, 1: 1}, "K5b": {4: 1, 1: 1}, "K6": {16: 1, 4: 2},
+             "K7": {16: 1, 4: 2}}
 GEN_PROFILED = 5            # forward + backward passes under torch.profiler
 SEG_COUNTERS = {"K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows,
                 "K5": seg.segment_softmax_tiles_mh, "K6": seg.segment_sum_tiles,
-                "K7": seg.segment_broadcast_tiles}
+                "K7": seg.segment_broadcast_tiles, "K5b": seg.segment_softmax_tiles_bwd}
 BELL_K = 256                # docs/BENCH.md:108-125
 BELL_DENSITY = 0.02         # of the blocks
 BELL_CASES = ((4096, (8, 128)), (4096, (32, 128)), (4096, (128, 128)), (65536, (8, 128)))
@@ -2081,33 +2098,163 @@ def _elementwise(got, want, bound, what):
         f"of the elementwise bound)"
 
 
-def _k6_plans(tiles, width, xs, check):
-    """K6 at every slot-lane count R its rule can pick (outputs held by
-    ``check`` first), timed as ``_timed`` times it (graph replays cycling
-    through the input copies ``xs``), beside the rule's pick.  Skipped for
-    a package without K6's lane plan (an older checkout that this script
-    times beside the current one)."""
-    rule = getattr(seg, "_sum_lanes", None)
-    if rule is None:
-        return
-    fns = [functools.partial(seg.segment_sum_tiles, tiles, x) for x in xs]
-    q = width // 4 if width % 4 == 0 else width
-    run = seg._mean_run(tiles)
+def _plans(values, rule_name, patch, fns, check):
+    """A kernel at every lane count ``values`` its rule (``rule_name`` in
+    ``seg``) can pick, outputs held by ``check`` first, timed as ``_timed``
+    times it (graph replays cycling through ``fns``, one per input copy).
+    ``patch(v)`` is the rule that forces v.  Returns the times."""
+    rule = getattr(seg, rule_name)
     times = []
-    for R in (1, 2, 4, 8):
-        seg._sum_lanes = lambda q, mean_run, R=R: (min(seg._pow2(q), 32 // R), R)
+    for v in values:
+        setattr(seg, rule_name, patch(v))
         try:
             check(fns[0]())
-            times.append(f"R{R} {graph_ms(_cycle(fns), 20):.5f}")
+            times.append(f"{v} {graph_ms(_cycle(fns), 20):.5f}")
         finally:
-            seg._sum_lanes = rule
-    print(f"[K6-plans] D {width}, mean run {run:.2f}: " + ", ".join(times)
-          + f" ms (the rule picks R{rule(q, run)[1]})", flush=True)
+            setattr(seg, rule_name, rule)
+    return ", ".join(times)
+
+
+def _k6_plans(tiles, width, xs, check):
+    """K6 at slot lanes R 1, 2, 4 and 8 beside the rule's pick."""
+    q = width // 4 if width % 4 == 0 else width
+    run = seg._mean_run(tiles)
+    times = _plans((1, 2, 4, 8), "_sum_lanes",
+                   lambda R: lambda q, mean_run: (min(seg._pow2(q), 32 // R), R),
+                   [functools.partial(seg.segment_sum_tiles, tiles, x) for x in xs], check)
+    print(f"[K6-plans] D {width}, mean run {run:.2f}: R " + times
+          + f" ms (the rule picks R{seg._sum_lanes(q, run)[1]})", flush=True)
+
+
+def _k5_plans(key, width, fns, check, tiles):
+    """K5 forward or backward at slot lanes L 1, 2, 4 and 8 beside the
+    rule's pick."""
+    run = seg._mean_run(tiles)
+    times = _plans((1, 2, 4, 8), "_slot_lanes", lambda L: lambda mean_run: L, fns, check)
+    print(f"[{key}-plans] H {width}, mean run {run:.2f}: L " + times
+          + f" ms (the rule picks L{seg._slot_lanes(run)})", flush=True)
+
+
+def _k5b_bound(tiles, y, g, want):
+    return 1e-6 + SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * y.abs() \
+        * seg._run_sums_ref(tiles, (y * g).abs())
+
+
+def _k5_chain(tiles, y, g):
+    """K5's backward as the JAX VJP composes it (and the port did before its
+    backward kernel): multiply, transpose, K6, K7, transpose back,
+    subtract, multiply."""
+    T, H, S = y.shape
+    yg = (y * g).permute(0, 2, 1).contiguous()
+    per_node = seg.segment_sum_tiles(tiles, yg).reshape(T, tiles.tile_nodes, H)
+    return y * (g - seg.segment_broadcast_tiles(tiles, per_node).permute(0, 2, 1))
+
+
+class _SparseSoftmax:
+    """The library yardstick of K5 and its backward: ``torch.sparse.softmax``
+    over dim 1 of a coalesced hybrid COO tensor [T·TN, T·S, H] whose entries
+    are the real slots, (t·TN + node, t·S + slot), and
+    ``aten._sparse_softmax_backward_data`` on the same pattern; built
+    outside the timed calls."""
+
+    def __init__(self, tiles, H):
+        T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+        lid = tiles.local_dst
+        t, slot = torch.nonzero((lid >= 0) & (lid < TN), as_tuple=True)
+        self.cols = t * S + slot
+        self.idx = torch.stack([t * TN + lid[t, slot].long(), self.cols])
+        self.shape, self.T, self.S, self.H = (T * TN, T * S, H), T, S, H
+
+    def sparse(self, x):
+        """[T, H, S] → the hybrid COO tensor of its real slots."""
+        vals = x.permute(0, 2, 1).reshape(-1, self.H)[self.cols]
+        return torch.sparse_coo_tensor(self.idx, vals, self.shape,
+                                       check_invariants=False).coalesce()
+
+    @staticmethod
+    def softmax(sp):
+        return torch.sparse.softmax(sp, 1)
+
+    @staticmethod
+    def backward(g_sp, y_sp, x_sp):
+        return torch.ops.aten._sparse_softmax_backward_data(g_sp, y_sp, 1, x_sp)
+
+    def dense(self, out):
+        """A result back to [T, H, S] (0 off the pattern)."""
+        out = out.coalesce()
+        flat = out.values().new_zeros((self.T * self.S, self.H))
+        flat[out.indices()[1]] = out.values()
+        return flat.reshape(self.T, self.S, self.H).permute(0, 2, 1)
+
+    @staticmethod
+    def name(key):
+        return "torch.sparse.softmax" if key == "K5" else "aten._sparse_softmax_backward_data"
+
+
+def _shuffled(tiles, gen):
+    """The layout with each tile's slots permuted and every third padding
+    slot marked -1, every third TN + 5 (as the card tests' shuffled
+    layouts): no node's slots form a run."""
+    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
+    keys = torch.rand((T, S), generator=gen, device=tiles.local_dst.device)
+    lid = torch.gather(tiles.local_dst, 1, torch.argsort(keys, dim=1))
+    pad = lid == TN
+    k = pad.long().cumsum(1)
+    lid = torch.where(pad & (k % 3 == 1), -1, torch.where(pad & (k % 3 == 2), TN + 5, lid))
+    shuf = dataclasses.replace(tiles, local_dst=lid.to(torch.int32).contiguous())
+    if seg.layout_runs(shuf)[1] is None:
+        fail("[segment] the shuffled layout's slots form runs")
+    return shuf
+
+
+def _segment_shuffled(tiles, gen, dev):
+    """K5 forward and backward and K6 against their plain versions on the
+    shuffled layout, K7 exactly; K5's times there beside the uniform
+    layout's."""
+    shuf = _shuffled(tiles, gen)
+    T, S, TN = shuf.tiles, shuf.slots, shuf.tile_nodes
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    errs, times = {}, []
+    for H in (4, 1):
+        xs = [r(T, H, S) * 3 for _ in range(_copies(4 * 2 * T * H * S))]
+        gs = [r(T, H, S) for _ in xs]
+        want = seg.segment_softmax_tiles_ref(shuf, xs[0])
+        ys = [seg.segment_softmax_tiles_mh(shuf, x) for x in xs]
+        bound = 1e-6 + (SEG_RTOL + SEG_EPS_SUMS * EPS32 * seg._run_sums_ref(
+            shuf, torch.ones_like(want))) * want.abs()
+        errs[f"K5 H {H}"] = _elementwise(ys[0], want, bound, f"K5 on the shuffled layout, "
+                                         f"H {H}")[0]
+        want_b = seg.segment_softmax_tiles_bwd_ref(shuf, ys[0], gs[0])
+        got_b = seg.segment_softmax_tiles_bwd(shuf, ys[0], gs[0])
+        errs[f"K5b H {H}"] = _elementwise(got_b, want_b, _k5b_bound(shuf, ys[0], gs[0], want_b),
+                                          f"K5 backward on the shuffled layout, H {H}")[0]
+        fwd = [functools.partial(seg.segment_softmax_tiles_mh, shuf, x) for x in xs]
+        bwd = [functools.partial(seg.segment_softmax_tiles_bwd, shuf, y, g)
+               for y, g in zip(ys, gs)]
+        times.append(f"H {H} forward {graph_ms(_cycle(fwd), 20):.5f}, backward "
+                     f"{graph_ms(_cycle(bwd), 20):.5f}")
+    for D in (16, 4, 1):
+        vals, nodes = r(T, S, D), r(T, TN, D)
+        want = seg.segment_sum_tiles_ref(shuf, vals)
+        bound = SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * seg.segment_sum_tiles_ref(
+            shuf, vals.abs())
+        errs[f"K6 D {D}"] = _elementwise(seg.segment_sum_tiles(shuf, vals), want, bound,
+                                         f"K6 on the shuffled layout, D {D}")[0]
+        if not torch.equal(seg.segment_broadcast_tiles(shuf, nodes),
+                           seg.segment_broadcast_tiles_ref(shuf, nodes)):
+            fail(f"K7 on the shuffled layout, D {D}, disagrees with its plain version")
+    print(f"[segment] shuffled layout (each tile's slots permuted, padding ids -1 and "
+          f"TN + 5; slot order through layout_runs): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + "; K7 exact; K5 graph replays " + "; ".join(times) + " ms", flush=True)
+    return max(v for k, v in errs.items() if k.startswith("K5 ")), \
+        max(v for k, v in errs.items() if k.startswith("K5b"))
 
 
 def phase_segment(graph, dev):
-    """K5, K6 and K7 against their plain versions at orsirr_like150's
-    uniform tile layout, at every width the generic stack gives them."""
+    """K5 forward and backward, K6 and K7 against their plain versions at
+    orsirr_like150's uniform tile layout, at every width the generic stack
+    gives them, and on that layout shuffled."""
     tiles = graph.tiles
     T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
     gen = torch.Generator(device=dev).manual_seed(77)
@@ -2120,30 +2267,72 @@ def phase_segment(graph, dev):
     print(f"[segment] {MATRIX} uniform layout: T {T}, S {S}, TN {TN}, {real} real "
           f"slots of {T * S}, {nodes} nodes with slots, longest run "
           f"{int(run_len.max())}; launch floor {floor:.5f} ms", flush=True)
-    out = {}
-    for key, width in (("K5", 4), ("K5", 1), ("K6", 16), ("K6", 4), ("K6", 1),
-                       ("K7", 16), ("K7", 4), ("K7", 1)):
+    out, chains = {}, {}
+    cases = [("K5", 4), ("K5", 1), ("K5b", 4), ("K5b", 1), ("K6", 16), ("K6", 4), ("K6", 1),
+             ("K7", 16), ("K7", 4), ("K7", 1)]
+    for key, width in cases:
         r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        make_lib, lib_name, lib_check = None, None, None
+        if key in ("K5", "K5b"):
+            sps = _SparseSoftmax(tiles, width)
+            label = f"H {width}, [{T}, {width}, {S}]"
         if key == "K5":
-            xs = [r(T, width, S) * 3 for _ in range(16)]
+            # the layout enters as its run starts [T, TN + 1]; each real slot's
+            # score is read once (padding is written, never read) and every
+            # output written once
+            nbytes, ops = 4 * (T * (TN + 1) + real * width + T * width * S), 5 * real * width
+            xs = [r(T, width, S) * 3 for _ in range(_copies(nbytes))]
             call = lambda x: seg.segment_softmax_tiles_mh(tiles, x)
             plain = lambda x: seg.segment_softmax_tiles_ref(tiles, x)
             want = plain(xs[0])
             bound = 1e-6 + (SEG_RTOL + SEG_EPS_SUMS * EPS32 * run_len.permute(0, 2, 1)) \
                 * want.abs()
-            nbytes, ops, lib = 4 * (T * S + 2 * T * width * S), 5 * real * width, None
+            inputs = [(x,) for x in xs]
+            lib_in = [sps.sparse(x) for x in xs]
+            lib = lambda i: sps.softmax(lib_in[i])
+        elif key == "K5b":
+            # the real slots' y and g read once, every output written once
+            nbytes, ops = 4 * (T * (TN + 1) + 2 * real * width + T * width * S), \
+                4 * real * width
+            xs = [r(T, width, S) * 3 for _ in range(_copies(nbytes))]
+            ys = [seg.segment_softmax_tiles_ref(tiles, x).contiguous() for x in xs]
+            gs = [r(T, width, S) for _ in xs]
+            inputs = list(zip(ys, gs))
+            plain = lambda y, g: seg.segment_softmax_tiles_bwd_ref(tiles, y, g)
+            want = plain(*inputs[0])
+            bound = _k5b_bound(tiles, ys[0], gs[0], want)
+            # the parent's path: K6 and K7 with the heads as the feature axis
+            got = _k5_chain(tiles, *inputs[0])
+            _elementwise(got, want, bound, f"K5's backward as a K6 and a K7, H {width}")
+            chain_fns = [functools.partial(_k5_chain, tiles, y, g) for y, g in inputs]
+            chains[width] = dict(ms=graph_ms(_cycle(chain_fns), 20),
+                                 eager=cuda_ms(chain_fns[0], 20))
+            print(f"[K5b] H {width}: K5's backward as a K6 and a K7 (multiply, transpose, "
+                  f"K6, K7, transpose back, subtract, multiply): {chains[width]['ms']:.5f} "
+                  f"ms (graph replay over {len(chain_fns)} input copies; eager "
+                  f"{chains[width]['eager']:.5f} ms)", flush=True)
+            call = lambda y, g: seg.segment_softmax_tiles_bwd(tiles, y, g)
+            lib_in = [(sps.sparse(g), sps.sparse(y), sps.sparse(x))
+                      for x, (y, g) in zip(xs, inputs)]
+            lib = lambda i: sps.backward(*lib_in[i])
         elif key == "K6":
+            nbytes = 4 * (T * (TN + 1) + real * width + T * TN * width)
             xs = [r(T, S, width) for _ in range(16)]
+            inputs = [(x,) for x in xs]
             call = lambda x: seg.segment_sum_tiles(tiles, x)
             plain = lambda x: seg.segment_sum_tiles_ref(tiles, x)
             want = plain(xs[0])
             bound = SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * plain(xs[0].abs())
             # the layout enters as its run starts [T, TN + 1], derived once
-            nbytes, ops = 4 * (T * (TN + 1) + real * width + T * TN * width), real * width
-            lib = lambda x: torch.zeros((T * (TN + 1), width), device=dev).index_add_(
-                0, rows, x.reshape(-1, width))
+            ops = real * width
+            lib = lambda i: torch.zeros((T * (TN + 1), width), device=dev).index_add_(
+                0, rows, xs[i].reshape(-1, width))
+            lib_check = lambda o: o.reshape(T, TN + 1, width)[:, :TN].reshape(-1, width)
+            lib_name = "index_add_"
+            label = f"D {width}, [{T}, {S}, {width}] -> [{T}, {TN}, {width}]"
         else:
             xs = [r(T, TN, width) for _ in range(16)]
+            inputs = [(x,) for x in xs]
             call = lambda x: seg.segment_broadcast_tiles(tiles, x)
             plain = lambda x: seg.segment_broadcast_tiles_ref(tiles, x)
             want = plain(xs[0])
@@ -2154,37 +2343,52 @@ def phase_segment(graph, dev):
             exts = [torch.cat([x, x.new_zeros((T, 1, width))], 1).reshape(-1, width)
                     for x in xs]
             lib = lambda i: torch.index_select(exts[i], 0, rows)
-        got = call(xs[0])
+            lib_check = lambda o: o.reshape(T, S, width)
+            lib_name = "index_select"
+            label = f"D {width}, [{T}, {TN}, {width}] -> [{T}, {S}, {width}]"
+        got = call(*inputs[0])
         torch.cuda.synchronize()
         if bound is None:
             err = float((got - want).abs().max())
             if not torch.equal(got, want):
                 fail(f"K7 at D {width} disagrees with its plain version: {err:.3e}")
             checked = "exact"
+            if not torch.equal(lib_check(lib(0)), want):
+                fail("the index_select yardstick does not compute K7's function")
         else:
             err, checked = _elementwise(got, want, bound, f"{key} at width {width}")
-        if key == "K6":
-            lib_got = lib(xs[0]).reshape(T, TN + 1, width)[:, :TN].reshape(-1, width)
-            _elementwise(lib_got, want, bound, "the index_add_ yardstick")
-            make_lib = lambda i: (lambda: lib(xs[i]))
-            lib_name = "index_add_"
-        elif key == "K7":
-            if not torch.equal(lib(0).reshape(T, S, width), want):
-                fail("the index_select yardstick does not compute K7's function")
+            if key not in ("K5", "K5b"):
+                _elementwise(lib_check(lib(0)), want, bound, f"the {lib_name} yardstick")
+        if key in ("K5", "K5b"):
+            if not torch.equal(call(*inputs[0]), got):
+                fail(f"{key} at H {width}: a second launch gives other bits")
+            checked += "; a second launch gives the same bits"
+        else:
             make_lib = lambda i: (lambda: lib(i))
-            lib_name = "index_select"
-        else:
-            make_lib, lib_name = None, None
-        if key == "K5":
-            label = f"H {width}, scores [{T}, {width}, {S}]"
-        elif key == "K6":
-            label = f"D {width}, [{T}, {S}, {width}] -> [{T}, {TN}, {width}]"
-        else:
-            label = f"D {width}, [{T}, {TN}, {width}] -> [{T}, {S}, {width}]"
         rec = out[(key, width)] = _timed(key, label, checked, err,
-                                         lambda i: (lambda: call(xs[i])),
-                                         lambda: plain(xs[0]), nbytes, ops, make_lib,
+                                         lambda i: (lambda: call(*inputs[i])),
+                                         lambda: plain(*inputs[0]), nbytes, ops, make_lib,
                                          lib_name, reps=20)
+        if key in ("K5", "K5b"):
+            # the sparse COO calls are timed eagerly (they may synchronise with
+            # the host), and only where they compute the kernel's function
+            lib_err = (sps.dense(lib(0)) - want).abs()
+            if bool((lib_err <= bound).all()):
+                lib_fns = [functools.partial(lib, i) for i in range(len(inputs))]
+                rec["lib"] = cuda_ms(_cycle(lib_fns), 10)
+                print(f"[{key}] H {width}: {sps.name(key)} {rec['lib']:.5f} ms (eager calls, "
+                      f"CUDA events, the same copies; the sparse inputs built outside the "
+                      f"timed call; max abs err {float(lib_err.max()):.3e})", flush=True)
+            else:
+                print(f"[{key}] H {width}: {sps.name(key)} disagrees with the plain version "
+                      f"beyond the kernel's bound (max abs err {float(lib_err.max()):.3e}):"
+                      f" no library time", flush=True)
+            _k5_plans(key, width, [functools.partial(call, *a) for a in inputs],
+                      lambda o, want=want, bound=bound: _elementwise(
+                          o, want, bound, f"{key} at H {width}, forced lanes"), tiles)
+        if key == "K5b":
+            print(f"[K5b] H {width}: the kernel {rec['ms']:.5f} ms against the K6 + K7 "
+                  f"chain's {chains[width]['ms']:.5f} ms", flush=True)
         print(f"[{key}] {label.split(',')[0]}: {100 * rec['bound'][0] / rec['ms']:.1f}% "
               f"of its bound, {rec['ms'] / floor:.2f}x the launch floor {floor:.5f} ms",
               flush=True)
@@ -2201,6 +2405,13 @@ def phase_segment(graph, dev):
             **{f: sum(r[f] * c for r, c in recs) for f in ("ms", "eager", "plain")},
             lib=None if None in lib else sum(r["lib"] * c for r, c in recs),
             bound=(sum(r["bound"][0] * c for r, c in recs), recs[0][0]["bound"][1]))
+    chain = sum(c["ms"] for c in chains.values())
+    print(f"[segment] K5's backward per forward + backward (H 4 and H 1): "
+          f"the kernel {total['K5b']['ms']:.5f} ms, as a K6 and a K7 {chain:.5f} ms "
+          f"(graph replays)", flush=True)
+    k5, k5b = _segment_shuffled(tiles, gen, dev)
+    total["K5"]["err"] = max(total["K5"]["err"], k5)
+    total["K5b"]["err"] = max(total["K5b"]["err"], k5b)
     return total
 
 
@@ -2271,6 +2482,9 @@ def phase_gat_generic(seed, graph, dev):
     launches = {k: fn.launches for k, fn in SEG_COUNTERS.items()}
     if min(launches.values()) == 0:
         fail(f"[gat-generic] a kernel of the path did not launch: {launches}")
+    expected = {"K3": 1, "K4": 1, **{k: sum(c.values()) for k, c in GEN_CALLS.items()}}
+    if launches != expected:
+        fail(f"[gat-generic] launches {launches}, expected {expected} (GEN_CALLS)")
     if not (out.shape == (n2, GEN_HIDDEN) and bool(torch.isfinite(out).all())):
         fail("[gat-generic] the stack's output is not finite [n2, hidden]")
     seed_dev = seed.to(dev)
@@ -2601,6 +2815,7 @@ def main() -> int:
                         "ms": d["ms"], "plain_ms": d["plain"], "bound_ms": d["bound"][0],
                         "bound_by": d["bound"][1], "library_ms": d["lib"]})
     for nm, k, rep in (("segment_softmax_tiles_mh (K5)", "K5", "segment.py:247"),
+                       ("segment_softmax_tiles_bwd (K5 backward)", "K5b", "segment.py:306"),
                        ("segment_sum_tiles (K6)", "K6", "segment.py:361"),
                        ("segment_broadcast_tiles (K7)", "K7", "segment.py:398")):
         d = seg_recs[k]
@@ -2631,10 +2846,13 @@ def main() -> int:
           f"poisson1024 (K10, K11 scale 0.2; K14 16 right-hand sides, k = 1, "
           f"affine; K15 256 right-hand sides; K16 cg_multi's A at its K_pad "
           f"for 16), max_abs_err the largest over the dia-multi cases. K5-K7 "
-          f"launches count one forward + backward of the [gat-generic] stack, "
+          f"launches count one forward + backward of the [gat-generic] stack "
+          f"(K5b: K5's backward kernel), "
           f"their ms, plain_ms, library_ms and bound_ms the sums over that "
           f"forward + backward's calls {GEN_CALLS} at the [segment] phase's "
-          f"widths. K17 launches count the [bell] path (five spmm_bell calls, "
+          f"widths (K5's library_ms eager sparse COO calls), max_abs_err the "
+          f"largest there and (K5, K5b) on the shuffled layout. K17 launches "
+          f"count the [bell] path (five spmm_bell calls, "
           f"one spmv_bell); its ms are one call at 4096 x 4096, blocks (8, 128), "
           f"K {BELL_K}, max_abs_err the largest over the [bell] cases. ms and "
           f"library_ms are CUDA-graph replays (device "

@@ -39,13 +39,13 @@
 // distances 16, 8, 4, 2, 1.  Every order is fixed, so two launches give the
 // same bits.
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;      // K5
 constexpr int kRowThreads = 128;   // K3, K4: small blocks, to spread ~45k rows over every SM
 constexpr int kMaxBuckets = 8;
 constexpr int kHubSlots = 32;      // rows read by more slots are summed by a warp
@@ -259,108 +259,249 @@ extern "C" int scatter_rows_buckets_bwd(const void* row_ptr, const void* slots,
 // ---------------------------------------------------------------------------
 // K5, K6, K7: segment softmax, segment sum and node -> slot broadcast over the
 // node-tile layout.  Tile t has S edge slots; local_dst[t, s] is the slot's
-// destination node within the tile (0..TN-1), TN for padding slots.
+// destination node within the tile, and a slot whose id lies outside
+// [0, TN) is padding.
 //
 // They replace the TPU kernels of gflownet_spai_tpu/ops/segment.py
 // `_softmax_kernel` (launched by `_softmax_pallas`), `_sum_kernel`
 // (`_sum_pallas`) and `_broadcast_kernel` (`_broadcast_pallas`).  Mosaic has
 // no vector scatter, so those build a [TN, S] onehot per tile and run every
 // segment op as masked reductions and onehot matmuls: O(TN.S) work per tile
-// for O(S) data.  The layout builders write each tile's local_dst
-// non-decreasing with padding last, so each node's slots are one contiguous
-// run [start, end), and its rows of a [T, S, D] slot array one contiguous
-// span of (end - start).D floats; these kernels walk the runs instead,
-// O(S.D) per tile, in a fixed order, so the results are deterministic.  The
-// wrapper checks the run invariant once per layout and refuses a layout that
-// breaks it (K5, K6).
+// for O(S) data, for any local_dst.  K5's backward is the same VJP as
+// `_softmax_tiles_bwd`, which there takes a `_sum_pallas` and a
+// `_broadcast_pallas` with the heads as the feature axis.
 //
-// What bounds them on an H100: bytes (at most one add per word read).  On
-// the generic GATv2 layer's layout (T 352, S 1,152, TN 128) K7 writes 26 MB
-// at D 16 and K6 reads 12.9 MB: a few microseconds, so each call needs a
-// grid that fills every SM and 16-byte accesses, not one block per tile.
+// K5 and K6 walk each node's run of slots instead, O(S) per tile and head,
+// in a fixed order, so the results are deterministic.  The wrapper passes
+// the layout's run starts [T, TN + 1] (ops/segment.py `layout_runs`,
+// computed once per layout): node v's slots are positions starts[t, v] ..
+// starts[t, v + 1] - 1, padding positions starts[t, TN] .. S - 1.  Where
+// the builders' order holds (ids non-decreasing per tile, padding last) a
+// position is a slot; otherwise the wrapper also passes `order` [T, S], the
+// slot at each position (a stable sort by node, padding last), and every
+// slot access goes through it.  No kernel reads local_dst but K7.
 //
-//   K5: one block per tile; tile_runs() finds every node's run in shared
-//       memory, then a thread per (node, head) takes the run's max, the sum
-//       of exp and writes exp(s - max) / max(sum, 1e-30); padding slots get
-//       0 (the TPU kernel masks with -1e30 where its jnp oracle uses -inf:
-//       the same for finite scores).
-//   K6: [T, S, D] -> [T, TN, D].  A grid over (tile, node group).  The
-//       wrapper passes the layout's run starts [T, TN + 1] (computed once per
-//       layout), so no block scans the slot ids.  A node gets G = P.R lanes:
-//       lane (r, p) adds chunks p, p + P, ... of the run's rows start + r,
-//       start + r + R, ... in ascending order (loads batched ahead of the
-//       adds), then the R slot lanes merge by an xor butterfly over lane
-//       distances P, 2P, ..., G/2 and the lanes with r == 0 write the row;
-//       a node with no slot writes 0.  Adjacent lanes read adjacent chunks
-//       of one row, and adjacent nodes' spans are adjacent, so a warp reads
-//       contiguous memory.  The wrapper picks R from the layout's mean run
-//       (two or three slots a lane) and P from the row's chunks; R alone
-//       sets the order of the sums.  No atomics, no memset.
+// What bounds them on an H100: bytes (a few operations per word).  On the
+// generic GATv2 layer's layout (T 352, S 1,152, TN 128) K5 moves 13 MB at
+// H 4, K7 writes 26 MB at D 16 and K6 reads 12.9 MB: a few microseconds,
+// so each call needs a grid that fills every SM.
+//
+//   K5: [T, H, S] scores -> [T, H, S].  A grid over (tile, (head, node)
+//       group).  A (node, head) gets L slot lanes; lane l holds the slots
+//       of the run's positions start + l, start + l + L, ... and their
+//       scores in registers (kRunRegs of them, so a run of up to
+//       L.kRunRegs slots is read once; a longer run reads its tail again
+//       in each pass).  The lanes merge the max, then the sum of
+//       exp(s - max) in ascending order, by an xor butterfly over lane
+//       distances 1, 2, ..., L/2 (float max and add commute, so every lane
+//       ends with the same bits), and each lane writes
+//       exp(s - max) / max(sum, 1e-30) for its slots.  First of all, the
+//       TN.L threads of a (tile, head) write 0 at its padding positions,
+//       adjacent threads at adjacent positions, so those stores overlap the
+//       run's loads.  The TPU kernel masks with -1e30 where its jnp oracle
+//       uses -inf: the same for finite scores.  (Measured on an H100 at
+//       the slice's layout: staging a group's span in shared memory, a
+//       thread per position, or all heads of a node in one thread were
+//       each slower.)
+//   K5 backward: y, g [T, H, S] -> dx = y (g - sum over the run of y.g),
+//       0 on padding.  The same grid, lanes, registers and butterfly; the
+//       products are rounded before they are added (no FMA), as the plain
+//       version's y * g is.
+//   K6: [T, S, D] -> [T, TN, D].  A grid over (tile, node group).  A node
+//       gets G = P.R lanes: lane (r, p) adds chunks p, p + P, ... of the
+//       run's rows start + r, start + r + R, ... in ascending order (loads
+//       batched ahead of the adds), then the R slot lanes merge by an xor
+//       butterfly over lane distances P, 2P, ..., G/2 and the lanes with
+//       r == 0 write the row; a node with no slot writes 0.  Adjacent lanes
+//       read adjacent chunks of one row, and adjacent nodes' spans are
+//       adjacent, so a warp reads contiguous memory where there is no
+//       `order`.  The wrapper picks R from the layout's mean run (two or
+//       three slots a lane) and P from the row's chunks; R alone sets the
+//       order of the sums.  No atomics, no memset.
 //   K7: [T, TN, D] -> [T, S, D].  A grid over (tile, slot chunk): a thread
 //       reads its slot's local id once and moves one chunk of the slot's
 //       row; padding slots write 0 without a read.  Bit-exact: it only moves
 //       values.
 //
-// A chunk is 16 bytes (float4) where D % 4 == 0 and the pointers are
-// 16-byte aligned, one float otherwise (a scalar instance of the same
-// kernel); the widths the generic layer uses (16, 4) are template constants,
-// so no thread divides by D.  K7 at D 1 gives a thread 4 adjacent slots (an
-// int4 of ids, a float4 of outputs; S is a multiple of 128).
+// K5 moves single floats: a node's run is a span of one head's row that is
+// rarely 16-byte aligned at the slice's run lengths (4.49 slots on
+// average).  For K6 and K7 a chunk is 16 bytes (float4) where D % 4 == 0
+// and the pointers are 16-byte aligned, one float otherwise (a scalar
+// instance of the same kernel); the widths the generic layer uses (16, 4)
+// are template constants, so no thread divides by D.  K7 at D 1 gives a
+// thread 4 adjacent slots (an int4 of ids, a float4 of outputs; S is a
+// multiple of 128).
 // ---------------------------------------------------------------------------
 
 namespace {
 
-constexpr int kTileThreads = 128;   // K6, K7
+constexpr int kTileThreads = 128;   // K5, K6, K7
 constexpr int kSumBatch = 4;        // K6: slots of a lane whose loads are in flight together
+constexpr int kRunRegs = 4;         // K5: positions of a lane's share held in registers
 
-// start[v], end[v] of every node's run in tile slots lid[0, S); nodes with no
-// slot get the empty run [0, 0).
-__device__ void tile_runs(const int* __restrict__ lid, int S, int TN,
-                          int* start, int* end) {
-  for (int v = threadIdx.x; v < TN; v += blockDim.x) start[v] = end[v] = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int l = lid[s];
-    if (l < 0 || l >= TN) continue;
-    if (s == 0 || lid[s - 1] != l) start[l] = s;
-    if (s == S - 1 || lid[s + 1] != l) end[l] = s + 1;
-  }
-  __syncthreads();
+// The slot at position p of a tile's run order (ORD false: the identity,
+// and `ord` is not read).  Each kernel that takes an order has an instance
+// without one, so the builders' layouts pay nothing for it.
+template <bool ORD>
+__device__ __forceinline__ int slot_at(const int* __restrict__ ord, int p) {
+  return ORD ? __ldg(ord + p) : p;
 }
 
-__global__ void __launch_bounds__(kThreads)
-seg_softmax_kernel(const int* __restrict__ local_dst, const float* __restrict__ scores,
-                   float* __restrict__ out, int S, int H, int TN) {
-  extern __shared__ int runs[];
+// What K5's forward and backward share: the (tile, head, node, lane) of a
+// thread and the run of its node.  Threads past the last head (the grid's
+// ragged edge) get an empty run and take part in the butterflies.
+struct RunLane {
+  long long row;    // offset of the (tile, head) row of S values
+  const int* ord;   // the tile's order, or null
+  int beg, end;     // the node's positions
+  int first;        // this lane's first position: beg + l
+  int pad, idx;     // the tile's first padding position; the thread's index in its (tile, head)
+  bool live;
+};
+
+__device__ __forceinline__ RunLane run_lane(const int* __restrict__ starts,
+                                            const int* __restrict__ order, int S,
+                                            int H, int TN, int ll) {
+  RunLane r;
   const long long t = blockIdx.x;
-  const int* lid = local_dst + t * S;
-  tile_runs(lid, S, TN, runs, runs + TN);
-  const float* sc = scores + t * H * S;
-  float* o = out + t * H * S;
-  for (int e = threadIdx.x; e < TN * H; e += blockDim.x) {
-    const int v = e % TN, h = e / TN;
-    const int s0 = runs[v], s1 = runs[TN + v];
-    const float* row = sc + static_cast<long long>(h) * S;
-    float m = -1e30f;
-    for (int s = s0; s < s1; ++s) m = fmaxf(m, row[s]);
-    float den = 0.f;
-    for (int s = s0; s < s1; ++s) den += expf(row[s] - m);
-    den = fmaxf(den, 1e-30f);
-    for (int s = s0; s < s1; ++s) o[static_cast<long long>(h) * S + s] = expf(row[s] - m) / den;
+  const int i = blockIdx.y * kTileThreads + threadIdx.x;
+  const int hv = i >> ll, h = hv / TN, v = hv - h * TN;
+  r.live = h < H;
+  r.idx = i - h * (TN << ll);
+  r.row = (t * H + (r.live ? h : 0)) * S;
+  r.ord = order ? order + t * S : nullptr;
+  r.beg = r.end = r.pad = 0;
+  if (r.live) {
+    const int* st = starts + t * (TN + 1);
+    r.beg = __ldg(st + v);
+    r.end = __ldg(st + v + 1);
+    r.pad = __ldg(st + TN);
   }
-  for (int e = threadIdx.x; e < H * S; e += blockDim.x) {
-    const int l = lid[e % S];
-    if (l < 0 || l >= TN) o[e] = 0.f;
+  r.first = r.beg + (i & ((1 << ll) - 1));
+  return r;
+}
+
+__device__ __forceinline__ float lanes_max(float x, int L) {
+  for (int m = 1; m < L; m <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
+  return x;
+}
+
+__device__ __forceinline__ float lanes_sum(float x, int L) {
+  for (int m = 1; m < L; m <<= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, m));
+  return x;
+}
+
+// 0 at every padding position of the (tile, head) row: thread idx of the
+// row's TN.L threads takes positions pad + idx, pad + idx + TN.L, ...
+// Issued before the run's loads, so the stores overlap their latency.
+template <bool ORD>
+__device__ __forceinline__ void zero_padding(const RunLane& r, float* __restrict__ out,
+                                             int S, int stride) {
+  if (!r.live) return;
+  for (int p = r.pad + r.idx; p < S; p += stride) out[r.row + slot_at<ORD>(r.ord, p)] = 0.f;
+}
+
+// The slots of a lane's first kRunRegs positions (-1 past the run).
+template <bool ORD>
+__device__ __forceinline__ void lane_slots(const RunLane& r, int L, int (&sl)[kRunRegs]) {
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j) {
+    const int p = r.first + j * L;
+    sl[j] = p < r.end ? slot_at<ORD>(r.ord, p) : -1;
+  }
+}
+
+// K5.  Grid (T, blocks of H.TN.L threads a tile); L = 1 << ll lanes a
+// (node, head).  No thread returns before the butterflies.
+template <bool ORD>
+__global__ void __launch_bounds__(kTileThreads)
+seg_softmax_kernel(const int* __restrict__ starts, const int* __restrict__ order,
+                   const float* __restrict__ scores, float* __restrict__ out, int S,
+                   int H, int TN, int ll) {
+  const int L = 1 << ll;
+  const RunLane r = run_lane(starts, order, S, H, TN, ll);
+  zero_padding<ORD>(r, out, S, TN * L);
+  const float* x = scores + r.row;
+  int sl[kRunRegs];
+  lane_slots<ORD>(r, L, sl);
+  float e[kRunRegs];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j) {
+    e[j] = sl[j] >= 0 ? __ldg(x + sl[j]) : -INFINITY;
+    m = fmaxf(m, e[j]);
+  }
+  const int tail = r.first + kRunRegs * L;
+  for (int p = tail; p < r.end; p += L) m = fmaxf(m, __ldg(x + slot_at<ORD>(r.ord, p)));
+  m = lanes_max(m, L);
+  float den = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j)
+    if (sl[j] >= 0) {
+      e[j] = expf(e[j] - m);
+      den = __fadd_rn(den, e[j]);
+    }
+  for (int p = tail; p < r.end; p += L)
+    den = __fadd_rn(den, expf(__ldg(x + slot_at<ORD>(r.ord, p)) - m));
+  den = fmaxf(lanes_sum(den, L), 1e-30f);
+  float* y = out + r.row;
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j)
+    if (sl[j] >= 0) y[sl[j]] = e[j] / den;
+  for (int p = tail; p < r.end; p += L) {
+    const int s = slot_at<ORD>(r.ord, p);
+    y[s] = expf(__ldg(x + s) - m) / den;
+  }
+}
+
+// K5 backward: the forward's grid and lanes.
+template <bool ORD>
+__global__ void __launch_bounds__(kTileThreads)
+seg_softmax_bwd_kernel(const int* __restrict__ starts, const int* __restrict__ order,
+                       const float* __restrict__ y, const float* __restrict__ g,
+                       float* __restrict__ dx, int S, int H, int TN, int ll) {
+  const int L = 1 << ll;
+  const RunLane r = run_lane(starts, order, S, H, TN, ll);
+  zero_padding<ORD>(r, dx, S, TN * L);
+  const float* yr = y + r.row;
+  const float* gr = g + r.row;
+  int sl[kRunRegs];
+  lane_slots<ORD>(r, L, sl);
+  float ys[kRunRegs], gs[kRunRegs];
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j) {
+    ys[j] = sl[j] >= 0 ? __ldg(yr + sl[j]) : 0.f;
+    gs[j] = sl[j] >= 0 ? __ldg(gr + sl[j]) : 0.f;
+  }
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j)
+    if (sl[j] >= 0) dot = __fadd_rn(dot, __fmul_rn(ys[j], gs[j]));
+  const int tail = r.first + kRunRegs * L;
+  for (int p = tail; p < r.end; p += L) {
+    const int s = slot_at<ORD>(r.ord, p);
+    dot = __fadd_rn(dot, __fmul_rn(__ldg(yr + s), __ldg(gr + s)));
+  }
+  dot = lanes_sum(dot, L);
+  float* d = dx + r.row;
+#pragma unroll
+  for (int j = 0; j < kRunRegs; ++j)
+    if (sl[j] >= 0) d[sl[j]] = __fmul_rn(ys[j], __fsub_rn(gs[j], dot));
+  for (int p = tail; p < r.end; p += L) {
+    const int s = slot_at<ORD>(r.ord, p);
+    d[s] = __fmul_rn(__ldg(yr + s), __fsub_rn(__ldg(gr + s), dot));
   }
 }
 
 // K6.  Grid (T, node blocks of a tile); Q chunks a row (0: q_rt, at run
-// time); P = 1 << lp chunk lanes and R = 1 << lr slot lanes a node.  No
-// thread returns early: every lane of a warp takes part in the butterfly.
-template <typename V, int Q>
+// time); P = 1 << lp chunk lanes and R = 1 << lr slot lanes a node; the
+// run's positions go through `order` where it is not null.  No thread
+// returns early: every lane of a warp takes part in the butterfly.
+template <typename V, int Q, bool ORD>
 __global__ void __launch_bounds__(kTileThreads)
-seg_sum_kernel(const int* __restrict__ starts, const float* __restrict__ vals,
-               float* __restrict__ out, int S, int TN, int q_rt, int lp, int lr) {
+seg_sum_kernel(const int* __restrict__ starts, const int* __restrict__ order,
+               const float* __restrict__ vals, float* __restrict__ out, int S, int TN,
+               int q_rt, int lp, int lr) {
   constexpr int W = Chunk<V>::kWords;
   const int q = Q > 0 ? Q : q_rt;
   const int lg = lp + lr, P = 1 << lp, R = 1 << lr;
@@ -375,6 +516,7 @@ seg_sum_kernel(const int* __restrict__ starts, const float* __restrict__ vals,
     end = __ldg(st + 1);
   }
   const float* span = vals + t * S * q * W;
+  const int* ord = order ? order + t * S : nullptr;
   for (int c0 = 0; c0 < q; c0 += P) {
     const int c = c0 + p;
     V acc = Chunk<V>::zero();
@@ -384,7 +526,8 @@ seg_sum_kernel(const int* __restrict__ starts, const float* __restrict__ vals,
 #pragma unroll
         for (int j = 0; j < kSumBatch; ++j) {
           const int s = s0 + j * R;
-          x[j] = s < end ? Chunk<V>::load(span + (static_cast<long long>(s) * q + c) * W)
+          x[j] = s < end ? Chunk<V>::load(
+                               span + (static_cast<long long>(slot_at<ORD>(ord, s)) * q + c) * W)
                          : Chunk<V>::zero();
         }
 #pragma unroll
@@ -441,7 +584,7 @@ int tile_launch_check(int T, int S, int D, int TN) {
   return 0;
 }
 
-// The second grid dimension of a K6 / K7 launch: `work` threads of a tile.
+// The second grid dimension of a K5, K6 or K7 launch: `work` threads of a tile.
 bool tile_grid(long long work, dim3& grid, int T) {
   const long long blocks = (work + kTileThreads - 1) / kTileThreads;
   if (blocks > 65535) return false;
@@ -455,28 +598,78 @@ bool pow2_log(int x, int& lg) {
   return true;
 }
 
+// K6's instance for the chunk type, the row's chunks and whether there is
+// an order.
+template <typename V, int Q>
+void sum_launch(dim3 grid, cudaStream_t st, const int* s, const int* od, const float* v,
+                float* o, int S, int TN, int q, int lp, int lr) {
+  if (od)
+    seg_sum_kernel<V, Q, true><<<grid, kTileThreads, 0, st>>>(s, od, v, o, S, TN, q, lp, lr);
+  else
+    seg_sum_kernel<V, Q, false><<<grid, kTileThreads, 0, st>>>(s, od, v, o, S, TN, q, lp, lr);
+}
+
+// K5 and its backward: the grid and lanes they share.  L slot lanes a
+// (node, head), a power of two up to 32.
+bool softmax_grid(int T, int S, int H, int TN, int L, dim3& grid, int& ll) {
+  return tile_launch_check(T, S, H, TN) == 0 && pow2_log(L, ll) && L <= 32 &&
+         tile_grid(static_cast<long long>(H) * TN * L, grid, T);
+}
+
 }  // namespace
 
-// K5.  local_dst [T, S] int32 (sorted runs), scores and out [T, H, S].
-extern "C" int segment_softmax_tiles_fwd(const void* local_dst, const void* scores,
-                                         void* out, int T, int S, int H, int TN,
-                                         void* stream) {
-  if (int rc = tile_launch_check(T, S, H, TN)) return rc;
-  if (T > 0)
-    seg_softmax_kernel<<<T, kThreads, 2 * TN * sizeof(int),
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(local_dst), static_cast<const float*>(scores),
-        static_cast<float*>(out), S, H, TN);
+// K5.  starts [T, TN + 1] int32, order [T, S] int32 or null (see above),
+// scores and out [T, H, S].
+extern "C" int segment_softmax_tiles_fwd(const void* starts, const void* order,
+                                         const void* scores, void* out, int T, int S,
+                                         int H, int TN, int L, void* stream) {
+  dim3 grid;
+  int ll = 0;
+  if (!softmax_grid(T, S, H, TN, L, grid, ll)) return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* s = static_cast<const int*>(starts);
+    const int* od = static_cast<const int*>(order);
+    const float* x = static_cast<const float*>(scores);
+    float* o = static_cast<float*>(out);
+    if (od)
+      seg_softmax_kernel<true><<<grid, kTileThreads, 0, st>>>(s, od, x, o, S, H, TN, ll);
+    else
+      seg_softmax_kernel<false><<<grid, kTileThreads, 0, st>>>(s, od, x, o, S, H, TN, ll);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6.  starts [T, TN + 1] int32 (node v's slots are starts[t, v] ..
-// starts[t, v + 1] - 1), vals [T, S, D] -> out [T, TN, D].  vec: 16-byte
-// chunks (D % 4 == 0, vals and out 16-byte aligned); P chunk lanes and R
-// slot lanes a node, powers of two with P.R <= 32.
-extern "C" int segment_sum_tiles_fwd(const void* starts, const void* vals, void* out,
-                                     int T, int S, int D, int TN, int vec, int P, int R,
-                                     void* stream) {
+// K5 backward.  y, g and dx [T, H, S]; the rest as K5.
+extern "C" int segment_softmax_tiles_bwd(const void* starts, const void* order,
+                                         const void* y, const void* g, void* dx, int T,
+                                         int S, int H, int TN, int L, void* stream) {
+  dim3 grid;
+  int ll = 0;
+  if (!softmax_grid(T, S, H, TN, L, grid, ll)) return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* s = static_cast<const int*>(starts);
+    const int* od = static_cast<const int*>(order);
+    const float* yp = static_cast<const float*>(y);
+    const float* gp = static_cast<const float*>(g);
+    float* d = static_cast<float*>(dx);
+    if (od)
+      seg_softmax_bwd_kernel<true><<<grid, kTileThreads, 0, st>>>(s, od, yp, gp, d, S, H, TN, ll);
+    else
+      seg_softmax_bwd_kernel<false><<<grid, kTileThreads, 0, st>>>(s, od, yp, gp, d, S, H, TN,
+                                                                    ll);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6.  starts [T, TN + 1] int32 and order [T, S] int32 or null (as K5),
+// vals [T, S, D] -> out [T, TN, D].  vec: 16-byte chunks (D % 4 == 0, vals
+// and out 16-byte aligned); P chunk lanes and R slot lanes a node, powers
+// of two with P.R <= 32.
+extern "C" int segment_sum_tiles_fwd(const void* starts, const void* order,
+                                     const void* vals, void* out, int T, int S, int D,
+                                     int TN, int vec, int P, int R, void* stream) {
   int lp = 0, lr = 0;
   dim3 grid;
   if (int rc = tile_launch_check(T, S, D, TN)) return rc;
@@ -487,18 +680,19 @@ extern "C" int segment_sum_tiles_fwd(const void* starts, const void* vals, void*
   if (T > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const int* s = static_cast<const int*>(starts);
+    const int* od = static_cast<const int*>(order);
     const float* v = static_cast<const float*>(vals);
     float* o = static_cast<float*>(out);
     if (vec && D == 16)
-      seg_sum_kernel<float4, 4><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 4, lp, lr);
+      sum_launch<float4, 4>(grid, st, s, od, v, o, S, TN, 4, lp, lr);
     else if (vec && D == 4)
-      seg_sum_kernel<float4, 1><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 1, lp, lr);
+      sum_launch<float4, 1>(grid, st, s, od, v, o, S, TN, 1, lp, lr);
     else if (vec)
-      seg_sum_kernel<float4, 0><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, D / 4, lp, lr);
+      sum_launch<float4, 0>(grid, st, s, od, v, o, S, TN, D / 4, lp, lr);
     else if (D == 1)
-      seg_sum_kernel<float, 1><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, 1, lp, lr);
+      sum_launch<float, 1>(grid, st, s, od, v, o, S, TN, 1, lp, lr);
     else
-      seg_sum_kernel<float, 0><<<grid, kTileThreads, 0, st>>>(s, v, o, S, TN, D, lp, lr);
+      sum_launch<float, 0>(grid, st, s, od, v, o, S, TN, D, lp, lr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,7 @@ from .segment import (RowPlan, SegBuckets, SegTiles, SrcWindows, build_seg_bucke
                       scatter_rows_windows, scatter_rows_windows_ref,
                       segment_broadcast_tiles, segment_broadcast_tiles_ref,
                       segment_max_tiles_ref, segment_softmax_tiles,
+                      segment_softmax_tiles_bwd, segment_softmax_tiles_bwd_ref,
                       segment_softmax_tiles_mh, segment_softmax_tiles_ref,
                       segment_sum_tiles, segment_sum_tiles_ref, to_tiles)
 
@@ -46,6 +47,7 @@ __all__ = [
     "scatter_rows_buckets_ref", "scatter_rows_windows", "scatter_rows_windows_ref",
     "to_tiles", "from_tiles",
     "segment_broadcast_tiles", "segment_broadcast_tiles_ref", "segment_max_tiles_ref",
-    "segment_softmax_tiles", "segment_softmax_tiles_mh", "segment_softmax_tiles_ref",
+    "segment_softmax_tiles", "segment_softmax_tiles_bwd", "segment_softmax_tiles_bwd_ref",
+    "segment_softmax_tiles_mh", "segment_softmax_tiles_ref",
     "segment_sum_tiles", "segment_sum_tiles_ref",
 ]

@@ -22,7 +22,7 @@ The kernels work node by node over each node's run of slots: the wrapper
 derives once per layout where each run starts and, where a node's slots
 are not adjacent, the slot order that makes them runs (``layout_runs``).
 A node gets P channel lanes per head times Q slot lanes (``_lane_plan``);
-``layout_runs`` lives in ``ops.segment``, which K6 shares it with.
+``layout_runs`` lives in ``ops.segment``, whose K5 and K6 share it.
 K2 sums its per-tile terms
 in a fixed order inside the launch, so both kernels give the same bits on
 every launch.

@@ -12,7 +12,9 @@ source-row gather is K3 and its transpose K4, each one launch over every
 bucket of a layer (``gather_rows_buckets``).  All five run as CUDA
 kernels (``csrc/segment.cu``) on CUDA tensors; on CPU tensors each
 computes its plain version (``*_ref``).  Each layout's run starts
-(``layout_runs``) are derived once and cached; K1, K2 and K6 read them.
+(``layout_runs``) are derived once and cached; K1, K2, K5 and K6 read
+them.  The tile ops take any local_dst, as the JAX package's onehot kernels
+do: a slot whose id lies outside [0, TN) is padding.
 """
 
 from __future__ import annotations
@@ -40,9 +42,10 @@ def _round_up(x: int, m: int) -> int:
 class SegTiles:
     """Static node-tile layout.  ``perm``: int32[T·S], edge slot → original
     edge index (padding slots point at E, one past the end).
-    ``local_dst``: int32[T, S], destination node within the tile (0..TN−1;
-    TN for padding slots).  The slots of each tile are sorted by
-    ``local_dst``, padding last."""
+    ``local_dst``: int32[T, S], destination node within the tile (0..TN−1);
+    any other id marks a padding slot.  The builders write TN for padding
+    and sort each tile's slots by ``local_dst``, padding last; the tile ops
+    take any order (``layout_runs``)."""
 
     perm: torch.Tensor
     local_dst: torch.Tensor
@@ -156,12 +159,19 @@ def from_tiles(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
 # Tile segment ops: softmax (K5), sum (K6), node → slot broadcast (K7)
 # ---------------------------------------------------------------------------
 
+def _real(tiles: SegTiles) -> torch.Tensor:
+    """bool[T, S]: the slots whose id names a node of the tile, [0, TN)."""
+    lid = tiles.local_dst
+    return (lid >= 0) & (lid < tiles.tile_nodes)
+
+
 def _slot_rows(tiles: SegTiles) -> torch.Tensor:
     """int64[T·S]: each slot's row in a per-tile layout of TN + 1 rows
-    (row TN of each tile collects its padding slots)."""
-    lid = tiles.local_dst.long()
+    (row TN of each tile collects its padding slots, whatever their id)."""
+    tn = tiles.tile_nodes
+    lid = torch.where(_real(tiles), tiles.local_dst, tn).long()
     tile = torch.arange(lid.shape[0], device=lid.device)[:, None]
-    return (tile * (tiles.tile_nodes + 1) + lid).reshape(-1)
+    return (tile * (tn + 1) + lid).reshape(-1)
 
 
 def _node_rows(tiles: SegTiles, per_row: torch.Tensor) -> torch.Tensor:
@@ -183,9 +193,24 @@ def segment_softmax_tiles_ref(tiles: SegTiles, scores_t: torch.Tensor) -> torch.
     ex = torch.exp(flat - m[rows])
     den = torch.zeros_like(m).index_add_(0, rows, ex)
     y = ex / torch.clamp_min(den[rows], 1e-30)
-    real = (tiles.local_dst.reshape(-1) < tiles.tile_nodes)[:, None]
-    y = torch.where(real, y, 0.0).reshape(T, S, H).permute(0, 2, 1)
+    y = torch.where(_real(tiles).reshape(-1, 1), y, 0.0).reshape(T, S, H).permute(0, 2, 1)
     return y if scores_t.dim() == 3 else y[:, 0]
+
+
+def _run_sums_ref(tiles: SegTiles, v: torch.Tensor) -> torch.Tensor:
+    """[T, H, S]: the sum of ``v`` [T, H, S] over each slot's run (0 on
+    padding), by the plain K6 and K7 with the heads as the feature axis."""
+    T, H, S = v.shape
+    per_node = segment_sum_tiles_ref(tiles, v.permute(0, 2, 1).contiguous())
+    return segment_broadcast_tiles_ref(
+        tiles, per_node.reshape(T, tiles.tile_nodes, H)).permute(0, 2, 1)
+
+
+def segment_softmax_tiles_bwd_ref(tiles: SegTiles, y: torch.Tensor,
+                                 g: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5's backward: ``y ⊙ (g − Σ_run y·g)`` for [T, H, S]
+    outputs ``y`` and cotangents ``g`` (``_softmax_tiles_bwd`` in JAX)."""
+    return y * (g - _run_sums_ref(tiles, y * g))
 
 
 def segment_sum_tiles_ref(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
@@ -213,12 +238,12 @@ def segment_broadcast_tiles_ref(tiles: SegTiles, node_vals: torch.Tensor) -> tor
     return ext.reshape(T * (TN + 1), D)[_slot_rows(tiles)].reshape(T, tiles.slots, D)
 
 
-_RUNS = WeakIdKeyDictionary()   # local_dst tensor → (starts, order, mean run, in range)
+_RUNS = WeakIdKeyDictionary()   # local_dst tensor → (starts, order, mean run)
 
 
 def _runs_entry(tiles: SegTiles):
-    """The layout's cached (starts, order, mean run, local_dst in [0, TN]),
-    computed at its first call (``layout_runs``)."""
+    """The layout's cached (starts, order, mean run), computed at its first
+    call (``layout_runs``)."""
     lid = tiles.local_dst
     hit = _RUNS.get(lid)
     if hit is not None:
@@ -233,8 +258,7 @@ def _runs_entry(tiles: SegTiles):
     order = None if in_runs else \
         torch.sort(key, dim=1, stable=True).indices.to(torch.int32).contiguous()
     nodes = int((counts[:, :TN] > 0).sum())
-    hit = _RUNS[lid] = (starts, order, int(starts[:, TN].sum()) / max(nodes, 1),
-                        bool(((lid >= 0) & (lid <= TN)).all()))
+    hit = _RUNS[lid] = (starts, order, int(starts[:, TN].sum()) / max(nodes, 1))
     return hit
 
 
@@ -246,7 +270,7 @@ def layout_runs(tiles: SegTiles):
     (local_dst outside [0, TN)) last; else int32 [T, S], the slot within
     the tile at each position (a stable sort by node, padding last).
     Computed once per layout (the local_dst tensor) and cached.  K1, K2
-    (``ops.gat_fused``) and K6 read it."""
+    (``ops.gat_fused``), K5 and K6 read it."""
     return _runs_entry(tiles)[:2]
 
 
@@ -255,29 +279,35 @@ def _mean_run(tiles: SegTiles) -> float:
     return _runs_entry(tiles)[2]
 
 
-_SUM_SLOT_LANES = 8     # K6: most slot lanes a node gets
+_SLOT_LANES = 8         # K5, K6: most slot lanes a node gets
 
 
 def _pow2(x) -> int:
     return 1 << (max(int(x), 1) - 1).bit_length()
 
 
+def _slot_lanes(mean_run: float) -> int:
+    """Slot lanes a node gets in K6, and a (node, head) in K5 forward and
+    backward: a power of two at or above the mean run / 2.4, so a lane
+    takes two or three slots of a typical run, at most 8.  They set the
+    order of K5's sums."""
+    return min(_pow2(-(-mean_run // 2.4)), _SLOT_LANES)
+
+
 def _sum_lanes(q: int, mean_run: float) -> tuple[int, int]:
-    """K6's lanes per node for rows of ``q`` chunks: slot lanes R (a power
-    of two at or above the mean run / 2.4, so a lane adds two or three
-    slots of a typical run, at most 8) and chunk lanes P (a power of two
-    at or above q, at most 32 / R; a lane takes chunks p, p + P, ... where
-    q > P).  R alone sets the order of the sums, so it does not depend on
-    the row's width or alignment."""
-    R = min(_pow2(-(-mean_run // 2.4)), _SUM_SLOT_LANES)
+    """K6's lanes per node for rows of ``q`` chunks: slot lanes R
+    (``_slot_lanes``) and chunk lanes P (a power of two at or above q, at
+    most 32 / R; a lane takes chunks p, p + P, ... where q > P).  R alone
+    sets the order of the sums, so it does not depend on the row's width or
+    alignment."""
+    R = _slot_lanes(mean_run)
     return min(_pow2(q), 32 // R), R
 
 
-def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str, runs: bool):
+def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str):
     """The kernels take contiguous float32 values of ``shape`` and the
-    layout's int32 local_dst on their device; K5 and K6 also need each
-    node's slots to form one run (local_dst non-decreasing in [0, TN] per
-    tile), checked once per layout with its run starts (``layout_runs``)."""
+    layout's int32 local_dst on their device (K5 and K6 read its run starts
+    and slot order, ``layout_runs``, derived from it)."""
     lid = tiles.local_dst
     if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous() \
             or tuple(x.shape) != shape:
@@ -287,58 +317,82 @@ def _check_tiles(tiles: SegTiles, x: torch.Tensor, shape, what: str, runs: bool)
             or tuple(lid.shape) != (tiles.tiles, tiles.slots) or tiles.tile_nodes > 4096:
         raise ValueError(f"{what}: the layout's local_dst must be a contiguous int32 "
                          f"[T, S] tensor on {x.device}, with TN <= 4096")
-    if not runs:
-        return
-    _, order, _, in_range = _runs_entry(tiles)
-    if order is not None or not in_range:
-        raise ValueError(f"{what}: local_dst is not non-decreasing in [0, TN] per "
-                         "tile, so a node's slots do not form one run (build the "
-                         "layout with build_seg_tiles or build_seg_buckets)")
 
 
 _TILE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_SUM_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SOFTMAX_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SOFTMAX_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SUM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _tile_launch(name: str, tiles: SegTiles, x: torch.Tensor, out_shape, d: int):
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    _build.check(_seg_fn(name, _TILE_ARGTYPES)(
-        tiles.local_dst.data_ptr(), x.data_ptr(), out.data_ptr(), tiles.tiles,
-        tiles.slots, d, tiles.tile_nodes,
-        torch.cuda.current_stream(x.device).cuda_stream), name)
-    return out
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _runs_args(tiles: SegTiles):
+    """(starts, order or None, mean run) as the kernels take them."""
+    starts, order, mean_run = _runs_entry(tiles)
+    return starts.data_ptr(), None if order is None else order.data_ptr(), mean_run
 
 
 def _softmax_fwd(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
-    """K5 on CUDA tensors ([T, H, S]), its plain version on CPU tensors."""
+    """K5 on CUDA tensors ([T, H, S]), its plain version on CPU tensors.
+    The kernel walks each node's run, through the layout's run starts and
+    slot order, with ``_slot_lanes`` lanes per (node, head)."""
     if scores_t.device.type == "cpu":
         return segment_softmax_tiles_ref(tiles, scores_t)
     T, H, S = scores_t.shape
-    _check_tiles(tiles, scores_t, (tiles.tiles, H, tiles.slots),
-                 "segment_softmax_tiles", runs=True)
-    out = _tile_launch("segment_softmax_tiles_fwd", tiles, scores_t, (T, H, S), H)
+    _check_tiles(tiles, scores_t, (tiles.tiles, H, tiles.slots), "segment_softmax_tiles")
+    starts, order, mean_run = _runs_args(tiles)
+    out = torch.empty_like(scores_t)
+    _build.check(_seg_fn("segment_softmax_tiles_fwd", _SOFTMAX_ARGTYPES)(
+        starts, order, scores_t.data_ptr(), out.data_ptr(), T, S, H, tiles.tile_nodes,
+        _slot_lanes(mean_run), _stream(scores_t)), "segment_softmax_tiles")
     segment_softmax_tiles_mh.launches += 1
     return out
+
+
+def segment_softmax_tiles_bwd(tiles: SegTiles, y: torch.Tensor,
+                              g: torch.Tensor) -> torch.Tensor:
+    """K5's backward, ``y ⊙ (g − Σ_run y·g)`` per node and head ([T, H, S]
+    outputs ``y`` and cotangents ``g``; 0 on padding slots): one kernel
+    over the runs with K5's lanes on CUDA tensors (strided inputs are
+    copied contiguous first), ``segment_softmax_tiles_bwd_ref`` on CPU
+    tensors."""
+    if y.device.type == "cpu":
+        return segment_softmax_tiles_bwd_ref(tiles, y, g)
+    y, g = y.contiguous(), g.contiguous()
+    T, H, S = y.shape
+    for x, nm in ((y, "y"), (g, "g")):
+        _check_tiles(tiles, x, (tiles.tiles, H, tiles.slots),
+                     f"segment_softmax_tiles_bwd ({nm})")
+    starts, order, mean_run = _runs_args(tiles)
+    dx = torch.empty_like(y)
+    _build.check(_seg_fn("segment_softmax_tiles_bwd", _SOFTMAX_BWD_ARGTYPES)(
+        starts, order, y.data_ptr(), g.data_ptr(), dx.data_ptr(), T, S, H,
+        tiles.tile_nodes, _slot_lanes(mean_run), _stream(y)),
+        "segment_softmax_tiles_bwd")
+    segment_softmax_tiles_bwd.launches += 1
+    return dx
 
 
 def _sum_fwd(tiles: SegTiles, vals_t: torch.Tensor) -> torch.Tensor:
     """K6 ([T, S, D] → [T, TN, D]) on CUDA tensors, its plain version on
     CPU tensors.  The kernel walks each node's run from the layout's run
-    starts with ``_sum_lanes`` lanes a node; 16-byte chunks where D % 4 == 0
-    and both pointers allow it."""
+    starts (and slot order, where the slots are not in runs) with
+    ``_sum_lanes`` lanes a node; 16-byte chunks where D % 4 == 0 and both
+    pointers allow it."""
     T, S, D = vals_t.shape
     if vals_t.device.type == "cpu":
         return segment_sum_tiles_ref(tiles, vals_t).reshape(T, tiles.tile_nodes, D)
-    _check_tiles(tiles, vals_t, (tiles.tiles, tiles.slots, D), "segment_sum_tiles",
-                 runs=True)
-    starts, _, mean_run, _ = _runs_entry(tiles)   # in runs (checked above)
+    _check_tiles(tiles, vals_t, (tiles.tiles, tiles.slots, D), "segment_sum_tiles")
+    starts, order, mean_run = _runs_args(tiles)
     out = torch.empty((T, tiles.tile_nodes, D), dtype=vals_t.dtype, device=vals_t.device)
     vec = D % 4 == 0 and vals_t.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     P, R = _sum_lanes(D // 4 if vec else D, mean_run)
     _build.check(_seg_fn("segment_sum_tiles_fwd", _SUM_ARGTYPES)(
-        starts.data_ptr(), vals_t.data_ptr(), out.data_ptr(), T, S, D,
-        tiles.tile_nodes, int(vec), P, R,
-        torch.cuda.current_stream(vals_t.device).cuda_stream), "segment_sum_tiles")
+        starts, order, vals_t.data_ptr(), out.data_ptr(), T, S, D, tiles.tile_nodes,
+        int(vec), P, R, _stream(vals_t)), "segment_sum_tiles")
     segment_sum_tiles.launches += 1
     return out
 
@@ -350,16 +404,19 @@ def _broadcast_fwd(tiles: SegTiles, node_vals: torch.Tensor) -> torch.Tensor:
         return segment_broadcast_tiles_ref(tiles, node_vals)
     T, TN, D = node_vals.shape
     _check_tiles(tiles, node_vals, (tiles.tiles, tiles.tile_nodes, D),
-                 "segment_broadcast_tiles", runs=False)
-    out = _tile_launch("segment_broadcast_tiles_fwd", tiles, node_vals,
-                       (T, tiles.slots, D), D)
+                 "segment_broadcast_tiles")
+    out = torch.empty((T, tiles.slots, D), dtype=node_vals.dtype, device=node_vals.device)
+    _build.check(_seg_fn("segment_broadcast_tiles_fwd", _TILE_ARGTYPES)(
+        tiles.local_dst.data_ptr(), node_vals.data_ptr(), out.data_ptr(), T,
+        tiles.slots, D, TN, _stream(node_vals)), "segment_broadcast_tiles")
     segment_broadcast_tiles.launches += 1
     return out
 
 
 class _SoftmaxTiles(torch.autograd.Function):
-    """K5 forward; backward ``y ⊙ (g − K7(K6(y·g)))`` with the heads as
-    the feature axis (``_softmax_tiles_bwd`` in JAX)."""
+    """K5 forward; its backward ``y ⊙ (g − Σ_run y·g)`` in one kernel over
+    the runs (``_softmax_tiles_bwd`` in JAX, there a K6 and a K7 with the
+    heads as the feature axis)."""
 
     @staticmethod
     def forward(ctx, scores_t, tiles):
@@ -371,9 +428,7 @@ class _SoftmaxTiles(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        yg = (y * g).permute(0, 2, 1).contiguous()                  # [T, S, H]
-        dot = _broadcast_fwd(ctx.tiles, _sum_fwd(ctx.tiles, yg))     # [T, S, H]
-        return y * (g - dot.permute(0, 2, 1)), None
+        return segment_softmax_tiles_bwd(ctx.tiles, y, g), None
 
 
 class _SumTiles(torch.autograd.Function):
@@ -404,7 +459,7 @@ class _BroadcastTiles(torch.autograd.Function):
 
 def segment_softmax_tiles_mh(tiles: SegTiles, scores_t: torch.Tensor) -> torch.Tensor:
     """Multi-head segment softmax [T, H, S] → [T, H, S] (padding → 0):
-    K5 on CUDA tensors, differentiable (backward K6 and K7)."""
+    K5 on CUDA tensors, differentiable (backward ``segment_softmax_tiles_bwd``)."""
     return _SoftmaxTiles.apply(scores_t.contiguous(), tiles)
 
 
@@ -751,5 +806,6 @@ def gather_rows_windows(plan: SrcWindows, tiles: SegTiles, src_t,
 gather_rows_windows.launches = 0
 scatter_rows_windows.launches = 0
 segment_softmax_tiles_mh.launches = 0
+segment_softmax_tiles_bwd.launches = 0
 segment_sum_tiles.launches = 0
 segment_broadcast_tiles.launches = 0

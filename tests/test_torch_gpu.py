@@ -41,6 +41,9 @@ K7 only moves values: exact.  K6 sums each node's run in slot order, the
 plain version with index_add_: rtol 1e-5 and per element 4·eps32·Σ|v|
 over the run's terms, as K4.  K5 divides by a sum of positive terms whose
 rounding grows with the run: rtol 1e-5 + 4·eps32·(run length), atol 1e-6.
+K5's backward y ⊙ (g − Σ_run y·g) sums the run in another order than the
+plain K6: atol 1e-6, rtol 1e-5 and per element 4·eps32·|y|·Σ_run|y·g|
+(K6's bound carried through the product with y).
 K17 sums W·bn products per output in another order than the plain
 version's batched matmul (and skips the all-zero chunks of A): rtol 1e-5
 and per element 4·eps32·(|A|·|X|)."""
@@ -998,22 +1001,51 @@ def no_plain_mod(monkeypatch):
 def _seg_layout(dev, kind):
     """``empty``: node ids skip tiles 2 and 5 (two empty tiles) and a hub
     owns 300 slots; ``padded``: one tile holds a 1,000-slot hub, so the
-    padding fills most of S in every other tile."""
+    padding fills most of S in every other tile; ``shuffled``: ``empty``
+    with each tile's slots permuted and part of the padding marked -1 and
+    part TN + 5 (no node's slots form a run)."""
     rng = np.random.default_rng(3)
     n, tn = 1500, 128
-    if kind == "empty":
+    if kind == "padded":
+        ids = np.concatenate([rng.integers(0, n, 3000), np.full(1000, 40)])
+    else:
         ids = rng.integers(0, n, 12000)
         ids = ids[(ids // tn != 2) & (ids // tn != 5)]
         ids = np.concatenate([ids, np.full(300, 900)])
-    else:
-        ids = np.concatenate([rng.integers(0, n, 3000), np.full(1000, 40)])
     tiles = seg.build_seg_tiles(ids, n, tile_nodes=tn, device=dev)
     real = (tiles.local_dst < tn).sum(dim=1)
-    if kind == "empty":
-        assert int((real == 0).sum()) == 2
-    else:
+    if kind == "padded":
         assert float(real.float().mean()) < 0.3 * tiles.slots
+    else:
+        assert int((real == 0).sum()) == 2
+    if kind == "shuffled":
+        lid = tiles.local_dst.cpu().numpy().copy()
+        for t in range(tiles.tiles):
+            lid[t] = lid[t][rng.permutation(tiles.slots)]
+            pad = np.flatnonzero(lid[t] == tn)
+            lid[t, pad[::3]] = -1
+            lid[t, pad[1::3]] = tn + 5
+        tiles = dataclasses.replace(tiles, local_dst=torch.as_tensor(lid, device=dev))
+        assert seg.layout_runs(tiles)[1] is not None
     return rng, tiles
+
+
+def _k5_refs(tiles, scores, g):
+    """The plain K5 forward and backward on ``scores`` and ``g`` (the
+    backward at the plain forward's y) with their elementwise bounds;
+    computed before the plain versions are replaced."""
+    y = seg.segment_softmax_tiles_ref(tiles, scores)
+    dx = seg.segment_softmax_tiles_bwd_ref(tiles, y, g)
+    runs = seg._run_sums_ref(tiles, torch.ones_like(scores))
+    bound_y = 1e-6 + (1e-5 + 4 * EPS32 * runs) * y.abs()
+    bound_dx = 1e-6 + 1e-5 * dx.abs() + 4 * EPS32 * y.abs() * seg._run_sums_ref(
+        tiles, (y * g).abs())
+    return y, dx, bound_y, bound_dx
+
+
+def _within(got, want, bound, what):
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), f"{what}: max err {float(err.max()):.3e}"
 
 
 def _run_len(tiles, ref_sum, ref_bcast):
@@ -1119,22 +1151,76 @@ def test_k6_k7_unaligned_and_repeatable(cuda, no_plain_mod, kind, D):
     assert all(torch.equal(x, want) for x in bcasts)
 
 
-def test_segment_kernels_refuse_broken_runs(cuda):
-    """K5 and K6 need each node's slots to form one run: a layout whose
-    local_dst is not sorted within a tile raises (K7 does not need it)."""
+@pytest.mark.parametrize("kind", ["empty", "padded", "shuffled"])
+@pytest.mark.parametrize("H", [4, 1, 3])
+def test_k5_fwd_bwd_on_every_layout(cuda, no_plain_mod, kind, H):
+    """K5 forward and backward against their plain versions on layouts with
+    300- and 1,000-slot hubs (runs longer than a lane's registers), empty
+    tiles and nodes, and slots not in runs with -1 and TN + 5 padding; the
+    same bits on a second launch and on inputs one element off 16 bytes;
+    one launch per call, also through autograd."""
+    rng, tiles = _seg_layout(cuda, kind)
+    T, S = tiles.tiles, tiles.slots
+    f = lambda: torch.as_tensor(rng.standard_normal((T, H, S)), dtype=torch.float32,
+                                device=cuda)
+    scores, g = f() * 3, f()
+    want_y, want_dx, bound_y, bound_dx = _k5_refs(tiles, scores, g)
+    no_plain_mod(seg, "segment_softmax_tiles_ref", "segment_softmax_tiles_bwd_ref",
+                 "segment_sum_tiles_ref", "segment_broadcast_tiles_ref")
+    ys, dxs = [], []
+    for x, y, gg in ((scores, want_y, g), (scores, want_y, g),
+                     (_offset(scores), _offset(want_y), _offset(g))):
+        k5, k5b = seg.segment_softmax_tiles_mh.launches, seg.segment_softmax_tiles_bwd.launches
+        ys.append(seg.segment_softmax_tiles_mh(tiles, x))
+        dxs.append(seg.segment_softmax_tiles_bwd(tiles, y, gg))
+        assert (seg.segment_softmax_tiles_mh.launches - k5,
+                seg.segment_softmax_tiles_bwd.launches - k5b) == (1, 1)
+    x = scores.clone().requires_grad_(True)
+    y = seg.segment_softmax_tiles_mh(tiles, x)
+    k5b = seg.segment_softmax_tiles_bwd.launches
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    assert seg.segment_softmax_tiles_bwd.launches == k5b + 1
+    _within(ys[0], want_y, bound_y, f"K5 on {kind}, H {H}")
+    _within(dxs[0], want_dx, bound_dx, f"K5 backward on {kind}, H {H}")
+    assert all(torch.equal(a, ys[0]) for a in ys[1:] + [y.detach()])
+    assert all(torch.equal(a, dxs[0]) for a in dxs[1:])
+    assert torch.equal(dx, seg.segment_softmax_tiles_bwd(tiles, y.detach(), g))
+
+
+def test_segment_kernels_take_unsorted_layouts(cuda, no_plain_mod):
+    """Layouts whose slots are not in runs: tile 0's local_dst reversed
+    (padding first), and the shuffled layout (every tile permuted, padding
+    ids -1 and TN + 5).  K5 forward and backward and K6 take them through
+    the slot order of ``layout_runs`` and equal their plain versions within
+    the K5 and K6 bounds; K7 equals its plain version exactly."""
     rng, tiles = _seg_layout(cuda, "empty")
     lid = tiles.local_dst.clone()
     lid[0] = lid[0].flip(0)
-    broken = dataclasses.replace(tiles, local_dst=lid)
-    T, S, TN = tiles.tiles, tiles.slots, tiles.tile_nodes
-    with pytest.raises(ValueError, match="run"):
-        seg.segment_softmax_tiles_mh(broken, torch.zeros((T, 2, S), device=cuda))
-    with pytest.raises(ValueError, match="run"):
-        seg.segment_sum_tiles(broken, torch.zeros((T, S, 4), device=cuda))
-    out = seg.segment_broadcast_tiles(broken, torch.ones((T, TN, 4), device=cuda))
-    assert torch.equal(out, seg.segment_broadcast_tiles_ref(broken, torch.ones(
-        (T, TN, 4), device=cuda)))
-    seg.segment_sum_tiles(tiles, torch.zeros((T, S, 4), device=cuda))  # intact: runs
+    cases = []
+    for lay in (dataclasses.replace(tiles, local_dst=lid), _seg_layout(cuda, "shuffled")[1]):
+        assert seg.layout_runs(lay)[1] is not None
+        T, S, TN = lay.tiles, lay.slots, lay.tile_nodes
+        f = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                           device=cuda)
+        scores, g, vals, nodes = f(T, 2, S) * 3, f(T, 2, S), f(T, S, 4), f(T, TN, 4)
+        want_sum = seg.segment_sum_tiles_ref(lay, vals)
+        cases.append((lay, scores, g, vals, nodes, _k5_refs(lay, scores, g), want_sum,
+                      1e-5 * want_sum.abs() + 4 * EPS32 * seg.segment_sum_tiles_ref(
+                          lay, vals.abs()), seg.segment_broadcast_tiles_ref(lay, nodes)))
+    no_plain_mod(seg, "segment_softmax_tiles_ref", "segment_softmax_tiles_bwd_ref",
+                 "segment_sum_tiles_ref", "segment_broadcast_tiles_ref")
+    for lay, scores, g, vals, nodes, (y, dx, bound_y, bound_dx), want_sum, bound_sum, \
+            want_bc in cases:
+        got_y = seg.segment_softmax_tiles_mh(lay, scores)
+        got_dx = seg.segment_softmax_tiles_bwd(lay, y, g)
+        got_sum = seg.segment_sum_tiles(lay, vals)
+        got_bc = seg.segment_broadcast_tiles(lay, nodes)
+        torch.cuda.synchronize()
+        _within(got_y, y, bound_y, "K5")
+        _within(got_dx, dx, bound_dx, "K5 backward")
+        _within(got_sum, want_sum, bound_sum, "K6")
+        assert torch.equal(got_bc, want_bc)
 
 
 def test_generic_gat_gradient_on_card(cuda):
