@@ -141,6 +141,29 @@ Phases (any failure exits non-zero before the result line):
                ``spmm_bell_ref`` and scipy float64; times as [dia], the
                library call torch.sparse CSR A @ X; per case the real
                against stored block slots and kernel / CSR.
+21. train-default — ``python -m gflownet_spai_tpu_torch.train --epochs 20``
+               with every other argument at its default, in a subprocess on
+               the card: exit 0, the DIA env on LF10_like (the checkpoint's
+               enumeration stamp), a finite loss every epoch; then the
+               validate CLI from its checkpoint: every row in
+               validation.json.
+22. dia-env  — the DIA reward env at scale: convdiff100000's ILU(0) seed
+               through ``env_format="auto"`` (the DIA env, the tiled graph);
+               256 sampled rewards against float64 scipy ‖M·A − I‖_F of
+               the same keep masks and against the pair env, the same bits
+               on a second call; reward ms per call of 16 and 256 against
+               the pair env on the same actions (eager and graph replays);
+               train steps as phase 9's recipe with K1-K4 counted from 0
+               (2 per bucket, 2 per bucket, 1, 1 a step), ms/step, peak
+               memory, the idle share under torch.profiler.
+23. rowblock — the rowblock env at config 4 (orsirr_like150's SPAI seed,
+               identity baseline, window order, t_cap 0): the plan's host
+               build seconds; 256 sampled rewards against float64 scipy;
+               the residuals of every plan variant (cm / mc layout, none /
+               gram, float32 / bf16 storage, sorted order) against float64
+               at the JAX oracles' tolerances, the same bits on a second
+               call; reward ms against the pair env; train steps as in
+               [dia-env].
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
@@ -2720,6 +2743,301 @@ def phase_bell(dev):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# [train-default], [dia-env], [rowblock]: the DIA and rowblock reward envs
+# ---------------------------------------------------------------------------
+
+DEFAULT_EPOCHS = 20         # the train CLI with every other argument at its default
+DIA_MATRIX = "convdiff100000"   # ILU(0) seed: 3 diagonals, 299,998 edges (tiled)
+# config 4 (examples/config4_orsirr.py): the SPAI seed, the identity
+# baseline, window order; t_cap 0 as the recipe runs it
+CONFIG4 = dict(matrix=MATRIX, seed_method="spai", reward_baseline="identity",
+               loss="subtb", backward="linear", replay_size=32, replay_samples=4,
+               replay_prioritized=1.0, alpha_fixed=0.98, lr=2e-3, plateau_patience=0,
+               rowblock_order="window", batch_size=16, log_every=1)
+ENV_STEPS = 6               # train steps of [dia-env] and [rowblock] (the first warms up)
+ENV_PROFILED = 3            # of them again under torch.profiler
+ENV_TIMED = (16, 256)       # reward batches timed against the pair env
+# residual norms of the rowblock plans against float64 scipy: the JAX
+# oracles' tolerances (tests/test_env.py rowblock against pair 5e-5,
+# tests/test_sparse.py gram 2e-3, bf16 storage 2e-2)
+RB_RTOL = {("float32", "none"): 5e-5, ("float32", "gram"): 2e-3,
+           ("bfloat16", "none"): 2e-2, ("bfloat16", "gram"): 2e-2}
+# rewards against float64 (tests/test_env.py rowblock against pair)
+RB_REWARD_TOL = dict(rtol=5e-4, atol=5e-3)
+
+
+def phase_train_default():
+    """``python -m gflownet_spai_tpu_torch.train`` with its defaults (the
+    DIA env on LF10_like) in a subprocess on the card, then the validate
+    CLI from its checkpoint."""
+    repo = str(Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_default_") as tmp:
+        run = Path(tmp) / "run"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gflownet_spai_tpu_torch.train", "--epochs",
+             str(DEFAULT_EPOCHS), "--out-dir", str(run)],
+            capture_output=True, text=True, timeout=600, cwd=repo)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the default train CLI exited {proc.returncode}: "
+                 f"{(proc.stdout + proc.stderr)[-2000:]}")
+        recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+        if [r["epoch"] for r in recs] != list(range(DEFAULT_EPOCHS)) \
+                or not all(np.isfinite(r["loss"]) for r in recs):
+            fail(f"the default train CLI's metrics: {recs[:3]}")
+        meta = json.loads((run / "checkpoint" / "enum.json").read_text())
+        if "matrix='LF10_like'" not in proc.stdout or meta["order"] != "dia":
+            fail(f"the default train CLI did not run the DIA env on LF10_like: {meta}")
+        t1 = time.perf_counter()
+        val = subprocess.run(
+            [sys.executable, "-m", "gflownet_spai_tpu_torch.validate", "--from-checkpoint",
+             str(run), "--seed-method", "ilu0", "--loss", "tb", "--backward", "lstm",
+             "--replay-size", "0", "--out-dir", str(Path(tmp) / "val")],
+            capture_output=True, text=True, timeout=600, cwd=repo)
+        vsecs = time.perf_counter() - t1
+        path = Path(tmp) / "val" / "validation.json"
+        if val.returncode not in (0, 1) or not path.exists():
+            fail(f"the validate CLI on the default run exited {val.returncode}: "
+                 f"{(val.stdout + val.stderr)[-2000:]}")
+        report = json.loads(path.read_text())
+    rows = ("none", "ilu", "sampled_spai", "classic_spai")
+    for row in rows:
+        if row not in report or not np.isfinite(report[row]["true_residual"]):
+            fail(f"validation.json of the default run lacks a finite row {row}")
+    verdict = [ln for ln in val.stdout.splitlines() if ln.startswith("sampled SPAI")]
+    print(f"[train-default] train --epochs {DEFAULT_EPOCHS}: exit 0 in {secs:.1f} s "
+          f"(process start included), DIA env (enum order {meta['order']}, "
+          f"{meta['num_edges']} edges), loss epoch 0 {recs[0]['loss']:.4f} -> "
+          f"{recs[-1]['loss']:.4f}, mean length {recs[-1]['mean_len']:.1f}; validate "
+          f"--from-checkpoint: exit {val.returncode} in {vsecs:.1f} s; "
+          + "; ".join(f"{r} {report[r]['iterations']} it" for r in rows)
+          + f"; verdict: {verdict[-1] if verdict else '?'}", flush=True)
+
+
+def _host_residuals(edges, a, keep):
+    """‖M·A − I‖_F in float64 with scipy, M the edges' values masked by
+    each row of ``keep`` (independent of the device plans)."""
+    import scipy.sparse as sp
+
+    am = sp.csr_matrix((a.data.astype(np.float64), (a.row, a.col)), shape=a.shape)
+    eye = sp.eye(a.shape[0], format="csr")
+    vals = edges.data.astype(np.float64)
+    out = []
+    for k in keep:
+        m = sp.csr_matrix((vals * k, (edges.row, edges.col)), shape=a.shape)
+        out.append(float(np.sqrt(np.sum((m @ am - eye).data ** 2))))
+    return np.array(out)
+
+
+def _host_rewards(res, keep, env, alpha):
+    comp = 2.0 * keep.sum(1) * env.n / env.baseline_flops
+    return 1000.0 * (alpha * (1 - res / float(env.baseline_residual))
+                     + (1 - alpha) * (1 - comp))
+
+
+def _sampled(env, graph, mcfg, params, dev, tag):
+    """256 sampled trajectories, their rewards and a second call's bits."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    with torch.no_grad():
+        out = gfn.sample(params, env, graph, mcfg, gen, BATCH)
+        again = gfn._batched_rewards(env, out.rollout.actions, out.alpha)
+    if not torch.isfinite(out.rewards).all() or out.rewards.shape != (BATCH,):
+        fail(f"[{tag}] non-finite or misshapen sampled rewards")
+    if not torch.equal(out.rewards, again):
+        fail(f"[{tag}] a second reward call gave other bits")
+    keep = spai.keep_mask_from_actions(out.rollout.actions, env.num_edges)
+    return out, keep
+
+
+def _reward_times(tag, cases, alpha):
+    """Eager (host clock, CUDA events) and device (graph replay) ms of one
+    batched reward call per env and batch size, on the same actions."""
+    parts = []
+    for b in ENV_TIMED:
+        for name, env, acts in cases:
+            fn = lambda: gfn._batched_rewards(env, acts[:b], alpha)
+            parts.append(f"{name} batch {b}: {cuda_ms(fn, 10):.4f} eager, "
+                         f"{graph_ms(fn, 5):.4f} device")
+    print(f"[{tag}] reward ms per call: " + "; ".join(parts), flush=True)
+
+
+def _env_steps(tag, cfg, env, graph, mcfg, opt, state):
+    """ENV_STEPS train steps with K1-K4 counted from 0, then ENV_PROFILED
+    under torch.profiler."""
+    n_b = len(graph.gat_buckets)
+    step = make_train_step(cfg, env, graph, mcfg, opt)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(ENV_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {"K1": 2 * n_b, "K2": 2 * n_b, "K3": 1, "K4": 1}
+    if launches != {k: v * ENV_STEPS for k, v in per_step.items()}:
+        fail(f"[{tag}] launch counts {launches} over {ENV_STEPS} train steps: "
+             f"expected {per_step} per step")
+    if not np.isfinite(losses).all():
+        fail(f"[{tag}] a non-finite loss: {losses}")
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0])
+
+    wall_ms, busy_ms, kernels, _ = _profiled(run, ENV_PROFILED)
+    idle = 100 * (1 - busy_ms / wall_ms)
+    print(f"[{tag}] {ENV_STEPS} train steps of batch {cfg.batch_size} + "
+          f"{cfg.replay_samples} replayed, t_cap {mcfg.t_cap}: steady ms/step "
+          f"{np.mean(walls[1:]):.3f} (steps {', '.join(f'{w:.3f}' for w in walls)}); "
+          f"peak memory {peak / 2**20:.1f} MiB; launches {launches} ({n_b} buckets); "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"[{tag}] {ENV_PROFILED} steps under torch.profiler: {wall_ms:.3f} ms/step "
+          f"wall, device busy {busy_ms:.3f} ms/step (idle share {idle:.1f}%); "
+          f"kernels with the most device ms/step: {kernels}", flush=True)
+    return {"step_ms": float(np.mean(walls[1:])), "idle": idle, "launches": launches}
+
+
+def phase_dia_env(dev):
+    """The DIA env at scale: convdiff100000's ILU(0) seed through
+    ``env_format="auto"``."""
+    from gflownet_spai_tpu_torch.env import spai_dia
+
+    cfg = TrainConfig(**{**TRAIN, "matrix": DIA_MATRIX, "env_format": "auto"})
+    t0 = time.perf_counter()
+    a, seed, env, graph, mcfg, opt, state = setup(cfg)
+    setup_s = time.perf_counter() - t0
+    if not isinstance(env, spai_dia.SpaiDiaEnv):
+        fail(f"[dia-env] auto did not pick the DIA env for {DIA_MATRIX}")
+    if not isinstance(graph, pol.TiledGraphInputs) or not graph.gat_buckets:
+        fail("[dia-env] the policy graph is not the tiled layout")
+    out, keep = _sampled(env, graph, mcfg, state.params, dev, "dia-env")
+    keep_h = keep.cpu().numpy()
+    alpha = float(out.alpha)
+    t0 = time.perf_counter()
+    want = _host_rewards(_host_residuals(spai_dia.edge_coo(env), a, keep_h), keep_h,
+                         env, alpha)
+    host_s = time.perf_counter() - t0
+    got = out.rewards.cpu().numpy()
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    if not err.max() <= REWARD_RTOL:
+        fail(f"[dia-env] rewards against float64 scipy: worst {err.max():.3e} "
+             f"> {REWARD_RTOL} relative")
+    # the pair env on the same edge set, the actions mapped to its ids
+    pair = spai.make_env(seed, original=a, baseline=cfg.reward_baseline, device=dev)
+    ec, n = spai_dia.edge_coo(env), a.shape[1]
+    k_seed = seed.row.astype(np.int64) * n + seed.col
+    order = np.argsort(k_seed)
+    lut = np.append(order[np.searchsorted(k_seed[order],
+                                          ec.row.astype(np.int64) * n + ec.col)],
+                    env.num_edges)
+    acts = out.rollout.actions
+    lut_t = torch.as_tensor(lut, device=dev)
+    p_acts = torch.where(acts >= 0, lut_t[acts.clamp_min(0)], acts)
+    p_r = gfn._batched_rewards(pair, p_acts, out.alpha)
+    np.testing.assert_allclose(p_r.cpu().numpy(), got, rtol=1e-4, atol=1e-2)
+    print(f"[dia-env] {DIA_MATRIX}: n {a.shape[0]}, seed edges {env.num_edges} on "
+          f"diagonals {env.seed.offsets}, setup {setup_s:.1f} s on the host; {BATCH} "
+          f"sampled rewards against float64 scipy: worst {err.max():.3e} relative "
+          f"(host check {host_s:.1f} s), reward mean {got.mean():.4f}, mean length "
+          f"{float(out.rollout.lengths.float().mean()):.1f}; the pair env on the same "
+          f"actions within 1e-4; a second call gives the same bits", flush=True)
+    _reward_times("dia-env", (("DIA", env, acts), ("pair", pair, p_acts)), out.alpha)
+    del pair, p_r
+    return _env_steps("dia-env", cfg, env, graph, mcfg, opt, state)
+
+
+def phase_rowblock(dev):
+    """The rowblock env at config 4: orsirr_like150's SPAI seed, window
+    order; every plan variant's residuals against float64 scipy."""
+    from gflownet_spai_tpu_torch.sparse import rowblock as rbm
+
+    cfg = TrainConfig(**CONFIG4, num_epochs=ENV_STEPS)
+    t0 = time.perf_counter()
+    a, seed, env, graph, mcfg, opt, state = setup(cfg)
+    setup_s = time.perf_counter() - t0
+    if env.rb is None or env.rb.edge_perm is None:
+        fail("[rowblock] config 4 did not build the window-order rowblock env")
+    if not isinstance(graph, pol.TiledGraphInputs) or not graph.gat_buckets:
+        fail("[rowblock] the policy graph is not the tiled layout")
+    perm = env.rb.edge_perm.cpu().numpy()
+    inv = np.argsort(perm)
+    s_seed = dataclasses.replace(seed, row=seed.row[inv], col=seed.col[inv],
+                                 data=seed.data[inv])       # the sorted seed
+    t0 = time.perf_counter()
+    rbm.build_rowblock_plan(s_seed, a, order="window", device=dev)
+    plan_s = time.perf_counter() - t0
+    out, keep = _sampled(env, graph, mcfg, state.params, dev, "rowblock")
+    keep_h = keep.cpu().numpy()
+    alpha = float(out.alpha)
+    t0 = time.perf_counter()
+    res64 = _host_residuals(seed, a, keep_h)
+    host_s = time.perf_counter() - t0
+    want = _host_rewards(res64, keep_h, env, alpha)
+    got = out.rewards.cpu().numpy()
+    if not np.allclose(got, want, **RB_REWARD_TOL):
+        fail(f"[rowblock] rewards against float64 scipy: max abs err "
+             f"{np.abs(got - want).max():.3e}")
+    keep_s = torch.empty_like(keep)
+    keep_s[:, env.rb.edge_perm] = keep                       # sorted enumeration
+    worst = {}
+    for dtype, layout, compress in itertools.product(
+            (torch.float32, torch.bfloat16), ("cm", "mc"), ("none", "gram")):
+        e = spai.make_env(s_seed, original=a, reward_path="rowblock",
+                          baseline="identity", rowblock_dtype=dtype,
+                          rowblock_layout=layout, rowblock_compress=compress,
+                          rowblock_order="sorted", device=dev)
+        r = spai.batched_residual_norms(e, keep_s)
+        if r.dtype != torch.float32 or not torch.equal(
+                r, spai.batched_residual_norms(e, keep_s)):
+            fail(f"[rowblock] {dtype} {layout} {compress}: not float32, or a second "
+                 "call gave other bits")
+        rel = float(np.max(np.abs(r.cpu().numpy() / res64 - 1)))
+        tol = RB_RTOL[(str(dtype).split(".")[-1], compress)]
+        if not rel <= tol:
+            fail(f"[rowblock] {dtype} {layout} {compress}: residuals {rel:.3e} "
+                 f"from float64 > {tol}")
+        # the rewards: res / baseline enters times 1000·α
+        rw = spai.rewards_from_keep(e, keep_s, out.alpha).cpu().numpy()
+        bound = 1000 * alpha * tol * res64 / float(e.baseline_residual) \
+            + RB_REWARD_TOL["atol"]
+        if not (np.abs(rw - want) <= bound).all():
+            fail(f"[rowblock] {dtype} {layout} {compress}: rewards against float64 "
+                 f"beyond the residual tolerance carried through the reward")
+        # bf16 storage multiplies float32 copies of the rounded operands:
+        # its time beside float32 storage's is what that choice costs
+        ms = graph_ms(lambda: spai.batched_residual_norms(e, keep_s), 5)
+        worst[f"{str(dtype).split('.')[-1]} {layout} {compress}"] = (rel, ms)
+        del e
+    rb = env.rb
+    print(f"[rowblock] config 4 on {MATRIX}: n {a.shape[0]}, seed edges "
+          f"{env.num_edges}, setup {setup_s:.1f} s on the host, plan build "
+          f"{plan_s:.3f} s (window order: {len(rb.gvals)} buckets, "
+          f"{rb.padded_slots} padded slots, {rb.npairs} pairs, "
+          f"{rb.n_overflow_slots} overflow slots); {BATCH} sampled rewards "
+          f"against float64 scipy: max abs err {np.abs(got - want).max():.3e} "
+          f"(host check {host_s:.1f} s), mean length "
+          f"{float(out.rollout.lengths.float().mean()):.1f}; residuals (and rewards) "
+          f"of every sorted-order plan against float64 (worst relative residual, "
+          f"same bits on a second call; device ms per call of {BATCH}): "
+          + ", ".join(f"{k} {v:.3e} ({t:.4f} ms)" for k, (v, t) in worst.items()),
+          flush=True)
+    pair = spai.make_env(s_seed, original=a, baseline="identity", device=dev)
+    acts = out.rollout.actions
+    lut = torch.as_tensor(np.append(perm, env.num_edges), device=dev)
+    p_acts = torch.where(acts >= 0, lut[acts.clamp_min(0)], acts)
+    np.testing.assert_allclose(gfn._batched_rewards(pair, p_acts, out.alpha).cpu().numpy(),
+                               got, **RB_REWARD_TOL)
+    _reward_times("rowblock", (("rowblock", env, acts), ("pair", pair, p_acts)), out.alpha)
+    del pair
+    return _env_steps("rowblock", cfg, env, graph, mcfg, opt, state)
+
 
 def timed(name, fn, *args):
     t0 = time.perf_counter()
@@ -2764,6 +3082,9 @@ def main() -> int:
     seg_recs = timed("segment", phase_segment, graph, dev)
     gen_launches = timed("gat-generic", phase_gat_generic, seed, graph, dev)
     bell_rec, bell_launches = timed("bell", phase_bell, dev)
+    timed("train-default", phase_train_default)
+    timed("dia-env", phase_dia_env, dev)
+    timed("rowblock", phase_rowblock, dev)
     bwd_ms = k2["ms"] + k4["ms"]
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
           f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "

@@ -1,5 +1,7 @@
-"""The SPAI preconditioner environment and its ILU seed patterns."""
+"""The SPAI preconditioner environments (the pair / row-block env and the
+DIA env, ``spai_dia``) and their ILU seed patterns."""
 
+from . import spai_dia
 from .ilu import ilu0, seed_pattern, spilu_lu
 from .spai import (SpaiEnv, batched_rewards, keep_mask_from_actions, make_env,
                    resolve_baseline, rewards_from_keep)
@@ -7,5 +9,5 @@ from .spai import (SpaiEnv, batched_rewards, keep_mask_from_actions, make_env,
 __all__ = [
     "ilu0", "seed_pattern", "spilu_lu", "SpaiEnv", "batched_rewards",
     "keep_mask_from_actions", "make_env", "resolve_baseline",
-    "rewards_from_keep",
+    "rewards_from_keep", "spai_dia",
 ]

@@ -2,10 +2,14 @@
 (counterpart of ``gflownet_spai_tpu/env/spai.py:40-359``).
 
 A state is a boolean keep-mask over the seed pattern's edges; the reward
-``‖M·A − I‖_F`` runs through a fixed-pattern SpGEMM plan built once on the
-host, so a batched reward is one gather · multiply · ``index_add_`` over
-``[B, npairs]`` on the device.  The row-block reward backend, built for the
-TPU's matrix unit, comes with a later slice of the port.
+``‖M·A − I‖_F`` runs through a fixed-pattern plan built once on the host,
+one of two interchangeable backends (same semantics, tested equal):
+
+* ``plan``, the pair plan: a batched reward is one gather · multiply ·
+  ``index_add_`` over ``[B, npairs]`` on the device;
+* ``rb``, the row-block plan (``sparse.rowblock``): bucketed dense G
+  blocks make the batched reward a handful of batched matrix products,
+  the default for large unstructured seeds (``train.loop.setup``).
 """
 
 from __future__ import annotations
@@ -18,23 +22,25 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..sparse import rowblock as _rowblock
 from ..sparse.convert import coo_to_scipy
 from ..sparse.ops import SpGEMMPlan, frobenius_sq_minus_identity
-from ..sparse.types import COO
+from ..sparse.types import COO, to_numpy
 
 
 @dataclasses.dataclass(frozen=True)
 class SpaiEnv:
     """Static environment: the seed M0 (its edge set is the action space),
-    the matrix it is scored against, the pair plan of M0 · original and
-    the baseline scalars — tensors on one device."""
+    the matrix it is scored against, the plan of M0 · original (the pair
+    plan, or ``rb``, the row-block plan, with ``plan`` None) and the
+    baseline scalars — tensors on one device."""
 
     seed: COO
     original: COO
-    plan: SpGEMMPlan
+    plan: Optional[SpGEMMPlan]
     baseline_residual: torch.Tensor
     baseline_flops: float
-    rb: None = None   # row-block plan: not in this slice
+    rb: Optional[_rowblock.RowBlockPlan] = None
 
     @property
     def n(self) -> int:
@@ -116,23 +122,32 @@ def _resolve_baseline_with_value(seed: COO, original: COO, baseline: str):
 
 def make_env(seed: COO, original: Optional[COO] = None,
              reward_path: str = "pair", baseline: str = "matrix",
-             device=None) -> SpaiEnv:
+             device=None, rowblock_dtype=None, rowblock_layout: str = "cm",
+             rowblock_class_step: float = 1.5, rowblock_compress: str = "none",
+             rowblock_order: str = "sorted") -> SpaiEnv:
     """Build the environment on ``device``.  ``original`` defaults to
     ``seed`` (the reference training script's baseline wiring); pass the true A for
     the corrected objective.  ``baseline``: ``matrix`` = ‖A·A − I‖_F,
     ``identity`` = √n, ``auto`` = ``matrix`` unless degenerate for this
-    seed (``resolve_baseline``)."""
-    if reward_path == "rowblock":
-        raise NotImplementedError(
-            "reward_path='rowblock' (sparse/rowblock.py) comes with the "
-            "rowblock/DIA slice of the port; use reward_path='pair'")
-    if reward_path != "pair":
+    seed (``resolve_baseline``).
+
+    ``reward_path``: ``pair`` or ``rowblock`` (``sparse.rowblock``; the
+    ``rowblock_*`` arguments are its plan's options, ``rowblock_dtype`` its
+    G-block storage dtype, default the seed's).  A window-order plan
+    defines the edge enumeration: the env's seed (action ids, policy
+    graph, keep masks) follows its ``edge_perm``."""
+    if reward_path not in ("pair", "rowblock"):
         raise ValueError(f"unknown reward_path {reward_path!r}")
     device = resolve_device(device)
     same = original is None or original is seed
     if original is None:
         original = seed
-    baseline, _ = _resolve_baseline_with_value(seed, original, baseline)
+    baseline, cached_base = _resolve_baseline_with_value(seed, original, baseline)
+    if reward_path == "rowblock":
+        return _make_rowblock_env(seed, original, baseline, cached_base, device,
+                                  rowblock_dtype, rowblock_layout,
+                                  rowblock_class_step, rowblock_compress,
+                                  rowblock_order)
     seed_d = seed.to(device)
     orig_d = seed_d if same else original.to(device)
     plan = SpGEMMPlan(seed, original, device=device)
@@ -148,6 +163,28 @@ def make_env(seed: COO, original: Optional[COO] = None,
     return SpaiEnv(seed=seed_d, original=orig_d, plan=plan,
                    baseline_residual=base_res,
                    baseline_flops=2.0 * original.nnz * original.shape[1])
+
+
+def _make_rowblock_env(seed: COO, original: COO, baseline: str, cached_base,
+                       device, dtype, layout, class_step, compress, order) -> SpaiEnv:
+    """The env on the row-block plan; the baselines on the host in float64
+    (no pair plan is built)."""
+    host = seed.numpy()
+    sdtype = torch.as_tensor(host.data[:0]).dtype
+    rb = _rowblock.build_rowblock_plan(
+        seed, original, gemm_dtype=dtype or sdtype, layout=layout,
+        class_step=class_step, compress=compress, order=order, device=device)
+    if rb.edge_perm is not None:
+        # each bucket's m-value windows become contiguous slices
+        p = to_numpy(rb.edge_perm)
+        host = COO(row=host.row[p], col=host.col[p], data=host.data[p],
+                   shape=host.shape)
+    base = (np.sqrt(float(original.shape[0])) if baseline == "identity" else
+            cached_base if cached_base is not None else
+            _baseline_residual_host(original))
+    return SpaiEnv(seed=host.to(device), original=original.to(device), plan=None,
+                   baseline_residual=torch.tensor(base, dtype=sdtype, device=device),
+                   baseline_flops=2.0 * original.nnz * original.shape[1], rb=rb)
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +203,11 @@ def keep_mask_from_actions(actions: torch.Tensor, num_edges: int) -> torch.Tenso
 
 
 def batched_residual_norms(env: SpaiEnv, keep: torch.Tensor) -> torch.Tensor:
-    """[B, num_edges] keep masks → [B] residual norms ‖M·original − I‖_F."""
+    """[B, num_edges] keep masks → [B] residual norms ‖M·original − I‖_F,
+    through whichever plan the env carries."""
     m_vals = env.seed.data * keep.to(env.seed.data.dtype)
+    if env.rb is not None:
+        return _rowblock.residual_norm_batch(env.rb, m_vals)
     c_vals = env.plan.numeric(m_vals, env.original.data)
     return torch.sqrt(frobenius_sq_minus_identity(
         env.plan.out_row, env.plan.out_col, c_vals, env.n))

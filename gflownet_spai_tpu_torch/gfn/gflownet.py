@@ -13,11 +13,19 @@ from typing import NamedTuple
 
 import torch
 
-from ..env import spai
+from ..env import spai, spai_dia
 from ..models import policies as pol
 from .loss import (log_reward, subtb_loss, trajectory_balance_loss,
                    vargrad_loss)
 from .rollout import Rollout, gumbel_topk_rollout, trajectory_logprobs
+
+
+def _batched_rewards(env, actions: torch.Tensor, alpha) -> torch.Tensor:
+    """The batched reward of whichever env this is (pair / row-block plan,
+    or the DIA band)."""
+    if isinstance(env, spai_dia.SpaiDiaEnv):
+        return spai_dia.batched_rewards(env, actions, alpha)
+    return spai.batched_rewards(env, actions, alpha)
 
 
 class GFlowNetParams(NamedTuple):
@@ -108,7 +116,7 @@ class SampleOut(NamedTuple):
     logits: torch.Tensor    # [A] static policy logits
 
 
-def sample(params: GFlowNetParams, env: spai.SpaiEnv, graph,
+def sample(params: GFlowNetParams, env, graph,
            cfg: GFlowNetConfig, generator: torch.Generator,
            batch_size: int) -> SampleOut:
     """Roll out a batch and score the terminal states through the env.
@@ -128,11 +136,11 @@ def sample(params: GFlowNetParams, env: spai.SpaiEnv, graph,
         # re-score under the untempered policy (off-policy exploration)
         rollout = rollout._replace(fwd_logprobs=trajectory_logprobs(
             logits, rollout.actions.detach()))
-    rewards = spai.batched_rewards(env, rollout.actions, alpha)
+    rewards = _batched_rewards(env, rollout.actions, alpha)
     return SampleOut(rollout=rollout, rewards=rewards, alpha=alpha, logits=logits)
 
 
-def loss_fn(params: GFlowNetParams, env: spai.SpaiEnv, graph,
+def loss_fn(params: GFlowNetParams, env, graph,
             cfg: GFlowNetConfig, generator: torch.Generator, batch_size: int,
             replay=None):
     """The configured loss on one sampled batch; returns (loss, aux dict).
@@ -158,7 +166,7 @@ def loss_fn(params: GFlowNetParams, env: spai.SpaiEnv, graph,
     if replay is not None:
         r_actions, r_valid = replay
         r_fwd = trajectory_logprobs(out.logits, r_actions)
-        r_rewards = spai.batched_rewards(env, r_actions, out.alpha)
+        r_rewards = _batched_rewards(env, r_actions, out.alpha)
         actions = torch.cat([actions, r_actions], 0)
         fwd_lp = torch.cat([fwd_lp, r_fwd], 0)
         log_r = torch.cat([log_r, cfg.reward_beta * log_reward(r_rewards)], 0)

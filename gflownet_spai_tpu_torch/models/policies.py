@@ -267,8 +267,10 @@ def backward_policy_batch(p: BackwardPolicyParams, actions: torch.Tensor,
     lstm, weights = _lstm_module(p)
     xs = actions.to(p.w_ih.dtype)[..., None]
     cudnn = torch.backends.cudnn
-    # cuDNN's RNN would run in TF32 by default; the port keeps float32
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+    # PyTorch's own LSTM, not cuDNN's: cuDNN packs the weights into one
+    # buffer in place, which fails on these views of the parameters, and
+    # would run in TF32 by default; the native path multiplies in float32
+    with cudnn.flags(enabled=False, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
         out, _ = torch.func.functional_call(lstm, weights, (xs,))
     last = torch.clamp_min(n_valid - 1, 0)

@@ -1,6 +1,8 @@
 """DIA (diagonal) sparse format and its kernels (counterpart of
-``gflownet_spai_tpu/ops/dia.py`` without ``spgemm_dia`` and bf16
-diagonals).
+``gflownet_spai_tpu/ops/dia.py`` without bf16 diagonals, ``dia_astype``).
+The banded product ``spgemm_dia`` (and its batched form, the DIA reward
+env's residual) is plain PyTorch on any device, as the JAX package's is
+plain ``jnp``.
 
 Storage is row-scaled: ``data[s, i] = A[i, i + offsets[s]]``, zero where
 out of range, padded to ``n_pad`` rows (a multiple of 1024)::
@@ -180,6 +182,70 @@ def dia_transpose(d: DIA) -> DIA:
         rows.append(torch.where(valid, torch.roll(d.data[s], off), 0.0))
     return DIA(data=torch.stack(rows), offsets=tuple(-o for o in d.offsets),
                shape=(d.shape[1], d.shape[0]), nnz=d.nnz)
+
+
+# ---------------------------------------------------------------------------
+# The banded product C = M·A in DIA form (the DIA reward env's residual)
+# ---------------------------------------------------------------------------
+
+def spgemm_dia_batch(m_data: torch.Tensor, m_offsets: Tuple[int, ...],
+                     a: DIA) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Diagonals of C = M·A for M given as ``m_data`` [..., nd_m, n_pad]
+    with ``m_offsets`` (any leading batch axes): returns (C's data [...,
+    nd_c, n_pad], C's offsets, every sum d₁ + d₂ in ascending order).
+
+    C[i, i + d₁ + d₂] += M[i, i + d₁] · A[i + d₁, i + d₁ + d₂]: each M
+    diagonal times a statically shifted A diagonal, added into the output
+    diagonals of one M diagonal at a time (each output slot once per M
+    diagonal, in M's diagonal order, as the JAX package sums them).
+    Entries whose column or row falls outside the matrix are zeroed."""
+    n, n_pad = a.n, a.n_pad
+    if m_data.shape[-1] != n_pad:
+        raise ValueError("operands must share n_pad (repad first)")
+    out_offsets = tuple(sorted({d1 + d2 for d1 in m_offsets for d2 in a.offsets}))
+    pos = {d: k for k, d in enumerate(out_offsets)}
+    # pad by M's reach so every shifted read is an in-bounds static slice
+    ha = max((abs(o) for o in m_offsets), default=1)
+    a_pad = torch.nn.functional.pad(a.data, (ha, ha))
+    dtype = torch.promote_types(m_data.dtype, a.data.dtype)
+    out = torch.zeros(m_data.shape[:-2] + (len(out_offsets), n_pad), dtype=dtype,
+                      device=m_data.device)
+    for s1, d1 in enumerate(m_offsets):
+        ks = _offsets_tensor(tuple(pos[d1 + d2] for d2 in a.offsets), out.device)
+        shifted = a_pad[:, ha + d1:ha + d1 + n_pad]              # [nd_a, n_pad]
+        # ks holds distinct slots: one add per element, in a fixed order
+        out.index_add_(-2, ks, m_data[..., s1, None, :].to(dtype) * shifted)
+    i = torch.arange(n_pad, device=out.device)
+    d3 = _offsets_tensor(out_offsets, out.device)[:, None]
+    valid = (i + d3 >= 0) & (i + d3 < n) & (i < n)
+    return out.masked_fill_(~valid, 0.0), out_offsets
+
+
+def spgemm_dia(m: DIA, a: DIA) -> DIA:
+    """Banded sparse × sparse product C = M·A entirely in DIA form
+    (``spgemm_dia_batch`` on one M); the output offsets are every sum
+    d₁ + d₂."""
+    if m.shape[1] != a.shape[0]:
+        raise ValueError("inner dims mismatch")
+    data, offsets = spgemm_dia_batch(m.data, m.offsets, a)
+    nnz = sum(max(0, m.n - abs(d3)) for d3 in offsets)
+    return DIA(data=data, offsets=offsets, shape=(m.shape[0], a.shape[1]), nnz=nnz)
+
+
+def frobenius_sq_minus_identity_dia_batch(data: torch.Tensor,
+                                          offsets: Tuple[int, ...],
+                                          n: int) -> torch.Tensor:
+    """‖C − I‖_F² for the DIA diagonals ``data`` [..., ndiags, n_pad] (out
+    of range slots zero), per leading index."""
+    s2 = torch.sum(data * data, dim=(-2, -1))
+    if 0 in offsets:
+        s2 = s2 - 2.0 * torch.sum(data[..., offsets.index(0), :n], dim=-1)
+    return s2 + n
+
+
+def frobenius_sq_minus_identity_dia(c: DIA) -> torch.Tensor:
+    """‖C − I‖_F² for DIA C (assumes out-of-range slots are zero)."""
+    return frobenius_sq_minus_identity_dia_batch(c.data, c.offsets, c.n)
 
 
 # ---------------------------------------------------------------------------

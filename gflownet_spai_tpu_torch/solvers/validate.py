@@ -94,9 +94,15 @@ def validate_preconditioners(
 
 def best_sampled_matrix(env, actions: torch.Tensor, rewards: torch.Tensor) -> COO:
     """The highest-reward sampled preconditioner of a batch of
-    trajectories, as a COO matrix on the env's device."""
+    trajectories, as a COO matrix on the env's device (the DIA env's edges
+    in its (diagonal, row) enumeration)."""
+    from ..env import spai_dia
+
     best = int(torch.argmax(rewards))
     keep = spai.keep_mask_from_actions(actions[best], env.num_edges)
-    seed = env.seed
+    if isinstance(env, spai_dia.SpaiDiaEnv):
+        seed = spai_dia.edge_coo(env).to(keep.device)
+    else:
+        seed = env.seed
     return COO(row=seed.row, col=seed.col,
                data=seed.data * keep.to(seed.data.dtype), shape=seed.shape)

@@ -31,15 +31,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-format", default=d.env_format,
                    choices=["auto", "coo", "dia", "rowblock"],
                    help="reward path: coo pair-plan, gather-free dia band, "
-                        "or rowblock dense-bucket plan (unstructured); dia "
-                        "and rowblock come with a later slice and raise")
+                        "or rowblock dense-bucket plan (unstructured)")
     p.add_argument("--rowblock-bf16", action="store_true",
                    dest="rowblock_bf16",
                    help="bf16 G-block storage for the rowblock reward "
-                        "(rowblock slice)")
+                        "(rounded bf16 operands, float32 products and "
+                        "sums, ~1e-3 residual noise)")
     p.add_argument("--rowblock-layout", default=d.rowblock_layout,
                    choices=["cm", "mc"], dest="rowblock_layout",
-                   help="rowblock G-block layout (rowblock slice)")
+                   help="rowblock G-block layout: cm = [R, cp, mp] "
+                        "blocks, mc = [R, mp, cp] (batch as the rows of "
+                        "each product)")
     p.add_argument("--rowblock-class-step", type=float,
                    default=d.rowblock_class_step, dest="rowblock_class_step",
                    help="rowblock bucket ladder spacing (1.25 = finer)")

@@ -4,10 +4,9 @@
 The reference has no config system; this dataclass collects its knobs with
 the reference training script's defaults (batch 2, 1000 epochs, lr 5e-4,
 Adam + ReduceLROnPlateau(0.2, 10), reward scale 1000, GMRES maxiter 10260).
-Fields that select backends or options a later slice of the port brings
-(``env_format`` ``dia``/``rowblock``, ``seed_method="spai"``, the sharded
-sampler, replay, training itself) keep their names and defaults; the port
-raises where it would need them.
+Fields of the multi-device path (the sharded sampler, ``dp_devices`` /
+``rows_devices`` > 1, the adaptive ``t_cap`` ladder) keep their names and
+defaults; the port raises where it would need them.
 """
 
 from __future__ import annotations

@@ -2,14 +2,16 @@
 ``gflownet_spai_tpu/train/enums.py``).
 
 Action ``j`` deletes edge ``j`` of the enumeration the env was built with,
-so a checkpoint is only meaningful under the same enumeration.  Every
+so a checkpoint is only meaningful under the same enumeration.  Two env
+backends define their own order: a window-order row-block plan permutes
+the seed so each reward bucket's windows are contiguous slices
+(``sparse.rowblock``), and the DIA env enumerates edges diagonal-major
+(``env.spai_dia.edge_coo``); every other env keeps the sorted seed.  Every
 checkpoint stamps it (``checkpoint/enum.json`` + the canonical
 permutation as ``enum_perm.npy``, the same files, byte for byte, as the
 JAX package writes); a restore verifies it, remaps the id-indexed
 parameters across orders (exact for the ``linear`` / ``uniform`` backward
 policies), or refuses (the ``lstm`` backward reads raw ids as inputs).
-This slice's env enumerates the seed pattern in sorted order; the window
-and DIA orders come with their env backends.
 """
 
 from __future__ import annotations
@@ -40,11 +42,19 @@ def _canonical_perm(row: np.ndarray, col: np.ndarray) -> np.ndarray:
 
 
 def enumeration_meta(env) -> dict:
-    """Enumeration descriptor of a live env: ``enum_hash`` fingerprints the
-    order-sensitive enumeration, ``canonical_hash`` the edge set;
-    ``to_canonical`` is the permutation p with ``edges[p]`` canonical."""
-    row, col = to_numpy(env.seed.row), to_numpy(env.seed.col)
-    order = "window" if getattr(env, "rb", None) is not None else "sorted"
+    """Enumeration descriptor of a live env (``SpaiEnv`` or ``SpaiDiaEnv``):
+    ``enum_hash`` fingerprints the order-sensitive enumeration,
+    ``canonical_hash`` the edge set; ``to_canonical`` is the permutation p
+    with ``edges[p]`` canonical."""
+    from ..env import spai_dia
+
+    if isinstance(env, spai_dia.SpaiDiaEnv):
+        edges, order = spai_dia.edge_coo(env), "dia"
+    else:
+        edges = env.seed
+        order = ("window" if env.rb is not None and env.rb.edge_perm is not None
+                 else "sorted")
+    row, col = to_numpy(edges.row), to_numpy(edges.col)
     p = _canonical_perm(row, col)
     return {
         "enum_version": ENUM_VERSION,

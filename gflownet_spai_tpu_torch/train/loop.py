@@ -28,12 +28,13 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..env import ilu, spai
+from ..env import ilu, spai, spai_dia
 from ..gfn import gflownet as gfn
 from ..gfn.gflownet import tree_leaves, tree_replace
 from ..gfn.replay import (ReplayBuffer, replay_init, replay_resize,
                           replay_sample, replay_update)
 from ..models import policies as pol
+from ..ops.dia import coo_to_dia
 from ..ops.rcm import n_diagonals
 from ..sparse import gallery, read_mtx
 from ..sparse.types import COO, to_numpy
@@ -206,16 +207,6 @@ def device_of(cfg: TrainConfig) -> torch.device:
     raise ValueError(f"unknown platform {cfg.platform!r}")
 
 
-def _dia_phantom_slots(coo: COO) -> int:
-    """In-range slots of the pattern's diagonals that hold no nonzero: the
-    JAX package's ``env.spai_dia.has_phantom_slots(coo_to_dia(seed))`` for
-    a canonical (deduplicated) pattern."""
-    h = coo.numpy()
-    offs = np.unique(h.col.astype(np.int64) - h.row.astype(np.int64))
-    positions = int(np.sum(coo.shape[0] - np.abs(offs)))
-    return positions - int(np.count_nonzero(h.data))
-
-
 def resolve_env_format(cfg: TrainConfig, a: COO, seed: COO) -> str:
     """``auto`` as the JAX package resolves it: banded patterns with fully
     dense diagonals → ``dia``; otherwise seeds of ``rowblock_min_nnz``
@@ -227,7 +218,7 @@ def resolve_env_format(cfg: TrainConfig, a: COO, seed: COO) -> str:
     if (not cfg.reference_baseline
             and n_diagonals(seed) <= cfg.dia_max_diags
             and n_diagonals(a) <= cfg.dia_max_diags
-            and _dia_phantom_slots(seed) == 0):
+            and spai_dia.has_phantom_slots(coo_to_dia(seed, device="cpu")) == 0):
         fmt = "dia"
     if fmt == "coo" and seed.nnz >= cfg.rowblock_min_nnz:
         fmt = "rowblock"
@@ -247,22 +238,39 @@ def setup(cfg: TrainConfig):
                             **({"k": cfg.seed_k}
                                if cfg.seed_method == "spai" else {}))
     fmt = resolve_env_format(cfg, a, seed)
-    if fmt in ("dia", "rowblock"):
-        raise NotImplementedError(
-            f"env_format={fmt!r} (from {cfg.env_format!r}) comes with the "
-            "rowblock/DIA slice of the port; pass env_format='coo'")
-    if fmt != "coo":
+    if fmt not in ("coo", "dia", "rowblock"):
         raise ValueError(f"unknown env_format {cfg.env_format!r}")
     if cfg.sampler != "dense":
         raise NotImplementedError(f"sampler={cfg.sampler!r} {_MULTI_DEVICE}")
-    env = spai.make_env(seed, original=None if cfg.reference_baseline else a,
-                        reward_path="pair", baseline=cfg.reward_baseline,
-                        device=device)
-    if seed.nnz >= cfg.gat_tiled_min_edges:
-        graph = pol.tiled_graph_from_seed(
-            seed, bucket_step=cfg.gat_bucket_step or None, device=device)
+
+    def _graph(edges):
+        # the node-tile layout (kernels K1-K4) at scale; the GAT ignores
+        # edge ids, only the action head maps to them
+        if edges.nnz >= cfg.gat_tiled_min_edges:
+            return pol.tiled_graph_from_seed(
+                edges, bucket_step=cfg.gat_bucket_step or None, device=device)
+        return pol.graph_from_seed(edges, device=device)
+
+    if fmt == "dia":
+        env = spai_dia.make_dia_env(seed, a, baseline=cfg.reward_baseline,
+                                    device=device)
+        # edge / action ids follow the DIA enumeration, so the graph does
+        graph = _graph(spai_dia.edge_coo(env))
     else:
-        graph = pol.graph_from_seed(seed, device=device)
+        env = spai.make_env(
+            seed, original=None if cfg.reference_baseline else a,
+            reward_path="rowblock" if fmt == "rowblock" else "pair",
+            baseline=cfg.reward_baseline, device=device,
+            rowblock_dtype=torch.bfloat16 if cfg.rowblock_bf16 else None,
+            rowblock_layout=cfg.rowblock_layout,
+            rowblock_class_step=cfg.rowblock_class_step,
+            rowblock_compress=cfg.rowblock_compress,
+            rowblock_order=cfg.rowblock_order)
+        # a window-order plan defines the edge enumeration: the returned
+        # seed and the graph follow the env's
+        if env.rb is not None and env.rb.edge_perm is not None:
+            seed = env.seed.numpy()
+        graph = _graph(seed)
     mcfg = gfn.GFlowNetConfig(
         hidden_dim=cfg.hidden_dim, heads=cfg.heads,
         num_actions=env.num_actions, loss=cfg.loss,
@@ -505,8 +513,12 @@ def restore_checkpoint(out_dir: str, template: TrainState) -> Optional[TrainStat
 def _magnitude_demos(env, fracs, T: int) -> np.ndarray:
     """[N, T] −1-padded demonstration trajectories: for each fraction f,
     delete the f·nnz smallest-|value| seed entries in magnitude order,
-    then terminate."""
-    vals = to_numpy(env.seed.data)
+    then terminate.  The ids are the env's action ids: for a DIA env the
+    (diagonal, row) order of ``spai_dia.edge_coo``, not the band storage."""
+    if isinstance(env, spai_dia.SpaiDiaEnv):
+        vals = to_numpy(spai_dia.edge_coo(env).data)
+    else:
+        vals = to_numpy(env.seed.data)
     order = np.argsort(np.abs(vals))
     terminal = env.num_edges
     acts = np.full((len(fracs), T), -1, np.int64)
@@ -583,7 +595,7 @@ def seed_replay_with_magnitude_thinning(env, state: TrainState, cfg,
     dev = replay.actions.device
     for f, acts in zip(fracs, demos):
         acts_t = torch.as_tensor(acts[None, :], device=dev)
-        r = spai.batched_rewards(env, acts_t, torch.tensor(
+        r = gfn._batched_rewards(env, acts_t, torch.tensor(
             alpha, dtype=replay.rewards.dtype, device=dev))
         replay = replay_update(replay, acts_t, r)
         print(f"replay seed: magnitude-thin {f:.0%} "

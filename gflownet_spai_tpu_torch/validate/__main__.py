@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rowblock-order", default="window",
                    choices=["sorted", "window"],
                    help="edge enumeration of the rowblock reward plan "
-                        "(rowblock slice)")
+                        "(must match the training run when restoring)")
     p.add_argument("--seed-method", default="spai",
                    choices=["ilu0", "spilu", "pattern", "spai"])
     p.add_argument("--gat-bucket-step", type=float, default=1.5,

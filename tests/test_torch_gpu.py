@@ -1385,3 +1385,124 @@ def test_k17_refuses_what_it_does_not_take(cuda):
     _, odd = _bell_case(cuda, (12, 128), m=96, n=256, density=0.3)
     with pytest.raises(ValueError, match="bm in"):
         bsr.spmm_bell(odd, x)
+
+
+# ---------------------------------------------------------------------------
+# The rowblock and DIA reward envs on the card (plain PyTorch, no kernel of
+# their own): residual norms against the same env on the CPU (rtol 1e-5:
+# float32 sums of ~10^5 terms in another order) and against float64 on the
+# CPU (exact products: rtol 1e-4; gram 2e-3; bf16 storage 2e-2); rewards
+# against the CPU within that residual tolerance carried through the reward
+# (1000·α·1e-5·res/baseline, plus 1e-3); their own bits on a second call
+# ---------------------------------------------------------------------------
+
+def _reward_actions(num_edges, batch, seed):
+    rng = np.random.default_rng(seed)
+    acts = np.full((batch, 512), -1, np.int64)
+    for b in range(batch):
+        k = int(rng.integers(0, 511))
+        acts[b, :k] = rng.choice(num_edges, size=k, replace=False)
+        acts[b, k] = num_edges
+    return acts
+
+
+def _env_rewards(env, acts):
+    """(rewards, residual norms) of the action lists on the env's device."""
+    from gflownet_spai_tpu_torch.env import spai, spai_dia
+    from gflownet_spai_tpu_torch.gfn.gflownet import _batched_rewards
+
+    dev = env.baseline_residual.device
+    acts = torch.as_tensor(acts, device=dev)
+    keep = spai.keep_mask_from_actions(acts, env.num_edges)
+    res = (spai_dia.residual_norms(env, keep) if isinstance(env, spai_dia.SpaiDiaEnv)
+           else spai.batched_residual_norms(env, keep))
+    return _batched_rewards(env, acts, torch.tensor(
+        0.7, dtype=env.baseline_residual.dtype, device=dev)), res
+
+
+def _hold_rewards(env_card, env_cpu, acts, want_res, rtol64):
+    got, res = _env_rewards(env_card, acts)
+    assert got.dtype == res.dtype == torch.float32
+    again, res2 = _env_rewards(env_card, acts)
+    assert torch.equal(got, again) and torch.equal(res, res2)
+    cpu, cpu_res = _env_rewards(env_cpu, acts)
+    np.testing.assert_allclose(res.cpu().numpy(), cpu_res.numpy(), rtol=1e-5)
+    scale = float((cpu_res / env_cpu.baseline_residual).max())
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), rtol=0,
+                               atol=1000 * 0.7 * 1e-5 * scale + 1e-3)
+    np.testing.assert_allclose(res.cpu().numpy(), want_res.numpy(), rtol=rtol64)
+
+
+def _seed_of(name, dtype):
+    from gflownet_spai_tpu_torch.env import ilu
+    from gflownet_spai_tpu_torch.sparse.types import COO
+
+    a = gallery.get(name)
+    a = COO(row=a.row, col=a.col, data=a.data.astype(dtype), shape=a.shape)
+    return a, ilu.seed_pattern(a, method="ilu0", dtype=dtype)
+
+
+def test_dia_env_rewards_on_the_card(cuda):
+    from gflownet_spai_tpu_torch.env import spai_dia
+
+    make = lambda dtype, dev: spai_dia.make_dia_env(
+        *_seed_of("convdiff20000", dtype)[::-1], device=dev)
+    env = make(np.float32, cuda)
+    acts = _reward_actions(env.num_edges, 64, 0)
+    _, want = _env_rewards(make(np.float64, "cpu"), acts)
+    _hold_rewards(env, make(np.float32, "cpu"), acts, want, 1e-4)
+
+
+@pytest.mark.parametrize("kw,rtol64", [
+    (dict(), 1e-4), (dict(rowblock_layout="mc"), 1e-4),
+    (dict(rowblock_compress="gram"), 2e-3), (dict(rowblock_order="window"), 1e-4),
+    (dict(rowblock_order="window", rowblock_compress="gram"), 2e-3),
+    (dict(rowblock_dtype=torch.bfloat16), 2e-2),
+    (dict(rowblock_dtype=torch.bfloat16, rowblock_layout="mc"), 2e-2)])
+def test_rowblock_env_rewards_on_the_card(cuda, kw, rtol64):
+    from gflownet_spai_tpu_torch.env import spai
+
+    a32, s32 = _seed_of("orsirr_like64", np.float32)
+    make = lambda dev: spai.make_env(s32, original=a32, reward_path="rowblock",
+                                     device=dev, **kw)
+    env = make(cuda)
+    acts = _reward_actions(env.num_edges, 64, 1)
+    # float64: the pair env on the same edges (a window plan's enumeration
+    # maps back through edge_perm)
+    a64, s64 = _seed_of("orsirr_like64", np.float64)
+    keep = spai.keep_mask_from_actions(torch.as_tensor(acts), env.num_edges)
+    if env.rb.edge_perm is not None:
+        sorted_keep = torch.empty_like(keep)
+        sorted_keep[:, env.rb.edge_perm.cpu()] = keep
+        keep = sorted_keep
+    want = spai.batched_residual_norms(spai.make_env(s64, original=a64, device="cpu"),
+                                       keep)
+    _hold_rewards(env, make("cpu"), acts, want, rtol64)
+
+
+def test_lstm_backward_policy_on_the_card(cuda):
+    """The reference-parity LSTM backward policy (the train CLI's default)
+    on the card against the CPU, values and gradients (rtol 1e-5, atol
+    1e-5: float32 matmuls in another order), and the same bits on a second
+    call."""
+    gen = torch.Generator().manual_seed(3)
+    p = pol.backward_policy_init(gen, 4, 86)
+    acts = torch.full((5, 40), -1, dtype=torch.int64)
+    rng = np.random.default_rng(4)
+    for b in range(5):
+        k = int(rng.integers(1, 39))
+        acts[b, :k] = torch.as_tensor(rng.choice(85, size=k, replace=False))
+        acts[b, k] = 85
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_(True) for x in p]
+        lp = pol.backward_policy_batch(pol.BackwardPolicyParams(*leaves),
+                                       acts.to(dev), 4)
+        grads = torch.autograd.grad(lp.square().sum(), leaves)
+        outs.append((lp.detach().cpu(), [g.cpu() for g in grads]))
+    again = pol.backward_policy_batch(pol.BackwardPolicyParams(*(x.to(cuda) for x in p)),
+                                      acts.to(cuda), 4)
+    assert torch.equal(again.cpu(), outs[0][0])
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    for g, h in zip(outs[0][1], outs[1][1]):
+        torch.testing.assert_close(g, h, rtol=1e-5, atol=1e-5)

@@ -107,9 +107,24 @@ def test_setup_without_card_raises(monkeypatch):
     (dict(env_format="dia"), "DIA"),
 ])
 def test_unported_env_formats_raise(overrides, slice_word):
+    """``env_format`` ``rowblock``, ``dia`` and an ``auto`` that resolves to
+    either: ``setup`` builds the env JAX's ``setup`` builds (the row-block
+    env, the DIA env, with the same action count), or refuses as JAX does:
+    ``dia`` on orsirr_like12, whose ILU(0) seed stores zeros inside its
+    diagonals."""
     cfg = {**CFG, "matrix": "orsirr_like12", **overrides}
-    with pytest.raises(NotImplementedError, match=slice_word):
-        t_setup(TConfig(platform="cpu", **cfg))
+    try:
+        _, _, jenv, *_ = j_setup(JConfig(**cfg))
+    except ValueError as e:
+        assert slice_word == "DIA" and "phantom" in str(e)
+        with pytest.raises(ValueError, match="phantom"):
+            t_setup(TConfig(platform="cpu", **cfg))
+        return
+    _, _, tenv, *_ = t_setup(TConfig(platform="cpu", **cfg))
+    kind = lambda env: ("DIA" if type(env).__name__ == "SpaiDiaEnv" else
+                        "rowblock" if env.rb is not None else "coo")
+    assert kind(tenv) == kind(jenv) == slice_word
+    assert tenv.num_actions == jenv.num_actions
 
 
 def test_port_imports_no_jax():

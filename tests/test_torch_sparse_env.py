@@ -134,13 +134,19 @@ def test_batched_rewards_match(name):
 
 
 def test_unported_paths_raise():
+    """``make_env(reward_path="rowblock")`` builds the row-block env, an
+    unknown reward path is refused, and ``env_format='dia'`` builds the
+    DIA env."""
+    from gflownet_spai_tpu_torch.env.spai_dia import SpaiDiaEnv
+
     ja, ta, js, ts = _seeds("LF10_like")
-    with pytest.raises(NotImplementedError, match="rowblock"):
-        t_spai.make_env(ts, original=ta, reward_path="rowblock", device="cpu")
-    # the DIA env (and auto resolving to it) waits for the rowblock/DIA slice;
-    # the spai seed is ported (tests/test_torch_validate.py)
-    with pytest.raises(NotImplementedError, match="env_format='dia'"):
-        setup(TrainConfig(matrix="LF10_like", env_format="dia", platform="cpu"))
+    env = t_spai.make_env(ts, original=ta, reward_path="rowblock", device="cpu")
+    assert env.rb is not None and env.plan is None
+    with pytest.raises(ValueError, match="reward_path"):
+        t_spai.make_env(ts, original=ta, reward_path="nosuch", device="cpu")
+    _, _, env, *_ = setup(TrainConfig(matrix="LF10_like", env_format="dia",
+                                      platform="cpu"))
+    assert isinstance(env, SpaiDiaEnv)
 
 
 # ---------------------------------------------------------------------------

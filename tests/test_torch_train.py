@@ -281,3 +281,165 @@ def test_train_then_sample_cli(tmp_path, capsys):
 def test_multi_device_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="multi-device"):
         train_main(["--platform", "cpu", "--matrix", "LF10_like", *flags])
+
+
+# ---------------------------------------------------------------------------
+# The rowblock and DIA envs in the train path
+# ---------------------------------------------------------------------------
+
+def _env_kind(env):
+    return ("dia" if type(env).__name__ == "SpaiDiaEnv" else
+            "rowblock" if env.rb is not None else "coo")
+
+
+@pytest.mark.parametrize("matrix,want", [("LF10_like", "dia"), ("olm500_like", "dia"),
+                                         ("poisson32", "coo"), ("orsirr_like32", "coo"),
+                                         ("bcsstk03_like", "coo")])
+def test_auto_env_format_resolves_as_jax(matrix, want):
+    """``env_format="auto"``: banded seeds without phantom slots take the DIA
+    env, as in JAX's ``setup`` (poisson32's ILU(0) seed stores zeros inside
+    its diagonals, so it does not); ``rowblock_min_nnz`` sends the rest to
+    the row-block env."""
+    _, _, jenv, *_ = j_setup(JConfig(matrix=matrix))
+    a, seed, tenv, *_ = t_loop.setup(TConfig(matrix=matrix, platform="cpu"))
+    assert _env_kind(tenv) == _env_kind(jenv) == want
+    assert tenv.num_actions == jenv.num_actions
+    cfg = TConfig(matrix=matrix, rowblock_min_nnz=100)
+    assert t_loop.resolve_env_format(cfg, a, seed) == (
+        "dia" if want == "dia" else "rowblock")
+
+
+def test_default_train_cli_runs_the_dia_env(tmp_path):
+    """``train`` with every argument at its default (LF10_like → the DIA
+    env): finite losses, the DIA enumeration stamped."""
+    run = tmp_path / "run"
+    assert train_main(["--epochs", "4", "--out-dir", str(run), "--platform", "cpu",
+                       "--log-every", "1"]) == 0
+    recs = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in recs] == [0, 1, 2, 3]
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    assert json.loads((run / "checkpoint" / "enum.json").read_text())["order"] == "dia"
+
+
+def test_train_tiled_graph_rowblock_end_to_end(tmp_path):
+    """The oracle of tests/test_train.py: the train loop with the tiled
+    graph and the rowblock reward forced on runs 12 finite epochs, then
+    checkpoints and restores."""
+    cfg = TConfig(matrix="poisson32", num_epochs=12, batch_size=4, backward="linear",
+                  loss="subtb", lr=5e-3, env_format="rowblock", gat_tiled_min_edges=1,
+                  out_dir=str(tmp_path), platform="cpu")
+    _, seed, env, graph, mcfg, opt, state = t_loop.setup(cfg)
+    assert graph.gat_buckets is not None and env.rb is not None
+    assert env.rb.edge_perm is not None
+    np.testing.assert_array_equal(seed.row, env.seed.row.numpy())
+    step = t_loop.make_train_step(cfg, env, graph, mcfg, opt)
+    for _ in range(cfg.num_epochs):
+        state, m = step(state)
+        assert np.isfinite(float(m["loss"]))
+    t_loop.save_checkpoint(cfg.out_dir, state, env=env)
+    restored = t_loop.restore_checkpoint(cfg.out_dir, state)
+    assert restored.epoch == state.epoch == 12
+    assert torch.equal(restored.params.log_z, state.params.log_z)
+    same, remapped = t_enums.reconcile(cfg.out_dir, env, restored, "linear")
+    assert not remapped
+
+
+@pytest.mark.parametrize("kw", [dict(matrix="LF10_like"),
+                                dict(matrix="orsirr_like32", env_format="rowblock"),
+                                dict(matrix="orsirr_like32", env_format="rowblock",
+                                     rowblock_order="sorted")])
+def test_enum_stamp_files_equal_jax_every_order(tmp_path, kw):
+    """``enum.json`` and ``enum_perm.npy`` byte-equal to JAX's for the dia,
+    window and sorted orders."""
+    _, _, jenv, *_ = j_setup(JConfig(**kw))
+    _, _, tenv, *_ = t_loop.setup(TConfig(platform="cpu", **kw))
+    j_enums.save_enum_meta(str(tmp_path / "j"), jenv)
+    t_enums.save_enum_meta(str(tmp_path / "t"), tenv)
+    for name in ("enum.json", "enum_perm.npy"):
+        assert (tmp_path / "t" / "checkpoint" / name).read_bytes() \
+            == (tmp_path / "j" / "checkpoint" / name).read_bytes()
+
+
+def _edge_match(new, old, n):
+    """o_idx with new edge j == old edge o_idx[j], by (row, col)."""
+    k_old = np.asarray(old.row).astype(np.int64) * n + np.asarray(old.col)
+    k_new = np.asarray(new.row).astype(np.int64) * n + np.asarray(new.col)
+    order = np.argsort(k_old)
+    return order[np.searchsorted(k_old[order], k_new)]
+
+
+@pytest.mark.parametrize("old_kw,new_kw", [
+    (dict(matrix="orsirr_like32", env_format="rowblock", rowblock_order="sorted"),
+     dict(matrix="orsirr_like32", env_format="rowblock", rowblock_order="window")),
+    (dict(matrix="LF10_like", env_format="coo"), dict(matrix="LF10_like")),
+])
+def test_restore_across_orders_remaps_exactly(tmp_path, old_kw, new_kw):
+    """Sorted → window and sorted → dia: the restored policy's logits follow
+    the edge relabelling exactly, as JAX's ``reconcile`` remaps (the oracle
+    of tests/test_enums.py); replayed actions name the same edges."""
+    from gflownet_spai_tpu_torch.env import spai_dia
+    from gflownet_spai_tpu_torch.models import policies as pol
+
+    common = dict(backward="linear", loss="subtb", batch_size=2, replay_size=4, t_cap=4,
+                  replay_samples=1, plateau_patience=0, reward_baseline="identity",
+                  out_dir=str(tmp_path), platform="cpu")
+    _, _, env_o, graph_o, mcfg, _, state = t_loop.setup(TConfig(**old_kw, **common))
+    acts = torch.full((1, 4), -1, dtype=torch.int64)
+    acts[0, :3] = torch.tensor([2, 5, env_o.num_edges])
+    state = state._replace(replay=t_replay.replay_update(state.replay, acts,
+                                                         torch.tensor([1.0])))
+    t_loop.save_checkpoint(str(tmp_path), state, env=env_o)
+    _, _, env_n, graph_n, mcfg_n, opt_n, tmpl = t_loop.setup(TConfig(**new_kw, **common))
+    restored = t_loop.restore_checkpoint(str(tmp_path), tmpl)
+    new, remapped = t_enums.reconcile(str(tmp_path), env_n, restored, "linear", opt=opt_n)
+    assert remapped
+    edges = lambda e: (spai_dia.edge_coo(e) if isinstance(e, spai_dia.SpaiDiaEnv)
+                       else e.seed.numpy())
+    o_idx = _edge_match(edges(env_n), edges(env_o), env_o.n)
+    assert (o_idx != np.arange(len(o_idx))).any()
+    lg_o = pol.forward_policy_logits(state.params.forward, graph_o, mcfg.num_actions,
+                                     mcfg.hidden_dim)
+    lg_n = pol.forward_policy_logits(new.params.forward, graph_n, mcfg_n.num_actions,
+                                     mcfg_n.hidden_dim)
+    np.testing.assert_allclose(lg_n[:-1].detach().numpy(), lg_o[o_idx].detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert float(lg_n[-1]) == pytest.approx(float(lg_o[-1]), rel=1e-6)
+    row = new.replay.actions[torch.isfinite(new.replay.rewards)][0]
+    assert o_idx[int(row[0])] == 2 and o_idx[int(row[1])] == 5
+    assert int(row[2]) == env_n.num_edges
+
+
+def test_magnitude_demos_dia_env_uses_edge_enumeration():
+    """The oracle of tests/test_train.py: on a DIA env the demonstrations
+    come from the (diagonal, row) edge enumeration, equal to JAX's."""
+    from gflownet_spai_tpu_torch.env import spai_dia
+
+    kw = dict(matrix="LF10_like", seed_method="spai", seed_k=2)
+    _, _, jenv, *_ = j_setup(JConfig(**kw))
+    _, _, env, *_ = t_loop.setup(TConfig(platform="cpu", **kw))
+    assert isinstance(env, spai_dia.SpaiDiaEnv)
+    demos = t_loop._magnitude_demos(env, [0.5], env.num_actions)
+    np.testing.assert_array_equal(demos, j_loop._magnitude_demos(jenv, [0.5],
+                                                                 jenv.num_actions))
+    acts = demos[0][demos[0] >= 0]
+    assert acts[-1] == env.num_edges
+    vals = np.abs(spai_dia.edge_coo(env).data)
+    kept = np.setdiff1d(np.arange(env.num_edges), acts[:-1])
+    assert vals[acts[:-1]].max() <= vals[kept].min() + 1e-12
+
+
+def test_best_sampled_matrix_dia_env_equals_jax():
+    from gflownet_spai_tpu.solvers.validate import best_sampled_matrix as j_best
+    from gflownet_spai_tpu_torch.solvers.validate import best_sampled_matrix as t_best
+
+    _, _, jenv, *_ = j_setup(JConfig(matrix="LF10_like"))
+    _, _, tenv, *_ = t_loop.setup(TConfig(matrix="LF10_like", platform="cpu"))
+    acts = np.full((3, tenv.num_actions), -1, np.int64)
+    acts[0, :3] = [4, 9, tenv.num_edges]
+    acts[1, :4] = [0, 17, 30, tenv.num_edges]
+    acts[2, :1] = [tenv.num_edges]
+    rewards = np.array([1.0, 3.0, 2.0], np.float32)
+    want = j_best(jenv, jnp.asarray(acts, jnp.int32), jnp.asarray(rewards))
+    got = t_best(tenv, torch.as_tensor(acts), torch.as_tensor(rewards))
+    for f in ("row", "col", "data"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
