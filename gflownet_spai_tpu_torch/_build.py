@@ -5,8 +5,9 @@ for ``sm_90a`` into its own shared library, then loaded with ``ctypes``.
 The libraries go to ``$GFLOWNET_SPAI_KERNEL_DIR`` when it is set, else to
 ``build/kernels/`` at the root of a source checkout, else (an installed
 package) to ``gflownet_spai_tpu_torch/kernels`` in the user's cache
-directory.  The library's file name carries a hash of its source, so an
-edited source is rebuilt and an unchanged one is reused.  ``build_all``
+directory.  The library's file name carries a hash of its source and of
+the headers beside it (``csrc/*.cuh``), so an edited source or header is
+rebuilt and an unchanged one is reused.  ``build_all``
 starts one ``nvcc`` per source, all at once.
 """
 
@@ -52,8 +53,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                             *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

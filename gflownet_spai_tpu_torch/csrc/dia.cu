@@ -18,7 +18,7 @@
 // no staging serves every matrix, whatever its halo.  One thread per output
 // row loops over the diagonals: neighbouring threads read neighbouring words
 // of each diagonal and of x, so every load coalesces.  What bounds it on an
-// H100: bytes (2 flops per 4-byte diagonal word).  Nothing is sized by the
+// H100: bytes (2 flops per diagonal word).  Nothing is sized by the
 // halo, so a matrix whose halo is nearly the whole vector (a reordered
 // unstructured matrix with 230 diagonals) takes the same path.
 //
@@ -31,17 +31,17 @@
 //   `rank` owns the S rows from row0 = w.out - Hk + rank.S of window w and
 //   stages them once per call with 16-byte cp.async copies: each row's
 //   diagonal words and its c (K12 with `add`) or its r and dd (K13), and
-//   the input iterate with a halo of Rh = R rounded up to 4 words each
-//   side.  The k passes then run in shared memory, so the diagonals are
-//   read from device memory once for all k passes; only the iterate moves,
-//   between two shared buffers.  Each pass computes the CTA's Rh rows at
+//   the input iterate with a halo of Rh = R rounded up to 4 elements (8
+//   where a type is bf16) each side.  The k passes then run in shared
+//   memory, so the diagonals are read from device memory once for all k
+//   passes; only the iterate moves, between two shared buffers.  Each pass computes the CTA's Rh rows at
 //   either edge first and stores them into its neighbours' halos
 //   (st.async into distributed shared memory, completing bytes on the
 //   neighbour's mbarrier), then its interior rows, which read no halo,
 //   while those stores travel; the next pass waits only for its two
 //   neighbours' bytes.  Only the two ends of a window see stale halos, one
 //   reach further in per pass, so a window yields out = C.S - 2.Hk output
-//   rows, Hk = (k-1).R rounded up to 4: the halo is paid per cluster window,
+//   rows, Hk = (k-1).R rounded up as Rh: the halo is paid per cluster window,
 //   and a pass computes only the rows that still reach an output row.  The
 //   last pass writes the output rows to device memory, and the CTA then
 //   stages its rows of the next window.  (A second staging area, loading
@@ -49,8 +49,9 @@
 //   H100: it halves the rows a CTA holds, so a window repeats more rows.)
 //   The caller picks C, S and the clusters launched from the shared-memory
 //   budget, cudaOccupancyMaxActiveClusters and a cost model of this card;
-//   it needs 1 <= ndiags <= 9 (the diagonals are unrolled), P a multiple
-//   of 4, 16-byte aligned staged buffers and, when C > 1, S >= Rh.
+//   it needs 1 <= ndiags <= 9 (the diagonals are unrolled), S and P
+//   multiples of 4 elements (8 where a type is bf16), 16-byte aligned
+//   staged buffers and, when C > 1, S >= Rh.
 // - streamed (rows == 0): k launches of a one-pass kernel, the iterate
 //   ping-ponging through global memory between the output buffer and a
 //   caller-given [n_pad] scratch buffer, ordered so that the last pass
@@ -88,16 +89,43 @@
 // their kb windows in shared memory across the k passes, shrinking by R per
 // pass, the overlap rows computed again by the neighbouring blocks) or
 // streamed (k launches of the batched one-pass kernel through a [K, n_pad]
-// scratch buffer); k = 1 is one batched pass.  Bound by bytes.
+// scratch buffer); k = 1 is one batched pass.  Bound by bytes.  The tiled
+// mode reads the diagonals from device memory (L1 and L2) at every pass;
+// only the iterate lives in shared memory.
+//
+// Element types (`dia_types.cuh`): every kernel is a template over the
+// stored diagonals' type TD and the vectors' type TV, one instance per
+// (TD, TV) in (float32, float32), (bf16, float32), (bf16, bf16), chosen
+// by the `types` code each entry point takes.  Every multiply-add runs in
+// float32 (a bf16 word is widened in a register where it is read) and
+// each result is rounded once, where it is stored, to TV; on bf16 buffers
+// K12, K13 and K14 therefore round every pass's iterate (and K13's dd) to
+// bf16.  In the fused mode the staged diagonals, the
+// iterate's two buffers and the aux rows are held in shared memory in
+// their stored types, so bf16 halves the staging bytes and the shared
+// memory a row takes (a CTA then holds more rows, and a window repeats
+// fewer); a 16-byte copy then carries 8 elements, so Rh, Hk, S and P are
+// multiples of 8 elements where a bf16 type is involved (4 for float32),
+// and the edge rows of a bf16 iterate go to the neighbours two to a
+// 32-bit st.async.  What bounds the bf16 instances: bytes as above, with
+// 2-byte diagonal words (and 2-byte vector words on bf16 buffers); the
+// fused mode's passes read as many shared-memory words per row update as
+// in float32.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dia_types.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
+using dia_types::bf16;
+using dia_types::from_f;
+using dia_types::to_f;
+using dia_types::with_types;
 
 constexpr int kThreads = 256;      // K8, K10, K11, K14's one-pass kernel
 constexpr int kTileThreads = 512;  // K14 tiled
@@ -123,6 +151,32 @@ struct PowerRow {
   }
 };
 
+// K14's arithmetic: a term of a row's sum, acc + d.x, and the row's value
+// scale.acc (+ c).  The float32 instance as the compiler contracts it;
+// the bf16-diagonal instances with every rounding explicit, so that their
+// tiled and streamed modes agree bit for bit and, on bf16 buffers (where
+// the product of two bf16 values is exact), a result has the plain
+// version's bits.
+template <typename TD>
+__device__ __forceinline__ float rhs_add(float acc, float d, float x) {
+  if constexpr (sizeof(TD) == 2) {
+    return __fmaf_rn(d, x, acc);
+  } else {
+    return acc + d * x;
+  }
+}
+
+template <typename TD, typename TV>
+__device__ __forceinline__ float rhs_value(float acc, float scale, const TV* c) {
+  if constexpr (sizeof(TD) == 2) {
+    return c != nullptr ? __fadd_rn(__fmul_rn(acc, scale), to_f(*c)) : __fmul_rn(acc, scale);
+  } else {
+    float v = acc * scale;
+    if (c != nullptr) v += to_f(*c);
+    return v;
+  }
+}
+
 // K13's update of one row from t = (A.z)_i: dn = a.dd + b.(r - t).
 __device__ __forceinline__ float cheby_dn(float a, float dd, float b, float r, float t) {
   return __fadd_rn(__fmul_rn(a, dd), __fmul_rn(b, __fsub_rn(r, t)));
@@ -130,43 +184,45 @@ __device__ __forceinline__ float cheby_dn(float a, float dd, float b, float r, f
 
 // y[i] = scale.sum_s data[s, i].x[i + offs[s]] (+ c[i]) for i < rows: K8 at
 // scale 1 with no c, and one pass of K12's streamed mode.
+template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const float* __restrict__ data, long long ld,
+dia_spmv_kernel(const TD* __restrict__ data, long long ld,
                 const int* __restrict__ offs, int ndiags,
-                const float* __restrict__ x, long long x_lo, long long x_hi,
-                const float* __restrict__ c, float scale,
-                float* __restrict__ y, long long rows) {
+                const TV* __restrict__ x, long long x_lo, long long x_hi,
+                const TV* __restrict__ c, float scale,
+                TV* __restrict__ y, long long rows) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= rows) return;
   PowerRow row;
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
-    row.add(data[s * ld + i], (j >= x_lo && j < x_hi) ? x[j] : 0.f);
+    row.add(to_f(data[s * ld + i]), (j >= x_lo && j < x_hi) ? to_f(x[j]) : 0.f);
   }
-  y[i] = c != nullptr ? row.done(scale, c[i]) : row.done(scale);
+  y[i] = from_f<TV>(c != nullptr ? row.done(scale, to_f(c[i])) : row.done(scale));
 }
 
 // K10 and K11: thread t owns buffer row i = t - pad.  Rows in [0, rows) get
 // scale.sum_s data[s, i].x[i + offs[s]]; with pad = P (K10) the rows of the
 // two halo blocks [-P, 0) and [rows, rows + P) get zeros.
+template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_pp_kernel(const float* __restrict__ data, long long ld,
+dia_spmv_pp_kernel(const TD* __restrict__ data, long long ld,
                    const int* __restrict__ offs, int ndiags,
-                   const float* __restrict__ x, long long x_lo, long long x_hi,
-                   float scale, float* __restrict__ y, long long rows, long long pad) {
+                   const TV* __restrict__ x, long long x_lo, long long x_hi,
+                   float scale, TV* __restrict__ y, long long rows, long long pad) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x - pad;
   if (i >= rows + pad) return;
   if (i < 0 || i >= rows) {
-    y[i] = 0.f;
+    y[i] = from_f<TV>(0.f);
     return;
   }
   float acc = 0.f;
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
-    const float xv = (j >= x_lo && j < x_hi) ? x[j] : 0.f;
-    acc += data[s * ld + i] * xv;
+    const float xv = (j >= x_lo && j < x_hi) ? to_f(x[j]) : 0.f;
+    acc += to_f(data[s * ld + i]) * xv;
   }
-  y[i] = acc * scale;
+  y[i] = from_f<TV>(acc * scale);
 }
 
 // One pass of K14 over rows [0, n_pad) of K right-hand sides: for each r,
@@ -174,12 +230,13 @@ dia_spmv_pp_kernel(const float* __restrict__ data, long long ld,
 // read for x_lo <= j < x_hi.  Block b covers kThreads rows and right-hand
 // sides [kRhs.(b % rhs_blocks), +kRhs): consecutive blocks share their rows,
 // so the diagonal words they re-read come from L2.
+template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
-dia_spmv_rhs_kernel(const float* __restrict__ data, long long n_pad,
+dia_spmv_rhs_kernel(const TD* __restrict__ data, long long n_pad,
                     const int* __restrict__ offs, int ndiags,
-                    const float* __restrict__ x, long long ldx, long long x_lo,
-                    long long x_hi, const float* __restrict__ c, long long ldc,
-                    float scale, float* __restrict__ y, long long ldy, int n_rhs,
+                    const TV* __restrict__ x, long long ldx, long long x_lo,
+                    long long x_hi, const TV* __restrict__ c, long long ldc,
+                    float scale, TV* __restrict__ y, long long ldy, int n_rhs,
                     unsigned rhs_blocks) {
   const long long i = (blockIdx.x / rhs_blocks) * static_cast<long long>(kThreads)
                       + threadIdx.x;
@@ -192,39 +249,40 @@ dia_spmv_rhs_kernel(const float* __restrict__ data, long long n_pad,
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
     if (j < x_lo || j >= x_hi) continue;   // adds 0.f: the sums are unchanged
-    const float dv = data[s * n_pad + i];
+    const float dv = to_f(data[s * n_pad + i]);
 #pragma unroll
     for (int r = 0; r < kRhs; ++r)
-      if (r < nr) acc[r] += dv * x[(r0 + r) * ldx + j];
+      if (r < nr) acc[r] = rhs_add<TD>(acc[r], dv, to_f(x[(r0 + r) * ldx + j]));
   }
 #pragma unroll
   for (int r = 0; r < kRhs; ++r) {
     if (r < nr) {
-      float v = acc[r] * scale;
-      if (c != nullptr) v += c[(r0 + r) * ldc + i];
-      y[(r0 + r) * ldy + i] = v;
+      y[(r0 + r) * ldy + i] = from_f<TV>(
+          rhs_value<TD>(acc[r], scale, c != nullptr ? c + (r0 + r) * ldc + i : nullptr));
     }
   }
 }
 
 // One pass of K13's streamed mode over rows [0, n_pad): t = A.z,
-// dd <- a.dd + b.(r - t), z_out = z + dd.  dd_in may be dd_out (each
-// thread reads and writes only its own row there).
+// dd <- a.dd + b.(r - t), z_out = z + dd (dd rounded to TV first, as it is
+// stored).  dd_in may be dd_out (each thread reads and writes only its own
+// row there).
+template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
-dia_cheby_pass_kernel(const float* __restrict__ data, long long n_pad,
+dia_cheby_pass_kernel(const TD* __restrict__ data, long long n_pad,
                       const int* __restrict__ offs, int ndiags,
-                      const float* __restrict__ z, long long z_lo, long long z_hi,
-                      const float* dd_in, const float* __restrict__ r,
-                      float* __restrict__ z_out, float* dd_out, float a, float b) {
+                      const TV* __restrict__ z, long long z_lo, long long z_hi,
+                      const TV* dd_in, const TV* __restrict__ r,
+                      TV* __restrict__ z_out, TV* dd_out, float a, float b) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= n_pad) return;
   PowerRow t;
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
-    t.add(data[s * n_pad + i], (j >= z_lo && j < z_hi) ? z[j] : 0.f);
+    t.add(to_f(data[s * n_pad + i]), (j >= z_lo && j < z_hi) ? to_f(z[j]) : 0.f);
   }
-  const float dn = cheby_dn(a, dd_in[i], b, r[i], t.acc);
-  z_out[i] = __fadd_rn(z[i], dn);
+  const TV dn = from_f<TV>(cheby_dn(a, to_f(dd_in[i]), b, to_f(r[i]), t.acc));
+  z_out[i] = from_f<TV>(__fadd_rn(to_f(z[i]), to_f(dn)));
   dd_out[i] = dn;
 }
 
@@ -237,15 +295,19 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 // Stage rows [lo, lo + len) of a vector whose rows [vlo, vhi) exist (`src`
 // points at row 0) into dst[0, len) with 16-byte cp.async copies spread
 // over the CTA's threads; the rows that do not exist are zero-filled.  lo,
-// len, vlo and vhi are multiples of 4, so each 16-byte chunk lies wholly
-// inside or outside.  The caller commits the group.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long lo, int len,
+// len, vlo and vhi are multiples of the 16 / sizeof(T) elements of a copy,
+// so each chunk lies wholly inside or outside.  The caller commits the
+// group.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long lo, int len,
                                            long long vlo, long long vhi) {
-  for (int q = threadIdx.x; q < len / 4; q += blockDim.x) {
-    const long long g = lo + 4LL * q;
+  constexpr int kChunk = 16 / sizeof(T);
+  for (int q = threadIdx.x; q < len / kChunk; q += blockDim.x) {
+    const long long g = lo + static_cast<long long>(kChunk) * q;
     const bool in = g >= vlo && g < vhi;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst + 4 * q)), "l"(src + (in ? g : vlo)), "r"(in ? 16 : 0)
+                 :: "r"(smem_u32(dst + kChunk * q)), "l"(src + (in ? g : vlo)),
+                    "r"(in ? 16 : 0)
                  : "memory");
   }
 }
@@ -301,14 +363,30 @@ __device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
   return out;
 }
 
-// Store v at `addr` in another CTA of the cluster and complete 4 bytes of
-// the transaction count of its mbarrier `bar` (both shared::cluster).
-__device__ __forceinline__ void push_word(unsigned addr, float v, unsigned bar) {
+// Store the 32-bit word w at `addr` in another CTA of the cluster and
+// complete 4 bytes of the transaction count of its mbarrier `bar` (both
+// shared::cluster).
+__device__ __forceinline__ void push_word(unsigned addr, unsigned w, unsigned bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
-               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+               :: "r"(addr), "r"(w), "r"(bar) : "memory");
 }
 
-// Window w of a fused launch.  Buffers of Wb = S + 2.Rh words hold rows
+// The 32-bit word of 4 / sizeof(T) adjacent elements (the lower address in
+// the low bits).
+__device__ __forceinline__ unsigned word_of(const float* v) { return __float_as_uint(v[0]); }
+__device__ __forceinline__ unsigned word_of(const bf16* v) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(v[0]))
+         | (static_cast<unsigned>(__bfloat16_as_ushort(v[1])) << 16);
+}
+
+// Elements of a 16-byte staging copy of the narrower of the two types: Rh,
+// Hk, S and P are multiples of it.
+template <typename TD, typename TV>
+constexpr int fused_align() {
+  return 16 / static_cast<int>(sizeof(TD) < sizeof(TV) ? sizeof(TD) : sizeof(TV));
+}
+
+// Window w of a fused launch.  Buffers of Wb = S + 2.Rh elements hold rows
 // row0 - Rh + j at index j; CTA `rank` of the cluster owns rows
 // [row0, row0 + S) and writes the output rows [out0, out_end) among them.
 struct FusedCta {
@@ -326,12 +404,14 @@ struct FusedCta {
 
 // Shared memory of a fused CTA: three mbarriers (the halos of A and B,
 // and the neighbours' "done with the last window"; 32 bytes with padding),
-// the iterate's two buffers A and B ([Wb] each), then the staging area:
-// x[Wb] (the window's input iterate with its halos), dg[nd][S] and
-// aux[kind][S] (K12 with c: c; K13: r, dd).
+// the iterate's two buffers A and B ([Wb] TV each), then the staging area:
+// x[Wb] (the window's input iterate with its halos) and aux[kind][S] (K12
+// with c: c; K13: r, dd), TV, then dg[nd][S], TD.  With Wb and S multiples
+// of fused_align, every part starts 16-byte aligned.
+template <typename TD, typename TV>
 __host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int Rh) {
-  return 32 + 4 * (3 * (static_cast<size_t>(S) + 2 * Rh)
-                   + static_cast<size_t>(nd + kind) * S);
+  const size_t s = static_cast<size_t>(S);
+  return 32 + sizeof(TV) * (3 * (s + 2 * Rh) + kind * s) + sizeof(TD) * nd * s;
 }
 
 // K12 (kKind 0, or 1 with c) and K13 (kKind 2) fused, for ND diagonals:
@@ -343,7 +423,8 @@ __host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int 
 // output rows to device memory.  A pass computes only the rows
 // that reach an output row of the window, (k - p).R around them.  Each
 // pass but the last computes the rows within Rh of the CTA's two edges
-// first and stores them into the neighbours' halos too (st.async,
+// first and stores them into the neighbours' halos too (st.async of
+// 32-bit words, one row of a float32 iterate or two of a bf16 one,
 // completing bytes on the neighbour's mbarrier of that buffer), then the
 // interior rows, which read no halo; the next pass first waits for the
 // neighbours' bytes on its own mbarrier.  A neighbour stores pass p + 1
@@ -352,21 +433,25 @@ __host__ __device__ inline size_t fused_smem_bytes(int nd, int kind, int S, int 
 // them: no halo is overwritten before it is read.  After a window each CTA
 // tells its neighbours (a remote mbarrier arrive) that its halos are free
 // for the next window's first stores.
-template <int kKind, int ND>
+template <int kKind, int ND, typename TD, typename TV>
 __global__ void __launch_bounds__(kFusedThreads, 1)
-dia_fused_kernel(const float* __restrict__ data, long long n_pad,
-                 const int* __restrict__ offs, int reach, const float* __restrict__ xq,
-                 const float* __restrict__ aq, const float* __restrict__ ddq,
-                 float* __restrict__ zq, float* __restrict__ dd_out, long long P, int k,
+dia_fused_kernel(const TD* __restrict__ data, long long n_pad,
+                 const int* __restrict__ offs, int reach, const TV* __restrict__ xq,
+                 const TV* __restrict__ aq, const TV* __restrict__ ddq,
+                 TV* __restrict__ zq, TV* __restrict__ dd_out, long long P, int k,
                  float scale, Coeffs cf, int S, int Rh, int Hk, long long out,
                  long long windows) {
-  extern __shared__ __align__(16) float fused_smem[];
+  constexpr int kPack = 4 / sizeof(TV);   // iterate rows per pushed 32-bit word
+  extern __shared__ __align__(16) unsigned char fused_smem[];
   const int Wb = S + 2 * Rh;
   uint64_t* halo_bar = reinterpret_cast<uint64_t*>(fused_smem);   // [2]: A's and B's halos
   uint64_t* free_bar = halo_bar + 2;     // the neighbours are done with their last window
-  float* A = fused_smem + 8;
-  float* B = A + Wb;
-  float* sx = B + Wb;   // the staging area
+  TV* A = reinterpret_cast<TV*>(fused_smem + 32);
+  TV* B = A + Wb;
+  TV* sx = B + Wb;   // the staging area
+  TV* aux = sx + Wb;
+  TV* dd = aux + S;
+  TD* dg = reinterpret_cast<TD*>(aux + kKind * S);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -380,9 +465,9 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
     stage_rows(sx, xq + P, c.row0 - Rh, Wb, -P, n_pad + P);
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      stage_rows(sx + Wb + d * S, data + d * n_pad, c.row0, S, 0, n_pad);
-    if (kKind >= 1) stage_rows(sx + Wb + ND * S, aq + P, c.row0, S, 0, n_pad);
-    if (kKind == 2) stage_rows(sx + Wb + (ND + 1) * S, ddq + P, c.row0, S, 0, n_pad);
+      stage_rows(dg + d * S, data + d * n_pad, c.row0, S, 0, n_pad);
+    if (kKind >= 1) stage_rows(aux, aq + P, c.row0, S, 0, n_pad);
+    if (kKind == 2) stage_rows(dd, ddq + P, c.row0, S, 0, n_pad);
     cp_async_commit();
   };
 
@@ -393,7 +478,7 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int j = tid; j < Rh; j += blockDim.x)   // halos no neighbour writes
-    A[j] = A[Rh + S + j] = B[j] = B[Rh + S + j] = 0.f;
+    A[j] = A[Rh + S + j] = B[j] = B[Rh + S + j] = from_f<TV>(0.f);
   if (n_win > 0) stage_window(0);
   // every CTA of the cluster runs, its barriers initialised, before any
   // stores into it
@@ -415,29 +500,28 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
       phases ^= 4u;
     }
     const FusedCta c(rank, S, Hk, out, n_pad, first + t * step);
-    const float* dg = sx + Wb;
-    const float* aux = dg + ND * S;
-    float* dd = const_cast<float*>(aux) + S;
     int lo = c.lo, hi = c.hi;   // the rows this pass computes, the others give 0
-    // row i's value at pass p from the previous iterate `src`
-    auto row = [&](int p, int i, const float* src) -> float {
+    // row i's value at pass p from the previous iterate `src` (K13 also
+    // stores row i's dd, rounded to TV, before z + dd uses it)
+    auto row = [&](int p, int i, const TV* src) -> float {
       if (i < lo || i >= hi) {
-        if (kKind == 2) dd[i] = 0.f;
+        if (kKind == 2) dd[i] = from_f<TV>(0.f);
         return 0.f;
       }
       PowerRow acc;
-      const float* x = src + Rh + i;
+      const TV* x = src + Rh + i;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) acc.add(dg[d * S + i], x[off[d]]);
+      for (int d = 0; d < ND; ++d) acc.add(to_f(dg[d * S + i]), to_f(x[off[d]]));
       if (kKind == 2) {
-        const float dn = cheby_dn(cf.a[p - 1], dd[i], cf.b[p - 1], aux[i], acc.acc);
+        const TV dn = from_f<TV>(
+            cheby_dn(cf.a[p - 1], to_f(dd[i]), cf.b[p - 1], to_f(aux[i]), acc.acc));
         dd[i] = dn;   // only this thread reads or writes row i of dd in a pass
-        return __fadd_rn(x[0], dn);
+        return __fadd_rn(to_f(x[0]), to_f(dn));
       }
-      return kKind == 1 ? acc.done(scale, aux[i]) : acc.done(scale);
+      return kKind == 1 ? acc.done(scale, to_f(aux[i])) : acc.done(scale);
     };
-    const float* src = sx;
-    float* dst = A;
+    const TV* src = sx;
+    TV* dst = A;
     for (int p = 1; p <= k; ++p) {
       // the rows that reach an output row, (k - p).R around [out0, out_end):
       // [clo, chi); of them, those outside [0, n_pad) are zero
@@ -457,26 +541,34 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
       if (p == k) {   // the output rows, to device memory
         for (int i = max(lo, static_cast<int>(c.out0 - c.row0)) + tid; i < hi;
              i += blockDim.x) {
-          const float v = row(p, i, src);
-          zq[P + c.row0 + i] = v;
+          zq[P + c.row0 + i] = from_f<TV>(row(p, i, src));
           if (kKind == 2) dd_out[P + c.row0 + i] = dd[i];
         }
         break;
       }
-      if (tid == 0 && C > 1) mbar_expect_tx(&halo_bar[b], 4u * Rh * n_nbr);
+      if (tid == 0 && C > 1)
+        mbar_expect_tx(&halo_bar[b], static_cast<unsigned>(sizeof(TV)) * Rh * n_nbr);
       const unsigned left = has_left ? cluster_addr(dst + Rh + S, rank - 1) : 0;
       const unsigned left_bar = has_left ? cluster_addr(&halo_bar[b], rank - 1) : 0;
       const unsigned right = has_right ? cluster_addr(dst, rank + 1) : 0;
       const unsigned right_bar = has_right ? cluster_addr(&halo_bar[b], rank + 1) : 0;
-      for (int q = tid; q < n_edge; q += blockDim.x) {
-        const int i = q < e_lo ? q : e_hi + (q - e_lo);
-        const float v = row(p, i, src);
-        dst[Rh + i] = v;
-        if (has_left && i < Rh) push_word(left + 4u * i, v, left_bar);
-        if (has_right && i >= S - Rh) push_word(right + 4u * (i - (S - Rh)), v, right_bar);
+      for (int q = tid; q < n_edge / kPack; q += blockDim.x) {
+        const int e = kPack * q;
+        const int i = e < e_lo ? e : e_hi + (e - e_lo);   // rows i .. i + kPack - 1
+        TV v[kPack];
+#pragma unroll
+        for (int u = 0; u < kPack; ++u) {
+          v[u] = from_f<TV>(row(p, i + u, src));
+          dst[Rh + i + u] = v[u];
+        }
+        const unsigned bytes = static_cast<unsigned>(sizeof(TV)) * i;
+        if (has_left && i < Rh) push_word(left + bytes, word_of(v), left_bar);
+        if (has_right && i >= S - Rh)
+          push_word(right + bytes - static_cast<unsigned>(sizeof(TV)) * (S - Rh), word_of(v),
+                    right_bar);
       }
       for (int i = max(e_lo, clo) + tid; i < min(e_hi, chi); i += blockDim.x)
-        dst[Rh + i] = row(p, i, src);
+        dst[Rh + i] = from_f<TV>(row(p, i, src));
       __syncthreads();   // the next pass overwrites src
       src = dst;
       dst = dst == A ? B : A;
@@ -493,31 +585,31 @@ dia_fused_kernel(const float* __restrict__ data, long long n_pad,
 }
 
 // K14 tiled: block (blockIdx.x, blockIdx.y) owns rows [t0, t0 + tr) of
-// right-hand sides [kb.blockIdx.y, +kb).  smem: cur[kb][W], nxt[kb][W],
-// offs[ndiags] with W = tr + 2.k.R, window index i holding row t0 - k.R + i;
-// buffers are [n_rhs][ld], ld = P + n_pad + P.
-template <bool kAffine>
+// right-hand sides [kb.blockIdx.y, +kb).  smem: cur[kb][W], nxt[kb][W]
+// (TV), offs[ndiags] with W = tr + 2.k.R, window index i holding row
+// t0 - k.R + i; buffers are [n_rhs][ld], ld = P + n_pad + P.
+template <bool kAffine, typename TD, typename TV>
 __global__ void __launch_bounds__(kTileThreads)
-dia_power_rhs_kernel(const float* __restrict__ data, long long n_pad,
+dia_power_rhs_kernel(const TD* __restrict__ data, long long n_pad,
                      const int* __restrict__ offs, int ndiags, int reach,
-                     const float* __restrict__ xq, const float* __restrict__ cq,
-                     float* __restrict__ zq, long long P, int n_rhs, int k,
+                     const TV* __restrict__ xq, const TV* __restrict__ cq,
+                     TV* __restrict__ zq, long long P, int n_rhs, int k,
                      float scale, int tr, int kb) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char rhs_smem[];
   const int W = tr + 2 * k * reach;
   const long long ld = n_pad + 2 * P;
   const int r0 = blockIdx.y * kb;
   const int nr = min(kb, n_rhs - r0);
-  float* cur = smem;
-  float* nxt = smem + static_cast<long long>(kb) * W;
-  int* offs_s = reinterpret_cast<int*>(smem + 2LL * kb * W);
+  TV* cur = reinterpret_cast<TV*>(rhs_smem);
+  TV* nxt = cur + static_cast<long long>(kb) * W;
+  int* offs_s = reinterpret_cast<int*>(cur + 2LL * kb * W);
   const long long t0 = static_cast<long long>(blockIdx.x) * tr;
   const long long base = t0 - static_cast<long long>(k) * reach;
   for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
   for (int e = threadIdx.x; e < nr * W; e += blockDim.x) {
     const int r = e / W, i = e % W;
     const long long row = base + i;
-    cur[e] = (row >= -P && row < n_pad + P) ? xq[(r0 + r) * ld + P + row] : 0.f;
+    cur[e] = (row >= -P && row < n_pad + P) ? xq[(r0 + r) * ld + P + row] : from_f<TV>(0.f);
   }
   __syncthreads();
   for (int p = 1; p <= k; ++p) {
@@ -530,27 +622,25 @@ dia_power_rhs_kernel(const float* __restrict__ data, long long n_pad,
       const bool inside = row >= 0 && row < n_pad;
       if (inside) {
         for (int s = 0; s < ndiags; ++s) {
-          const float dv = data[s * n_pad + row];
+          const float dv = to_f(data[s * n_pad + row]);
           const int j = i + offs_s[s];
 #pragma unroll
           for (int r = 0; r < kRhs; ++r)
-            if (r < nr) acc[r] += dv * cur[r * W + j];
+            if (r < nr) acc[r] = rhs_add<TD>(acc[r], dv, to_f(cur[r * W + j]));
         }
       }
 #pragma unroll
       for (int r = 0; r < kRhs; ++r) {
         if (r < nr) {
-          float v = 0.f;
-          if (inside) {
-            v = acc[r] * scale;
-            if (kAffine) v += cq[(r0 + r) * ld + P + row];
-          }
-          nxt[r * W + i] = v;
+          nxt[r * W + i] = from_f<TV>(
+              inside ? rhs_value<TD>(acc[r], scale,
+                                     kAffine ? cq + (r0 + r) * ld + P + row : nullptr)
+                     : 0.f);
         }
       }
     }
     __syncthreads();
-    float* const done = cur;
+    TV* const done = cur;
     cur = nxt;
     nxt = done;
   }
@@ -572,45 +662,55 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, size_t* granted) {
   return err;
 }
 
-size_t g_power_rhs_smem[2] = {0, 0};
+// The index of a (TD, TV) instance: its `types` code.
+template <typename TD, typename TV>
+constexpr int type_code() {
+  return sizeof(TD) == 4 ? 0 : sizeof(TV) == 4 ? 1 : 2;
+}
+
+size_t g_power_rhs_smem[3][2] = {};
 
 // The fused kernel's instances: kind (0 K12, 1 K12 with c, 2 K13) by
-// ndiags in [1, kFusedMaxDiags]; wider matrices take the streamed mode.
+// ndiags in [1, kFusedMaxDiags] by (TD, TV); wider matrices take the
+// streamed mode.
 constexpr int kFusedMaxDiags = 9;
-size_t g_fused_smem[3][kFusedMaxDiags + 1] = {};
-bool g_fused_wide[3][kFusedMaxDiags + 1] = {};
+size_t g_fused_smem[3][3][kFusedMaxDiags + 1] = {};
+bool g_fused_wide[3][3][kFusedMaxDiags + 1] = {};
 
-template <int kKind, typename F>
+template <int kKind, typename TD, typename TV, typename F>
 cudaError_t with_fused_nd(int nd, F f) {
   switch (nd) {
-    case 1: return f(dia_fused_kernel<kKind, 1>);
-    case 2: return f(dia_fused_kernel<kKind, 2>);
-    case 3: return f(dia_fused_kernel<kKind, 3>);
-    case 4: return f(dia_fused_kernel<kKind, 4>);
-    case 5: return f(dia_fused_kernel<kKind, 5>);
-    case 6: return f(dia_fused_kernel<kKind, 6>);
-    case 7: return f(dia_fused_kernel<kKind, 7>);
-    case 8: return f(dia_fused_kernel<kKind, 8>);
-    case 9: return f(dia_fused_kernel<kKind, 9>);
+    case 1: return f(dia_fused_kernel<kKind, 1, TD, TV>);
+    case 2: return f(dia_fused_kernel<kKind, 2, TD, TV>);
+    case 3: return f(dia_fused_kernel<kKind, 3, TD, TV>);
+    case 4: return f(dia_fused_kernel<kKind, 4, TD, TV>);
+    case 5: return f(dia_fused_kernel<kKind, 5, TD, TV>);
+    case 6: return f(dia_fused_kernel<kKind, 6, TD, TV>);
+    case 7: return f(dia_fused_kernel<kKind, 7, TD, TV>);
+    case 8: return f(dia_fused_kernel<kKind, 8, TD, TV>);
+    case 9: return f(dia_fused_kernel<kKind, 9, TD, TV>);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// f(kernel) on the instance of (kind, nd), after raising its shared memory
-// limit to `smem` (and allowing clusters above 8 CTAs) where needed.
-template <typename F>
+// f(kernel) on the instance of (kind, nd, TD, TV), after raising its
+// shared memory limit to `smem` (and allowing clusters above 8 CTAs)
+// where needed.
+template <typename TD, typename TV, typename F>
 cudaError_t with_fused_kernel(int kind, int nd, size_t smem, int C, F f) {
   if (kind < 0 || kind > 2 || nd < 1 || nd > kFusedMaxDiags) return cudaErrorInvalidValue;
+  constexpr int tc = type_code<TD, TV>();
   auto g = [&](auto kern) {
-    cudaError_t err = opt_in_smem(kern, smem, &g_fused_smem[kind][nd]);
-    if (err == cudaSuccess && C > 8 && !g_fused_wide[kind][nd]) {
+    cudaError_t err = opt_in_smem(kern, smem, &g_fused_smem[tc][kind][nd]);
+    if (err == cudaSuccess && C > 8 && !g_fused_wide[tc][kind][nd]) {
       err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      g_fused_wide[kind][nd] = err == cudaSuccess;
+      g_fused_wide[tc][kind][nd] = err == cudaSuccess;
     }
     return err != cudaSuccess ? err : f(kern);
   };
-  return kind == 0 ? with_fused_nd<0>(nd, g) : kind == 1 ? with_fused_nd<1>(nd, g)
-                                                         : with_fused_nd<2>(nd, g);
+  return kind == 0 ? with_fused_nd<0, TD, TV>(nd, g)
+       : kind == 1 ? with_fused_nd<1, TD, TV>(nd, g)
+                   : with_fused_nd<2, TD, TV>(nd, g);
 }
 
 struct FusedLaunch {
@@ -633,28 +733,31 @@ struct FusedLaunch {
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // One fused launch of `kind` from the caller's C (cluster), S (rows) and
-// cap on the clusters launched (those the card holds at once); each launched cluster walks its windows.  Refuses what the kernel
-// cannot take: S a multiple of 4, S >= Rh when C > 1, a window yielding an
-// output row, P a multiple of 4 and 16-byte aligned staged buffers.
-cudaError_t fused_launch(int kind, const float* data, long long n_pad, const int* offs,
-                         int ndiags, int reach, const float* x, const float* a,
-                         const float* ddq, float* z, float* ddo, long long P, int k,
-                         float scale, const Coeffs& cf, int C, int S, int clusters,
-                         cudaStream_t st) {
-  if (k < 2 || k > kMaxPasses || C < 1 || C > kMaxCluster || S <= 0 || S % 4 != 0
+// cap on the clusters launched (those the card holds at once); each
+// launched cluster walks its windows.  Refuses what the kernel cannot
+// take: S and P multiples of fused_align (4 elements for float32, 8 where
+// a type is bf16), S >= Rh when C > 1, a window yielding an output row and
+// 16-byte aligned staged buffers.
+template <typename TD, typename TV>
+cudaError_t fused_launch(int kind, const TD* data, long long n_pad, const int* offs,
+                         int ndiags, int reach, const TV* x, const TV* a, const TV* ddq,
+                         TV* z, TV* ddo, long long P, int k, float scale, const Coeffs& cf,
+                         int C, int S, int clusters, cudaStream_t st) {
+  constexpr int al = fused_align<TD, TV>();
+  if (k < 2 || k > kMaxPasses || C < 1 || C > kMaxCluster || S <= 0 || S % al != 0
       || clusters < 1 || reach < 0 || ndiags < 1
-      || ndiags > kFusedMaxDiags || P % 4 != 0 || !aligned16(data) || !aligned16(x)
+      || ndiags > kFusedMaxDiags || P % al != 0 || !aligned16(data) || !aligned16(x)
       || (kind >= 1 && !aligned16(a)) || (kind == 2 && !aligned16(ddq)))
     return cudaErrorInvalidValue;
-  const int Rh = (reach + 3) / 4 * 4;
-  const int Hk = static_cast<int>((static_cast<long long>(k - 1) * reach + 3) / 4 * 4);
+  const int Rh = (reach + al - 1) / al * al;
+  const int Hk = static_cast<int>((static_cast<long long>(k - 1) * reach + al - 1) / al * al);
   const long long out = static_cast<long long>(C) * S - 2LL * Hk;
   if (out <= 0 || (C > 1 && S < Rh)) return cudaErrorInvalidValue;
   const long long windows = (n_pad + out - 1) / out;
   const long long launched = windows < clusters ? windows : clusters;
-  const size_t smem = fused_smem_bytes(ndiags, kind, S, Rh);
+  const size_t smem = fused_smem_bytes<TD, TV>(ndiags, kind, S, Rh);
   FusedLaunch l(static_cast<unsigned>(launched * C), C, smem, st);
-  return with_fused_kernel(kind, ndiags, smem, C, [&](auto kern) {
+  return with_fused_kernel<TD, TV>(kind, ndiags, smem, C, [&](auto kern) {
     return cudaLaunchKernelEx(&l.cfg, kern, data, n_pad, offs, reach, x, a, ddq, z, ddo, P, k,
                               scale, cf, S, Rh, Hk, out, windows);
   });
@@ -664,111 +767,131 @@ unsigned row_blocks(long long rows) {
   return static_cast<unsigned>((rows + kThreads - 1) / kThreads);
 }
 
+// The (TD, TV) of a `types` code, as the pointer types of a call.
+#define DIA_TYPES(t)                          \
+  using TD = typename decltype(t)::Data;      \
+  using TV = typename decltype(t)::Vec
+
 }  // namespace
+
+// Every entry point takes `types`, the (diagonal, vector) element types:
+// 0 (float32, float32), 1 (bf16, float32), 2 (bf16, bf16); the output and
+// every buffer have the vector type.
 
 // K8.  `x` points at logical index 0 of the vector; x[j] is read for
 // x_lo <= j < x_hi and is zero elsewhere.  y gets `rows` rows.
 extern "C" int dia_spmv(const void* data, long long ld, const void* offs,
                         int ndiags, const void* x, long long x_lo,
-                        long long x_hi, void* y, long long rows, void* stream) {
-  if (rows > 0) {
-    dia_spmv_kernel<<<row_blocks(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(data), ld, static_cast<const int*>(offs), ndiags,
-        static_cast<const float*>(x), x_lo, x_hi, nullptr, 1.f, static_cast<float*>(y),
-        rows);
-  }
-  return static_cast<int>(cudaGetLastError());
+                        long long x_hi, void* y, long long rows, int types, void* stream) {
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    if (rows > 0) {
+      dia_spmv_kernel<TD, TV><<<row_blocks(rows), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const TD*>(data), ld, static_cast<const int*>(offs), ndiags,
+          static_cast<const TV*>(x), x_lo, x_hi, nullptr, 1.f, static_cast<TV*>(y), rows);
+    }
+    return cudaGetLastError();
+  }));
 }
 
 // K12.  xq, cq (nullable) and zq are [P + n_pad + P] buffers; only zq's
 // interior [P, P + n_pad) is written.  rows > 0: fused, at most `clusters`
 // clusters of `cluster` CTAs owning `rows` rows each (`fused_launch` says
 // what it takes); rows == 0: streamed, through
-// `tmp` ([n_pad] floats; unused when k == 1).
+// `tmp` ([n_pad] elements; unused when k == 1).
 extern "C" int dia_power(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* xq, const void* cq,
                          void* zq, long long P, int k, float scale, int cluster,
-                         int rows, int clusters, void* tmp, void* stream) {
+                         int rows, int clusters, void* tmp, int types, void* stream) {
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* dat = static_cast<const float*>(data);
-  const int* off = static_cast<const int*>(offs);
-  const float* x = static_cast<const float*>(xq);
-  const float* c = static_cast<const float*>(cq);
-  float* z = static_cast<float*>(zq);
-  if (rows == 0) {
-    const float* src = x + P;
-    for (int p = 1; p <= k; ++p) {
-      float* dst = (k - p) % 2 == 0 ? z + P : static_cast<float*>(tmp);
-      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
-      dia_spmv_kernel<<<row_blocks(n_pad), kThreads, 0, st>>>(
-          dat, n_pad, off, ndiags, src, lo, hi, c == nullptr ? nullptr : c + P, scale,
-          dst, n_pad);
-      src = dst;
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    const TD* dat = static_cast<const TD*>(data);
+    const int* off = static_cast<const int*>(offs);
+    const TV* x = static_cast<const TV*>(xq);
+    const TV* c = static_cast<const TV*>(cq);
+    TV* z = static_cast<TV*>(zq);
+    if (rows == 0) {
+      const TV* src = x + P;
+      for (int p = 1; p <= k; ++p) {
+        TV* dst = (k - p) % 2 == 0 ? z + P : static_cast<TV*>(tmp);
+        const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+        dia_spmv_kernel<TD, TV><<<row_blocks(n_pad), kThreads, 0, st>>>(
+            dat, n_pad, off, ndiags, src, lo, hi, c == nullptr ? nullptr : c + P, scale,
+            dst, n_pad);
+        src = dst;
+      }
+      return cudaGetLastError();
     }
-    return static_cast<int>(cudaGetLastError());
-  }
-  const cudaError_t err = fused_launch(c != nullptr ? 1 : 0, dat, n_pad, off, ndiags, reach,
-                                       x, c, nullptr, z, nullptr, P, k, scale, Coeffs{},
-                                       cluster, rows, clusters, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+    const cudaError_t err = fused_launch<TD, TV>(
+        c != nullptr ? 1 : 0, dat, n_pad, off, ndiags, reach, x, c, nullptr, z, nullptr, P, k,
+        scale, Coeffs{}, cluster, rows, clusters, st);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }));
 }
 
 // K13.  zq, ddq, rq, z_out, dd_out are [P + n_pad + P] buffers; `coeffs`
 // is a host array a_1, b_1, ..., a_k, b_k (k <= 32).  Only the interiors of
 // z_out and dd_out are written.  rows > 0: fused as K12; rows == 0:
-// streamed, through `tmp` ([n_pad] floats; unused when k == 1).
+// streamed, through `tmp` ([n_pad] elements; unused when k == 1).
 extern "C" int dia_cheby(const void* data, long long n_pad, const void* offs,
                          int ndiags, int reach, const void* zq, const void* ddq,
                          const void* rq, void* z_out, void* dd_out, long long P,
                          int k, const float* coeffs, int cluster, int rows, int clusters,
-                         void* tmp, void* stream) {
+                         void* tmp, int types, void* stream) {
   if (k < 1 || k > kMaxPasses) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* dat = static_cast<const float*>(data);
-  const int* off = static_cast<const int*>(offs);
-  const float* z = static_cast<const float*>(zq);
-  const float* ddi = static_cast<const float*>(ddq);
-  const float* r = static_cast<const float*>(rq);
-  float* zo = static_cast<float*>(z_out);
-  float* ddo = static_cast<float*>(dd_out);
-  if (rows == 0) {
-    const float* src = z + P;
-    const float* dd = ddi + P;
-    for (int p = 1; p <= k; ++p) {
-      float* dst = (k - p) % 2 == 0 ? zo + P : static_cast<float*>(tmp);
-      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
-      dia_cheby_pass_kernel<<<row_blocks(n_pad), kThreads, 0, st>>>(
-          dat, n_pad, off, ndiags, src, lo, hi, dd, r + P, dst, ddo + P,
-          coeffs[2 * p - 2], coeffs[2 * p - 1]);
-      src = dst;
-      dd = ddo + P;
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    const TD* dat = static_cast<const TD*>(data);
+    const int* off = static_cast<const int*>(offs);
+    const TV* z = static_cast<const TV*>(zq);
+    const TV* ddi = static_cast<const TV*>(ddq);
+    const TV* r = static_cast<const TV*>(rq);
+    TV* zo = static_cast<TV*>(z_out);
+    TV* ddo = static_cast<TV*>(dd_out);
+    if (rows == 0) {
+      const TV* src = z + P;
+      const TV* dd = ddi + P;
+      for (int p = 1; p <= k; ++p) {
+        TV* dst = (k - p) % 2 == 0 ? zo + P : static_cast<TV*>(tmp);
+        const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+        dia_cheby_pass_kernel<TD, TV><<<row_blocks(n_pad), kThreads, 0, st>>>(
+            dat, n_pad, off, ndiags, src, lo, hi, dd, r + P, dst, ddo + P,
+            coeffs[2 * p - 2], coeffs[2 * p - 1]);
+        src = dst;
+        dd = ddo + P;
+      }
+      return cudaGetLastError();
     }
-    return static_cast<int>(cudaGetLastError());
-  }
-  Coeffs cf;
-  for (int p = 0; p < k; ++p) {
-    cf.a[p] = coeffs[2 * p];
-    cf.b[p] = coeffs[2 * p + 1];
-  }
-  const cudaError_t err = fused_launch(2, dat, n_pad, off, ndiags, reach, z, r, ddi, zo, ddo, P,
-                                       k, 1.f, cf, cluster, rows, clusters, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+    Coeffs cf;
+    for (int p = 0; p < k; ++p) {
+      cf.a[p] = coeffs[2 * p];
+      cf.b[p] = coeffs[2 * p + 1];
+    }
+    const cudaError_t err = fused_launch<TD, TV>(2, dat, n_pad, off, ndiags, reach, z, r, ddi,
+                                                 zo, ddo, P, k, 1.f, cf, cluster, rows,
+                                                 clusters, st);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }));
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of shared memory
 // each of the fused kind (0 K12, 1 K12 with c, 2 K13) for `ndiags`
-// diagonals the card holds at once, into *active.
-extern "C" int dia_fused_clusters(int kind, int ndiags, int cluster, long long smem,
-                                  int* active) {
+// diagonals and element `types` the card holds at once, into *active.
+extern "C" int dia_fused_clusters(int kind, int ndiags, int types, int cluster,
+                                  long long smem, int* active) {
   if (cluster < 1 || cluster > kMaxCluster || smem <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   FusedLaunch l(static_cast<unsigned>(cluster), cluster, static_cast<size_t>(smem), nullptr);
-  return static_cast<int>(with_fused_kernel(kind, ndiags, l.cfg.dynamicSmemBytes, cluster,
-                                            [&](auto kern) {
-    return cudaOccupancyMaxActiveClusters(active, kern, &l.cfg);
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    return with_fused_kernel<TD, TV>(kind, ndiags, l.cfg.dynamicSmemBytes, cluster,
+                                     [&](auto kern) {
+      return cudaOccupancyMaxActiveClusters(active, kern, &l.cfg);
+    });
   }));
 }
 
@@ -777,66 +900,73 @@ extern "C" int dia_fused_clusters(int kind, int ndiags, int cluster, long long s
 // halo blocks as zeros.
 extern "C" int dia_spmv_pp(const void* data, long long n_pad, const void* offs,
                            int ndiags, const void* xq, void* yq, long long P,
-                           float scale, int zero_halo, void* stream) {
+                           float scale, int zero_halo, int types, void* stream) {
   const long long pad = zero_halo ? P : 0;
-  dia_spmv_pp_kernel<<<row_blocks(n_pad + 2 * pad), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-      static_cast<const float*>(xq) + P, -P, n_pad + P, scale,
-      static_cast<float*>(yq) + P, n_pad, pad);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    dia_spmv_pp_kernel<TD, TV><<<row_blocks(n_pad + 2 * pad), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags,
+        static_cast<const TV*>(xq) + P, -P, n_pad + P, scale, static_cast<TV*>(yq) + P,
+        n_pad, pad);
+    return cudaGetLastError();
+  }));
 }
 
 // K14.  xq, cq (nullable) and zq are [n_rhs][P + n_pad + P] buffers; only
 // zq's interiors are written.  k == 1 or tr == 0: k batched passes, through
-// `tmp` ([n_rhs][n_pad] floats; unused when k == 1); else tiled, `tr` rows
-// and `kb` (<= kRhs) right-hand sides per block.
+// `tmp` ([n_rhs][n_pad] elements; unused when k == 1); else tiled, `tr`
+// rows and `kb` (<= kRhs) right-hand sides per block.
 extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs,
                              int ndiags, int reach, const void* xq, const void* cq,
                              void* zq, long long P, int n_rhs, int k, float scale,
-                             int tr, int kb, void* tmp, void* stream) {
+                             int tr, int kb, void* tmp, int types, void* stream) {
   if (n_rhs < 1 || k < 1 || kb < 1 || kb > kRhs)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* dat = static_cast<const float*>(data);
-  const int* off = static_cast<const int*>(offs);
-  const float* x = static_cast<const float*>(xq);
-  const float* c = static_cast<const float*>(cq);
-  float* z = static_cast<float*>(zq);
-  const long long ld = n_pad + 2 * P;
-  if (tr == 0 || k == 1) {
-    const unsigned rhs_blocks = static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs);
-    const float* src = x + P;
-    long long ld_src = ld;
-    for (int p = 1; p <= k; ++p) {
-      const bool last = (k - p) % 2 == 0;
-      float* dst = last ? z + P : static_cast<float*>(tmp);
-      const long long ld_dst = last ? ld : n_pad;
-      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
-      dia_spmv_rhs_kernel<<<row_blocks(n_pad) * rhs_blocks, kThreads, 0, st>>>(
-          dat, n_pad, off, ndiags, src, ld_src, lo, hi, c == nullptr ? nullptr : c + P,
-          ld, scale, dst, ld_dst, n_rhs, rhs_blocks);
-      src = dst;
-      ld_src = ld_dst;
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    const TD* dat = static_cast<const TD*>(data);
+    const int* off = static_cast<const int*>(offs);
+    const TV* x = static_cast<const TV*>(xq);
+    const TV* c = static_cast<const TV*>(cq);
+    TV* z = static_cast<TV*>(zq);
+    const long long ld = n_pad + 2 * P;
+    if (tr == 0 || k == 1) {
+      const unsigned rhs_blocks = static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs);
+      const TV* src = x + P;
+      long long ld_src = ld;
+      for (int p = 1; p <= k; ++p) {
+        const bool last = (k - p) % 2 == 0;
+        TV* dst = last ? z + P : static_cast<TV*>(tmp);
+        const long long ld_dst = last ? ld : n_pad;
+        const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+        dia_spmv_rhs_kernel<TD, TV><<<row_blocks(n_pad) * rhs_blocks, kThreads, 0, st>>>(
+            dat, n_pad, off, ndiags, src, ld_src, lo, hi, c == nullptr ? nullptr : c + P,
+            ld, scale, dst, ld_dst, n_rhs, rhs_blocks);
+        src = dst;
+        ld_src = ld_dst;
+      }
+      return cudaGetLastError();
     }
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = sizeof(float) * 2 * static_cast<size_t>(kb)
-                          * (tr + 2 * static_cast<size_t>(k) * reach)
-                      + sizeof(int) * ndiags;
-  const dim3 grid(static_cast<unsigned>((n_pad + tr - 1) / tr),
-                  static_cast<unsigned>((n_rhs + kb - 1) / kb));
-  cudaError_t err;
-  if (c != nullptr) {
-    err = opt_in_smem(dia_power_rhs_kernel<true>, smem, &g_power_rhs_smem[1]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dia_power_rhs_kernel<true><<<grid, kTileThreads, smem, st>>>(
-        dat, n_pad, off, ndiags, reach, x, c, z, P, n_rhs, k, scale, tr, kb);
-  } else {
-    err = opt_in_smem(dia_power_rhs_kernel<false>, smem, &g_power_rhs_smem[0]);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dia_power_rhs_kernel<false><<<grid, kTileThreads, smem, st>>>(
-        dat, n_pad, off, ndiags, reach, x, nullptr, z, P, n_rhs, k, scale, tr, kb);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const size_t smem = sizeof(TV) * 2 * static_cast<size_t>(kb)
+                            * (tr + 2 * static_cast<size_t>(k) * reach)
+                        + sizeof(int) * ndiags;
+    const dim3 grid(static_cast<unsigned>((n_pad + tr - 1) / tr),
+                    static_cast<unsigned>((n_rhs + kb - 1) / kb));
+    size_t* granted = g_power_rhs_smem[type_code<TD, TV>()];
+    cudaError_t err;
+    if (c != nullptr) {
+      err = opt_in_smem(dia_power_rhs_kernel<true, TD, TV>, smem, &granted[1]);
+      if (err != cudaSuccess) return err;
+      dia_power_rhs_kernel<true, TD, TV><<<grid, kTileThreads, smem, st>>>(
+          dat, n_pad, off, ndiags, reach, x, c, z, P, n_rhs, k, scale, tr, kb);
+    } else {
+      err = opt_in_smem(dia_power_rhs_kernel<false, TD, TV>, smem, &granted[0]);
+      if (err != cudaSuccess) return err;
+      dia_power_rhs_kernel<false, TD, TV><<<grid, kTileThreads, smem, st>>>(
+          dat, n_pad, off, ndiags, reach, x, nullptr, z, P, n_rhs, k, scale, tr, kb);
+    }
+    return cudaGetLastError();
+  }));
 }

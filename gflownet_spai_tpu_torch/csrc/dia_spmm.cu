@@ -32,12 +32,28 @@
 //
 // Both take any K (the TPU's K >= 128, K % 128 == 0 rule is a VMEM
 // condition).  What bounds them on an H100: bytes of X and Y (2.ndiags flops
-// per 8 bytes moved per element at ndiags = 5); K15 also reads each X row
-// ndiags times, from L1 or L2 after the first.
+// per 8 bytes moved per element at ndiags = 5, per 4 on bf16 vectors); K15
+// also reads each X row ndiags times, from L1 or L2 after the first.
+//
+// Element types (`dia_types.cuh`): both are templates over the stored
+// diagonals' type TD and the vectors' type TV, instances (float32,
+// float32), (bf16, float32) and (bf16, bf16) by the `types` code of the
+// entry points; products and sums in float32, each output rounded once to
+// TV.  K15 stages its diagonal words in shared memory as TD (2 bytes each
+// in bf16), and its vector path moves 4 columns a thread: one 16-byte
+// load or store of float32, one 8-byte one of bf16 (X and Y then need
+// 8-byte alignment).
 
 #include <cuda_runtime.h>
 
+#include "dia_types.cuh"
+
 namespace {
+
+using dia_types::bf16;
+using dia_types::from_f;
+using dia_types::to_f;
+using dia_types::with_types;
 
 constexpr int kMaxDiags = 1024;  // K15: staged diagonals per block
 constexpr int kSpmmThreads = 256;  // K15: threads per block (at most)
@@ -46,16 +62,39 @@ constexpr int kR = 4;            // K15: rows per thread (4 ran faster than 8 on
 constexpr int kThreads = 256;    // K16
 constexpr int kRhs = 16;         // K16: right-hand sides per thread
 
+// Four adjacent columns of X or Y as float32: one 16-byte access of
+// float32, one 8-byte access of bf16 (the lower column in the low bits).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&a),
+                                            *reinterpret_cast<const unsigned*>(&b));
+}
+
 // Block (qx, ty) of K15: row block b / col_tiles, column tile b % col_tiles;
 // thread (tx, ty) owns columns 4.(tile.qx + tx) + 0..3 of rows
-// row0 + ty.kR + 0..kR-1.  Shared memory: dv [ndiags][rows] and the offsets.
-template <bool VEC>
+// row0 + ty.kR + 0..kR-1.  Shared memory: dv [ndiags][rows] (TD) and the
+// offsets.
+template <bool VEC, typename TD, typename TV>
 __global__ void __launch_bounds__(kSpmmThreads)
-dia_spmm_kernel(const float* __restrict__ data, long long n_pad,
+dia_spmm_kernel(const TD* __restrict__ data, long long n_pad,
                 const int* __restrict__ offs, int ndiags,
-                const float* __restrict__ x, long long n, int K, int col_tiles,
-                float* __restrict__ y) {
-  extern __shared__ float dv[];
+                const TV* __restrict__ x, long long n, int K, int col_tiles,
+                TV* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char spmm_smem[];
+  TD* dv = reinterpret_cast<TD*>(spmm_smem);
   const int rows = blockDim.y * kR;
   int* off_s = reinterpret_cast<int*>(dv + ndiags * rows);
   const long long row0 = static_cast<long long>(blockIdx.x / col_tiles) * rows;
@@ -64,7 +103,7 @@ dia_spmm_kernel(const float* __restrict__ data, long long n_pad,
   const int nt = blockDim.x * blockDim.y;
   for (int e = tid; e < ndiags * rows; e += nt) {
     const long long i = row0 + e % rows;
-    dv[e] = i < n ? data[(e / rows) * n_pad + i] : 0.f;
+    dv[e] = i < n ? data[(e / rows) * n_pad + i] : from_f<TD>(0.f);
   }
   for (int s = tid; s < ndiags; s += nt) off_s[s] = offs[s];
   __syncthreads();
@@ -77,26 +116,25 @@ dia_spmm_kernel(const float* __restrict__ data, long long n_pad,
 #pragma unroll 2
   for (int s = 0; s < ndiags; ++s) {
     const long long j0 = ib + off_s[s];
-    const float* dvs = dv + s * rows + r0;
+    const TD* dvs = dv + s * rows + r0;
     float4 xv[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       const long long j = j0 + r;
       const bool in = j >= 0 && j < n;
       if constexpr (VEC) {
-        xv[r] = in ? __ldg(reinterpret_cast<const float4*>(x + j * K + c))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+        xv[r] = in ? load4(x + j * K + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       } else {
-        const float* xr = x + j * K + c;
-        xv[r].x = in ? __ldg(xr) : 0.f;
-        xv[r].y = in && c + 1 < K ? __ldg(xr + 1) : 0.f;
-        xv[r].z = in && c + 2 < K ? __ldg(xr + 2) : 0.f;
-        xv[r].w = in && c + 3 < K ? __ldg(xr + 3) : 0.f;
+        const TV* xr = x + j * K + c;
+        xv[r].x = in ? to_f(__ldg(xr)) : 0.f;
+        xv[r].y = in && c + 1 < K ? to_f(__ldg(xr + 1)) : 0.f;
+        xv[r].z = in && c + 2 < K ? to_f(__ldg(xr + 2)) : 0.f;
+        xv[r].w = in && c + 3 < K ? to_f(__ldg(xr + 3)) : 0.f;
       }
     }
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      const float d = dvs[r];
+      const float d = to_f(dvs[r]);
       acc[r].x = fmaf(d, xv[r].x, acc[r].x);
       acc[r].y = fmaf(d, xv[r].y, acc[r].y);
       acc[r].z = fmaf(d, xv[r].z, acc[r].z);
@@ -107,26 +145,26 @@ dia_spmm_kernel(const float* __restrict__ data, long long n_pad,
   for (int r = 0; r < kR; ++r) {
     const long long i = ib + r;
     if (i >= n) break;
-    float* yr = y + i * K + c;
+    TV* yr = y + i * K + c;
     if constexpr (VEC) {
-      *reinterpret_cast<float4*>(yr) = acc[r];
+      store4(yr, acc[r]);
     } else {
-      yr[0] = acc[r].x;
-      if (c + 1 < K) yr[1] = acc[r].y;
-      if (c + 2 < K) yr[2] = acc[r].z;
-      if (c + 3 < K) yr[3] = acc[r].w;
+      yr[0] = from_f<TV>(acc[r].x);
+      if (c + 1 < K) yr[1] = from_f<TV>(acc[r].y);
+      if (c + 2 < K) yr[2] = from_f<TV>(acc[r].z);
+      if (c + 3 < K) yr[3] = from_f<TV>(acc[r].w);
     }
   }
 }
 
-template <bool VEC>
-int launch_spmm(const float* data, long long n_pad, const int* offs, int ndiags,
-                const float* x, long long n, int K, float* y, cudaStream_t st) {
+template <bool VEC, typename TD, typename TV>
+cudaError_t launch_spmm(const TD* data, long long n_pad, const int* offs, int ndiags,
+                        const TV* x, long long n, int K, TV* y, cudaStream_t st) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dia_spmm_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpmmSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+        dia_spmm_kernel<VEC, TD, TV>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpmmSmem);
+    if (e != cudaSuccess) return e;
     configured = true;
   }
   // qx threads along the columns (a power of two up to 32, covering K / 4),
@@ -135,24 +173,28 @@ int launch_spmm(const float* data, long long n_pad, const int* offs, int ndiags,
   int qx = 1;
   while (qx < 32 && qx < quads) qx *= 2;
   int ty = kSpmmThreads / qx;
-  while (ty > 1 && static_cast<long long>(ndiags) * (ty * kR + 1) * 4 > kSpmmSmem) ty /= 2;
+  // shared memory: ndiags rows of TD words and the offsets
+  auto smem_of = [&](int t) {
+    return static_cast<size_t>(ndiags) * (sizeof(TD) * t * kR + sizeof(int));
+  };
+  while (ty > 1 && smem_of(ty) > static_cast<size_t>(kSpmmSmem)) ty /= 2;
   const int rows = ty * kR;
   const int col_tiles = (quads + qx - 1) / qx;
   const long long blocks = (n + rows - 1) / rows * col_tiles;
-  const size_t smem = static_cast<size_t>(ndiags) * (rows + 1) * 4;
-  dia_spmm_kernel<VEC><<<static_cast<unsigned>(blocks), dim3(qx, ty), smem, st>>>(
-      data, n_pad, offs, ndiags, x, n, K, col_tiles, y);
-  return static_cast<int>(cudaGetLastError());
+  dia_spmm_kernel<VEC, TD, TV><<<static_cast<unsigned>(blocks), dim3(qx, ty), smem_of(ty),
+                                 st>>>(data, n_pad, offs, ndiags, x, n, K, col_tiles, y);
+  return cudaGetLastError();
 }
 
 // Block b covers kThreads rows and right-hand sides [kRhs.(b % rhs_blocks),
 // +kRhs).  xt points at logical column 0 of row 0; x_r[j] = xt[r.ldx + j]
 // is read for -h <= j < n_pad + h.
+template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
-dia_spmm_t_kernel(const float* __restrict__ data, long long n_pad,
+dia_spmm_t_kernel(const TD* __restrict__ data, long long n_pad,
                   const int* __restrict__ offs, int ndiags,
-                  const float* __restrict__ xt, long long ldx, long long h,
-                  int n_rhs, unsigned rhs_blocks, float* __restrict__ yt) {
+                  const TV* __restrict__ xt, long long ldx, long long h,
+                  int n_rhs, unsigned rhs_blocks, TV* __restrict__ yt) {
   const long long i = (blockIdx.x / rhs_blocks) * static_cast<long long>(kThreads)
                       + threadIdx.x;
   if (i >= n_pad) return;
@@ -164,47 +206,58 @@ dia_spmm_t_kernel(const float* __restrict__ data, long long n_pad,
   for (int s = 0; s < ndiags; ++s) {
     const long long j = i + offs[s];
     if (j < -h || j >= n_pad + h) continue;   // adds 0.f: the sums are unchanged
-    const float dw = data[s * n_pad + i];
+    const float dw = to_f(data[s * n_pad + i]);
 #pragma unroll
     for (int r = 0; r < kRhs; ++r)
-      if (r < nr) acc[r] += dw * xt[(r0 + r) * ldx + j];
+      if (r < nr) acc[r] += dw * to_f(xt[(r0 + r) * ldx + j]);
   }
 #pragma unroll
   for (int r = 0; r < kRhs; ++r)
-    if (r < nr) yt[(r0 + r) * n_pad + i] = acc[r];
+    if (r < nr) yt[(r0 + r) * n_pad + i] = from_f<TV>(acc[r]);
 }
 
 }  // namespace
 
+// Both entry points take `types`, the (diagonal, vector) element types:
+// 0 (float32, float32), 1 (bf16, float32), 2 (bf16, bf16).
+
 // K15.  x, y: [n, K] row-major; ndiags <= kMaxDiags; vec: K % 4 == 0 and
-// x, y 16-byte aligned.
+// x, y aligned to 4 elements (16 bytes of float32, 8 of bf16).
 extern "C" int dia_spmm(const void* data, long long n_pad, const void* offs,
                         int ndiags, const void* x, long long n, int K, void* y, int vec,
-                        void* stream) {
+                        int types, void* stream) {
   if (ndiags < 1 || ndiags > kMaxDiags || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const auto* d = static_cast<const float*>(data);
   const auto* o = static_cast<const int*>(offs);
-  const auto* xx = static_cast<const float*>(x);
-  auto* yy = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  return vec ? launch_spmm<true>(d, n_pad, o, ndiags, xx, n, K, yy, st)
-             : launch_spmm<false>(d, n_pad, o, ndiags, xx, n, K, yy, st);
+  return static_cast<int>(with_types(types, [&](auto t) {
+    using TD = typename decltype(t)::Data;
+    using TV = typename decltype(t)::Vec;
+    const auto* d = static_cast<const TD*>(data);
+    const auto* xx = static_cast<const TV*>(x);
+    auto* yy = static_cast<TV*>(y);
+    return vec ? launch_spmm<true>(d, n_pad, o, ndiags, xx, n, K, yy, st)
+               : launch_spmm<false>(d, n_pad, o, ndiags, xx, n, K, yy, st);
+  }));
 }
 
 // K16.  xt points at column h of a [K][ldx] buffer, ldx = h + n_pad + h;
 // yt is [K][n_pad].
 extern "C" int dia_spmm_t(const void* data, long long n_pad, const void* offs,
                           int ndiags, const void* xt, long long ldx, int K, void* yt,
-                          void* stream) {
+                          int types, void* stream) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned rhs_blocks = static_cast<unsigned>((K + kRhs - 1) / kRhs);
   const unsigned row_blocks = static_cast<unsigned>((n_pad + kThreads - 1) / kThreads);
-  dia_spmm_t_kernel<<<row_blocks * rhs_blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-      static_cast<const float*>(xt), ldx, (ldx - n_pad) / 2, K, rhs_blocks,
-      static_cast<float*>(yt));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(with_types(types, [&](auto t) {
+    using TD = typename decltype(t)::Data;
+    using TV = typename decltype(t)::Vec;
+    dia_spmm_t_kernel<TD, TV><<<row_blocks * rhs_blocks, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags,
+        static_cast<const TV*>(xt), ldx, (ldx - n_pad) / 2, K, rhs_blocks,
+        static_cast<TV*>(yt));
+    return cudaGetLastError();
+  }));
 }

@@ -4,14 +4,15 @@ sum and broadcast of the generic GAT layer (K5, K6, K7) and the windowed
 row gather and scatter-add (K3, K4, ``segment``), the DIA family
 (``dia``): SpMV (K8), padded-IO and ping-pong SpMV (K10, K11), fused
 k-step SpMV on one or K right-hand sides (K12, K14), fused Chebyshev
-steps (K13) and the SpMMs (K15, K16), and the block-ELL SpMM (K17,
+steps (K13) and the SpMMs (K15, K16), on float32 or bf16 diagonals
+(``dia_astype``), and the block-ELL SpMM (K17,
 ``bsr``); plus the banded product ``spgemm_dia`` (plain PyTorch), the
 RCM reordering, the band statistics and the scans with analytic
 adjoints."""
 
 from .bsr import BELL, csr_to_bell, spmm_bell, spmm_bell_ref, spmv_bell
-from .dia import (DIA, coo_to_dia, dia_pad_io, dia_pad_pp, dia_pad_pp_rhs, dia_pad_x,
-                  dia_pad_xt, dia_power_data, dia_power_ok, dia_power_tile,
+from .dia import (DIA, coo_to_dia, dia_astype, dia_pad_io, dia_pad_pp, dia_pad_pp_rhs,
+                  dia_pad_x, dia_pad_xt, dia_power_data, dia_power_ok, dia_power_tile,
                   dia_pp_tile, dia_to_coo, dia_transpose,
                   frobenius_sq_minus_identity_dia, spgemm_dia, spmm_dia, spmm_dia_t,
                   spmm_dia_t_padded, spmv_dia, spmv_dia_cheby, spmv_dia_padded,
@@ -35,7 +36,8 @@ from .segment import (RowPlan, SegBuckets, SegTiles, SrcWindows, build_seg_bucke
 
 __all__ = [
     "BELL", "csr_to_bell", "spmm_bell", "spmm_bell_ref", "spmv_bell",
-    "DIA", "coo_to_dia", "dia_pad_io", "dia_pad_pp", "dia_pad_pp_rhs", "dia_pad_x",
+    "DIA", "coo_to_dia", "dia_astype", "dia_pad_io", "dia_pad_pp", "dia_pad_pp_rhs",
+    "dia_pad_x",
     "dia_pad_xt", "dia_power_data", "dia_power_ok", "dia_power_tile", "dia_pp_tile",
     "dia_to_coo", "dia_transpose", "frobenius_sq_minus_identity_dia",
     "spgemm_dia", "spmm_dia", "spmm_dia_t", "spmm_dia_t_padded",

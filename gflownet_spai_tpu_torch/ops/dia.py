@@ -1,8 +1,8 @@
 """DIA (diagonal) sparse format and its kernels (counterpart of
-``gflownet_spai_tpu/ops/dia.py`` without bf16 diagonals, ``dia_astype``).
-The banded product ``spgemm_dia`` (and its batched form, the DIA reward
-env's residual) is plain PyTorch on any device, as the JAX package's is
-plain ``jnp``.
+``gflownet_spai_tpu/ops/dia.py``, with ``dia_astype`` and bf16 diagonal
+storage).  The banded product ``spgemm_dia`` (and its batched form, the DIA
+reward env's residual) is plain PyTorch on any device, as the JAX
+package's is plain ``jnp``.
 
 Storage is row-scaled: ``data[s, i] = A[i, i + offsets[s]]``, zero where
 out of range, padded to ``n_pad`` rows (a multiple of 1024)::
@@ -21,19 +21,43 @@ Entry points and the kernels they launch on CUDA tensors:
   (K16, X in [K, n] layout): ``csrc/dia_spmm.cu``.
 
 On CPU tensors each computes its plain version (``*_ref``), the JAX
-package's jnp fallback.  Only float32 diagonals run on the card.  K12 and
-K13 have two modes (``csrc/dia.cu``'s header): fused, where clusters of
-CTAs stage each window's diagonals once and run all k passes in shared
-memory, trading edge rows through distributed shared memory; and
-streamed, one launch per pass through global memory.  ``_fused_plan``
-picks the fused launch (cluster size, rows per CTA, clusters launched)
-that a cost model fitted on the card times fastest, and takes it only where a
-window fits (at most 9 diagonals, reach below the shared memory) and the
-model times it below the streamed mode; the two modes agree bit for bit.
-``_SMEM_BYTES = 0`` forces the streamed mode (tests, ``chip_smoke.py``).
-K14 keeps the iterate of a row tile in one block's shared memory when its
-window fits (``_tile_rows``) and else streams, so every k the selection
-picks runs on the card.
+package's jnp fallback.  K12 and K13 have two modes (``csrc/dia.cu``'s
+header): fused, where clusters of CTAs stage each window's diagonals once
+and run all k passes in shared memory, trading edge rows through
+distributed shared memory; and streamed, one launch per pass through
+global memory.  ``_fused_plan`` picks the fused launch (cluster size, rows
+per CTA, clusters launched) that a cost model fitted on the card times
+fastest, and takes it only where a window fits (at most 9 diagonals, reach
+below the shared memory) and the model times it below the streamed mode;
+the two modes agree bit for bit.  ``_SMEM_BYTES = 0`` forces the streamed
+mode (tests, ``chip_smoke.py``).  K14 keeps the iterate of a row tile in
+one block's shared memory when its window fits (``_rhs_tile_rows``) and
+else streams, so every k the selection picks runs on the card.
+
+Dtypes (one rule for the CPU and the card).  The JAX package's two paths
+disagree on bf16: its Pallas kernels cast x to the diagonals' dtype and
+accumulate and return in it, while its jnp fallbacks promote.  The port
+follows the jnp fallbacks' dtypes and the kernels' purpose:
+
+- diagonals are float32 or bf16 (``dia_astype(d, torch.bfloat16)``: half
+  the diagonals' bytes);
+- vectors and buffers keep the dtype the caller gives them; only the
+  padding helpers that cast in JAX round them to the diagonals' dtype
+  (``dia_pad_x``, ``dia_pad_io``, ``dia_pad_xt``), while ``dia_pad_pp``
+  and ``dia_pad_pp_rhs`` promote;
+- every entry point's output has the dtype promote(diagonals, vectors), the
+  jnp fallbacks' dtype, and all buffers of one call share one dtype: a
+  bf16 vector given with float32 diagonals is converted to float32 first;
+- every product and sum is taken in float32 (bf16 → float32 is exact) and
+  each value is rounded once, where it is stored, to the output dtype; K12,
+  K13 and K14 round every pass's iterate to the buffers' dtype, as the jnp
+  fallbacks' ``cur`` is between passes.  The port does not copy the TPU
+  kernels' bf16 accumulation, so its bf16 results lie closer to float64
+  than JAX's TPU path does;
+- on CUDA tensors the kernels take (diagonals, vectors) of (float32,
+  float32), (bf16, float32) or (bf16, bf16); float16, float64, mixed
+  buffer dtypes within one call, and bf16 buffers written in place on
+  float32 diagonals (their output would be float32) raise ``ValueError``.
 
 The selection functions (``dia_pp_tile``, ``dia_power_ok``,
 ``dia_power_stream_ok``, ``dia_power_tile``, ``dia_cheby_ok``,
@@ -171,6 +195,14 @@ def dia_to_coo(d: DIA) -> COO:
                           sum_duplicates=False)
 
 
+def dia_astype(d: DIA, dtype) -> DIA:
+    """The same matrix with its diagonals stored in ``dtype``, rounded to
+    nearest even as JAX's ``astype``: ``torch.bfloat16`` halves the
+    diagonals' bytes, which every kernel reads; the kernels widen each
+    word to float32 where they read it and take every sum in float32."""
+    return dataclasses.replace(d, data=d.data.to(dtype))
+
+
 def dia_transpose(d: DIA) -> DIA:
     """Aᵀ in DIA: ``AT[i, i − off] = A[i − off, i] = data[s, i − off]``, a
     static shift of each diagonal with the negated offset (differentiable)."""
@@ -263,26 +295,38 @@ def dia_pad_x(d: DIA, x: torch.Tensor) -> torch.Tensor:
     return _pad_x(d, x.to(d.data.dtype))
 
 
+def _out_dtype(d: DIA, x: torch.Tensor) -> torch.dtype:
+    """An entry point's output dtype: promote(diagonals, vectors)."""
+    return torch.promote_types(d.data.dtype, x.dtype)
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' working dtype for outputs of ``dtype``:
+    float32 for bf16 (every product and sum in float32, as the kernels
+    take them), else the dtype itself."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _dia_rows(d: DIA, buf: torch.Tensor, start: int, rows: int) -> torch.Tensor:
     """Σ_s data[s, :rows] · buf[..., start + off_s : start + off_s + rows]
     along the last axis (one vector, or K right-hand sides as rows),
-    summed in offset order from zero (the jnp fallbacks' order)."""
-    acc = torch.zeros((*buf.shape[:-1], rows),
-                      dtype=torch.promote_types(d.data.dtype, buf.dtype),
-                      device=buf.device)
+    summed in offset order from zero (the jnp fallbacks' order), in the
+    working dtype (``_acc_dtype``); the caller rounds at its store."""
+    dt = _acc_dtype(torch.promote_types(d.data.dtype, buf.dtype))
+    acc = torch.zeros((*buf.shape[:-1], rows), dtype=dt, device=buf.device)
     for s, off in enumerate(d.offsets):
-        acc = acc + d.data[s, :rows] * buf[..., start + off:start + off + rows]
+        acc = acc + d.data[s, :rows].to(dt) * buf[..., start + off:start + off + rows].to(dt)
     return acc
 
 
 def spmv_dia_ref(d: DIA, x: torch.Tensor) -> torch.Tensor:
     """Plain version of K8 (``spmv_dia_jnp``): [n] → [n]."""
-    return _dia_rows(d, _pad_x(d, x), d.halo, d.n)
+    return _dia_rows(d, _pad_x(d, x), d.halo, d.n).to(_out_dtype(d, x))
 
 
 def spmv_dia_padded_ref(d: DIA, xp: torch.Tensor) -> torch.Tensor:
     """Plain ``spmv_dia_padded``: [P + n_pad + P] → [n_pad]."""
-    return _dia_rows(d, xp, (xp.shape[0] - d.n_pad) // 2, d.n_pad)
+    return _dia_rows(d, xp, (xp.shape[0] - d.n_pad) // 2, d.n_pad).to(_out_dtype(d, xp))
 
 
 def spmv_dia_padded_io_ref(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -290,7 +334,7 @@ def spmv_dia_padded_io_ref(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torc
     buffer in xq's [P + n_pad + P] layout, zero halo blocks, interior
     scale·A·x."""
     p = (xq.shape[0] - d.n_pad) // 2
-    out = torch.zeros_like(xq)
+    out = torch.zeros(xq.shape, dtype=_out_dtype(d, xq), device=xq.device)
     out[p:p + d.n_pad] = _dia_rows(d, xq, p, d.n_pad) * scale
     return out
 
@@ -309,18 +353,19 @@ def spmv_dia_power_ref(d: DIA, xq: torch.Tensor, zq: torch.Tensor,
                        add: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K12 (the jnp fallback, dia.py:1796-1811) and, on
     [K, P + n_pad + P] buffers, of K14 (dia.py:1998-2014): k passes
-    ``cur ← scale·A·cur [+ add]`` along the last axis, with rows outside
-    [0, n_pad) zero after the first; writes zq's interior in place and
-    returns zq."""
+    ``cur ← scale·A·cur [+ add]`` along the last axis, each rounded to the
+    buffers' dtype, with rows outside [0, n_pad) zero after the first;
+    writes zq's interior in place and returns zq."""
     p = (xq.shape[-1] - d.n_pad) // 2
     h = d.halo
+    dt = _out_dtype(d, xq)
     cur = xq[..., p - h:p + d.n_pad + h]
     cadd = None if add is None else add[..., p:p + d.n_pad]
     for _ in range(k):
         acc = _dia_rows(d, cur, h, d.n_pad) * scale
         if cadd is not None:
-            acc = acc + cadd
-        cur = torch.nn.functional.pad(acc, (h, h))
+            acc = acc + cadd.to(acc.dtype)
+        cur = torch.nn.functional.pad(acc.to(dt), (h, h))
     zq[..., p:p + d.n_pad] = cur[..., h:h + d.n_pad]
     return zq
 
@@ -332,42 +377,46 @@ def spmm_dia_ref(d: DIA, x: torch.Tensor) -> torch.Tensor:
     """Plain version of K15 (``spmm_dia_jnp``, dia.py:483): Y = A·X for
     X [n, K] → [n, K]."""
     h, n = d.halo, d.n
+    out = _out_dtype(d, x)
+    dt = _acc_dtype(out)
     xp = torch.nn.functional.pad(x, (0, 0, h, d.n_pad - n + h))
-    acc = torch.zeros((n, x.shape[1]), dtype=torch.promote_types(d.data.dtype, x.dtype),
-                      device=x.device)
+    acc = torch.zeros((n, x.shape[1]), dtype=dt, device=x.device)
     for s, off in enumerate(d.offsets):
-        acc = acc + d.data[s, :n, None] * xp[h + off:h + off + n]
-    return acc
+        acc = acc + d.data[s, :n, None].to(dt) * xp[h + off:h + off + n].to(dt)
+    return acc.to(out)
 
 
 def spmm_dia_t_ref(d: DIA, xt: torch.Tensor) -> torch.Tensor:
     """Plain transposed-RHS SpMM (``spmm_dia_t_jnp``, dia.py:599):
     Yt[k, i] = Σ_s data[s, i]·Xt[k, i + off_s] for Xt [K, n] → [K, n]."""
-    return _dia_rows(d, _pad_x(d, xt), d.halo, d.n)
+    return _dia_rows(d, _pad_x(d, xt), d.halo, d.n).to(_out_dtype(d, xt))
 
 
 def spmm_dia_t_padded_ref(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
     """Plain version of K16 (``spmm_dia_t_padded``'s jnp branch,
     dia.py:759-765): [K_pad, h + n_pad + h] → [K_pad, n_pad]."""
-    return _dia_rows(d, xtp, d.halo, d.n_pad)
+    return _dia_rows(d, xtp, d.halo, d.n_pad).to(_out_dtype(d, xtp))
 
 
 def spmv_dia_cheby_ref(d: DIA, zq: torch.Tensor, ddq: torch.Tensor,
                        rq: torch.Tensor, z_dead: torch.Tensor,
                        dd_dead: torch.Tensor, coeffs, k: int):
     """Plain version of K13 (dia.py:1751-1766): per pass
-    ``dd ← a·dd + b·(r − A·z); z ← z + dd``; writes the interiors of
+    ``dd ← a·dd + b·(r − A·z); z ← z + dd``, dd and z each rounded to the
+    buffers' dtype where they are stored; writes the interiors of
     ``z_dead`` / ``dd_dead`` in place and returns them."""
     del k
     p = (zq.shape[0] - d.n_pad) // 2
     h = d.halo
+    out = _out_dtype(d, zq)
+    dt = _acc_dtype(out)
     z = zq[p - h:p + d.n_pad + h]
     dd = ddq[p:p + d.n_pad]
     r = rq[p:p + d.n_pad]
     for (a, b) in coeffs:
         t = _dia_rows(d, z, h, d.n_pad)
-        dd = a * dd + b * (r - t)
-        z = torch.nn.functional.pad(z[h:h + d.n_pad] + dd, (h, h))
+        dd = (a * dd.to(dt) + b * (r.to(dt) - t)).to(out)
+        z = torch.nn.functional.pad((z[h:h + d.n_pad].to(dt) + dd.to(dt)).to(out), (h, h))
     z_dead[p:p + d.n_pad] = z[h:h + d.n_pad]
     dd_dead[p:p + d.n_pad] = dd
     return z_dead, dd_dead
@@ -549,14 +598,20 @@ def _spmm_t_fits(d: DIA, kp: int) -> bool:
     return _spmm_t_need(d, kb, tr) <= _MAX_VMEM_BYTES // 4
 
 
-def dia_pad_xt(d: DIA, xt: torch.Tensor) -> torch.Tensor:
-    """[K, n] → [K_pad, h + n_pad + h] buffer of the transposed SpMM, K_pad
-    a multiple of ``_spmm_t_tiles``' kb (zero rows and halos)."""
+def _pad_xt(d: DIA, xt: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``dia_pad_xt``'s buffer in ``dtype``."""
     kb, _ = _spmm_t_tiles(d, max(8, _round_up(xt.shape[0], 8)))
     kp = _round_up(xt.shape[0], kb)
     h = d.halo
-    return torch.nn.functional.pad(xt.to(d.data.dtype),
+    return torch.nn.functional.pad(xt.to(dtype),
                                    (h, d.n_pad - xt.shape[1] + h, 0, kp - xt.shape[0]))
+
+
+def dia_pad_xt(d: DIA, xt: torch.Tensor) -> torch.Tensor:
+    """[K, n] → [K_pad, h + n_pad + h] buffer of the transposed SpMM in the
+    diagonals' dtype (as JAX's), K_pad a multiple of ``_spmm_t_tiles``' kb
+    (zero rows and halos)."""
+    return _pad_xt(d, xt, d.data.dtype)
 
 
 def dia_pad_pp_rhs(d: DIA, x: torch.Tensor, tr: int | None = None) -> torch.Tensor:
@@ -591,23 +646,29 @@ def dia_power_rhs_ok(d: DIA, k: int, n_rhs: int, tr: int | None = None) -> bool:
 
 _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _PTR],
+    "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _INT, _PTR],
     "dia_power": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                  ctypes.c_float, _INT, _INT, _INT, _PTR, _PTR],
+                  ctypes.c_float, _INT, _INT, _INT, _PTR, _INT, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
                   _I64, _INT, ctypes.POINTER(ctypes.c_float), _INT, _INT, _INT,
-                  _PTR, _PTR],
-    "dia_fused_clusters": [_INT, _INT, _INT, _I64, ctypes.POINTER(_INT)],
+                  _PTR, _INT, _PTR],
+    "dia_fused_clusters": [_INT, _INT, _INT, _INT, _I64, ctypes.POINTER(_INT)],
     "dia_spmv_pp": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _I64, ctypes.c_float, _INT,
-                    _PTR],
+                    _INT, _PTR],
     "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                      _INT, ctypes.c_float, _INT, _INT, _PTR, _PTR],
-    "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _PTR],
-    "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _PTR],
+                      _INT, ctypes.c_float, _INT, _INT, _PTR, _INT, _PTR],
+    "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _INT, _PTR],
+    "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _PTR],
 }
 _LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_spmm"}   # else csrc/dia.cu
 _RHS_BLOCK = 8         # K14: right-hand sides per block in the tiled mode
 _SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in shared memory
+# The kernels' (diagonals, vectors) dtypes: the `types` code of the C entry
+# points, and each instance's name in the wrappers' `type_launches`
+_TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
+          (torch.bfloat16, torch.bfloat16): 2}
+_TYPE_NAMES = ("float32", "bf16 diagonals, float32 vectors", "bf16")
+_ELEMS = ((4, 4), (2, 4), (2, 2))   # element bytes (diagonals, vectors) by code
 
 
 def _lib_fn(name: str):
@@ -616,19 +677,46 @@ def _lib_fn(name: str):
     return fn
 
 
-def _check_cuda(d: DIA, what: str, *bufs: torch.Tensor):
-    """The kernels take float32 diagonals and vectors, contiguous, on the
-    diagonals' CUDA device."""
+def _kernel_types(d: DIA, what: str, *bufs: torch.Tensor) -> int:
+    """The ``types`` code of a kernel call: the diagonals float32 or bf16,
+    every vector of the call of one dtype, float32, or bf16 with bf16
+    diagonals; anything else raises."""
+    vec = sorted({str(b.dtype) for b in bufs})
+    code = _TYPES.get((d.data.dtype, bufs[0].dtype)) if len(vec) == 1 else None
+    if code is None:
+        raise ValueError(f"{what}: diagonals {d.data.dtype} with vectors {', '.join(vec)}: "
+                         "the kernels take float32 or bfloat16 diagonals with float32 "
+                         "vectors, or bfloat16 diagonals with bfloat16 vectors, every "
+                         "vector of a call of one dtype")
+    return code
+
+
+def _check_cuda(d: DIA, what: str, *bufs: torch.Tensor) -> int:
+    """The kernels take contiguous tensors on the diagonals' CUDA device of
+    the dtypes ``_kernel_types`` allows.  Returns the ``types`` code."""
     for t in (d.data, *bufs):
         if t.device != d.data.device or t.device.type != "cuda":
             raise ValueError(f"{what}: every tensor must lie on one CUDA device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: expected contiguous float32 tensors, got "
-                             f"{t.dtype} {tuple(t.shape)} (bf16 diagonals are "
-                             "not ported)")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous tensors, got {tuple(t.shape)} "
+                             f"with strides {t.stride()}")
+    code = _kernel_types(d, what, *bufs)
     if d.data.dim() != 2 or d.data.shape[0] != d.ndiags:
         raise ValueError(f"{what}: data {tuple(d.data.shape)} does not fit "
                          f"{d.ndiags} offsets")
+    return code
+
+
+def _promoted(d: DIA, x: torch.Tensor) -> torch.Tensor:
+    """A vector in the dtype of the output, promote(diagonals, vector): a
+    bf16 one given with float32 diagonals becomes float32."""
+    return x.to(_out_dtype(d, x)) if x.dtype == torch.bfloat16 else x
+
+
+def _count(fn, code: int) -> None:
+    """One launch of ``fn``'s kernel, and of its ``code`` instance."""
+    fn.launches += 1
+    fn.type_launches[_TYPE_NAMES[code]] += 1
 
 
 def _check_pp(d: DIA, what: str, *bufs: torch.Tensor, ndim: int = 1) -> int:
@@ -654,6 +742,16 @@ def _tile_rows(words) -> int:
     return tr if 4 * words(tr) <= _SMEM_BYTES else 0
 
 
+def _rhs_tile_rows(d: DIA, n_rhs: int, k: int, elem: int = 4) -> int:
+    """K14's rows per block for buffers of ``elem``-byte elements: its
+    kb windows of tr + 2·k·R rows, twice (``elem`` bytes each), and the
+    offsets; 0 (one batched pass, or the streamed mode) at k = 1 or where
+    no tile fits."""
+    kb = min(n_rhs, _RHS_BLOCK)
+    return _tile_rows(lambda t: elem * kb * (t + 2 * k * d.reach) // 2 + d.ndiags) \
+        if k > 1 else 0
+
+
 # --- K12 / K13: fused or streamed (``csrc/dia.cu``'s header) ---------------
 
 _FUSED_POWER, _FUSED_AFFINE, _FUSED_CHEBY = 0, 1, 2   # K12, K12 with add, K13
@@ -665,9 +763,18 @@ _FUSED_CLUSTERS = (16, 8, 4, 2, 1)   # CTAs per cluster tried (16 is non-portabl
 # `_card_active` asks.
 _H100_ACTIVE = ((16, 7), (8, 15), (4, 30), (2, 66), (1, 132))
 # The rule's cost model (µs, bytes), fitted on an H100 80GB HBM3 at 700 W
-# to both modes' times over the fused launches `_fused_candidates` yields;
+# to both modes' times over the fused launches `_fused_candidates` yields
+# on float32.  The fused mode's staging bytes scale with the element sizes
+# (its shared-memory words of a row update do not); a streamed pass costs
+# as much on bf16 as on float32 words (measured there: 7.8-9.3 µs per pass
+# of poisson1024's Jacobi M for all three instances, its loads and not its
+# bytes bound it); a pass whose words exceed the L2 runs at the HBM rate
+# (fitted on poisson2048's Jacobi M and a 9-point matrix of a 2048² grid,
+# where the L2 rate had the rule stream float32 26% slower than fused).
 # `chip_smoke.py` holds its picks to the faster mode
-_STREAM_BYTES_PER_US = 3.16e6   # a streamed pass (its iterate stays in L2)
+_STREAM_BYTES_PER_US = 3.16e6   # a streamed pass whose words fit in the L2
+_STREAM_HBM_BYTES_PER_US = 2.7e6   # ... and one whose words do not
+_L2_BYTES = 50e6                # an H100's L2
 _STREAM_FIRST = 0.66            # the first pass's extra, in passes
 _PASS_US = 1.9                  # least time of one streamed pass (a launch)
 _HBM_BYTES_PER_US = 3.0e6       # the fused mode's staging, all SMs together
@@ -694,18 +801,27 @@ class FusedPlan:
     streamed_us: float
 
 
+def _fused_align(elems) -> int:
+    """Elements of one 16-byte staging copy of the narrower type: Rh, Hk,
+    S and P are multiples of it (4 on float32, 8 where a type is bf16)."""
+    return 16 // min(elems)
+
+
 def _fused_geometry(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
-                    cluster: int, rows: int):
+                    cluster: int, rows: int, elems=(4, 4)):
     """(output rows per window, windows, shared bytes per CTA) of a fused
-    launch, as ``fused_launch`` in ``csrc/dia.cu`` computes them; None
-    where the kernel cannot take it."""
-    rh, hk = _round_up(reach, 4), _round_up((k - 1) * reach, 4)
+    launch on (diagonal, vector) elements of ``elems`` bytes, as
+    ``fused_launch`` in ``csrc/dia.cu`` computes them; None where the
+    kernel cannot take it."""
+    ed, ev = elems
+    al = _fused_align(elems)
+    rh, hk = _round_up(reach, al), _round_up((k - 1) * reach, al)
     out = cluster * rows - 2 * hk
-    if not 2 <= k <= 32 or not 1 <= ndiags <= _FUSED_MAX_DIAGS or rows <= 0 or rows % 4 \
+    if not 2 <= k <= 32 or not 1 <= ndiags <= _FUSED_MAX_DIAGS or rows <= 0 or rows % al \
             or out <= 0 or (cluster > 1 and rows < rh):
         return None
     wb = rows + 2 * rh
-    smem = 32 + 4 * (3 * wb + (ndiags + kind) * rows)
+    smem = 32 + ev * (3 * wb + kind * rows) + ed * ndiags * rows
     return out, -(-n_pad // out), smem
 
 
@@ -713,22 +829,27 @@ def _streamed_us(kind: int, ndiags: int, k: int, n_pad: int) -> float:
     """The cost model's streamed mode: k passes, each moving the diagonals
     and the words per row the pass reads from and writes to HBM (c for K12
     with add; r, dd for K13, partly from L2), at least ``_PASS_US`` each,
-    and the first pass's extra reads."""
-    bytes_us = 4 * n_pad * (ndiags + (1.0, 2.0, 4.5)[kind]) / _STREAM_BYTES_PER_US
+    and the first pass's extra reads; 4-byte words whatever the instance,
+    at the L2 or the HBM rate by whether they fit in the L2."""
+    nbytes = 4 * n_pad * (ndiags + (1.0, 2.0, 4.5)[kind])
+    bytes_us = nbytes / (_STREAM_BYTES_PER_US if nbytes <= _L2_BYTES
+                         else _STREAM_HBM_BYTES_PER_US)
     return k * max(bytes_us, _PASS_US) + _STREAM_FIRST * bytes_us
 
 
 def _fused_us(kind: int, ndiags: int, k: int, reach: int, cluster: int, rows: int,
-              windows: int, clusters: int) -> float:
+              windows: int, clusters: int, elems=(4, 4)) -> float:
     """The cost model's fused mode.  Per round of windows every launched CTA
     stages its rows (diagonals, aux, x and its halo) at its share of the
     HBM rate, at most one SM's rate, then runs the window's k passes: the
     row updates' shared-memory words (2·ndiags + 2 for K12, + 1 with c;
     2·ndiags + 5 for K13) or, in a cluster, at least the wait for the
     neighbours' rows."""
+    ed, ev = elems
     launched = min(windows, clusters)
     rounds = -(-windows // launched)
-    load = 4 * (rows * (ndiags + kind + 1) + 2 * _round_up(reach, 4)) \
+    load = (rows * (ed * ndiags + ev * (kind + 1))
+            + 2 * ev * _round_up(reach, _fused_align(elems))) \
         / min(_SM_BYTES_PER_US, _HBM_BYTES_PER_US / (launched * cluster)) + _LOAD_US
     update = 2 * ndiags + (2, 3, 5)[kind]
     passes = k * max(rows * update * _WORD_US, _BARRIER_US if cluster > 1 else 0.0)
@@ -736,7 +857,7 @@ def _fused_us(kind: int, ndiags: int, k: int, reach: int, cluster: int, rows: in
 
 
 def _fused_candidates(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
-                      active, smem_bytes: int):
+                      active, smem_bytes: int, elems=(4, 4)):
     """The fused launches `_fused_plan` weighs: for each cluster size C, the
     most rows per CTA that fit (S, a multiple of 32; the window C·S yields
     C·S − 2·(k−1)·R output rows, so wide reaches and large k need long
@@ -744,12 +865,14 @@ def _fused_candidates(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
     hold, each as short as that allows."""
     if not 1 <= ndiags <= _FUSED_MAX_DIAGS:
         return
+    ed, ev = elems
+    al = _fused_align(elems)
     streamed = _streamed_us(kind, ndiags, k, n_pad)
-    rh, hk = _round_up(reach, 4), _round_up((k - 1) * reach, 4)
-    # 32 + 4·(3·(S + 2Rh) + (ndiags + kind)·S) bytes
-    most = (smem_bytes - 32 - 24 * rh) // (4 * (3 + ndiags + kind)) // 32 * 32
+    rh, hk = _round_up(reach, al), _round_up((k - 1) * reach, al)
+    # 32 + ev·(3·(S + 2Rh) + kind·S) + ed·ndiags·S bytes
+    most = (smem_bytes - 32 - 6 * ev * rh) // (ev * (3 + kind) + ed * ndiags) // 32 * 32
     for cluster, clusters in active:
-        geom = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, most) \
+        geom = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, most, elems) \
             if clusters > 0 else None
         if geom is None:
             continue
@@ -758,37 +881,39 @@ def _fused_candidates(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
         rows = max(_round_up(-(-(per_window + 2 * hk) // cluster), 32),
                    _round_up(rh, 32) if cluster > 1 else 32)
         for r in dict.fromkeys((most, min(rows, most))):
-            _, windows, smem = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, r)
+            _, windows, smem = _fused_geometry(kind, ndiags, k, reach, n_pad, cluster, r,
+                                               elems)
             yield FusedPlan(cluster=cluster, rows=r, clusters=clusters, windows=windows,
                             smem=smem,
                             fused_us=_fused_us(kind, ndiags, k, reach, cluster, r,
-                                               windows, clusters),
+                                               windows, clusters, elems),
                             streamed_us=streamed)
 
 
 @functools.lru_cache(maxsize=4096)
 def _fused_plan(kind: int, ndiags: int, k: int, reach: int, n_pad: int,
-                active=_H100_ACTIVE, smem_bytes: int = _SMEM_BYTES):
+                active=_H100_ACTIVE, smem_bytes: int = _SMEM_BYTES, elems=(4, 4)):
     """The selection between K12's / K13's two modes: the fused launch of
     ``_fused_candidates`` the cost model times fastest, or None (the
     streamed mode).  It depends on the kind, ndiags (at most 9 fuse), k,
-    the reach R and n_pad, and on the card through ``active`` ((cluster
-    size, co-resident clusters) pairs) and ``smem_bytes`` (one CTA's shared
-    memory; 0 forces the streamed mode).  A shape goes to the fused mode
-    only where a window fits and the model times it below the streamed
-    mode."""
+    the reach R, n_pad and the element bytes of (diagonals, vectors), and
+    on the card through ``active`` ((cluster size, co-resident clusters)
+    pairs) and ``smem_bytes`` (one CTA's shared memory; 0 forces the
+    streamed mode).  A shape goes to the fused mode only where a window
+    fits and the model times it below the streamed mode."""
     if k < 2:
         return None
-    best = min(_fused_candidates(kind, ndiags, k, reach, n_pad, active, smem_bytes),
+    best = min(_fused_candidates(kind, ndiags, k, reach, n_pad, active, smem_bytes, elems),
                key=lambda c: c.fused_us, default=None)
     return best if best is not None and best.fused_us < best.streamed_us else None
 
 
 @functools.lru_cache(maxsize=256)
-def _card_active(kind: int, ndiags: int, device: torch.device):
+def _card_active(kind: int, ndiags: int, device: torch.device, types: int = 0):
     """``_fused_plan``'s ``active`` for this card: cudaOccupancyMaxActiveClusters
-    of the kernel that would run, at each cluster size, at the most shared
-    memory a CTA may take (none for more than 9 diagonals)."""
+    of the kernel that would run (its kind, ndiags and ``types``), at each
+    cluster size, at the most shared memory a CTA may take (none for more
+    than 9 diagonals)."""
     if not 1 <= ndiags <= _FUSED_MAX_DIAGS:
         return ()
     fn = _lib_fn("dia_fused_clusters")
@@ -796,20 +921,24 @@ def _card_active(kind: int, ndiags: int, device: torch.device):
     with torch.cuda.device(device):
         for cluster in _FUSED_CLUSTERS:
             n = ctypes.c_int(0)
-            _build.check(fn(kind, ndiags, cluster, _SMEM_BYTES_MAX, ctypes.byref(n)),
+            _build.check(fn(kind, ndiags, types, cluster, _SMEM_BYTES_MAX, ctypes.byref(n)),
                          "dia_fused_clusters")
             out.append((cluster, n.value))
     return tuple(out)
 
 
-def _fused_for(kind: int, d: DIA, k: int, p: int, staged) -> "FusedPlan | None":
+def _fused_for(kind: int, d: DIA, k: int, p: int, staged, types: int = 0) \
+        -> "FusedPlan | None":
     """This call's fused plan, or None (streamed): the 16-byte staging copies
-    need P a multiple of 4 and the staged buffers 16-byte aligned."""
-    if k < 2 or _SMEM_BYTES <= 0 or p % 4 \
+    need P a multiple of ``_fused_align`` and the staged buffers 16-byte
+    aligned."""
+    elems = _ELEMS[types]
+    if k < 2 or _SMEM_BYTES <= 0 or p % _fused_align(elems) \
             or any(t.data_ptr() % 16 for t in (d.data, *staged)):
         return None
     return _fused_plan(kind, d.ndiags, k, d.reach, d.n_pad,
-                       _card_active(kind, d.ndiags, d.data.device), _SMEM_BYTES)
+                       _card_active(kind, d.ndiags, d.data.device, types), _SMEM_BYTES,
+                       elems)
 
 
 def _plan_args(plan) -> Tuple[int, int, int]:
@@ -823,41 +952,47 @@ def _scratch(like: torch.Tensor, n_pad: int, rows: int, k: int):
         if rows == 0 and k > 1 else None
 
 
-def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int,
-        rows: int) -> torch.Tensor:
+def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int, rows: int,
+        code: int) -> torch.Tensor:
     """Launch K8: y[i] = Σ_s data[s, i]·x[base + i + off_s] for i < rows,
-    reading x[base + j] only for lo ≤ j < hi (zero elsewhere)."""
-    y = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    reading x[base + j] only for lo ≤ j < hi (zero elsewhere); y has x's
+    dtype."""
+    y = torch.empty((rows,), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_lib_fn("dia_spmv")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
-        x.data_ptr() + 4 * base, lo, hi, y.data_ptr(), rows, stream), "spmv_dia")
-    spmv_dia.launches += 1
+        x.data_ptr() + x.element_size() * base, lo, hi, y.data_ptr(), rows, code, stream),
+        "spmv_dia")
+    _count(spmv_dia, code)
     return y
 
 
 def _spmv_fwd(d: DIA, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return spmv_dia_ref(d, x)
-    _check_cuda(d, "spmv_dia", x)
+    x = _promoted(d, x)
+    code = _check_cuda(d, "spmv_dia", x)
     if x.dim() != 1 or x.shape[0] != d.n:
         raise ValueError(f"spmv_dia: x {tuple(x.shape)} for n = {d.n}")
-    return _k8(d, x, 0, 0, d.n, d.n)
+    return _k8(d, x, 0, 0, d.n, d.n, code)
 
 
 def spmv_dia_padded(d: DIA, xp: torch.Tensor) -> torch.Tensor:
     """SpMV on an already-padded [P + n_pad + P] x buffer (P ≥ halo, the
-    halo width for ``dia_pad_x``); returns [n_pad].  K8 on CUDA tensors."""
+    halo width for ``dia_pad_x``); returns [n_pad] in promote(diagonals,
+    x).  K8 on CUDA tensors."""
     if xp.device.type == "cpu":
         return spmv_dia_padded_ref(d, xp)
-    _check_cuda(d, "spmv_dia_padded", xp)
+    xp = _promoted(d, xp)
+    code = _check_cuda(d, "spmv_dia_padded", xp)
     p = _check_pp(d, "spmv_dia_padded", xp)
-    return _k8(d, xp, p, -p, d.n_pad + p, d.n_pad)
+    return _k8(d, xp, p, -p, d.n_pad + p, d.n_pad, code)
 
 
 class _SpmvDia(torch.autograd.Function):
     """K8 forward; backward (``_spmv_bwd``, dia.py:1837-1849) is K8 on Aᵀ
-    for x and an elementwise product for the diagonals."""
+    for x and an elementwise product for the diagonals (both in the
+    cotangent's dtype; autograd casts the diagonals' gradient to theirs)."""
 
     @staticmethod
     def forward(ctx, data, x, d):
@@ -883,9 +1018,9 @@ class _SpmvDia(torch.autograd.Function):
 
 
 def spmv_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
-    """y = A·x for DIA A ([n] → [n]), differentiable in x and the
-    diagonals.  K8 (``csrc/dia.cu``) on CUDA tensors, ``spmv_dia_ref`` on
-    CPU tensors."""
+    """y = A·x for DIA A ([n] → [n], dtype promote(diagonals, x)),
+    differentiable in x and the diagonals.  K8 (``csrc/dia.cu``) on CUDA
+    tensors, ``spmv_dia_ref`` on CPU tensors."""
     return _SpmvDia.apply(d.data, x, d)
 
 
@@ -896,27 +1031,28 @@ def spmv_dia_power(d: DIA, datak: torch.Tensor, xq: torch.Tensor,
     ``cur ← scale·A·cur + add`` (k weighted-Jacobi sweeps when A is the
     iteration matrix): one read of the diagonals for k applies.  Buffers
     are [P + n_pad + P] (``dia_pad_pp``) with zero halo blocks; P comes
-    from their shape.  Writes zq's interior in place (zq must not be xq)
-    and returns zq.  K12 (``csrc/dia.cu``) on CUDA tensors,
-    ``spmv_dia_power_ref`` on CPU tensors; ``datak`` is not read."""
+    from their shape; each pass is rounded to their dtype.  Writes zq's
+    interior in place (zq must not be xq) and returns zq.  K12
+    (``csrc/dia.cu``) on CUDA tensors, ``spmv_dia_power_ref`` on CPU
+    tensors; ``datak`` is not read."""
     del datak
     if xq.device.type == "cpu":
         return spmv_dia_power_ref(d, xq, zq, scale=scale, k=k, add=add)
     bufs = (xq, zq) if add is None else (xq, zq, add)
-    _check_cuda(d, "spmv_dia_power", *bufs)
+    code = _check_cuda(d, "spmv_dia_power", *bufs)
     p = _check_pp(d, "spmv_dia_power", *bufs)
     if zq.data_ptr() == xq.data_ptr() or k < 1:
         raise ValueError("spmv_dia_power: zq must be another buffer than xq, k >= 1")
     plan = _fused_for(_FUSED_POWER if add is None else _FUSED_AFFINE, d, k, p,
-                      (xq,) if add is None else (xq, add))
+                      (xq,) if add is None else (xq, add), code)
     tmp = _scratch(xq, d.n_pad, plan.rows if plan else 0, k)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_power")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
         xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(),
         p, k, float(scale), *_plan_args(plan), None if tmp is None else tmp.data_ptr(),
-        stream), "spmv_dia_power")
-    spmv_dia_power.launches += 1
+        code, stream), "spmv_dia_power")
+    _count(spmv_dia_power, code)
     spmv_dia_power.mode_launches["fused" if plan else "streamed"] += 1
     return zq
 
@@ -925,24 +1061,25 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
                    ddq: torch.Tensor, rq: torch.Tensor, z_dead: torch.Tensor,
                    dd_dead: torch.Tensor, coeffs, k: int):
     """Fused k Chebyshev semi-iteration steps with static per-pass
-    ``(aₚ, bₚ)``: ``dd ← aₚ·dd + bₚ·(r − A·z); z ← z + dd``.  All buffers
-    in the ``dia_pad_pp`` layout; writes ``(z_out, dd_out)`` into the
-    interiors of ``z_dead`` / ``dd_dead`` and returns them.  K13
-    (``csrc/dia.cu``) on CUDA tensors, ``spmv_dia_cheby_ref`` on CPU
-    tensors; ``datak`` is not read."""
+    ``(aₚ, bₚ)``: ``dd ← aₚ·dd + bₚ·(r − A·z); z ← z + dd``, dd and z
+    rounded to the buffers' dtype at every pass.  All buffers in the
+    ``dia_pad_pp`` layout; writes ``(z_out, dd_out)`` into the interiors of
+    ``z_dead`` / ``dd_dead`` and returns them.  K13 (``csrc/dia.cu``) on
+    CUDA tensors, ``spmv_dia_cheby_ref`` on CPU tensors; ``datak`` is not
+    read."""
     del datak
     coeffs = tuple(coeffs)
     if zq.device.type == "cpu":
         return spmv_dia_cheby_ref(d, zq, ddq, rq, z_dead, dd_dead, coeffs, k)
     bufs = (zq, ddq, rq, z_dead, dd_dead)
-    _check_cuda(d, "spmv_dia_cheby", *bufs)
+    code = _check_cuda(d, "spmv_dia_cheby", *bufs)
     p = _check_pp(d, "spmv_dia_cheby", *bufs)
     k = len(coeffs)
     if not 1 <= k <= 32 or len({z_dead.data_ptr(), dd_dead.data_ptr(),
                                 zq.data_ptr(), ddq.data_ptr()}) != 4:
         raise ValueError("spmv_dia_cheby: 1..32 coefficient pairs, and outputs "
                          "in buffers other than the inputs")
-    plan = _fused_for(_FUSED_CHEBY, d, k, p, (zq, ddq, rq))
+    plan = _fused_for(_FUSED_CHEBY, d, k, p, (zq, ddq, rq), code)
     tmp = _scratch(zq, d.n_pad, plan.rows if plan else 0, k)
     cf = (ctypes.c_float * (2 * k))(*(float(v) for ab in coeffs for v in ab))
     stream = torch.cuda.current_stream(zq.device).cuda_stream
@@ -950,36 +1087,38 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
         zq.data_ptr(), ddq.data_ptr(), rq.data_ptr(), z_dead.data_ptr(),
         dd_dead.data_ptr(), p, k, cf, *_plan_args(plan),
-        None if tmp is None else tmp.data_ptr(), stream), "spmv_dia_cheby")
-    spmv_dia_cheby.launches += 1
+        None if tmp is None else tmp.data_ptr(), code, stream), "spmv_dia_cheby")
+    _count(spmv_dia_cheby, code)
     spmv_dia_cheby.mode_launches["fused" if plan else "streamed"] += 1
     return z_dead, dd_dead
 
 
 def _spmv_pp(d: DIA, xq: torch.Tensor, yq: torch.Tensor, scale: float,
-             zero_halo: bool, what: str) -> None:
-    """Launch ``dia_spmv_pp`` (K10 with ``zero_halo``, else K11)."""
-    _check_cuda(d, what, xq, yq)
+             zero_halo: bool, what: str) -> int:
+    """Launch ``dia_spmv_pp`` (K10 with ``zero_halo``, else K11); returns
+    the ``types`` code."""
+    code = _check_cuda(d, what, xq, yq)
     p = _check_pp(d, what, xq, yq)
     if yq.data_ptr() == xq.data_ptr():
         raise ValueError(f"{what}: the output must be another buffer than xq")
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_spmv_pp")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, xq.data_ptr(),
-        yq.data_ptr(), p, float(scale), int(zero_halo), stream), what)
+        yq.data_ptr(), p, float(scale), int(zero_halo), code, stream), what)
+    return code
 
 
 def spmv_dia_padded_io(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """y = scale·A·x on a ``dia_pad_io`` buffer, returned as a new buffer
-    in the same [P + n_pad + P] layout with its halo blocks zero, so chained
-    applies never repack.  K10 (``csrc/dia.cu``, which writes the halo
-    blocks itself) on CUDA tensors, ``spmv_dia_padded_io_ref`` on CPU
-    tensors."""
+    in the same [P + n_pad + P] layout (dtype promote(diagonals, x)) with
+    its halo blocks zero, so chained applies never repack.  K10
+    (``csrc/dia.cu``, which writes the halo blocks itself) on CUDA tensors,
+    ``spmv_dia_padded_io_ref`` on CPU tensors."""
     if xq.device.type == "cpu":
         return spmv_dia_padded_io_ref(d, xq, scale)
+    xq = _promoted(d, xq)
     yq = torch.empty_like(xq)
-    _spmv_pp(d, xq, yq, scale, True, "spmv_dia_padded_io")
-    spmv_dia_padded_io.launches += 1
+    _count(spmv_dia_padded_io, _spmv_pp(d, xq, yq, scale, True, "spmv_dia_padded_io"))
     return yq
 
 
@@ -995,8 +1134,7 @@ def spmv_dia_pingpong(d: DIA, xq: torch.Tensor, yq: torch.Tensor,
     CPU tensors."""
     if xq.device.type == "cpu":
         return spmv_dia_pingpong_ref(d, xq, yq, scale)
-    _spmv_pp(d, xq, yq, scale, False, "spmv_dia_pingpong")
-    spmv_dia_pingpong.launches += 1
+    _count(spmv_dia_pingpong, _spmv_pp(d, xq, yq, scale, False, "spmv_dia_pingpong"))
     return yq
 
 
@@ -1005,66 +1143,68 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
                        add: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-RHS ``spmv_dia_power``: Z = scaleᵏ·Aᵏ·X for the K rows of X in
     the ``dia_pad_pp_rhs`` layout [K, P + n_pad + P], or k affine passes
-    with ``add`` (per-RHS constants, same layout).  Writes zq's interior in
-    place (zq must not be xq) and returns zq.  K14 (``csrc/dia.cu``) on
-    CUDA tensors, any k ≥ 1, ``spmv_dia_power_rhs_ref`` on CPU tensors;
-    ``datak`` is not read."""
+    with ``add`` (per-RHS constants, same layout), each pass rounded to the
+    buffers' dtype.  Writes zq's interior in place (zq must not be xq) and
+    returns zq.  K14 (``csrc/dia.cu``) on CUDA tensors, any k ≥ 1,
+    ``spmv_dia_power_rhs_ref`` on CPU tensors; ``datak`` is not read."""
     del datak
     if xq.device.type == "cpu":
         return spmv_dia_power_rhs_ref(d, xq, zq, scale=scale, k=k, add=add)
     bufs = (xq, zq) if add is None else (xq, zq, add)
-    _check_cuda(d, "spmv_dia_power_rhs", *bufs)
+    code = _check_cuda(d, "spmv_dia_power_rhs", *bufs)
     p = _check_pp(d, "spmv_dia_power_rhs", *bufs, ndim=2)
     if zq.data_ptr() == xq.data_ptr() or k < 1:
         raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1")
     n_rhs = xq.shape[0]
-    kb = min(n_rhs, _RHS_BLOCK)
-    R = d.reach
     # k = 1 is one batched pass; k ≥ 2 tiles k passes in shared memory when
     # kb windows of tr + 2·k·R rows fit a block, else streams them
-    tr = _tile_rows(lambda t: 2 * kb * (t + 2 * k * R) + d.ndiags) if k > 1 else 0
+    tr = _rhs_tile_rows(d, n_rhs, k, xq.element_size())
     tmp = torch.empty((n_rhs, d.n_pad), dtype=xq.dtype, device=xq.device) \
         if tr == 0 and k > 1 else None
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_power_rhs")(
-        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, R,
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
         xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(), p,
-        n_rhs, k, float(scale), tr, kb, None if tmp is None else tmp.data_ptr(),
-        stream), "spmv_dia_power_rhs")
-    spmv_dia_power_rhs.launches += 1
+        n_rhs, k, float(scale), tr, min(n_rhs, _RHS_BLOCK),
+        None if tmp is None else tmp.data_ptr(), code, stream), "spmv_dia_power_rhs")
+    _count(spmv_dia_power_rhs, code)
     return zq
 
 
 def spmm_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
-    """Y = A·X for dense X [n, K] (any K) → [n, K].  K15
-    (``csrc/dia_spmm.cu``) on CUDA tensors, ``spmm_dia_ref`` on CPU
-    tensors.  The kernel moves X and Y as 16-byte words when K is a
-    multiple of 4 and X is 16-byte aligned, else word by word."""
+    """Y = A·X for dense X [n, K] (any K) → [n, K], dtype promote(diagonals,
+    X).  K15 (``csrc/dia_spmm.cu``) on CUDA tensors, ``spmm_dia_ref`` on
+    CPU tensors.  The kernel moves X and Y four columns at a time (16
+    bytes of float32, 8 of bf16) when K is a multiple of 4 and X and Y are
+    aligned to that, else word by word."""
     if x.device.type == "cpu":
         return spmm_dia_ref(d, x)
-    _check_cuda(d, "spmm_dia", x)
+    x = _promoted(d, x)
+    code = _check_cuda(d, "spmm_dia", x)
     if x.dim() != 2 or x.shape[0] != d.n or d.ndiags > _SPMM_MAX_DIAGS:
         raise ValueError(f"spmm_dia: X {tuple(x.shape)} for n = {d.n}, and at most "
                          f"{_SPMM_MAX_DIAGS} diagonals ({d.ndiags})")
     y = torch.empty_like(x)
     K = x.shape[1]
-    vec = K % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    quad = 4 * x.element_size()
+    vec = K % 4 == 0 and x.data_ptr() % quad == 0 and y.data_ptr() % quad == 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_lib_fn("dia_spmm")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, x.data_ptr(),
-        d.n, K, y.data_ptr(), int(vec), stream), "spmm_dia")
-    spmm_dia.launches += 1
+        d.n, K, y.data_ptr(), int(vec), code, stream), "spmm_dia")
+    _count(spmm_dia, code)
     return y
 
 
 def spmm_dia_t_padded(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
     """Transposed-RHS SpMM on a ``dia_pad_xt`` buffer [K_pad, h + n_pad +
     h] (any K_pad): Yt[k, i] = Σ_s data[s, i]·Xt[k, i + off_s] → [K_pad,
-    n_pad].  K16 (``csrc/dia_spmm.cu``) on CUDA tensors,
-    ``spmm_dia_t_padded_ref`` on CPU tensors."""
+    n_pad], dtype promote(diagonals, Xt).  K16 (``csrc/dia_spmm.cu``) on
+    CUDA tensors, ``spmm_dia_t_padded_ref`` on CPU tensors."""
     if xtp.device.type == "cpu":
         return spmm_dia_t_padded_ref(d, xtp)
-    _check_cuda(d, "spmm_dia_t_padded", xtp)
+    xtp = _promoted(d, xtp)
+    code = _check_cuda(d, "spmm_dia_t_padded", xtp)
     if xtp.dim() != 2 or xtp.shape[1] != d.n_pad + 2 * d.halo:
         raise ValueError(f"spmm_dia_t_padded: buffer {tuple(xtp.shape)} is not "
                          f"[K_pad, {d.halo} + {d.n_pad} + {d.halo}]")
@@ -1072,28 +1212,32 @@ def spmm_dia_t_padded(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(xtp.device).cuda_stream
     _build.check(_lib_fn("dia_spmm_t")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
-        xtp.data_ptr() + 4 * d.halo, xtp.shape[1], xtp.shape[0], yt.data_ptr(),
-        stream), "spmm_dia_t_padded")
-    spmm_dia_t_padded.launches += 1
+        xtp.data_ptr() + xtp.element_size() * d.halo, xtp.shape[1], xtp.shape[0],
+        yt.data_ptr(), code, stream), "spmm_dia_t_padded")
+    _count(spmm_dia_t_padded, code)
     return yt
 
 
 def spmm_dia_t(d: DIA, xt: torch.Tensor) -> torch.Tensor:
-    """Yt = (A·X)ᵀ for the right-hand sides in [K, n] layout → [K, n]:
-    K16 on the ``dia_pad_xt`` buffer on CUDA tensors, ``spmm_dia_t_ref``
-    on CPU tensors."""
+    """Yt = (A·X)ᵀ for the right-hand sides in [K, n] layout → [K, n],
+    dtype promote(diagonals, Xt): K16 on a buffer of ``dia_pad_xt``'s
+    layout in that dtype (``dia_pad_xt`` itself rounds to the diagonals'
+    dtype, as JAX's does) on CUDA tensors, ``spmm_dia_t_ref`` on CPU
+    tensors."""
     if xt.device.type == "cpu":
         return spmm_dia_t_ref(d, xt)
-    return spmm_dia_t_padded(d, dia_pad_xt(d, xt))[:xt.shape[0], :d.n]
+    return spmm_dia_t_padded(d, _pad_xt(d, xt, _out_dtype(d, xt)))[:xt.shape[0], :d.n]
 
 
-spmv_dia.launches = 0
-spmv_dia_power.launches = 0
-spmv_dia_cheby.launches = 0
-spmv_dia_power.mode_launches = {"fused": 0, "streamed": 0}    # K12's launches by mode
-spmv_dia_cheby.mode_launches = {"fused": 0, "streamed": 0}    # K13's
-spmv_dia_padded_io.launches = 0
-spmv_dia_pingpong.launches = 0
-spmv_dia_power_rhs.launches = 0
-spmm_dia.launches = 0
-spmm_dia_t_padded.launches = 0
+def _launch_counters(fn, modes: bool = False) -> None:
+    fn.launches = 0
+    fn.type_launches = dict.fromkeys(_TYPE_NAMES, 0)   # by (diagonals, vectors) dtypes
+    if modes:
+        fn.mode_launches = {"fused": 0, "streamed": 0}    # K12's / K13's by mode
+
+
+for _fn in (spmv_dia, spmv_dia_padded_io, spmv_dia_pingpong, spmv_dia_power_rhs, spmm_dia,
+            spmm_dia_t_padded):
+    _launch_counters(_fn)
+for _fn in (spmv_dia_power, spmv_dia_cheby):
+    _launch_counters(_fn, modes=True)

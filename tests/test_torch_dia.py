@@ -279,18 +279,25 @@ def _emulate_fused(d, kind, k, cluster, rows, src_q, *, scale=1.0, add=None,
     kernel's zeros are never read into an output row).  Every pass computes
     every row of a CTA: the kernel's skipping of the rows outside the
     output rows' dependency cone is held only by the ``gpu`` tests (fused
-    against streamed, bit for bit).  Returns the output interiors ([n_pad]
-    z, and dd for K13)."""
+    against streamed, bit for bit).  Sums in the working dtype, rounded to
+    the buffers' at each store (bf16 diagonals or buffers: the 8-element
+    staging of ``csrc/dia.cu``).  Returns the output interiors ([n_pad] z,
+    and dd for K13)."""
     n_pad, p = d.n_pad, (src_q.shape[0] - d.n_pad) // 2
-    out, windows, _ = T._fused_geometry(kind, d.ndiags, k, d.reach, n_pad, cluster, rows)
-    rh = -(-d.reach // 4) * 4
-    hk = -(-((k - 1) * d.reach) // 4) * 4
-    data = torch.nn.functional.pad(d.data, (rows + hk, rows + hk + cluster * rows))
+    elems = tuple(2 if t.dtype == torch.bfloat16 else 4 for t in (d.data, src_q))
+    out, windows, _ = T._fused_geometry(kind, d.ndiags, k, d.reach, n_pad, cluster, rows,
+                                        elems)
+    al = T._fused_align(elems)
+    rh = -(-d.reach // al) * al
+    hk = -(-((k - 1) * d.reach) // al) * al
+    vt = src_q.dtype                     # the buffers' dtype
+    wt = T._acc_dtype(vt)                # the sums'
+    data = torch.nn.functional.pad(d.data, (rows + hk, rows + hk + cluster * rows)).to(wt)
     at = lambda v, lo, n, vlo, vhi: torch.where(
         (torch.arange(lo, lo + n) >= vlo) & (torch.arange(lo, lo + n) < vhi),
         torch.nn.functional.pad(v, (rows + hk + rh, rows + hk + rh + cluster * rows))[
             p + lo + rows + hk + rh:p + lo + n + rows + hk + rh], 0.0)
-    z_out, dd_out = torch.full((n_pad,), float("nan"), dtype=src_q.dtype), None
+    z_out, dd_out = torch.full((n_pad,), float("nan"), dtype=vt), None
     if kind == T._FUSED_CHEBY:
         dd_out = z_out.clone()
     for w in range(windows):
@@ -302,20 +309,21 @@ def _emulate_fused(d, kind, k, cluster, rows, src_q, *, scale=1.0, add=None,
             for r, r0 in enumerate(row0):
                 g = torch.arange(r0, r0 + rows)
                 inside = (g >= 0) & (g < n_pad)
-                acc = torch.zeros(rows, dtype=src_q.dtype)
+                acc = torch.zeros(rows, dtype=wt)
                 for s, off in enumerate(d.offsets):
                     acc = acc + data[s, r0 + rows + hk:r0 + 2 * rows + hk] \
-                        * cur[r][rh + off:rh + off + rows]
+                        * cur[r][rh + off:rh + off + rows].to(wt)
                 if kind == T._FUSED_CHEBY:
                     a, b = coeffs[step]
-                    dn = a * dd[r] + b * (at(rq, r0, rows, 0, n_pad) - acc)
-                    v = cur[r][rh:rh + rows] + dn
+                    dn = (a * dd[r].to(wt) + b * (at(rq, r0, rows, 0, n_pad).to(wt) - acc)
+                          ).to(vt)
+                    v = cur[r][rh:rh + rows].to(wt) + dn.to(wt)
                     dd[r] = torch.where(inside, dn, 0.0)
                 else:
                     v = acc * scale
                     if add is not None:
-                        v = v + at(add, r0, rows, 0, n_pad)
-                nb = torch.full((rows + 2 * rh,), float("nan"), dtype=src_q.dtype)
+                        v = v + at(add, r0, rows, 0, n_pad).to(wt)
+                nb = torch.full((rows + 2 * rh,), float("nan"), dtype=vt)
                 nb[rh:rh + rows] = torch.where(inside, v, 0.0)
                 new.append(nb)
             for r in range(cluster):
@@ -401,6 +409,9 @@ def _rule(kind, ndiags, k, reach, n_pad):
     (T._FUSED_AFFINE, 5, 8, 32, 32768, (1, 704)),            # Jacobi V-cycle coarsest level
     (T._FUSED_AFFINE, 5, 2, 128, 16384, None),               # poisson128 Jacobi-4: two launches
     (T._FUSED_AFFINE, 12, 8, 1024, 1 << 20, None),           # more than 9 diagonals stream
+    # a 9-point damped-Jacobi M of a 2048² grid: its streamed passes exceed
+    # the L2 and are priced at the HBM rate, so the rule fuses
+    (T._FUSED_AFFINE, 9, 8, 2049, 1 << 22, (16, 3520)),
 ])
 def test_fused_rule_answers(kind, ndiags, k, reach, n_pad, want):
     """The selection between K12's / K13's modes at the shapes that decide

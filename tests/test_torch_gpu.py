@@ -37,6 +37,12 @@ atol 1e-5 times the largest output magnitude.  Each kernel test also
 replaces the plain version by one that fails, so a CUDA tensor that
 reached it would show.
 
+The bf16 instances (``dia_astype``): on bf16 vectors bit for bit with
+their plain versions (a product of two bf16 values is exact in float32,
+so a fused multiply-add rounds as a multiply and an add), on float32
+vectors as the float32 kernels; fused against streamed, tiled against
+streamed, and a second launch, bit for bit.
+
 K7 only moves values: exact.  K6 sums each node's run in slot order, the
 plain version with index_add_: rtol 1e-5 and per element 4·eps32·Σ|v|
 over the run's terms, as K4.  K5 divides by a sum of positive terms whose
@@ -516,12 +522,13 @@ def _pp(d, dev, seed):
     return dia.dia_pad_pp(d, x)
 
 
-def _mode(d, kind, k):
+def _mode(d, kind, k, types=0):
     """The mode K12 / K13 take for ``d`` at k on this card (P and the
-    buffers aligned, as ``dia_pad_pp`` makes them)."""
+    buffers aligned, as ``dia_pad_pp`` makes them), for the instance of
+    ``types`` (``ops/dia.py`` ``_TYPES``)."""
     plan = dia._fused_plan(kind, d.ndiags, k, d.reach, d.n_pad,
-                           dia._card_active(kind, d.ndiags, d.data.device),
-                           dia._SMEM_BYTES)
+                           dia._card_active(kind, d.ndiags, d.data.device, types),
+                           dia._SMEM_BYTES, dia._ELEMS[types])
     return "fused" if plan is not None else "streamed"
 
 
@@ -973,6 +980,246 @@ def test_vcycle_and_bicgstab_on_card(cuda):
             assert dia.spmv_dia_power.launches + dia.spmv_dia_cheby.launches \
                 > before["K12"] + before["K13"]
     assert all(abs(g - w) <= 1 for g, w in zip(its[str(cuda)], its["cpu"])), its
+
+
+# ---------------------------------------------------------------------------
+# bf16 diagonals (dia_astype): the bf16 instances of K8, K10-K16
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+VEC_DTYPES = [torch.float32, BF16]
+
+
+def _bf16_dia(dev, name):
+    a = gallery.get(name)
+    return dia.dia_astype(dia.coo_to_dia(a.with_data(a.data.astype(np.float32)),
+                                         device=dev), BF16)
+
+
+def _held(got, want, k=1):
+    """A bf16 instance against its plain version on the same CUDA tensors:
+    on bf16 vectors bit for bit (a product of two bf16 values is exact in
+    float32, so the kernels' fused multiply-adds round as the plain
+    version's multiply and add, and K14's affine step rounds explicitly);
+    on float32 vectors (bf16 diagonals) within ``_close_k``, as the float32
+    kernels."""
+    assert got.dtype == want.dtype
+    if got.dtype == BF16:
+        assert torch.equal(got, want)
+    else:
+        _close_k(got, want, k)
+
+
+def _types_moved(fn, before, name):
+    """The launches of ``fn``'s instance ``name`` since ``before``."""
+    return fn.type_launches[dia._TYPE_NAMES[name]] - before
+
+
+@pytest.mark.parametrize("name", ["poisson96", "orsirr_like24"])
+@pytest.mark.parametrize("vt", VEC_DTYPES)
+def test_bf16_one_pass_kernels_match_plain(cuda, no_plain, name, vt):
+    """K8 (``spmv_dia``, ``spmv_dia_padded``), K10, K11 (chains of 2 at
+    scale 0.2), K15 (K 16, 7, and X one element into its storage: the
+    word-by-word path) and K16 (``spmm_dia_t_padded``, ``spmm_dia_t``) on
+    bf16 diagonals with float32 and bf16 vectors: their plain versions'
+    dtypes and values, the same bits on a second launch, every launch
+    counted on its instance."""
+    d = _bf16_dia(cuda, name)
+    code = 2 if vt == BF16 else 1
+    ref = no_plain("spmv_dia_ref", "spmv_dia_padded_ref", "spmv_dia_padded_io_ref",
+                   "spmv_dia_pingpong_ref", "spmm_dia_ref", "spmm_dia_t_padded_ref",
+                   "spmm_dia_t_ref")
+    gen = torch.Generator(device=cuda).manual_seed(code)
+    x = torch.randn(d.n, generator=gen, device=cuda).to(vt)
+    fns = (dia.spmv_dia, dia.spmv_dia_padded_io, dia.spmv_dia_pingpong, dia.spmm_dia,
+           dia.spmm_dia_t_padded)
+    before = [fn.type_launches[dia._TYPE_NAMES[code]] for fn in fns]
+    y = dia.spmv_dia(d, x)
+    _held(y, ref["spmv_dia_ref"](d, x))
+    assert torch.equal(dia.spmv_dia(d, x), y)
+    xp = torch.nn.functional.pad(x, (d.halo, d.n_pad - d.n + d.halo))
+    _held(dia.spmv_dia_padded(d, xp), ref["spmv_dia_padded_ref"](d, xp))
+    xq = dia.dia_pad_io(d, x).to(vt)
+    p = (xq.shape[0] - d.n_pad) // 2
+    for _ in range(2):
+        got = dia.spmv_dia_padded_io(d, xq, scale=0.2)
+        _held(got, ref["spmv_dia_padded_io_ref"](d, xq, 0.2))
+        assert not got[:p].any() and not got[p + d.n_pad:].any()
+        xq = got
+    xq = dia.dia_pad_pp(d, x)
+    yq = torch.full_like(xq, 3.0)
+    want = ref["spmv_dia_pingpong_ref"](d, xq, yq.clone(), 0.2)
+    got = dia.spmv_dia_pingpong(d, xq, yq, scale=0.2)
+    assert got is yq
+    _held(got, want)
+    for K, offset in ((16, 0), (7, 0), (16, 1)):
+        X = torch.randn(d.n * K + offset, generator=gen, device=cuda).to(vt)[offset:]
+        X = X.view(d.n, K)
+        y = dia.spmm_dia(d, X)
+        _held(y, ref["spmm_dia_ref"](d, X))
+        assert torch.equal(dia.spmm_dia(d, X), y)
+    xt = torch.randn((13, d.n), generator=gen, device=cuda).to(vt)
+    xtp = torch.nn.functional.pad(xt, (d.halo, d.n_pad - d.n + d.halo, 0, 3))
+    y = dia.spmm_dia_t_padded(d, xtp)
+    _held(y, ref["spmm_dia_t_padded_ref"](d, xtp))
+    assert torch.equal(dia.spmm_dia_t_padded(d, xtp), y)
+    _held(dia.spmm_dia_t(d, xt), ref["spmm_dia_t_ref"](d, xt))
+    torch.cuda.synchronize()
+    moved = [_types_moved(fn, b, code) for fn, b in zip(fns, before)]
+    assert moved == [3, 2, 1, 6, 3], moved   # K8 counts spmv_dia_padded, K16 spmm_dia_t
+
+
+@pytest.mark.parametrize("name,k,plan", [
+    ("poisson96", 2, (1, 2048)), ("poisson96", 8, None),
+    ("banded 60000 r700", 4, (16, 1024)), ("irregular 20000", 3, (4, 1024)),
+    ("banded 60000 r700", 3, (4, 1504, 2)), ("banded 3000 r37", 4, (1, 4096)),
+    ("irregular 20000", 8, (4, 2048, 2))])
+@pytest.mark.parametrize("vt", VEC_DTYPES)
+@pytest.mark.parametrize("affine,scale", [(False, 1.0), (True, -0.35)])
+def test_bf16_k12_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, plan, vt,
+                                        affine, scale):
+    """K12 on bf16 diagonals, float32 or bf16 buffers (8-element staging,
+    bf16 edge rows two to a word): fused equals streamed bit for bit, and
+    the plain version (``_held``), with nonzero halo blocks."""
+    ref = no_plain("spmv_dia_power_ref")["spmv_dia_power_ref"]
+    d = dia.dia_astype(_fused_case_matrix(name, cuda), BF16)
+    code = 2 if vt == BF16 else 1
+    if plan is None:
+        assert _mode(d, dia._FUSED_AFFINE if affine else dia._FUSED_POWER, k, code) == "fused"
+    xq = _halo_noise(_pp(d, cuda, 1), d, 11).to(vt)
+    cq = _halo_noise(_pp(d, cuda, 2), d, 12).to(vt) if affine else None
+    before = dia.spmv_dia_power.type_launches[dia._TYPE_NAMES[code]]
+    call = lambda: dia.spmv_dia_power(d, None, xq, torch.full_like(xq, 5.0), scale=scale,
+                                      k=k, add=cq)
+    fused, streamed, moved = _both_modes(monkeypatch, call, plan and _plan(*plan))
+    assert moved[0] == {"fused": 1, "streamed": 0}
+    assert _types_moved(dia.spmv_dia_power, before, code) == 2
+    assert fused.dtype == vt and torch.equal(fused, streamed)
+    _held(fused, ref(d, xq, torch.full_like(xq, 5.0), scale=scale, k=k, add=cq), k)
+
+
+@pytest.mark.parametrize("name,k,plan", [
+    ("poisson96", 2, (2, 1024)), ("poisson256", 8, None), ("irregular 20000", 3, (8, 512)),
+    ("banded 60000 r700", 2, (16, 736)), ("irregular 20000", 8, (4, 2048, 3))])
+@pytest.mark.parametrize("vt", VEC_DTYPES)
+def test_bf16_k13_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, plan, vt):
+    """K13 on bf16 diagonals, float32 or bf16 buffers (dd and z rounded at
+    every pass): fused equals streamed bit for bit (z and dd), and the
+    plain version (``_held``)."""
+    from gflownet_spai_tpu_torch.solvers.stationary import chebyshev_coeffs
+
+    ref = no_plain("spmv_dia_cheby_ref")["spmv_dia_cheby_ref"]
+    d = dia.dia_astype(_fused_case_matrix(name, cuda), BF16)
+    code = 2 if vt == BF16 else 1
+    if plan is None:
+        assert _mode(d, dia._FUSED_CHEBY, k, code) == "fused"
+    zq, ddq, rq = (_halo_noise(_pp(d, cuda, s), d, s + 20).to(vt) for s in (4, 5, 6))
+    coeffs = tuple(chebyshev_coeffs(0.3, 8.2, k))
+    call = lambda: dia.spmv_dia_cheby(d, None, zq, ddq, rq, torch.zeros_like(zq),
+                                      torch.zeros_like(zq), coeffs, k)
+    fused, streamed, moved = _both_modes(monkeypatch, call, plan and _plan(*plan))
+    assert moved[1] == {"fused": 1, "streamed": 0}
+    want = ref(d, zq, ddq, rq, torch.zeros_like(zq), torch.zeros_like(zq), coeffs, k)
+    for f, s_, w in zip(fused, streamed, want):
+        assert torch.equal(f, s_)
+        _held(f, w, k)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("vt", VEC_DTYPES)
+def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
+    """K14 on poisson96's bf16 Jacobi matrix with 12 right-hand sides,
+    affine: one batched pass at k 1, k passes tiled (bf16 windows take half
+    the shared memory) against streamed (shared memory taken away) bit for
+    bit, and the plain version (``_held``)."""
+    from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
+
+    m = jacobi_iteration_matrix(_bf16_dia(cuda, "poisson96"))
+    assert m.data.dtype == BF16
+    ref = no_plain("spmv_dia_power_rhs_ref")["spmv_dia_power_rhs_ref"]
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    tr = 2 * m.halo
+    xq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
+    cq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
+    xq, cq = xq.to(vt), cq.to(vt)
+    assert bool(dia._rhs_tile_rows(m, 12, k, xq.element_size())) == (k > 1)
+    call = lambda: dia.spmv_dia_power_rhs(m, None, xq, torch.full_like(xq, 5.0), scale=0.9,
+                                          k=k, add=cq)
+    tiled = call()
+    with monkeypatch.context() as mp:
+        mp.setattr(dia, "_SMEM_BYTES", 0)
+        streamed = call()
+    torch.cuda.synchronize()
+    assert tiled.dtype == vt and torch.equal(tiled, streamed)
+    _held(tiled, ref(m, xq, torch.full_like(xq, 5.0), scale=0.9, k=k, add=cq), k)
+    assert (tiled[:, :tr] == 5.0).all() and (tiled[:, tr + m.n_pad:] == 5.0).all()
+
+
+def test_bf16_wrappers_refuse_other_dtypes(cuda):
+    """float16 and float64 diagonals or vectors, mixed buffers, and bf16
+    buffers written in place on float32 diagonals raise ``ValueError``
+    before any launch; a bf16 vector on float32 diagonals is promoted."""
+    d32 = _poisson_dia(cuda, 32)[1]
+    db = dia.dia_astype(d32, BF16)
+    counts = {fn: fn.launches for fn in (dia.spmv_dia, dia.spmv_dia_pingpong,
+                                        dia.spmv_dia_power, dia.spmm_dia)}
+    x = torch.randn(d32.n, device=cuda)
+    for dd, xx in ((d32, x.half()), (d32, x.double()), (dia.dia_astype(d32, torch.float16), x),
+                   (dia.dia_astype(d32, torch.float64), x.double()), (db, x.half())):
+        with pytest.raises(ValueError, match="diagonals torch"):
+            dia.spmv_dia(dd, xx)
+    xq = dia.dia_pad_pp(db, x)
+    with pytest.raises(ValueError, match="diagonals torch"):       # mixed buffers
+        dia.spmv_dia_power(db, None, xq, torch.zeros_like(xq).to(BF16), k=2)
+    with pytest.raises(ValueError, match="diagonals torch"):       # f32 diagonals, bf16 buffers
+        dia.spmv_dia_pingpong(d32, xq.to(BF16), torch.zeros_like(xq).to(BF16))
+    with pytest.raises(ValueError, match="diagonals torch"):
+        dia.spmm_dia(db, torch.randn((d32.n, 4), device=cuda).half())
+    assert {fn: fn.launches for fn in counts} == counts
+    y = dia.spmv_dia(d32, x.to(BF16))
+    assert y.dtype == torch.float32
+    _close1(y, dia.spmv_dia_ref(d32, x.to(BF16).float()))
+
+
+def test_bf16_solvers_on_card(cuda):
+    """``jacobi_sweeps_op`` (K12 on bf16 buffers, k 4), ``chebyshev_op``
+    (K13 on bf16 buffers, k 4) and ``jacobi_multirhs`` (K14, K16) on a bf16
+    poisson64: the applies equal the CPU's bit for bit (the bf16 instances
+    give their plain versions' bits, and the CPU runs the plain versions),
+    the multi-RHS sweeps too; CG with each preconditioner converges in as
+    many iterations as on the CPU, within one."""
+    from gflownet_spai_tpu_torch.solvers import (cg, chebyshev_op, jacobi_multirhs,
+                                                 jacobi_sweeps_op)
+
+    a = gallery.poisson2d(64, dtype=np.float32)
+    r = np.random.default_rng(3).standard_normal(a.shape[0]).astype(np.float32)
+    B = np.random.default_rng(4).standard_normal((5, a.shape[0])).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        d = dia.coo_to_dia(a, device=dev)
+        db = dia.dia_astype(d, BF16)
+        ops = (jacobi_sweeps_op(db, sweeps=16), chebyshev_op(db, lmax=8.0, degree=16))
+        assert [op.info["k"] for op in ops] == [4, 4]
+        before = (dia.spmv_dia_power.type_launches["bf16"],
+                  dia.spmv_dia_cheby.type_launches["bf16"],
+                  dia.spmv_dia_power_rhs.type_launches["bf16"])
+        rr = torch.as_tensor(r, device=dev)
+        applies = [op(rr) for op in ops]
+        jac = jacobi_multirhs(db, torch.as_tensor(B, device=dev), iters=16)
+        its = [cg(d, torch.ones(d.n, device=dev), m_op=op, maxiter=500, rtol=1e-5).iterations
+               for op in ops]
+        out[str(dev)] = ([v.cpu() for v in applies], jac.x.cpu(), jac.residual.cpu(), its)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            after = (dia.spmv_dia_power.type_launches["bf16"],
+                     dia.spmv_dia_cheby.type_launches["bf16"],
+                     dia.spmv_dia_power_rhs.type_launches["bf16"])
+            assert all(a_ > b_ for a_, b_ in zip(after, before)), (before, after)
+    got, want = out[str(cuda)], out["cpu"]
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=2e-2, atol=0.0)
+    assert all(abs(g - w) <= 1 for g, w in zip(got[3], want[3])), (got[3], want[3])
 
 
 # ---------------------------------------------------------------------------
