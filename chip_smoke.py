@@ -148,14 +148,23 @@ Phases (any failure exits non-zero before the result line):
                most time).
 20. bell     — launch counters to 0, ``spmm_bell`` at docs/BENCH.md's
                block-ELL configuration (4096^2, 2% of the (8,128) blocks,
-               K = 256), at blockshapes (32,128) and (128,128), and on a
-               65,536^2 matrix of the same density (JAX's streamed regime),
-               ``spmv_bell`` once, and the 4096^2 (8,128) matrix again with
-               its slots shuffled and 3 explicit zero blocks added per row
-               (correctness only), counters read; each against
-               ``spmm_bell_ref`` and scipy float64; times as [dia], the
-               library call torch.sparse CSR A @ X; per case the real
-               against stored block slots and kernel / CSR.
+               K = 256), at blockshapes (32,128) and (128,128), and on
+               65,536^2 matrices of the same density at (8,128) and
+               (128,128) (JAX's streamed regime), ``spmv_bell`` once, and
+               the 4096^2 (8,128) matrix again with its slots shuffled and
+               3 explicit zero blocks added per row (correctness only), in
+               each of K17's three instances (float32; bf16 blocks with
+               bf16 X, the tensor-core kernel; bf16 blocks with float32
+               X), counters read per instance; each against
+               ``spmm_bell_ref`` (bf16 outputs within one bf16 ulp plus
+               the float32 sums' slack) and scipy float64 of the stored
+               values, a second launch's bits, and the bf16-block float32-X
+               instance against the float32 one on the widened blocks, bit
+               for bit; times as [dia], the library call torch.sparse CSR
+               of the stored values in X's dtype @ X (at 4096^2 also the
+               dense bf16 torch.matmul, printed); per case the real against
+               stored block slots, kernel / library, the X bytes staged
+               from L2 and each instance against the float32 one.
 21. train-default — ``python -m gflownet_spai_tpu_torch.train --epochs 20``
                with every other argument at its default, in a subprocess on
                the card: exit 0, the DIA env on LF10_like (the checkpoint's
@@ -233,6 +242,7 @@ BATCH = 256
 BATCHES = 4                 # sampled batches on the main path (first is warm-up)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TC_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 # K1 against its plain version: the online softmax rescales its sums and
 # divides once per node, the plain version divides per slot and sums by
 # matmuls; float32 rounding only, the same bits on every launch (at most
@@ -310,8 +320,8 @@ def graph_ms(fn, reps: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def bound_ms(nbytes: float, ops: float, rate: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1306,12 +1316,13 @@ def _record(key, label, got, want, k, make, plain, nbytes, ops, make_lib=None,
 
 
 def _timed(key, label, checked, err, make, plain, nbytes, ops, make_lib=None,
-           lib_name="torch.sparse CSR A@x", reps=20):
+           lib_name="torch.sparse CSR A@x", reps=20, rate=F32_OPS_PER_S):
     """Time a kernel that was held against its plain version (``checked``
     says how).  ``make(i)`` returns a call of the kernel on the i-th copy
     of its inputs (copy 0: the inputs it was checked on).  The kernel time
     cycles through enough copies that a replay reads HBM, not the 50 MB L2
-    that holds one copy; the warm time repeats copy 0."""
+    that holds one copy; the warm time repeats copy 0.  ``rate``: the peak
+    operations per second of the bound."""
     n_copies = _copies(nbytes)
     fns = [make(i) for i in range(n_copies)]
     lib_fns = [make_lib(i) for i in range(n_copies)] if make_lib else []
@@ -1320,7 +1331,7 @@ def _timed(key, label, checked, err, make, plain, nbytes, ops, make_lib=None,
     eager = cuda_ms(fns[0], reps)
     plain_ms = cuda_ms(plain, 3)
     lib_ms = graph_ms(_cycle(lib_fns), reps) if lib_fns else None
-    b, by = bound_ms(nbytes, ops)
+    b, by = bound_ms(nbytes, ops, rate)
     print(f"[{key}] {label}: {checked}; kernel "
           f"{ms:.5f} ms (graph replay over {n_copies} input copies; one copy, "
           f"L2-warm {warm:.5f} ms; eager calls {eager:.5f} ms), plain "
@@ -2506,9 +2517,16 @@ SEG_COUNTERS = {"K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows,
                 "K7": seg.segment_broadcast_tiles, "K5b": seg.segment_softmax_tiles_bwd}
 BELL_K = 256                # docs/BENCH.md:108-125
 BELL_DENSITY = 0.02         # of the blocks
-BELL_CASES = ((4096, (8, 128)), (4096, (32, 128)), (4096, (128, 128)), (65536, (8, 128)))
-BELL_SCIPY_BLOCK_ROWS = 64  # rows of the 65,536 case held against scipy float64
+BELL_CASES = ((4096, (8, 128)), (4096, (32, 128)), (4096, (128, 128)), (65536, (8, 128)),
+              (65536, (128, 128)))
+BELL_SCIPY_ROWS = 512       # rows of a 65,536 case held against scipy float64
 BELL_ZERO_SLOTS = 3         # explicit zero blocks added per row of the irregular BELL
+# K17's instances by their name in spmm_bell.type_launches: (blocks, X)
+# dtypes, and the peak rate of their operations (CUDA cores; bf16 x bf16 on
+# the tensor cores)
+BELL_TYPES = {"float32": (torch.float32, torch.float32, F32_OPS_PER_S),
+              "bf16 blocks, bf16 X": (BF16, BF16, TC_OPS_PER_S),
+              "bf16 blocks, float32 X": (BF16, torch.float32, F32_OPS_PER_S)}
 
 
 def _elementwise(got, want, bound, what):
@@ -2991,15 +3009,17 @@ def _bell_irregular(a, extra, rng):
     return bsr.BELL(data=data, bcols=cols, shape=a.shape, nnz=a.nnz)
 
 
-def _bell_scipy(a_host, block_rows):
-    """scipy float64 CSR of the first ``block_rows`` block rows."""
+def _bell_scipy(a, block_rows):
+    """scipy float64 CSR of the first ``block_rows`` block rows of a BELL on
+    the card (its stored values, bf16 ones exactly)."""
     import scipy.sparse as sp
 
-    data = a_host.data[:block_rows].astype(np.float64)
+    data = a.data[:block_rows].double().cpu().numpy()
+    cols = a.bcols[:block_rows].cpu().numpy()
     nbr, W, bm, bn = data.shape
     r, w, i, j = np.nonzero(data)
-    return sp.csr_matrix((data[r, w, i, j], (r * bm + i, a_host.bcols[r, w] * bn + j)),
-                         shape=(nbr * bm, a_host.shape[1]))
+    return sp.csr_matrix((data[r, w, i, j], (r * bm + i, cols[r, w] * bn + j)),
+                         shape=(nbr * bm, a.shape[1]))
 
 
 def _bell_csr(a):
@@ -3028,12 +3048,62 @@ def _bell_tail(a, x, ms):
               flush=True)
 
 
+def _bf16_ulp(v):
+    """One bf16 unit in the last place of each element of ``v`` (0 at 0)."""
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8))
+
+
+def _bell_bound(want, mag, bf16):
+    """K17's elementwise bound against ``want`` (the plain version's output
+    or float64 scipy's), ``mag`` = |A|·|X|: the float32 sums' other order,
+    SEG_EPS_SUMS·eps32·mag, plus SEG_RTOL·|want| on float32 outputs or one
+    bf16 ulp of want on bf16 ones (two float32 sums a few eps32 apart may
+    round to neighbouring bf16 values)."""
+    return (_bf16_ulp(want) if bf16 else SEG_RTOL * want.abs()) + SEG_EPS_SUMS * EPS32 * mag
+
+
+def _bell_check(what, y, a, x, block_rows):
+    """Hold K17's output ``y`` = A·X against the plain version on the same
+    tensors, and against scipy float64 on A's first ``block_rows`` block
+    rows (of the values as stored: bf16 blocks and X exactly)."""
+    want = bsr.spmm_bell_ref(a, x).float()
+    mag = bsr.spmm_bell_ref(dataclasses.replace(a, data=a.data.abs().float()),
+                            x.abs().float())
+    bf16 = y.dtype == BF16
+    err, checked = _elementwise(y.float(), want, _bell_bound(want, mag, bf16), what)
+    if bf16:
+        checked += (f", {int((y.float() != want).sum())} of {y.numel()} outputs off the "
+                    "plain version's bits")
+    rows = block_rows * a.data.shape[2]
+    ref64 = torch.from_numpy(_bell_scipy(a, block_rows) @ x.double().cpu().numpy())
+    bound64 = _bell_bound(ref64, mag[:rows].double().cpu(), bf16)
+    worst64 = float(((y[:rows].double().cpu() - ref64).abs()
+                     / bound64.clamp_min(1e-30)).max())
+    if not worst64 <= 1.0:
+        fail(f"[bell] {what} vs scipy float64: {worst64:.2f} of the bound")
+    return err, f"{checked}; vs scipy float64 on {rows} rows {100 * worst64:.1f}% of the bound"
+
+
+def _bell_lib(a, x):
+    """The torch.sparse CSR of A's stored values in X's dtype: the one
+    PyTorch call (``@ x``) that computes an instance's function (bf16 CSR
+    on bf16 X; on float32 X the float32 CSR of the blocks' values, bf16 ones
+    widened exactly: cuSPARSE takes no CSR bf16 x float32)."""
+    c = _bell_csr(a)
+    return torch.sparse_csr_tensor(c.crow_indices(), c.col_indices(),
+                                   c.values().to(x.dtype), c.shape)
+
+
 def phase_bell(dev):
     """K17 through ``spmm_bell`` at docs/BENCH.md:108-125's configuration
     (4096², 2% of the (8,128) blocks, K = 256), at blockshapes (32,128)
-    and (128,128), and on a 65,536² matrix of the same density (JAX would
-    stream there, ``_resident_bk`` is None): against ``spmm_bell_ref`` and
-    scipy in float64; ``spmv_bell`` once at 4096²."""
+    and (128,128), and on 65,536² matrices of the same density at (8,128)
+    and (128,128) (JAX would stream there, ``_resident_bk`` is None), each
+    in every instance of ``BELL_TYPES``: against ``spmm_bell_ref`` and
+    scipy in float64; ``spmv_bell`` and the irregular BELL once per
+    instance at 4096².  Returns the records by (instance, case) and each
+    instance's launches on the path."""
     from gflownet_spai_tpu_torch.sparse import coo_to_csr
     from gflownet_spai_tpu_torch.sparse.types import COO
 
@@ -3057,90 +3127,128 @@ def phase_bell(dev):
                 fail(f"[bell] csr_to_bell differs from the direct block build at {m}, {bs}")
         else:
             host = direct
-        cases.append((m, bs, host, host.to(dev), time.perf_counter() - t0))
+        if not cases:
+            first = host
+        cases.append((m, bs, host.to(dev), time.perf_counter() - t0))
     # the first case with its slots shuffled and explicit zero blocks added
-    irr_host = _bell_irregular(cases[0][2], BELL_ZERO_SLOTS, rng)
+    irr_host = _bell_irregular(first, BELL_ZERO_SLOTS, rng)
     irr = irr_host.to(dev)
-    # the path: counters to 0, the user entries once per case, counters read
-    bsr.spmm_bell.launches = 0
     xs = [torch.randn((m, BELL_K), generator=gen, device=dev) for m, *_ in cases]
-    ys = [bsr.spmm_bell(a, x) for (_, _, _, a, _), x in zip(cases, xs)]
     v = torch.randn(cases[0][0], generator=gen, device=dev)
-    yv = bsr.spmv_bell(cases[0][3], v)
-    y_irr = bsr.spmm_bell(irr, xs[0])
+    # every instance's inputs: the float32 matrices and X rounded to bf16
+    # where the instance takes bf16
+    ins = {name: ([(dataclasses.replace(a, data=a.data.to(bt)), x.to(xt))
+                   for (_, _, a, _), x in zip(cases, xs)],
+                  dataclasses.replace(irr, data=irr.data.to(bt)), v.to(xt))
+           for name, (bt, xt, _) in BELL_TYPES.items()}
+    # the path: counters to 0, the user entries once per case and instance,
+    # counters read
+    counts = bsr.spmm_bell.type_launches
+    bsr.spmm_bell.launches = 0
+    for name in counts:
+        counts[name] = 0
+    outs = {}
+    for name, (inputs, irr_i, v_i) in ins.items():
+        outs[name] = ([bsr.spmm_bell(a, x) for a, x in inputs],
+                      bsr.spmm_bell(irr_i, inputs[0][1]), bsr.spmv_bell(inputs[0][0], v_i))
     torch.cuda.synchronize()
-    launches = bsr.spmm_bell.launches
-    if launches != len(cases) + 2:
-        fail(f"[bell] spmm_bell / spmv_bell launched K17 {launches} times, not "
-             f"{len(cases) + 2}")
-    want_v = bsr.spmm_bell_ref(cases[0][3], v[:, None])[:, 0]
-    absa0 = dataclasses.replace(cases[0][3], data=cases[0][3].data.abs())
-    _elementwise(yv, want_v, SEG_RTOL * want_v.abs() + SEG_EPS_SUMS * EPS32
-                 * bsr.spmm_bell_ref(absa0, v.abs()[:, None])[:, 0], "spmv_bell")
-    # the irregular BELL (correctness only): against the plain version on it
-    # and scipy float64 of the same matrix
-    want = bsr.spmm_bell_ref(irr, xs[0])
-    mag = bsr.spmm_bell_ref(dataclasses.replace(irr, data=irr.data.abs()), xs[0].abs())
-    _, checked = _elementwise(y_irr, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32
-                              * mag, "K17 on the irregular BELL")
-    ref64 = _bell_scipy(irr_host, irr_host.bcols.shape[0]) @ xs[0].double().cpu().numpy()
-    worst64 = float(np.max(np.abs(y_irr.double().cpu().numpy() - ref64) / np.maximum(
-        SEG_RTOL * np.abs(ref64) + SEG_EPS_SUMS * EPS32 * mag.double().cpu().numpy(),
-        1e-30)))
-    if not worst64 <= 1.0:
-        fail(f"[bell] K17 on the irregular BELL vs scipy float64: {worst64:.2f} of the bound")
-    print(f"[bell] irregular {cases[0][0]}², blocks {cases[0][1]}: slots shuffled, "
-          f"{BELL_ZERO_SLOTS} explicit zero blocks per row (W {irr_host.width}); "
-          f"{checked}; vs scipy float64 {100 * worst64:.1f}% of the bound", flush=True)
-    del irr, y_irr, want, mag
+    launches = dict(counts)
+    want_each = len(cases) + 2
+    if bsr.spmm_bell.launches != len(ins) * want_each or \
+            any(launches[name] != want_each for name in ins):
+        fail(f"[bell] spmm_bell / spmv_bell launched K17 {launches} (total "
+             f"{bsr.spmm_bell.launches}), not {want_each} per instance")
+    errs = {}
+    for name, (inputs, irr_i, v_i) in ins.items():
+        ys, y_irr, yv = outs[name]
+        a0, x0 = inputs[0]
+        nbr0 = a0.data.shape[0]
+        err_v, checked_v = _bell_check(f"spmv_bell ({name})", yv[:, None], a0, v_i[:, None],
+                                       nbr0)
+        err_i, checked_i = _bell_check(f"K17 on the irregular BELL ({name})", y_irr, irr_i, x0,
+                                       irr_i.data.shape[0])
+        errs[name] = [err_v, err_i]
+        print(f"[bell] {name}: spmv_bell at {cases[0][0]}², blocks {cases[0][1]}: "
+              f"{checked_v}; the irregular {cases[0][0]}² (slots shuffled, "
+              f"{BELL_ZERO_SLOTS} explicit zero blocks per row, W {irr_host.width}): "
+              f"{checked_i}", flush=True)
     recs = {}
-    for (m, bs, host, a, build_s), x, y in zip(cases, xs, ys):
+    for k, (m, bs, a, build_s) in enumerate(cases):
         nbr, W, bm, bn = a.data.shape
-        want = bsr.spmm_bell_ref(a, x)
-        absa = dataclasses.replace(a, data=a.data.abs())
-        mag = bsr.spmm_bell_ref(absa, x.abs())
-        err, checked = _elementwise(y, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32
-                                    * mag, f"K17 at {m}, {bs}")
-        # float64: scipy on the whole matrix, or on its first block rows
-        rows = nbr if m <= 4096 else BELL_SCIPY_BLOCK_ROWS
-        ref64 = _bell_scipy(host, rows) @ x.double().cpu().numpy()
-        got64 = y[:rows * bm].double().cpu().numpy()
-        mag64 = mag[:rows * bm].double().cpu().numpy()
-        worst64 = float(np.max(np.abs(got64 - ref64) / np.maximum(
-            SEG_RTOL * np.abs(ref64) + SEG_EPS_SUMS * EPS32 * mag64, 1e-30)))
-        if not worst64 <= 1.0:
-            fail(f"[bell] K17 at {m}, {bs} vs scipy float64: {worst64:.2f} of the bound")
-        real = int((a.data.abs().amax(dim=(2, 3)) > 0).sum())
-        ncols = int(torch.unique(a.bcols[a.data.abs().amax(dim=(2, 3)) > 0]).numel())
-        nbytes = 4 * (real * bm * bn + nbr * W + ncols * bn * BELL_K + m * BELL_K)
-        ops = 2 * real * bm * bn * BELL_K
-        n_copies = min(16, max(2, -(-COLD_BYTES // nbytes)))
-        copies = [(a, x)] + [(dataclasses.replace(a, data=a.data.clone()), x.clone())
-                             for _ in range(n_copies - 1)]
-        csrs = [_bell_csr(aa) for aa, _ in copies]
-        lib_got = csrs[0] @ x
-        _elementwise(lib_got, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32 * mag,
-                     "the torch.sparse CSR yardstick")
+        nonzero = a.data.abs().amax(dim=(2, 3)) > 0
+        real = int(nonzero.sum())
+        ncols = int(torch.unique(a.bcols[nonzero]).numel())
+        chunks = int((a.data.reshape(nbr, W, bm, bn // 32, 32).abs().amax(dim=(2, 4)) > 0)
+                     .sum())
+        block_rows = nbr if m <= 4096 else BELL_SCIPY_ROWS // bm
         regime = bsr._resident_bk(a, BELL_K)
-        label = (f"{m} x {m}, blocks {bs}, {real} of {(m // bm) * (m // bn)} stored "
-                 f"(W {W}), K {BELL_K}, JAX regime "
-                 + (f"X-resident (bk {regime})" if regime else "streamed")
-                 + f"; set-up {build_s:.1f} s; vs scipy float64 on {rows * bm} rows "
-                 f"{100 * worst64:.1f}% of the bound")
-        recs[(m, bs)] = _timed("K17", label, checked, err,
-                               lambda i: (lambda: bsr.spmm_bell(*copies[i])),
-                               lambda: bsr.spmm_bell_ref(a, x), nbytes, ops,
-                               lambda i: (lambda: csrs[i] @ copies[i][1]),
-                               "torch.sparse CSR A@X", reps=10)
-        print(f"[bell] {m}², blocks {bs}: {real} real of {nbr * W} stored slots "
-              f"({100 * real / (nbr * W):.1f}%); kernel / CSR "
-              f"{recs[(m, bs)]['ms'] / recs[(m, bs)]['lib']:.3f}", flush=True)
-        del copies, csrs
-        if (m, bs) == BELL_CASES[0]:
-            _bell_tail(a, x, recs[(m, bs)]["ms"])
-    rec = dict(recs[BELL_CASES[0]])
-    rec["err"] = max(r["err"] for r in recs.values())
-    return rec, launches
+        for name, (bt, xt, rate) in BELL_TYPES.items():
+            aa, x = ins[name][0][k]
+            y = outs[name][0][k]
+            err, checked = _bell_check(f"K17 ({name}) at {m}, {bs}", y, aa, x, block_rows)
+            errs[name].append(err)
+            if not torch.equal(bsr.spmm_bell(aa, x), y):
+                fail(f"[bell] K17 ({name}) at {m}, {bs}: a second launch gave other bits")
+            checked += "; a second launch gives the same bits"
+            if name == "bf16 blocks, float32 X":
+                if not torch.equal(y, bsr.spmm_bell(
+                        dataclasses.replace(aa, data=aa.data.float()), x)):
+                    fail(f"[bell] K17 ({name}) at {m}, {bs}: not the float32 instance's "
+                         "bits on the widened blocks")
+                checked += "; the float32 instance's bits on the widened blocks"
+            eb, ex, ey = aa.data.element_size(), x.element_size(), y.element_size()
+            nbytes = eb * real * bm * bn + 4 * nbr * W + ex * ncols * bn * BELL_K \
+                + ey * m * BELL_K
+            ops = 2 * real * bm * bn * BELL_K
+            copies = [(aa, x)] + [(dataclasses.replace(aa, data=aa.data.clone()), x.clone())
+                                  for _ in range(_copies(nbytes) - 1)]
+            csrs = [_bell_lib(*c) for c in copies]
+            if name == "float32":
+                want = bsr.spmm_bell_ref(aa, x)
+                mag = bsr.spmm_bell_ref(dataclasses.replace(aa, data=aa.data.abs()), x.abs())
+                _elementwise(csrs[0] @ x, want, SEG_RTOL * want.abs() + SEG_EPS_SUMS * EPS32
+                             * mag, "the torch.sparse CSR yardstick")
+                lib_ok, lib_name = True, "torch.sparse CSR A@X"
+            else:
+                lib_ok, lib_name = _bf16_lib(lambda: csrs[0] @ x, bsr.spmm_bell_ref(aa, x),
+                                             xt, "A@X")
+                if not lib_ok:
+                    print(f"[bell] {name} at {m}, {bs}: library {lib_name}", flush=True)
+            # a library call that runs but is off is timed all the same (printed)
+            lib_runs = lib_ok or "refuses" not in lib_name
+            label = (f"{name}, {m} x {m}, blocks {bs}, {real} of {(m // bm) * (m // bn)} "
+                     f"stored (W {W}), K {BELL_K}, JAX regime "
+                     + (f"X-resident (bk {regime})" if regime else "streamed")
+                     + f"; set-up {build_s:.1f} s")
+            rec = _timed("K17", label, checked, err,
+                         lambda i: (lambda: bsr.spmm_bell(*copies[i])),
+                         lambda: bsr.spmm_bell_ref(aa, x), nbytes, ops,
+                         (lambda i: (lambda: csrs[i] @ copies[i][1])) if lib_runs else None,
+                         lib_name, reps=10, rate=rate)
+            if not lib_ok:
+                rec["lib"] = None
+            recs[(name, m, bs)] = rec
+            f32 = recs[("float32", m, bs)]["ms"]
+            l2 = chunks * 32 * BELL_K * ex
+            print(f"[bell] {name}, {m}², blocks {bs}: {real} real of {nbr * W} stored slots "
+                  f"({100 * real / (nbr * W):.1f}%); kernel / library "
+                  + (f"{rec['ms'] / rec['lib']:.3f}" if rec["lib"] else "none")
+                  + f", kernel / bound {rec['ms'] / rec['bound'][0]:.2f}; X rows staged "
+                  f"from L2 {l2 / 1e9:.4f} GB ({chunks} nonzero [{bm}, 32] chunks x 32 rows "
+                  f"x {BELL_K} columns x {ex} B); the float32 instance {f32:.5f} ms, "
+                  f"this / float32 {rec['ms'] / f32:.3f}", flush=True)
+            if name == "bf16 blocks, bf16 X" and m <= 4096:
+                dense = aa.todense()
+                print(f"[bell] {name}, {m}², blocks {bs}: dense bf16 torch.matmul of "
+                      f"todense() (cuBLAS) {graph_ms(lambda: dense @ x, 10):.5f} ms (graph "
+                      f"replay, L2-warm), not a yardstick of the table", flush=True)
+                del dense
+            del copies, csrs
+            if name == "float32" and k == 0:
+                _bell_tail(aa, x, rec["ms"])
+    for name in BELL_TYPES:
+        recs[(name, "err")] = max(errs[name])
+    return recs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3611,7 +3719,7 @@ def main() -> int:
     timed("validate-cli", phase_validate_cli)
     seg_recs = timed("segment", phase_segment, graph, dev)
     gen_launches = timed("gat-generic", phase_gat_generic, seed, graph, dev)
-    bell_rec, bell_launches = timed("bell", phase_bell, dev)
+    bell_recs, bell_launches = timed("bell", phase_bell, dev)
     timed("train-default", phase_train_default)
     timed("dia-env", phase_dia_env, dev)
     timed("rowblock", phase_rowblock, dev)
@@ -3699,12 +3807,21 @@ def main() -> int:
                                                if key.startswith(tag)),
                             "ms": d["ms"], "plain_ms": d["plain"], "bound_ms": d["bound"][0],
                             "bound_by": d["bound"][1], "library_ms": d["lib"]})
-    kernels.append({"name": "spmm_bell (K17a, K17b)", "route": "cuda",
-                    "source": src + "bsr.cu", "replaces": "gflownet_spai_tpu/ops/bsr.py:104",
-                    "launches": bell_launches, "max_abs_err": bell_rec["err"],
-                    "ms": bell_rec["ms"], "plain_ms": bell_rec["plain"],
-                    "bound_ms": bell_rec["bound"][0], "bound_by": bell_rec["bound"][1],
-                    "library_ms": bell_rec["lib"]})
+    # K17: each instance's launches on the [bell] path, its time at the
+    # first case, its largest error over the cases
+    for nm, inst, file in (("spmm_bell (K17a, K17b)", "float32", "bsr.cu"),
+                           ("spmm_bell (K17, bf16 blocks, bf16 X)", "bf16 blocks, bf16 X",
+                            "bsr_bf16.cu"),
+                           ("spmm_bell (K17, bf16 blocks, float32 X)", "bf16 blocks, float32 X",
+                            "bsr.cu")):
+        d = bell_recs[(inst,) + BELL_CASES[0]]
+        kernels.append({"name": nm, "route": "cuda", "source": src + file,
+                        "replaces": "gflownet_spai_tpu/ops/bsr.py:104",
+                        "launches": bell_launches[inst],
+                        "max_abs_err": bell_recs[(inst, "err")], "ms": d["ms"],
+                        "plain_ms": d["plain"], "bound_ms": d["bound"][0],
+                        "bound_by": d["bound"][1], "library_ms": d["lib"]})
+    bell_rec = bell_recs[("float32",) + BELL_CASES[0]]
     n_b = len(graph.gat_buckets)
     print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps (the sampling "
           f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
@@ -3726,10 +3843,15 @@ def main() -> int:
           f"their ms, plain_ms, library_ms and bound_ms the sums over that "
           f"forward + backward's calls {GEN_CALLS} at the [segment] phase's "
           f"widths (K5's library_ms eager sparse COO calls), max_abs_err the "
-          f"largest there and (K5, K5b) on the shuffled layout. K17 launches "
-          f"count the [bell] path (five spmm_bell calls, "
-          f"one spmv_bell); its ms are one call at 4096 x 4096, blocks (8, 128), "
-          f"K {BELL_K}, max_abs_err the largest over the [bell] cases. ms and "
+          f"largest there and (K5, K5b) on the shuffled layout. K17's three "
+          f"entries (float32; bf16 blocks with bf16 X, the tensor-core kernel; bf16 "
+          f"blocks with float32 X) count their instance's launches on the [bell] path "
+          f"({len(BELL_CASES)} spmm_bell calls, one on the irregular BELL, one "
+          f"spmv_bell each); their ms are one call at 4096 x 4096, blocks (8, 128), "
+          f"K {BELL_K}, max_abs_err the largest over the [bell] cases; the bound "
+          f"counts 2-byte words for bf16 operands and prices the bf16 x bf16 "
+          f"instance's operations at {TC_OPS_PER_S / 1e12:.0f} TFLOP/s; library_ms "
+          f"torch.sparse CSR of the stored values in X's dtype. ms and "
           f"library_ms are CUDA-graph replays (device "
           f"time; the DIA kernels and their library calls cycle through input "
           f"copies larger than L2); plain_ms are eager calls. Eager calls of the "

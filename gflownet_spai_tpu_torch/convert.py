@@ -38,8 +38,13 @@ def gatv2_params_from_jax(node, device=None) -> GATv2Params:
 
 def bell_from_jax(bell) -> BELL:
     """A JAX ``BELL``'s ``data``, ``bcols``, ``shape`` and ``nnz`` as a
-    numpy-backed port ``BELL`` (``.to(device)`` moves it)."""
-    return BELL(data=np.asarray(bell.data), bcols=np.asarray(bell.bcols, np.int32),
+    host port ``BELL`` (``.to(device)`` moves it): numpy arrays, except
+    bf16 ``data``, whose bits are carried through a 16-bit integer view
+    into a CPU ``torch.bfloat16`` tensor (numpy itself has no bf16)."""
+    data = np.asarray(bell.data)
+    if data.dtype.name == "bfloat16":
+        data = torch.from_numpy(data.view(np.int16).copy()).view(torch.bfloat16)
+    return BELL(data=data, bcols=np.asarray(bell.bcols, np.int32),
                 shape=tuple(bell.shape), nnz=int(bell.nnz))
 
 

@@ -7,6 +7,12 @@
 //
 //   Y[i.bm + r, c] = sum_w sum_j data[i, w, r, j] . X[bcols[i, w].bn + j, c]
 //
+// Blocks are float32, or bf16 (`TA`); X and Y are float32.  A bf16 block
+// element is widened to float32 where it is read from shared memory, and the
+// same FMAs run in the same order, so the bf16 instance gives the float32
+// instance's bits on the widened blocks.  (bf16 blocks with bf16 X run on
+// the tensor cores: csrc/bsr_bf16.cu.)
+//
 // Replaces both TPU kernels of gflownet_spai_tpu/ops/bsr.py:
 // `_spmm_bell_pallas` (a grid step per (block row, K tile, w) that streams one
 // [bn, bk] X block into VMEM through the scalar-prefetched bcols) and
@@ -22,7 +28,8 @@
 // - Padding.  A row with fewer real blocks than W is padded with zero
 //   blocks, and a real block may be zero in some chunks.  The block first
 //   reads all of its row's A words in one pass (several independent 16-byte
-//   loads per thread) and flags every chunk that holds a nonzero word; then
+//   loads per thread) and flags every chunk that holds a nonzero element
+//   (csrc/bsr_common.cuh, scan_chunks); then
 //   it stages and multiplies only the flagged chunks, in order.  This is
 //   exact for any block-ELL (padded slots, explicit zero blocks, unsorted or
 //   repeated block columns) and keeps no state between calls.  Skipped
@@ -30,9 +37,9 @@
 //   chunk, the kernel gives a finite sum and the plain version NaN.
 // - Shared-memory traffic.  Each thread keeps a register tile of kRm rows
 //   (all of bm up to 16) x 4 adjacent columns: an X float4 read from shared
-//   memory serves kRm rows, and A is read as broadcast float4.  Float32 FMAs
-//   only (no TF32, no tensor cores: the JAX package computes float32 blocks
-//   at precision="highest").
+//   memory serves kRm rows, and A is read as broadcast words of 4 elements.
+//   Float32 FMAs only (no TF32, no tensor cores: the JAX package computes
+//   float32 blocks at precision="highest").
 // - Warps per chunk.  kS warps split every chunk's kJ block columns, so a
 //   chunk's FMAs are spread over kS warps; at the end the splits' sums are
 //   added in split order (deterministic; each split sums its terms in
@@ -54,14 +61,12 @@
 
 #include <cuda_runtime.h>
 
+#include "bsr_common.cuh"
+
 namespace {
 
-constexpr int kCols = 128;        // X columns per block: a warp's 32 lanes x 4
-constexpr int kJ = 32;            // block columns per chunk
-constexpr int kAStride = kJ + 4;  // A row pitch in shared memory
-constexpr int kMaxChunks = 256;   // chunks flagged per scan pass
-constexpr int kScanLoads = 8;     // scan loads in flight per thread
-constexpr int kStages = 3;        // chunks in the cp.async ring
+using namespace bsr;
+using bf16 = __nv_bfloat16;
 
 // Register tile rows per thread (kRm) and warps splitting each chunk's kJ
 // block columns (kS), by bm; a block has bm / kRm x kS warps.
@@ -77,48 +82,36 @@ __host__ __device__ constexpr int threads() {
   return 32 * (BM / Tile<BM>::kRm) * Tile<BM>::kS;
 }
 
+// A row pitch in shared memory, in elements: a chunk row and 16 bytes
+template <typename TA>
+__host__ __device__ constexpr int a_stride() {
+  return kJ + 16 / static_cast<int>(sizeof(TA));
+}
+
 // the ring's slots of A and X (reused for the split sums), then the flags,
 // the list of nonzero chunks and their first X rows
-template <int BM>
-__host__ __device__ constexpr int ring_floats() {
-  return kStages * (BM * kAStride + kJ * kCols) > BM * kCols
-             ? kStages * (BM * kAStride + kJ * kCols)
-             : BM * kCols;
+template <typename TA, int BM>
+__host__ __device__ constexpr int ring_bytes() {
+  return kStages * (BM * a_stride<TA>() * static_cast<int>(sizeof(TA)) + kJ * kCols * 4) >
+                 BM * kCols * 4
+             ? kStages * (BM * a_stride<TA>() * static_cast<int>(sizeof(TA)) + kJ * kCols * 4)
+             : BM * kCols * 4;
 }
 
-template <int BM>
+template <typename TA, int BM>
 __host__ __device__ constexpr int smem_bytes() {
-  return ring_floats<BM>() * 4 + 3 * kMaxChunks * 4;
+  return ring_bytes<TA, BM>() + 3 * kMaxChunks * 4;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
+// four adjacent A elements of shared memory as float32 (bf16 widened exactly)
+__device__ __forceinline__ float4 a4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void cp_async16_l1(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ bool nonzero(const float4& v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+__device__ __forceinline__ float4 a4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
@@ -132,19 +125,24 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
 // group g = w % (bm / kRm) (rows g.kRm + 0..kRm-1) and split s = w / (bm /
 // kRm) (block columns s.kJ/kS + 0..kJ/kS-1 of every chunk); lane l: columns
 // 4l + 0..3.  VEC: K % 4 == 0 and X, Y 16-byte aligned (X staged and Y
-// stored as float4); else element by element.
-template <int BM, bool VEC>
+// stored as float4); else element by element.  TA: float or bf16 blocks.
+template <typename TA, int BM, bool VEC>
 __global__ void __launch_bounds__(threads<BM>())
-bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, int W,
+bell_spmm_kernel(const TA* __restrict__ data, const int* __restrict__ bcols, int W,
                  int bn, const float* __restrict__ x, int K, float* __restrict__ y) {
   constexpr int kRm = Tile<BM>::kRm, kS = Tile<BM>::kS, kG = BM / kRm;
   constexpr int kT = threads<BM>();
   constexpr int kJS = kJ / kS;        // block columns per split
-  constexpr int kF = BM * kJ / 4;     // float4 of A per chunk
+  constexpr int kE = 16 / static_cast<int>(sizeof(TA));   // A elements per 16-byte word
+  constexpr int kWR = kJ / kE;        // 16-byte words per chunk row
+  constexpr int kF = BM * kWR;        // 16-byte words of A per chunk
+  constexpr int kAStride = a_stride<TA>();
   extern __shared__ float4 smem4[];
-  float* a_s = reinterpret_cast<float*>(smem4);       // [kStages][BM][kAStride]
-  float* x_s = a_s + kStages * BM * kAStride;         // [kStages][kJ][kCols]
-  int* flag_s = reinterpret_cast<int*>(a_s + ring_floats<BM>());   // [kMaxChunks]
+  char* smem = reinterpret_cast<char*>(smem4);
+  TA* a_s = reinterpret_cast<TA*>(smem);              // [kStages][BM][kAStride]
+  float* x_s = reinterpret_cast<float*>(smem + kStages * BM * kAStride * sizeof(TA));
+                                                      // [kStages][kJ][kCols]
+  int* flag_s = reinterpret_cast<int*>(smem + ring_bytes<TA, BM>());   // [kMaxChunks]
   int* list_s = flag_s + kMaxChunks;                  // [kMaxChunks]
   int* xrow_s = list_s + kMaxChunks;                  // [kMaxChunks]
   __shared__ int count_s;
@@ -154,61 +152,21 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = warp % kG, s = warp / kG;
   const int cj = bn / kJ, n_chunks = W * cj;
-  const float* arow = data + i * W * static_cast<long long>(BM) * bn;
+  const TA* arow = data + i * W * static_cast<long long>(BM) * bn;
   const int* brow = bcols + i * W;
 
   float4 acc[kRm];
 #pragma unroll
   for (int q = 0; q < kRm; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // float4 f (row f / 8, block columns 4.(f % 8) + 0..3) of chunk c
-  auto a_ptr = [&](int c, int f) {
-    const int w = c / cj, j0 = (c - w * cj) * kJ;
-    return reinterpret_cast<const float4*>(
-        arow + (static_cast<long long>(w) * BM + (f >> 3)) * bn + j0 + (f & 7) * 4);
-  };
-  // flag the chunks s0 .. s0 + nch - 1 that hold a nonzero A word and list
-  // them in order, each with its first X row; returns how many
-  auto scan = [&](int s0, int nch) {
-    for (int c = tid; c < nch; c += kT) flag_s[c] = 0;
-    __syncthreads();
-    for (int e0 = tid; e0 < nch * kF; e0 += kScanLoads * kT) {
-      float4 v[kScanLoads];
-#pragma unroll
-      for (int u = 0; u < kScanLoads; ++u) {
-        const int e = e0 + u * kT;
-        v[u] = e < nch * kF ? __ldg(a_ptr(s0 + e / kF, e % kF))
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kScanLoads; ++u)
-        if (nonzero(v[u])) flag_s[(e0 + u * kT) / kF] = 1;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int base = 0;
-      for (int c = 0; c < nch; c += 32) {
-        const bool f = c + lane < nch && flag_s[c + lane];
-        const unsigned m = __ballot_sync(0xffffffffu, f);
-        if (f) {
-          const int k = base + __popc(m & ((1u << lane) - 1u)), ch = s0 + c + lane;
-          const int w = ch / cj;
-          list_s[k] = ch;
-          xrow_s[k] = __ldg(brow + w) * bn + (ch - w * cj) * kJ;
-        }
-        base += __popc(m);
-      }
-      if (lane == 0) count_s = base;
-    }
-    __syncthreads();
-    return count_s;
-  };
   // stage listed chunk k into ring slot b (cp.async, not committed)
   auto stage = [&](int k, int b) {
-    float* as = a_s + b * BM * kAStride;
+    TA* as = a_s + b * BM * kAStride;
     const int c = list_s[k];
     for (int f = tid; f < kF; f += kT)
-      cp_async16_l1(as + (f >> 3) * kAStride + (f & 7) * 4, a_ptr(c, f));
+      cp_async16_l1(as + (static_cast<unsigned>(f) / kWR) * kAStride
+                        + (static_cast<unsigned>(f) % kWR) * kE,
+                    a_word<TA, BM>(arow, bn, cj, c, f));
     const long long xrow0 = xrow_s[k];
     float* xs = x_s + b * kJ * kCols;
     if constexpr (VEC) {
@@ -227,7 +185,7 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
   };
   // this warp's rows x its block columns of ring slot b
   auto compute = [&](int b) {
-    const float* as = a_s + b * BM * kAStride + g * kRm * kAStride + s * kJS;
+    const TA* as = a_s + b * BM * kAStride + g * kRm * kAStride + s * kJS;
     const float* xs = x_s + b * kJ * kCols + s * kJS * kCols + lane * 4;
 #pragma unroll
     for (int j4 = 0; j4 < kJS; j4 += 4) {
@@ -237,7 +195,7 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
         xv[u] = *reinterpret_cast<const float4*>(xs + (j4 + u) * kCols);
 #pragma unroll
       for (int q = 0; q < kRm; ++q) {
-        const float4 a = *reinterpret_cast<const float4*>(as + q * kAStride + j4);
+        const float4 a = a4(as + q * kAStride + j4);
         fma4(acc[q], a.x, xv[0]);
         fma4(acc[q], a.y, xv[1]);
         fma4(acc[q], a.z, xv[2]);
@@ -249,7 +207,8 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
   // scan passes of kMaxChunks; the nonzero chunks of each go through a
   // cp.async ring, kStages - 1 staged ahead of the one being multiplied
   for (int s0 = 0; s0 < n_chunks; s0 += kMaxChunks) {
-    const int L = scan(s0, min(kMaxChunks, n_chunks - s0));
+    const int L = scan_chunks<TA, BM, kT>(arow, brow, bn, s0, min(kMaxChunks, n_chunks - s0),
+                                          flag_s, list_s, xrow_s, &count_s);
 #pragma unroll
     for (int u = 0; u < kStages - 1; ++u) {
       if (u < L) stage(u, u);
@@ -268,7 +227,7 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
 
   // add the splits' sums in split order (through the ring's memory), and
   // split 0 writes Y
-  float* red = a_s;                                   // [BM][kCols]
+  float* red = reinterpret_cast<float*>(smem);        // [BM][kCols]
   for (int t = 1; t < kS; ++t) {
     if (s == t) {
 #pragma unroll
@@ -305,51 +264,60 @@ bell_spmm_kernel(const float* __restrict__ data, const int* __restrict__ bcols, 
   }
 }
 
-template <int BM, bool VEC>
-int launch(const float* data, const int* bcols, int nbr, int W, int bn, const float* x,
+template <typename TA, int BM, bool VEC>
+int launch(const void* data, const int* bcols, int nbr, int W, int bn, const float* x,
            int K, float* y, cudaStream_t st) {
-  constexpr int smem = smem_bytes<BM>();
+  constexpr int smem = smem_bytes<TA, BM>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bell_spmm_kernel<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bell_spmm_kernel<TA, BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const dim3 grid(static_cast<unsigned>(nbr), static_cast<unsigned>((K + kCols - 1) / kCols));
-  bell_spmm_kernel<BM, VEC><<<grid, threads<BM>(), smem, st>>>(data, bcols, W, bn, x, K, y);
+  bell_spmm_kernel<TA, BM, VEC><<<grid, threads<BM>(), smem, st>>>(
+      static_cast<const TA*>(data), bcols, W, bn, x, K, y);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool VEC>
-int dispatch(const float* d, const int* b, int nbr, int W, int bm, int bn, const float* x,
+template <typename TA, bool VEC>
+int dispatch(const void* d, const int* b, int nbr, int W, int bm, int bn, const float* x,
              int K, float* y, cudaStream_t st) {
   switch (bm) {
-    case 8: return launch<8, VEC>(d, b, nbr, W, bn, x, K, y, st);
-    case 16: return launch<16, VEC>(d, b, nbr, W, bn, x, K, y, st);
-    case 32: return launch<32, VEC>(d, b, nbr, W, bn, x, K, y, st);
-    case 64: return launch<64, VEC>(d, b, nbr, W, bn, x, K, y, st);
-    case 128: return launch<128, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 8: return launch<TA, 8, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 16: return launch<TA, 16, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 32: return launch<TA, 32, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 64: return launch<TA, 64, VEC>(d, b, nbr, W, bn, x, K, y, st);
+    case 128: return launch<TA, 128, VEC>(d, b, nbr, W, bn, x, K, y, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <typename TA>
+int dispatch(const void* d, const int* b, int nbr, int W, int bm, int bn, const float* x,
+             int K, float* y, int vec, cudaStream_t st) {
+  return vec ? dispatch<TA, true>(d, b, nbr, W, bm, bn, x, K, y, st)
+             : dispatch<TA, false>(d, b, nbr, W, bm, bn, x, K, y, st);
+}
+
 }  // namespace
 
-// K17.  data [nbr, W, bm, bn] (16-byte aligned), bcols [nbr, W], x [nbc.bn, K],
-// y [nbr.bm, K]; bm in {8, 16, 32, 64, 128}, bn a multiple of 32, at most
-// 65,535 column tiles of kCols.  vec: K % 4 == 0 and x, y 16-byte aligned.
+// K17 on CUDA cores.  data [nbr, W, bm, bn] (16-byte aligned; float32 for
+// types 0, bf16 for types 1), bcols [nbr, W], x [nbc.bn, K] and y [nbr.bm, K]
+// float32; bm in {8, 16, 32, 64, 128}, bn a multiple of 32, at most 65,535
+// column tiles of kCols.  vec: K % 4 == 0 and x, y 16-byte aligned.
 extern "C" int bell_spmm(const void* data, const void* bcols, int nbr, int W, int bm,
-                         int bn, const void* x, int K, void* y, int vec, void* stream) {
+                         int bn, const void* x, int K, void* y, int vec, int types,
+                         void* stream) {
   if (nbr < 0 || W < 1 || bn < kJ || bn % kJ || K < 1 || (K + kCols - 1) / kCols > 65535
-      || reinterpret_cast<unsigned long long>(data) % 16)
+      || reinterpret_cast<unsigned long long>(data) % 16 || types < 0 || types > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nbr == 0) return static_cast<int>(cudaGetLastError());
-  const auto* d = static_cast<const float*>(data);
   const auto* b = static_cast<const int*>(bcols);
   const auto* xx = static_cast<const float*>(x);
   auto* yy = static_cast<float*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch<true>(d, b, nbr, W, bm, bn, xx, K, yy, st)
-             : dispatch<false>(d, b, nbr, W, bm, bn, xx, K, yy, st);
+  return types == 0 ? dispatch<float>(data, b, nbr, W, bm, bn, xx, K, yy, vec, st)
+                    : dispatch<bf16>(data, b, nbr, W, bm, bn, xx, K, yy, vec, st);
 }

@@ -6,7 +6,7 @@ row gather and scatter-add (K3, K4, ``segment``), the DIA family
 k-step SpMV on one or K right-hand sides (K12, K14), fused Chebyshev
 steps (K13) and the SpMMs (K15, K16), on float32 or bf16 diagonals
 (``dia_astype``), and the block-ELL SpMM (K17,
-``bsr``); plus the banded product ``spgemm_dia`` (plain PyTorch), the
+``bsr``) on float32 or bf16 blocks; plus the banded product ``spgemm_dia`` (plain PyTorch), the
 RCM reordering, the band statistics and the scans with analytic
 adjoints."""
 

@@ -7,12 +7,30 @@ row's block count, and ``bcols`` int32 [n_block_rows, W] block-column ids.
 Padded blocks point at block-column 0 with zero data, so they add nothing
 and need no mask.
 
-``spmm_bell`` launches K17 (``csrc/bsr.cu``) on CUDA tensors.  One kernel
-serves both TPU variants, the streamed ``_spmm_bell_pallas`` and the
-X-resident ``_spmm_bell_pallas_resident``: their split is a VMEM matter
+``spmm_bell`` launches K17 on CUDA tensors.  One kernel design serves
+both TPU variants, the streamed ``_spmm_bell_pallas`` and the X-resident
+``_spmm_bell_pallas_resident``: their split is a VMEM matter
 (``_resident_bk`` is kept verbatim so the regime JAX would pick can be
-named).  CPU tensors take the plain version ``spmm_bell_ref``.  Only
-float32 blocks run on the card; bf16 storage is not ported.
+named).  CPU tensors take the plain version ``spmm_bell_ref``.
+
+The dtype rule (blocks, X → output, and the kernel that runs on the card):
+
+- float32, float32 → float32: ``bell_spmm`` (``csrc/bsr.cu``), float32
+  FMAs on CUDA cores;
+- bf16, float32 → float32: the same kernel's bf16-block instance, which
+  widens each bf16 word to float32 and runs the same FMAs in the same
+  order (the float32 instance's bits on ``data.float()``);
+- float32, bf16 → float32: X is promoted to float32 first, as
+  ``spmm_bell_jnp`` promotes it, and the float32 instance runs;
+- bf16, bf16 → bf16: ``bell_spmm_bf16`` (``csrc/bsr_bf16.cu``), bf16
+  tensor-core MMAs with float32 accumulators;
+- any other dtype (float16, float64, …) raises ``ValueError`` on the card.
+
+Every product and sum is float32, and the output is rounded once, where it
+is stored: the output dtype is promote(blocks, X), ``spmm_bell_jnp``'s.
+The JAX TPU kernels differ: both store the blocks' dtype whatever X is
+(bf16 blocks with float32 X give bf16), and the streamed one sums its W
+block products in the bf16 output block.
 """
 
 from __future__ import annotations
@@ -33,6 +51,14 @@ _BMS = (8, 16, 32, 64, 128)   # block heights the kernel is built for
 _BN_STEP = 32                 # block widths: multiples of the kernel's staged chunk
 _MAX_K = 65535 * 128          # the kernel's grid holds 65,535 tiles of 128 columns
 _REF_WORDS = 1 << 28          # plain version: gathered X words per chunk of block rows
+# The kernels' (blocks, X) dtypes: the instance code, and each instance's
+# name in ``spmm_bell.type_launches``
+_TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
+          (torch.bfloat16, torch.bfloat16): 2}
+_TYPE_NAMES = ("float32", "bf16 blocks, float32 X", "bf16 blocks, bf16 X")
+# (data, bcols, nbr, W, bm, bn, x, K, y, vec) of both C entry points
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,11 +81,13 @@ class BELL:
 
     def to(self, device) -> "BELL":
         """Torch tensors on ``device`` (``bcols`` stays int32, the kernel's
-        index type)."""
+        index type; bf16 ``data`` is a torch tensor already, numpy has no
+        bf16)."""
+        data = self.data.to(device) if isinstance(self.data, torch.Tensor) \
+            else torch.as_tensor(to_numpy(self.data), device=device)
         return dataclasses.replace(
-            self, data=torch.as_tensor(to_numpy(self.data), device=device),
-            bcols=torch.as_tensor(to_numpy(self.bcols), dtype=torch.int32,
-                                  device=device))
+            self, data=data, bcols=torch.as_tensor(to_numpy(self.bcols), dtype=torch.int32,
+                                                   device=device))
 
     def todense(self) -> torch.Tensor:
         data = torch.as_tensor(self.data)
@@ -108,19 +136,23 @@ def csr_to_bell(csr: CSR, blockshape=(8, 128)) -> BELL:
 def spmm_bell_ref(a: BELL, x: torch.Tensor) -> torch.Tensor:
     """Plain version of K17 (the JAX package's ``spmm_bell_jnp``): gather
     the X blocks each block row needs and multiply them batched, in full
-    float32.  Block rows go in chunks, so the gathered blocks stay under
-    ``_REF_WORDS`` words."""
+    float32 (bf16 blocks and X widened first), rounded once to
+    promote(blocks, X).  Block rows go in chunks, so the gathered blocks
+    stay under ``_REF_WORDS`` words."""
     nbr, W, bm, bn = a.data.shape
     K = x.shape[1]
-    xb = x.reshape(-1, bn, K)
+    out = torch.promote_types(a.data.dtype, x.dtype)
+    acc = torch.promote_types(out, torch.float32)
+    data = a.data.to(acc)
+    xb = x.to(acc).reshape(-1, bn, K)
     bcols = a.bcols.long()
     step = max(1, _REF_WORDS // (W * bn * K))
     parts = []
     with f32_exact():
         for r0 in range(0, nbr, step):
             g = xb[bcols[r0:r0 + step]]                     # [r, W, bn, K]
-            parts.append(torch.einsum("rwij,rwjk->rik", a.data[r0:r0 + step], g))
-    return torch.cat(parts).reshape(nbr * bm, K)
+            parts.append(torch.einsum("rwij,rwjk->rik", data[r0:r0 + step], g))
+    return torch.cat(parts).reshape(nbr * bm, K).to(out)
 
 
 _BELL_VMEM_BUDGET = 10 * 1024 * 1024   # X-tile budget of the TPU's 16 MiB/core
@@ -140,16 +172,19 @@ def _resident_bk(a: BELL, K: int) -> int | None:
 _BCOLS_CHECKED = WeakIdKeyDictionary()   # bcols tensor → its ids are in range
 
 
-def _check(a: BELL, x: torch.Tensor):
+def _check(a: BELL, x: torch.Tensor) -> int:
+    """The kernels take contiguous tensors on X's device, of the dtypes of
+    ``_TYPES``.  Returns the instance's code."""
     for t, what in ((a.data, "data"), (a.bcols, "bcols"), (x, "X")):
         if not isinstance(t, torch.Tensor) or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"spmm_bell: {what} must be a contiguous tensor on "
                              f"{x.device} (BELL.to(device))")
-    if a.data.dtype != torch.float32 or x.dtype != torch.float32:
-        raise ValueError(f"spmm_bell: expected float32 blocks and X, got "
-                         f"{a.data.dtype} and {x.dtype} (bf16 BELL storage is "
-                         "not ported)")
+    code = _TYPES.get((a.data.dtype, x.dtype))
+    if code is None:
+        raise ValueError(f"spmm_bell: blocks {a.data.dtype} with X {x.dtype}: the kernels "
+                         "take float32 or bfloat16 blocks with float32 X, or bfloat16 "
+                         "blocks with bfloat16 X (float32 blocks promote a bfloat16 X)")
     nbr, W, bm, bn = a.data.shape
     if a.bcols.dtype != torch.int32 or tuple(a.bcols.shape) != (nbr, W):
         raise ValueError(f"spmm_bell: bcols must be int32 [{nbr}, {W}]")
@@ -167,34 +202,42 @@ def _check(a: BELL, x: torch.Tensor):
     if not _BCOLS_CHECKED[a.bcols]:
         raise ValueError(f"spmm_bell: bcols holds block-column ids outside "
                          f"[0, {a.shape[1] // bn})")
+    return code
 
 
 def spmm_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
-    """Y = A·X for dense X [n, K] → [m, K].  K17 (``csrc/bsr.cu``) on
-    CUDA tensors, ``spmm_bell_ref`` on CPU tensors.
+    """Y = A·X for dense X [n, K] → [m, K] in promote(blocks, X).  K17 on
+    CUDA tensors (the module docstring's dtype rule names the kernel),
+    ``spmm_bell_ref`` on CPU tensors.
 
-    The kernel skips the products of every all-zero [bm, 32] chunk of A
+    The kernels skip the products of every all-zero [bm, 32] chunk of A
     (padded slots, zero blocks).  So where X holds inf or NaN in the rows
     under such a chunk, the kernel's sum stays finite and the plain
     version's is NaN (0·inf); for finite X the two agree to rounding."""
     if x.device.type == "cpu":
         return spmm_bell_ref(a, x)
-    _check(a, x)
+    if isinstance(a.data, torch.Tensor) and a.data.dtype == torch.float32 \
+            and x.dtype == torch.bfloat16:
+        x = x.float()
+    code = _check(a, x)
     nbr, W, bm, bn = a.data.shape
     K = x.shape[1]
-    # the kernel reads A as 16-byte words: a view at an unaligned offset is copied
+    # the kernels read A as 16-byte words: a view at an unaligned offset is copied
     data = a.data if a.data.data_ptr() % 16 == 0 else a.data.clone()
     y = torch.empty((a.shape[0], K), dtype=x.dtype, device=x.device)
-    vec = K % 4 == 0 and x.data_ptr() % 16 == 0
-    fn = _build.load("bsr").bell_spmm
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
+    # 16-byte X and Y rows: K a multiple of a 16-byte word's elements
+    vec = K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
+    if code == 2:       # bf16 x bf16: the tensor-core kernel
+        fn, types = _build.load("bsr_bf16").bell_spmm_bf16, []
+    else:               # the CUDA-core kernel's float32 or bf16-block instance
+        fn, types = _build.load("bsr").bell_spmm, [code]
+    fn.argtypes = _ARGTYPES + [ctypes.c_int] * len(types) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _build.check(fn(data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn,
-                    x.data_ptr(), K, y.data_ptr(), int(vec),
+    _build.check(fn(data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn, x.data_ptr(), K,
+                    y.data_ptr(), int(vec), *types,
                     torch.cuda.current_stream(x.device).cuda_stream), "spmm_bell")
     spmm_bell.launches += 1
+    spmm_bell.type_launches[_TYPE_NAMES[code]] += 1
     return y
 
 
@@ -204,3 +247,4 @@ def spmv_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
 
 
 spmm_bell.launches = 0
+spmm_bell.type_launches = dict.fromkeys(_TYPE_NAMES, 0)   # by (blocks, X) dtypes

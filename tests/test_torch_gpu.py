@@ -1623,7 +1623,7 @@ def test_k17_many_chunks(cuda, no_plain_mod, W):
 def test_k17_refuses_what_it_does_not_take(cuda):
     _, a = _bell_case(cuda, (8, 128), m=64, n=256, density=0.3)
     x = torch.zeros((256, 8), device=cuda)
-    for bad, xx in ((dataclasses.replace(a, data=a.data.to(torch.bfloat16)), x),
+    for bad, xx in ((dataclasses.replace(a, data=a.data.to(torch.float16)), x),
                     (dataclasses.replace(a, bcols=a.bcols.long()), x),
                     (dataclasses.replace(a, bcols=torch.full_like(a.bcols, 2)), x),
                     (a, x.double()), (a, x[:128]), (a.to("cpu"), x)):
@@ -1632,6 +1632,140 @@ def test_k17_refuses_what_it_does_not_take(cuda):
     _, odd = _bell_case(cuda, (12, 128), m=96, n=256, density=0.3)
     with pytest.raises(ValueError, match="bm in"):
         bsr.spmm_bell(odd, x)
+
+
+def _bf16_ulp(v):
+    """One bf16 unit in the last place of each element of ``v`` (0 at 0)."""
+    v = v.float()
+    return torch.where(v == 0, torch.zeros_like(v),
+                       torch.ldexp(torch.ones_like(v), torch.frexp(v)[1] - 8))
+
+
+def _hold_k17_bf16(a, x, got, ref):
+    """K17's bf16 output against its plain version on the same inputs: one
+    bf16 ulp of the plain value (the two float32 sums may round to
+    neighbouring bf16 values) plus 4·eps32·(|A|·|X|) (the float32 sums'
+    other order)."""
+    want = ref(a, x)
+    mag = ref(dataclasses.replace(a, data=a.data.abs()), x.abs()).float()
+    assert got.dtype == want.dtype == BF16
+    err = (got.float() - want.float()).abs()
+    bound = _bf16_ulp(want) + 4 * EPS32 * mag
+    assert bool((err <= bound).all()), f"max err {float(err.max()):.3e}"
+
+
+def _bf16_case(cuda, blockshape, K, kind):
+    """bf16 blocks (the float32 case rounded; ``unaligned`` puts A's blocks
+    and X one element into their storage) and X in float32 and bf16."""
+    if kind == "random":
+        rng, a = _bell_case(cuda, blockshape)
+    else:
+        rng, host = _irregular_bell(blockshape)
+        a = host.to(cuda)
+    off = int(kind == "unaligned")
+    data = torch.empty(a.data.numel() + off, dtype=BF16, device=cuda)[off:].view_as(a.data)
+    a = dataclasses.replace(a, data=data.copy_(a.data))
+    assert a.data.is_contiguous() and bool(off) == bool(a.data.data_ptr() % 16)
+    x32 = torch.as_tensor(rng.standard_normal((a.shape[1], K)), dtype=torch.float32,
+                          device=cuda)
+    xb = torch.empty(x32.numel() + off, dtype=BF16, device=cuda)[off:].view_as(x32)
+    return a, x32, xb.copy_(x32)
+
+
+@pytest.mark.parametrize("blockshape", [(8, 128), (16, 32), (32, 128), (64, 64),
+                                        (128, 128)])
+@pytest.mark.parametrize("K", [1, 7, 128, 200, 256])
+@pytest.mark.parametrize("kind", ["random", "irregular", "unaligned"])
+def test_k17_bf16_matches_plain(cuda, no_plain_mod, blockshape, K, kind):
+    """bf16 blocks at every bm: on bf16 X the tensor-core kernel against the
+    plain version and a second launch's bits; on float32 X the CUDA-core
+    kernel's bf16-block instance, bit for bit the float32 instance on the
+    widened blocks.  ``unaligned``: A copied by the wrapper, X element by
+    element (as is any K % 8 != 0); K 1 through ``spmv_bell``."""
+    a, x32, xb = _bf16_case(cuda, blockshape, K, kind)
+    ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
+    call = (lambda aa, xx: bsr.spmm_bell(aa, xx)) if K > 1 else \
+        (lambda aa, xx: bsr.spmv_bell(aa, xx[:, 0])[:, None])
+    counts = dict(bsr.spmm_bell.type_launches)
+    got = call(a, xb)
+    torch.cuda.synchronize()
+    assert bsr.spmm_bell.type_launches["bf16 blocks, bf16 X"] == \
+        counts["bf16 blocks, bf16 X"] + 1 and got.shape == (a.shape[0], K)
+    _hold_k17_bf16(a, xb, got, ref)
+    assert torch.equal(call(a, xb), got)
+    got32 = call(a, x32)
+    torch.cuda.synchronize()
+    assert bsr.spmm_bell.type_launches["bf16 blocks, float32 X"] == \
+        counts["bf16 blocks, float32 X"] + 1 and got32.dtype == torch.float32
+    wide = dataclasses.replace(a, data=a.data.float())
+    assert torch.equal(got32, call(wide, x32))
+    if kind != "random":
+        empty = (a.data.abs().amax(dim=(1, 2, 3)) == 0).repeat_interleave(blockshape[0])
+        assert bool(empty.any()) and not got[empty].any() and not got32[empty].any()
+
+
+@pytest.mark.parametrize("W", [64, 70])
+def test_k17_bf16_many_chunks(cuda, no_plain_mod, W):
+    """Both bf16-block instances on block rows of one full scan pass (W 64
+    at bn 128: 256 chunks) and of two (W 70)."""
+    rng, host = _irregular_bell((8, 128), m=64, n=1024, W=W)
+    a = host.to(cuda)
+    a = dataclasses.replace(a, data=a.data.to(BF16))
+    ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
+    x32 = torch.as_tensor(rng.standard_normal((a.shape[1], 264)), dtype=torch.float32,
+                          device=cuda)
+    got = bsr.spmm_bell(a, x32.to(BF16))
+    torch.cuda.synchronize()
+    _hold_k17_bf16(a, x32.to(BF16), got, ref)
+    assert torch.equal(bsr.spmm_bell(a, x32),
+                       bsr.spmm_bell(dataclasses.replace(a, data=a.data.float()), x32))
+
+
+def test_k17_promotes_bf16_x_on_float32_blocks(cuda):
+    """float32 blocks with bf16 X: X promoted to float32 and the float32
+    instance run, a float32 result."""
+    rng, a = _bell_case(cuda, (32, 128), m=256, n=512, density=0.2)
+    xb = torch.as_tensor(rng.standard_normal((512, 40)), dtype=BF16, device=cuda)
+    before = bsr.spmm_bell.type_launches["float32"]
+    got = bsr.spmm_bell(a, xb)
+    assert got.dtype == torch.float32
+    assert bsr.spmm_bell.type_launches["float32"] == before + 1
+    assert torch.equal(got, bsr.spmm_bell(a, xb.float()))
+
+
+@pytest.mark.parametrize("blocks,xdt", [(torch.float16, torch.float32),
+                                        (torch.float64, torch.float32),
+                                        (torch.float64, torch.float64),
+                                        (torch.float32, torch.float16),
+                                        (BF16, torch.float16), (BF16, torch.float64)])
+def test_k17_refuses_other_dtypes(cuda, blocks, xdt):
+    _, a = _bell_case(cuda, (8, 128), m=64, n=256, density=0.3)
+    a = dataclasses.replace(a, data=a.data.to(blocks))
+    with pytest.raises(ValueError, match="spmm_bell: blocks"):
+        bsr.spmm_bell(a, torch.zeros((256, 8), dtype=xdt, device=cuda))
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, BF16])
+def test_k17_bf16_inf_under_zero_chunk_stays_finite(cuda, xdt):
+    """bf16 blocks: X rows under an all-zero chunk (an explicit zero block, a
+    32-column zero chunk of a real block) hold inf; the kernels skip those
+    chunks and the sums stay finite, where the plain version gives NaN."""
+    data = torch.zeros((2, 2, 16, 128))
+    data[0, 0] = 1.0
+    data[0, 0, :, 32:64] = 0.0          # a zero chunk of a real block
+    cols = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)   # row 0 slot 1: a zero block
+    data[1, 1] = 0.5
+    data[1, 1, :, 32:64] = 0.0
+    a = bsr.BELL(data=data.to(BF16), bcols=cols, shape=(32, 256), nnz=2 * 16 * 128).to(cuda)
+    x = torch.ones((256, 16), dtype=xdt, device=cuda)
+    x[128:] = float("inf")              # under row 0's zero block and row 1's slot 0 (zero)
+    x[32:64] = float("inf")             # under the zero chunk of row 0's real block
+    got = bsr.spmm_bell(a, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got[:16].float(), torch.full((16, 16), 96.0, device=cuda))
+    assert torch.equal(got[16:].float(), torch.full((16, 16), 48.0, device=cuda))
+    assert torch.isnan(bsr.spmm_bell_ref(a, x)[:16]).any()
 
 
 # ---------------------------------------------------------------------------
