@@ -61,7 +61,17 @@ Phases (any failure exits non-zero before the result line):
                selection picks must not be more than 3% slower than the
                other.  Kernel (CUDA-graph replays cycling through input
                copies larger than L2 together, and one L2-warm copy),
-               eager, plain, bound and (K8) torch.sparse CSR times.  The
+               eager, plain, bound and (K8) torch.sparse CSR times.  K8
+               reads a diagonal only in the 64-row tiles its segment flags
+               set (its skip path, from 16 diagonals; a narrow band takes
+               its rows path): each K8 case prints the flagged share of
+               the stored words, the flags' build time, two bounds, the
+               flagged segments with x, y and the flags (the record's)
+               and every stored word (the TPU kernels' work), and both
+               paths' times ([K8-paths]: the same bits, and the rule's
+               path not more than 3% slower); K8 on orsirr_like150 with
+               inf and NaN in x gives NaN and inf in the plain version's
+               rows, in each instance.  The
                poisson1024 cases of K8 (and orsirr_like150's), K12 and K13
                at k 2 then run on the same inputs through the bf16
                (``dia_astype``) diagonals, with float32 and with bf16
@@ -1199,6 +1209,8 @@ def _uncounted():
 def _reset(counters=DIA_COUNTERS):
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "path_launches"):
+            fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
 def _bf16_bound(k):
@@ -1374,6 +1386,95 @@ def _irregular(n, offsets, dev):
                    nnz=len(offsets) * n)
 
 
+def _k8_segments(d, name=None):
+    """The diagonal words in the 64-row segments K8's flags set (the ragged
+    last tile's rows only); with ``name``, print their share of the stored
+    words and the flags' build time (device, graph replay)."""
+    rows = dia._FLAG_ROWS
+    per_tile = torch.clamp(d.n_pad - rows * torch.arange(d.flags.shape[0], device=d.flags.device),
+                           max=rows)
+    words = int((d.flags.to(torch.int64) * per_tile[:, None]).sum())
+    if name is not None:
+        build = graph_ms(lambda: dia._segment_flags(d.data), 10)
+        print(f"[K8] {name}: the flags set {int(d.flags.sum())} of {d.flags.numel()} "
+              f"segments of {rows} rows, {words} of {d.ndiags * d.n_pad} stored words "
+              f"({100 * words / (d.ndiags * d.n_pad):.2f}%); the flags ({d.flags.numel()} "
+              f"bytes) are built in {build:.5f} ms (device, graph replay)", flush=True)
+    return words
+
+
+def _k8_stored_bound(rec, d, ed, ev, label):
+    """Print K8's second bound, every stored word with x and y once (the
+    work of the TPU kernels, which read every word), beside the record's."""
+    b, by = bound_ms(ed * d.ndiags * d.n_pad + 2 * ev * d.n, 2 * d.ndiags * d.n_pad)
+    print(f"[K8] {label}: bounds: flagged segments, x, y and flags {rec['bound'][0]:.6f} ms "
+          f"({rec['bound'][1]}); every stored word, x and y {b:.6f} ms ({by}); kernel "
+          f"{rec['ms'] / rec['bound'][0]:.1f}x and {rec['ms'] / b:.2f}x", flush=True)
+
+
+@contextlib.contextmanager
+def _k8_path(skip):
+    """K8 on its skip path (or its rows path) whatever the rule says."""
+    saved = dia._K8_SKIP_MIN_DIAGS
+    dia._K8_SKIP_MIN_DIAGS = 0 if skip else 1 << 30
+    try:
+        yield
+    finally:
+        dia._K8_SKIP_MIN_DIAGS = saved
+
+
+def _k8_paths(label, d, x):
+    """K8's two paths on one case: the same bits, NaN included, and each
+    timed as ``_timed`` does (graph replays over cold copies); fails if
+    the rule's path (``ops/dia.py`` ``_k8_skips``) is more than
+    ``RULE_MARGIN`` slower than the other."""
+    ys, ms = {}, {}
+    n_copies = _copies(d.data.numel() * d.data.element_size() + 2 * x.numel() * x.element_size())
+    copies = [(d, x)] + [(_dia_copy(d), x.clone()) for _ in range(1, n_copies)]
+    for skip in (False, True):
+        with _k8_path(skip):
+            ys[skip] = dia.spmv_dia(d, x)
+            ms[skip] = graph_ms(_cycle([lambda c=c: dia.spmv_dia(*c) for c in copies]), 20)
+    torch.cuda.synchronize()
+    view = torch.int16 if x.element_size() == 2 else torch.int32
+    if not torch.equal(ys[False].view(view), ys[True].view(view)):
+        fail(f"K8's skip path differs from its rows path ({label})")
+    pick = dia._k8_skips(d)
+    verdict = "faster" if ms[pick] <= ms[not pick] else \
+        f"slower by {100 * (ms[pick] / ms[not pick] - 1):.1f}%"
+    print(f"[K8-paths] {label}: skip path equals rows path bit for bit; rows {ms[False]:.5f} "
+          f"ms, skip {ms[True]:.5f} ms; the rule ({d.ndiags} diagonals, skip from "
+          f"{dia._K8_SKIP_MIN_DIAGS}) picks {'skip' if pick else 'rows'}: {verdict}", flush=True)
+    if ms[pick] > (1 + RULE_MARGIN) * ms[not pick]:
+        fail(f"K8 ({label}): the rule's path is {verdict} than the other")
+
+
+def _k8_nonfinite(d, rnd):
+    """K8 with inf at 4 and NaN at 4 entries of x, in each instance, on the
+    rule's path: NaN and inf in the same rows as the plain version (stored
+    zeros of skipped segments reach most of them: fma(+0.0, inf) is NaN),
+    the rest within the record's tolerance (bf16 vectors: its bits)."""
+    x = rnd(d.n)
+    idx = torch.randperm(d.n, generator=torch.Generator().manual_seed(5))[:8].to(x.device)
+    x[idx[:4]], x[idx[4:]] = float("inf"), float("nan")
+    for dd, xv, what in ((d, x, "float32"), (dia.dia_astype(d, BF16), x, "bf16 diagonals, "
+                                             "float32 vectors"),
+                         (dia.dia_astype(d, BF16), x.to(BF16), "bf16")):
+        got, want = dia.spmv_dia(dd, xv), dia.spmv_dia_ref(dd, xv)
+        torch.cuda.synchronize()
+        nan, inf = want.isnan(), want.isinf()
+        if not (torch.equal(got.isnan(), nan) and torch.equal(got.isinf(), inf)):
+            fail(f"K8 with inf and NaN in x ({what}): NaN in {int(got.isnan().sum())} rows, "
+                 f"inf in {int(got.isinf().sum())}; the plain version {int(nan.sum())}, "
+                 f"{int(inf.sum())}")
+        fin = want.isfinite()
+        err, checked = _check("K8", f"{MATRIX} with inf and NaN in x, {what}", [got[fin]],
+                              [want[fin]], 1)
+        print(f"[K8] {MATRIX} ({what}) with inf at 4 and NaN at 4 entries of x: NaN in the "
+              f"plain version's {int(nan.sum())} rows, inf in its {int(inf.sum())}; the "
+              f"other rows {checked}", flush=True)
+
+
 def phase_dia(dev):
     """K8, K12 and K13 against their plain versions at the validation
     path's shapes; on poisson1024 (and K8 on orsirr_like150), with the same
@@ -1393,7 +1494,7 @@ def phase_dia(dev):
     out = {}
     record = _record
 
-    # K8: y = A·x, stored diagonals + x + y once
+    # K8: y = A·x; bound: the flagged segments' words, x, y and the flags once
     for name, dd, coo in ((f"poisson{POISSON}", d, pois), (MATRIX, dors, ors)):
         x = rnd(dd.n)
         csr = torch.sparse_coo_tensor(
@@ -1403,7 +1504,8 @@ def phase_dia(dev):
         want = dia.spmv_dia_ref(dd, x)
         if not float((lib_y - want).abs().max()) <= _dia_tol(want, 1):
             fail("the torch.sparse yardstick does not compute K8's function")
-        nbytes = 4 * (dd.ndiags * dd.n_pad + 2 * dd.n)
+        words = _k8_segments(dd, name)
+        nbytes = 4 * (words + 2 * dd.n) + dd.flags.numel()
 
         def make(i, dd=dd, x=x):
             di, xi = (dd, x) if i == 0 else (_dia_copy(dd), x.clone())
@@ -1416,21 +1518,27 @@ def phase_dia(dev):
         r = record("K8", f"{name} ({dd.ndiags} diagonals, n_pad {dd.n_pad}, halo "
                    f"{dd.halo}, nnz {coo.nnz})", [dia.spmv_dia(dd, x)], [want], 1,
                    make, lambda: dia.spmv_dia_ref(dd, x),
-                   nbytes, 2 * dd.ndiags * dd.n_pad, make_lib=make_lib)
+                   nbytes, 2 * words, make_lib=make_lib)
+        _k8_stored_bound(r, dd, 4, 4, name)
+        _k8_paths(f"{name}, float32", dd, x)
         out.setdefault("K8", r)           # the poisson case stands for K8
         out[f"K8 {name}"] = r
         db, f32 = dia.dia_astype(dd, BF16), [dia.spmv_dia(dd, x)]
         for vt in BF16_VECS:
             xb, cb = x.to(vt), _csr_rounded(dd, vt)
             wb = dia.spmv_dia_ref(db, xb)
-            _bf16_put(out, "K8", vt, record(
+            rb = record(
                 "K8 bf16", f"{name} ({dd.ndiags} bf16 diagonals), {_vname(vt)}",
                 [dia.spmv_dia(db, xb)], [wb], 1, lambda i, db=db, xb=xb: make(i, db, xb),
                 lambda db=db, xb=xb: dia.spmv_dia_ref(db, xb),
-                2 * dd.ndiags * dd.n_pad + 2 * xb.element_size() * dd.n,
-                2 * dd.ndiags * dd.n_pad, make_lib=lambda i, cb=cb, xb=xb: make_lib(i, cb, xb),
+                2 * _k8_segments(db) + 2 * xb.element_size() * dd.n + db.flags.numel(),
+                2 * words, make_lib=lambda i, cb=cb, xb=xb: make_lib(i, cb, xb),
                 again=lambda db=db, xb=xb: [dia.spmv_dia(db, xb)], f32=f32, f32_rec=r,
-                lib=_bf16_lib(lambda: cb @ xb, wb, vt)), name)
+                lib=_bf16_lib(lambda: cb @ xb, wb, vt))
+            _k8_stored_bound(rb, dd, 2, xb.element_size(), f"{name} {_vname(vt)}")
+            _k8_paths(f"{name}, bf16 diagonals, {_vname(vt)}", db, xb)
+            _bf16_put(out, "K8", vt, rb, name)
+    _k8_nonfinite(dors, rnd)
 
     def k12(mm, name, k, tr, affine, bf16=None, what="Jacobi M"):
         """K12 on ``mm`` (an iteration matrix) at the selection's k, in both
@@ -1666,7 +1774,8 @@ def phase_validate(run_dir: Path, dev):
     if total["K8"] == 0:
         fail("the validation harness did not launch K8")
     print(f"[validate] kernel launches over the seven rows: {total} (orsirr_like150's "
-          f"DIA has 230 diagonals: the fused selection picks k = 1 on the fine level)",
+          f"DIA has 230 diagonals: the fused selection picks k = 1 on the fine level); "
+          f"K8 by path over the rows {dict(dia.spmv_dia.path_launches)}",
           flush=True)
     return report, total
 
@@ -2436,7 +2545,7 @@ def phase_vcycle(dev):
     if off(its, BICGSTAB_ITER_TOL):
         fail(f"[vcycle] float64 bicgstab {its} iterations vs scipy's {count[0]}")
     # float32: the count depends on the SpMV's summation order.  The DIA
-    # SpMV (K8, one thread per row, a fixed order) runs the same every time
+    # SpMV (K8, each row summed by one thread in a fixed order) runs the same every time
     # and is held; the COO SpMV's index_add_ adds in a run-dependent order,
     # shown over seeded orders of its entries
     a32 = ors.with_data(ors.data.astype(np.float32))
@@ -3743,12 +3852,12 @@ def main() -> int:
          "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
         for nm, k, d, file, rep, lib in rows]
-    for nm, k, rep in (("spmv_dia (K8)", "K8", "dia.py:215"),
-                       ("spmv_dia_power (K12)", "K12", "dia.py:1325"),
-                       ("spmv_dia_cheby (K13)", "K13", "dia.py:1606")):
+    for nm, k, file, rep in (("spmv_dia (K8)", "K8", "dia_spmv.cu", "dia.py:215"),
+                             ("spmv_dia_power (K12)", "K12", "dia.cu", "dia.py:1325"),
+                             ("spmv_dia_cheby (K13)", "K13", "dia.cu", "dia.py:1606")):
         d = dk[k]
         errs = [v["err"] for key, v in dk.items() if key.split()[0] == k]
-        kernels.append({"name": nm, "route": "cuda", "source": src + "dia.cu",
+        kernels.append({"name": nm, "route": "cuda", "source": src + file,
                         "replaces": "gflownet_spai_tpu/ops/" + rep,
                         "launches": val_launches[k] + pois_launches[k] + vc_launches[k],
                         "max_abs_err": max(errs), "ms": d["ms"], "plain_ms": d["plain"],
@@ -3788,7 +3897,7 @@ def main() -> int:
     # first [dia] / [dia-multi] case's times, the largest error against the
     # plain version over those phases' bf16 cases
     bf16_recs = {key: v for key, v in {**dk, **dm}.items() if key.startswith("bf16 ")}
-    for nm, k, file, rep in (("spmv_dia", "K8", "dia.cu", "dia.py:215"),
+    for nm, k, file, rep in (("spmv_dia", "K8", "dia_spmv.cu", "dia.py:215"),
                              ("spmv_dia_padded_io", "K10", "dia.cu", "dia.py:856"),
                              ("spmv_dia_pingpong", "K11", "dia.cu", "dia.py:1091"),
                              ("spmv_dia_power", "K12", "dia.cu", "dia.py:1325"),

@@ -14,13 +14,34 @@
 // VMEM) and its VMEM-fitting variants `_spmv_pallas_stream` (host-side halo
 // tensor) and `_spmv_pallas_stream2` (in-kernel window DMAs).  A TPU kernel
 // must stage x in VMEM and slice every diagonal statically; a GPU reads x
-// from global memory, where L2 (50 MB) holds the vector, so one kernel with
-// no staging serves every matrix, whatever its halo.  One thread per output
-// row loops over the diagonals: neighbouring threads read neighbouring words
-// of each diagonal and of x, so every load coalesces.  What bounds it on an
-// H100: bytes (2 flops per diagonal word).  Nothing is sized by the
-// halo, so a matrix whose halo is nearly the whole vector (a reordered
-// unstructured matrix with 230 diagonals) takes the same path.
+// from global memory, where L2 (50 MB) holds the vector.  Two paths, picked
+// by the caller (`ops/dia.py` `_k8_skips`), with the same arithmetic:
+//
+// - rows (a narrow band): one thread per output row loops over every
+//   diagonal, neighbouring threads on neighbouring words of each diagonal
+//   and of x, so every load coalesces.  What bounds it on an H100: bytes (2
+//   flops per diagonal word).  The streamed passes of K12 run on it too.
+// - skip (many diagonals): a DIA built from an unstructured matrix stores
+//   mostly zeros (orsirr_like150: 230 diagonals of 22,528 rows for 112,125
+//   nonzeros, 2.2% of the stored words), and the rows path spends its time
+//   on one dependent load after another, about 5 warps per SM.  With the
+//   matrix the wrapper builds one flag per (64-row tile, diagonal), set where
+//   the segment holds a word other than zero (`ops/dia.py` `_segment_flags`;
+//   NaN is set).  A term of a skipped segment is fma(+-0.0, x[j], acc),
+//   which leaves acc as it is unless x[j] is inf or NaN (the term gives NaN)
+//   or acc is -0.0 (the term may give +0.0, by the signs of x[j] and the
+//   word).
+//   So a first kernel marks x's 32-element chunks that hold an inf or a NaN
+//   (reading x once), and the second, launched as its programmatic
+//   dependant, gives each 64-row tile a CTA that lists in shared memory the
+//   diagonals the tile needs: those flagged, and those whose window of x
+//   touches a marked chunk.  Each row's thread loads x and the diagonal word
+//   of up to kNeedBatch listed diagonals at once and adds them in offset
+//   order; before each it walks the skipped diagonals since the last one,
+//   reading their words, only where acc is -0.0 (rare: a sum that
+//   underflowed).  Every row gets the rows path's bits, NaN and inf
+//   included.  What bounds it: the flagged segments' bytes and x read once,
+//   then the latency of the few loads a row waits on.
 //
 // K12 replaces `_spmv_pallas_power` (x resident) and `_spmv_pallas_power_stream`
 // (x and c streamed by window DMAs); K13 replaces `_spmv_pallas_cheby`.  Each
@@ -76,9 +97,9 @@
 // (y in x's padded layout, halo blocks zeroed) and `_spmv_pallas_pp` /
 // `_spmv_pallas_pp_stream` (y into the interior of a second buffer, whose
 // halo blocks are never written).  Each TPU pair differs only in whether x
-// fits VMEM; here both are K8's one-thread-per-row SpMV with `scale`,
+// fits VMEM; here both are the one-thread-per-row SpMV with `scale`,
 // writing at the pad offset P.  K10's threads that fall on the halo blocks
-// write their zeros in the same launch.  Bound by bytes, as K8.
+// write their zeros in the same launch.  Bound by bytes.
 //
 // K14 (dia_power_rhs) replaces `_spmv_pallas_power_rhs`: K12 on K
 // right-hand sides, [K, P + n_pad + P] row-major buffers.  Each thread owns
@@ -127,7 +148,11 @@ using dia_types::from_f;
 using dia_types::to_f;
 using dia_types::with_types;
 
-constexpr int kThreads = 256;      // K8, K10, K11, K14's one-pass kernel
+constexpr int kThreads = 256;      // K8 rows, K10, K11, K12 / K13 / K14 streamed
+constexpr int kTileRows = 64;      // K8 skip: rows of a tile (the segment flags' tile)
+constexpr int kNeedChunk = 256;    // K8 skip: diagonals listed in shared memory at a time
+constexpr int kNeedBatch = 8;      // K8 skip: listed diagonals whose loads a row issues at once
+constexpr int kScanThreads = 256;  // K8 skip: the x scan, 32 chunks of 32 elements a warp
 constexpr int kTileThreads = 512;  // K14 tiled
 constexpr int kFusedThreads = 1024;    // K12, K13 fused: one CTA per SM
 constexpr int kMaxPasses = 32;
@@ -182,8 +207,8 @@ __device__ __forceinline__ float cheby_dn(float a, float dd, float b, float r, f
   return __fadd_rn(__fmul_rn(a, dd), __fmul_rn(b, __fsub_rn(r, t)));
 }
 
-// y[i] = scale.sum_s data[s, i].x[i + offs[s]] (+ c[i]) for i < rows: K8 at
-// scale 1 with no c, and one pass of K12's streamed mode.
+// y[i] = scale.sum_s data[s, i].x[i + offs[s]] (+ c[i]) for i < rows: K8's
+// rows path at scale 1 with no c, and one pass of K12's streamed mode.
 template <typename TD, typename TV>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const TD* __restrict__ data, long long ld,
@@ -199,6 +224,134 @@ dia_spmv_kernel(const TD* __restrict__ data, long long ld,
     row.add(to_f(data[s * ld + i]), (j >= x_lo && j < x_hi) ? to_f(x[j]) : 0.f);
   }
   y[i] = from_f<TV>(c != nullptr ? row.done(scale, to_f(c[i])) : row.done(scale));
+}
+
+// K8 skip, first kernel: nonfinite[c] = 1 where x[x_lo + 32c, + 32) holds
+// an inf or a NaN, for c < ceil((x_hi - x_lo) / 32).  A warp covers 32
+// chunks: lane l loads element l of each, 32 coalesced loads in flight,
+// and one ballot per chunk gives lane c its chunk's mark.
+template <typename TV>
+__global__ void __launch_bounds__(kScanThreads)
+dia_x_nonfinite_kernel(const TV* __restrict__ x, long long x_lo, long long x_hi,
+                       unsigned char* __restrict__ nonfinite) {
+  // the SpMV kernel may be scheduled now; it waits for this grid to end
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int lane = threadIdx.x & 31;
+  const long long chunk0 = (blockIdx.x * static_cast<long long>(kScanThreads) + threadIdx.x
+                            - lane);      // the warp's first chunk (32 per warp)
+  float v[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const long long e = x_lo + 32 * (chunk0 + k) + lane;
+    v[k] = e < x_hi ? to_f(x[e]) : 0.f;
+  }
+  unsigned mine = 0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const unsigned bad = __ballot_sync(0xffffffffu, !isfinite(v[k]));
+    if (lane == k) mine = bad;
+  }
+  if (x_lo + 32 * (chunk0 + lane) < x_hi) nonfinite[chunk0 + lane] = mine != 0;
+}
+
+// The value of x a row reads at j: x[j] on [x_lo, x_hi), else zero; the
+// load is made from a clamped address, so it needs no branch.
+template <typename TV>
+__device__ __forceinline__ float x_at(const TV* __restrict__ x, long long j, long long x_lo,
+                                      long long x_hi) {
+  const long long jc = j < x_lo ? x_lo : (j >= x_hi ? x_hi - 1 : j);
+  const float v = to_f(x[jc]);
+  return j >= x_lo && j < x_hi ? v : 0.f;
+}
+
+__device__ __forceinline__ bool is_neg_zero(float v) { return __float_as_uint(v) == 0x80000000u; }
+
+// K8 skip, second kernel: CTA b owns the rows of tile b, [64b, 64b + 64),
+// and reads flags[b][ndiags] and the first kernel's chunk marks.
+template <typename TD, typename TV>
+__global__ void __launch_bounds__(kTileRows)
+dia_spmv_skip_kernel(const TD* __restrict__ data, long long ld, const int* __restrict__ offs,
+                     int ndiags, const unsigned char* __restrict__ flags,
+                     const unsigned char* __restrict__ nonfinite, const TV* __restrict__ x,
+                     long long x_lo, long long x_hi, TV* __restrict__ y, long long rows) {
+  __shared__ int s_off[kNeedChunk];
+  __shared__ unsigned char s_flag[kNeedChunk];
+  __shared__ unsigned char s_need[kNeedChunk];
+  __shared__ int2 s_list[kNeedChunk];   // (offset, 2.diagonal + flag) of the listed diagonals
+  __shared__ int s_count;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
+  const long long r_end = min(r0 + kTileRows, rows);
+  const long long i = r0 + threadIdx.x;
+  const unsigned char* tflags = flags + static_cast<long long>(blockIdx.x) * ndiags;
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int c0 = 0; c0 < ndiags; c0 += kNeedChunk) {
+    const int cn = min(kNeedChunk, ndiags - c0);
+    if (c0 > 0) __syncthreads();      // the previous chunk's lists are read
+    for (int s = threadIdx.x; s < cn; s += kTileRows) {
+      s_off[s] = offs[c0 + s];
+      s_flag[s] = tflags[c0 + s] != 0;
+    }
+    if (c0 == 0) asm volatile("griddepcontrol.wait;" ::: "memory");   // the chunk marks
+    for (int s = threadIdx.x; s < cn; s += kTileRows) {   // this thread's s_off, s_flag
+      bool need = s_flag[s];
+      const long long lo = max(r0 + s_off[s], x_lo), hi = min(r_end + s_off[s], x_hi);
+      if (!need && lo < hi) {
+        for (long long c = (lo - x_lo) >> 5; c <= (hi - 1 - x_lo) >> 5; ++c)
+          need = need || nonfinite[c] != 0;
+      }
+      s_need[s] = need;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {              // list the needed diagonals in order
+      int count = 0;
+      for (int base = 0; base < cn; base += 32) {
+        const int s = base + lane;
+        const bool need = s < cn && s_need[s];
+        const unsigned mask = __ballot_sync(0xffffffffu, need);
+        if (need)
+          s_list[count + __popc(mask & ((1u << lane) - 1))] = make_int2(s_off[s], 2 * s + s_flag[s]);
+        count += __popc(mask);
+      }
+      if (lane == 0) s_count = count;
+    }
+    __syncthreads();
+    const int m = s_count;
+    int next = 0;                        // the first diagonal of this chunk not yet added
+    // skipped diagonals [from, to): their words are +-0.0 and x finite
+    // there, so they change acc only where it is -0.0
+    auto skipped = [&](int from, int to) {
+      if (i < rows && is_neg_zero(acc))
+        for (int t = from; t < to; ++t)
+          acc = __fmaf_rn(to_f(data[(c0 + t) * ld + i]), x_at(x, i + s_off[t], x_lo, x_hi),
+                          acc);
+    };
+    for (int k0 = 0; k0 < m; k0 += kNeedBatch) {
+      float xv[kNeedBatch], dv[kNeedBatch];
+#pragma unroll
+      for (int u = 0; u < kNeedBatch; ++u) {
+        xv[u] = 0.f;
+        dv[u] = 0.f;
+        if (k0 + u < m && i < rows) {
+          const int2 e = s_list[k0 + u];
+          xv[u] = x_at(x, i + e.x, x_lo, x_hi);
+          if (e.y & 1) dv[u] = to_f(data[(c0 + (e.y >> 1)) * ld + i]);
+        }
+      }
+      asm volatile("" ::: "memory");   // every load of the batch is issued before the first add
+#pragma unroll
+      for (int u = 0; u < kNeedBatch; ++u) {
+        if (k0 + u < m) {
+          const int s = s_list[k0 + u].y >> 1;
+          skipped(next, s);
+          acc = __fmaf_rn(dv[u], xv[u], acc);
+          next = s + 1;
+        }
+      }
+    }
+    skipped(next, cn);
+  }
+  if (i < rows) y[i] = from_f<TV>(__fmul_rn(acc, 1.f));
 }
 
 // K10 and K11: thread t owns buffer row i = t - pad.  Rows in [0, rows) get
@@ -779,19 +932,50 @@ unsigned row_blocks(long long rows) {
 // every buffer have the vector type.
 
 // K8.  `x` points at logical index 0 of the vector; x[j] is read for
-// x_lo <= j < x_hi and is zero elsewhere.  y gets `rows` rows.
-extern "C" int dia_spmv(const void* data, long long ld, const void* offs,
-                        int ndiags, const void* x, long long x_lo,
-                        long long x_hi, void* y, long long rows, int types, void* stream) {
+// x_lo <= j < x_hi and is zero elsewhere.  y gets `rows` rows (rows <= ld).
+// skip == 0: the rows path.  skip != 0: the skip path, which reads `flags`
+// ([ceil(ld / tile_rows), ndiags] bytes, nonzero where a tile's segment of a
+// diagonal may hold a word other than +0.0) and marks x's chunks in
+// `nonfinite` (ceil((x_hi - x_lo) / 32) bytes of scratch); it refuses
+// another tile height than its own and an empty x range.
+extern "C" int dia_spmv(const void* data, long long ld, const void* offs, int ndiags,
+                        const void* flags, int tile_rows, const void* x, long long x_lo,
+                        long long x_hi, void* y, long long rows, int skip, void* nonfinite,
+                        int types, void* stream) {
+  if (ndiags < 0 || rows < 0 || rows > ld || (skip && tile_rows != kTileRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  if (skip && x_lo >= x_hi) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_types(types, [&](auto t) {
     DIA_TYPES(t);
-    if (rows > 0) {
-      dia_spmv_kernel<TD, TV><<<row_blocks(rows), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const TD*>(data), ld, static_cast<const int*>(offs), ndiags,
-          static_cast<const TV*>(x), x_lo, x_hi, nullptr, 1.f, static_cast<TV*>(y), rows);
+    const TD* dat = static_cast<const TD*>(data);
+    const int* off = static_cast<const int*>(offs);
+    const TV* xv = static_cast<const TV*>(x);
+    TV* yv = static_cast<TV*>(y);
+    if (!skip) {
+      dia_spmv_kernel<TD, TV><<<row_blocks(rows), kThreads, 0, st>>>(
+          dat, ld, off, ndiags, xv, x_lo, x_hi, nullptr, 1.f, yv, rows);
+      return cudaGetLastError();
     }
-    return cudaGetLastError();
+    unsigned char* nf = static_cast<unsigned char*>(nonfinite);
+    const long long per = 32LL * kScanThreads;        // elements a scan CTA covers
+    dia_x_nonfinite_kernel<TV><<<static_cast<unsigned>((x_hi - x_lo + per - 1) / per),
+                                 kScanThreads, 0, st>>>(xv, x_lo, x_hi, nf);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>((rows + kTileRows - 1) / kTileRows));
+    cfg.blockDim = dim3(kTileRows);
+    cfg.stream = st;
+    cudaLaunchAttribute pdl[1];
+    pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = pdl;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, dia_spmv_skip_kernel<TD, TV>, dat, ld, off, ndiags,
+                              static_cast<const unsigned char*>(flags),
+                              static_cast<const unsigned char*>(nf), xv, x_lo, x_hi, yv, rows);
   }));
 }
 

@@ -11,7 +11,10 @@ out of range, padded to ``n_pad`` rows (a multiple of 1024)::
 
 Entry points and the kernels they launch on CUDA tensors:
 
-- ``spmv_dia`` / ``spmv_dia_padded`` (and the unfused affine sweep): K8;
+- ``spmv_dia`` / ``spmv_dia_padded`` (and the unfused affine sweep): K8,
+  which from ``_K8_SKIP_MIN_DIAGS`` diagonals on reads a diagonal only in
+  the row tiles where the matrix's segment flags (``_segment_flags``, made
+  with the DIA) say it holds a word other than zero;
 - ``spmv_dia_padded_io`` (K10, output in x's padded layout, halo blocks
   zeroed by the kernel) and ``spmv_dia_pingpong`` (K11, into a second
   buffer's interior): one entry of ``csrc/dia.cu``;
@@ -100,6 +103,35 @@ def _offsets_tensor(offsets: Tuple[int, ...], device: torch.device) -> torch.Ten
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
+_FLAG_ROWS = 64        # the rows a segment flag covers: K8's row tile (csrc/dia.cu)
+
+
+def _segment_flags(data: torch.Tensor) -> torch.Tensor:
+    """K8's segment flags of the diagonals ``data`` [..., ndiags, n_pad]:
+    [..., ceil(n_pad / _FLAG_ROWS), ndiags] uint8, 1 where the segment of a
+    diagonal in a tile of ``_FLAG_ROWS`` rows holds a word other than zero
+    (NaN counts).  A term of a +0.0 or -0.0 word changes a sum only where
+    x is inf or NaN or the sum is -0.0, which K8's skip path handles
+    exactly.  Device ops only, no host sync: a CUDA-graph capture may make
+    a DIA (the backward's transpose)."""
+    n_pad = data.shape[-1]
+    tiles = -(-n_pad // _FLAG_ROWS)
+    nonzero = data.detach() != 0
+    if tiles * _FLAG_ROWS != n_pad:
+        nonzero = torch.nn.functional.pad(nonzero, (0, tiles * _FLAG_ROWS - n_pad))
+    seg = nonzero.reshape(*data.shape[:-1], tiles, _FLAG_ROWS).any(-1)
+    return seg.transpose(-1, -2).to(torch.uint8).contiguous()
+
+
+def _data_version(t: torch.Tensor) -> int | None:
+    """The version counter of ``t`` (None for an inference tensor, which
+    keeps none)."""
+    try:
+        return t._version
+    except RuntimeError:
+        return None
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DIA:
     """Diagonal-format sparse matrix (square).  ``data``: [ndiags, n_pad]."""
@@ -110,6 +142,10 @@ class DIA:
     nnz: int
     # the offsets as int32 on the data's device, which the kernels read
     offsets_t: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # K8's segment flags (``_segment_flags``) and the version of ``data``
+    # they were made from (``_flags`` makes them again after an in-place write)
+    flags: torch.Tensor = dataclasses.field(init=False, repr=False)
+    flags_version: int | None = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         # Made with the matrix, one copy per pattern and device, never in a
@@ -118,6 +154,8 @@ class DIA:
         dev = self.data.device
         object.__setattr__(self, "offsets_t", _offsets_tensor(self.offsets, dev))
         _offsets_tensor(tuple(-o for o in self.offsets), dev)
+        object.__setattr__(self, "flags", _segment_flags(self.data))
+        object.__setattr__(self, "flags_version", _data_version(self.data))
 
     @property
     def n(self) -> int:
@@ -646,7 +684,8 @@ def dia_power_rhs_ok(d: DIA, k: int, n_rhs: int, tr: int | None = None) -> bool:
 
 _I64, _PTR, _INT = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _INT, _PTR],
+    "dia_spmv": [_PTR, _I64, _PTR, _INT, _PTR, _INT, _PTR, _I64, _I64, _PTR, _I64, _INT,
+                 _PTR, _INT, _PTR],
     "dia_power": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
                   ctypes.c_float, _INT, _INT, _INT, _PTR, _INT, _PTR],
     "dia_cheby": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
@@ -671,6 +710,7 @@ _TYPE_NAMES = ("float32", "bf16 diagonals, float32 vectors", "bf16")
 _ELEMS = ((4, 4), (2, 4), (2, 2))   # element bytes (diagonals, vectors) by code
 
 
+@functools.lru_cache(maxsize=None)
 def _lib_fn(name: str):
     fn = getattr(_build.load(_LIBRARY.get(name, "dia")), name)
     fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
@@ -952,18 +992,58 @@ def _scratch(like: torch.Tensor, n_pad: int, rows: int, k: int):
         if rows == 0 and k > 1 else None
 
 
+def _flags(d: DIA) -> torch.Tensor:
+    """``d.flags``, made again on the device when ``d.data`` was written in
+    place since they were made (its version counter moved; an inference
+    tensor keeps none, so its flags are made at every call)."""
+    version = _data_version(d.data)
+    if version is None or version != d.flags_version:      # written in place since
+        object.__setattr__(d, "flags", _segment_flags(d.data))
+        object.__setattr__(d, "flags_version", version)
+    return d.flags
+
+
+def _check_flags(d: DIA, flags: torch.Tensor, what: str) -> None:
+    """K8 reads [ceil(n_pad / _FLAG_ROWS), ndiags] contiguous uint8 flags,
+    one per tile of ``_FLAG_ROWS`` rows (the kernel refuses another tile
+    height); ``_segment_flags`` makes them on the diagonals' device."""
+    shape = (-(-d.data.shape[1] // _FLAG_ROWS), len(d.offsets))
+    if flags.shape != shape or flags.dtype != torch.uint8 or not flags.is_contiguous():
+        raise ValueError(f"{what}: segment flags {flags.dtype} {tuple(flags.shape)}; the "
+                         f"kernel reads contiguous uint8 {shape}")
+
+
+_K8_SKIP_MIN_DIAGS = 16   # K8 takes its skip path from this many diagonals (fitted on an H100)
+
+
+def _k8_skips(d: DIA) -> bool:
+    """Whether K8 takes its skip path (``csrc/dia.cu``'s header) on ``d``:
+    a narrow band stores few zeros and its rows path reads every word at
+    the bandwidth, with no scan of x first."""
+    return d.ndiags >= _K8_SKIP_MIN_DIAGS
+
+
 def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int, rows: int,
         code: int) -> torch.Tensor:
     """Launch K8: y[i] = Σ_s data[s, i]·x[base + i + off_s] for i < rows,
-    reading x[base + j] only for lo ≤ j < hi (zero elsewhere); y has x's
+    reading x[base + j] only for lo ≤ j < hi (zero elsewhere); on the skip
+    path the diagonals only in the segments ``d.flags`` sets.  y has x's
     dtype."""
+    skip = _k8_skips(d) and hi > lo
+    flags = nonfinite = None
+    if skip:
+        flags = _flags(d)
+        _check_flags(d, flags, "spmv_dia")
+        nonfinite = torch.empty((-(-(hi - lo) // 32),), dtype=torch.uint8, device=x.device)
     y = torch.empty((rows,), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(_lib_fn("dia_spmv")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
-        x.data_ptr() + x.element_size() * base, lo, hi, y.data_ptr(), rows, code, stream),
-        "spmv_dia")
+        None if flags is None else flags.data_ptr(), _FLAG_ROWS,
+        x.data_ptr() + x.element_size() * base, lo, hi, y.data_ptr(), rows, int(skip),
+        None if nonfinite is None else nonfinite.data_ptr(), code, stream), "spmv_dia")
     _count(spmv_dia, code)
+    spmv_dia.path_launches["skip" if skip else "rows"] += 1
     return y
 
 
@@ -1241,3 +1321,4 @@ for _fn in (spmv_dia, spmv_dia_padded_io, spmv_dia_pingpong, spmv_dia_power_rhs,
     _launch_counters(_fn)
 for _fn in (spmv_dia_power, spmv_dia_cheby):
     _launch_counters(_fn, modes=True)
+spmv_dia.path_launches = {"rows": 0, "skip": 0}    # K8's by path (``_k8_skips``)

@@ -1181,6 +1181,195 @@ def test_bf16_wrappers_refuse_other_dtypes(cuda):
     _close1(y, dia.spmv_dia_ref(d32, x.to(BF16).float()))
 
 
+# --- K8's two paths (csrc/dia.cu): rows, and skip (stored-zero segments) -------
+
+K8_INSTANCES = [(torch.float32, torch.float32), (BF16, torch.float32), (BF16, BF16)]
+K8_PATHS = {"rows": 10 ** 9, "skip": 0}     # _K8_SKIP_MIN_DIAGS forcing each path
+
+
+def _k8_case(dev, name, dt, vt, seed=0):
+    """A gallery matrix as a DIA with ``dt`` diagonals and an x of ``vt``."""
+    a = gallery.poisson2d(1024, dtype=np.float32) if name == "poisson1024" \
+        else gallery.get(name)
+    d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return dia.dia_astype(d, dt), torch.randn(d.n, generator=gen, device=dev).to(vt)
+
+
+def _bits(y):
+    return y.view(torch.int16 if y.element_size() == 2 else torch.int32)
+
+
+def _on_paths(monkeypatch, call):
+    """``call()`` on K8's rows path and on its skip path: both results (the
+    same bits, NaN included) and the launches each path counted."""
+    out = {}
+    for path, least in K8_PATHS.items():
+        with monkeypatch.context() as mp:
+            mp.setattr(dia, "_K8_SKIP_MIN_DIAGS", least)
+            before = dict(dia.spmv_dia.path_launches)
+            out[path] = call()
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in dia.spmv_dia.path_launches.items()}
+            assert moved[path] > 0 and sum(moved.values()) == moved[path], moved
+    for a, b in zip(out["rows"], out["skip"]):
+        assert torch.equal(_bits(a), _bits(b))
+    return out["skip"]
+
+
+def _same_nonfinite(got, want):
+    """NaN and inf in the same places; the finite values as ``_held``."""
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    fin = want.isfinite()
+    _held(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("dt,vt", K8_INSTANCES)
+@pytest.mark.parametrize("name", ["orsirr_like150", "poisson1024"])
+def test_k8_paths_match_plain_at_full_size(cuda, no_plain, monkeypatch, name, dt, vt):
+    """K8 at the shapes of the validation path (230 diagonals, most
+    segments skipped; 5 full diagonals of 1,048,576 rows) in each instance,
+    through ``spmv_dia`` and ``spmv_dia_padded``: the skip path gives the
+    rows path's bits, both the plain version's values (bf16 vectors: its
+    bits), a second launch the same bits."""
+    d, x = _k8_case(cuda, name, dt, vt)
+    ref = no_plain("spmv_dia_ref", "spmv_dia_padded_ref")
+    xp = torch.nn.functional.pad(x, (d.halo, d.n_pad - d.n + d.halo))
+    y, yp, again = _on_paths(monkeypatch, lambda: (dia.spmv_dia(d, x), dia.spmv_dia_padded(d, xp),
+                                                   dia.spmv_dia(d, x)))
+    _held(y, ref["spmv_dia_ref"](d, x))
+    _held(yp, ref["spmv_dia_padded_ref"](d, xp))
+    assert torch.equal(_bits(again), _bits(y))
+    if name == "orsirr_like150":
+        assert float(d.flags.float().mean()) < 0.05     # the skipped segments
+
+
+@pytest.mark.parametrize("dt,vt", K8_INSTANCES)
+def test_k8_nonfinite_x_gives_nan_where_the_plain_version_does(cuda, no_plain, monkeypatch,
+                                                               dt, vt):
+    """inf and NaN in x on orsirr_like150, where stored zeros of skipped
+    segments reach them in most rows that read them: both paths give NaN
+    (and inf) in the same rows as the plain version, the rest its values."""
+    d, x = _k8_case(cuda, "orsirr_like150", dt, vt, seed=1)
+    ref = no_plain("spmv_dia_ref")["spmv_dia_ref"]
+    idx = torch.randperm(d.n, generator=torch.Generator().manual_seed(5))[:8].to(cuda)
+    x[idx[:4]] = float("inf")
+    x[idx[4:]] = float("nan")
+    (y,) = _on_paths(monkeypatch, lambda: (dia.spmv_dia(d, x),))
+    want = ref(d, x)
+    assert int(want.isnan().sum()) > 8 * 5          # every diagonal that reaches them
+    _same_nonfinite(y, want)
+
+
+@pytest.mark.parametrize("word", [0.0, -0.0], ids=["+0.0", "-0.0"])
+def test_k8_skipped_terms_turn_a_negative_zero_sum_positive(cuda, monkeypatch, word):
+    """A row whose sum underflows to -0.0 (fma(-1e-30, 1e-30, +0.0)) and
+    then meets a skipped segment of ``word`` (+0.0 or -0.0, neither
+    flagged): fma(word, x, -0.0) is +0.0 where word·x is +0.0, so the skip
+    path must walk that segment with its words.  The rows path's bits."""
+    n = 4096
+    data = torch.full((2, n), word, device=cuda)
+    data[0] = -1e-30                                 # offset 0: every row, flagged
+    d = dia.DIA(data=data, offsets=(0, 2000), shape=(n, n), nnz=n)   # offset 2000: +-0.0
+    assert not d.flags[:, 1].any()
+    x = torch.full((n,), 1e-30, device=cuda)
+    x[2000:3000] = 2.0
+    x[3000:] = -2.0
+    (y,) = _on_paths(monkeypatch, lambda: (dia.spmv_dia(d, x),))
+    bits = _bits(y).cpu()                            # rows < 2000 summed to -0.0 first
+    plus = np.copysign(1.0, word) > 0                # word·2 is +0.0 for word +0.0
+    pos, neg = (bits[:1000], bits[1000:2000]) if plus else (bits[1000:2000], bits[:1000])
+    assert (pos == 0).all() and (neg == -2 ** 31).all()
+    assert (y[2000:] != 0).all()
+
+
+def test_spmv_dia_skip_path_captures_on_a_fresh_matrix(cuda, monkeypatch):
+    """As ``test_spmv_dia_captures_on_a_fresh_matrix`` on the skip path:
+    the backward's transpose, made inside the capture, builds its segment
+    flags there (device ops only), and the scan and the SpMV replay."""
+    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    dia.spmv_dia(_poisson_dia(cuda, 16)[1], torch.ones(256, device=cuda))
+    d = _banded_dia(cuda, 5000, 131, seed=9)
+    d = dia.DIA(data=d.data, offsets=(-131, -3, 0, 5, 77), shape=d.shape, nnz=d.nnz)
+    x, g = torch.randn(d.n, device=cuda), torch.randn(d.n, device=cuda)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = dia.spmv_dia(d, x)
+        yt = dia.spmv_dia(dia.dia_transpose(d), g)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, dia.spmv_dia_ref(d, x), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(yt, dia.spmv_dia_ref(dia.dia_transpose(d), g),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, BF16])
+def test_k8_reads_an_in_place_write(cuda, no_plain, monkeypatch, dt):
+    """A write into a segment whose flag is clear: the next launch makes
+    the flags again (the data's version moved) and reads the new word."""
+    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    d, x = _k8_case(cuda, "orsirr_like150", dt, dt)
+    ref = no_plain("spmv_dia_ref")["spmv_dia_ref"]
+    y0 = dia.spmv_dia(d, x)
+    flags = d.flags.cpu()
+    tile, s = next((t, s) for t in range(30, flags.shape[0]) for s in range(d.ndiags)
+                   if not flags[t, s] and 0 <= t * 64 + d.offsets[s] < d.n)
+    row = tile * 64
+    d.data[s, row] = 3.0
+    y1 = dia.spmv_dia(d, x)
+    torch.cuda.synchronize()
+    assert d.flags[tile, s] == 1
+    _held(y1, ref(d, x))
+    assert not torch.equal(y1[row], y0[row])
+    assert torch.equal(y1[:row], y0[:row]) and torch.equal(y1[row + 1:], y0[row + 1:])
+
+
+@pytest.mark.parametrize("dt,vt", K8_INSTANCES)
+@pytest.mark.parametrize("ndiags", [1, 40, 1100])
+def test_k8_takes_any_shape_and_alignment(cuda, no_plain, monkeypatch, ndiags, dt, vt):
+    """Random offsets (some beyond n), n_pad 5,001 (a ragged last tile and
+    diagonal rows off 16-byte boundaries), x one element into its storage,
+    about three segments in four zero: one diagonal, 40, and 1,100 (two
+    chunks of the skip path's lists).  Both paths, the same bits; the
+    plain version's values (bf16 vectors: its bits)."""
+    n, n_pad = 4990, 5001
+    rng = np.random.default_rng(ndiags)
+    offsets = tuple(sorted(rng.choice(np.arange(-6000, 6000), ndiags, replace=False).tolist()))
+    data = rng.standard_normal((ndiags, n_pad)).astype(np.float32)
+    data[:, rng.random(n_pad) < 0.5] = 0.0
+    data[rng.random((ndiags, n_pad // 64 + 1)).repeat(64, 1)[:, :n_pad] < 0.5] = 0.0
+    d = dia.dia_astype(dia.DIA(data=torch.as_tensor(data, device=cuda), offsets=offsets,
+                               shape=(n, n), nnz=int((data != 0).sum())), dt)
+    ref = no_plain("spmv_dia_ref", "spmv_dia_padded_ref")
+    buf = torch.randn(n + 1, generator=torch.Generator(device=cuda).manual_seed(3),
+                      device=cuda).to(vt)
+    x = buf[1:]
+    xp = torch.nn.functional.pad(x, (d.halo + 1, d.n_pad - d.n + d.halo))[1:]
+    y, yp = _on_paths(monkeypatch, lambda: (dia.spmv_dia(d, x), dia.spmv_dia_padded(d, xp)))
+    _held(y, ref["spmv_dia_ref"](d, x))
+    _held(yp, ref["spmv_dia_padded_ref"](d, xp))
+
+
+def test_k8_refuses_flags_it_cannot_read(cuda, monkeypatch):
+    """On the skip path, flags of another shape raise ``ValueError`` before
+    any launch; flags made for another tile height pass the wrapper's check
+    and the C entry refuses them."""
+    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    _, d = _poisson_dia(cuda, 32)
+    x = torch.randn(d.n, device=cuda)
+    before = dia.spmv_dia.launches
+    object.__setattr__(d, "flags", d.flags[:-1])
+    object.__setattr__(d, "flags_version", d.data._version)
+    with pytest.raises(ValueError, match="segment flags"):
+        dia.spmv_dia(d, x)
+    monkeypatch.setattr(dia, "_FLAG_ROWS", 32)
+    _, d32 = _poisson_dia(cuda, 32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dia.spmv_dia(d32, x)
+    assert dia.spmv_dia.launches == before
+
+
 def test_bf16_solvers_on_card(cuda):
     """``jacobi_sweeps_op`` (K12 on bf16 buffers, k 4), ``chebyshev_op``
     (K13 on bf16 buffers, k 4) and ``jacobi_multirhs`` (K14, K16) on a bf16
