@@ -1193,6 +1193,7 @@ def _uncounted():
     yields gets what the check launched."""
     saved = _counts()
     saved_m = {fn: dict(fn.mode_launches) for fn in (dia.spmv_dia_power, dia.spmv_dia_cheby)}
+    saved_p = dict(dia.spmv_dia.path_launches)
     moved = {}
     try:
         yield moved
@@ -1200,10 +1201,17 @@ def _uncounted():
         moved.update({k: v - saved[k] for k, v in _counts().items() if v - saved[k]})
         for key, fn in DIA_COUNTERS.items():
             fn.launches = saved[key]
+        dia.spmv_dia.path_launches = saved_p
         for fn, modes in saved_m.items():
             moved.update({f"{'K12' if fn is dia.spmv_dia_power else 'K13'} {m}": v - modes[m]
                           for m, v in fn.mode_launches.items() if v - modes[m]})
             fn.mode_launches.update(modes)
+
+
+def _k8_path_counts():
+    """K8's launches by path (``ops/dia.py`` ``_k8_skips``) since the last
+    ``_reset``, keyed as the kernels line's entries read them."""
+    return {f"K8 {path}": n for path, n in dia.spmv_dia.path_launches.items()}
 
 
 def _reset(counters=DIA_COUNTERS):
@@ -1390,15 +1398,15 @@ def _k8_segments(d, name=None):
     """The diagonal words in the 64-row segments K8's flags set (the ragged
     last tile's rows only); with ``name``, print their share of the stored
     words and the flags' build time (device, graph replay)."""
-    rows = dia._FLAG_ROWS
-    per_tile = torch.clamp(d.n_pad - rows * torch.arange(d.flags.shape[0], device=d.flags.device),
+    rows, flags = dia._FLAG_ROWS, dia._flags(d)
+    per_tile = torch.clamp(d.n_pad - rows * torch.arange(flags.shape[0], device=flags.device),
                            max=rows)
-    words = int((d.flags.to(torch.int64) * per_tile[:, None]).sum())
+    words = int((flags.to(torch.int64) * per_tile[:, None]).sum())
     if name is not None:
         build = graph_ms(lambda: dia._segment_flags(d.data), 10)
-        print(f"[K8] {name}: the flags set {int(d.flags.sum())} of {d.flags.numel()} "
+        print(f"[K8] {name}: the flags set {int(flags.sum())} of {flags.numel()} "
               f"segments of {rows} rows, {words} of {d.ndiags * d.n_pad} stored words "
-              f"({100 * words / (d.ndiags * d.n_pad):.2f}%); the flags ({d.flags.numel()} "
+              f"({100 * words / (d.ndiags * d.n_pad):.2f}%); the flags ({flags.numel()} "
               f"bytes) are built in {build:.5f} ms (device, graph replay)", flush=True)
     return words
 
@@ -1415,12 +1423,12 @@ def _k8_stored_bound(rec, d, ed, ev, label):
 @contextlib.contextmanager
 def _k8_path(skip):
     """K8 on its skip path (or its rows path) whatever the rule says."""
-    saved = dia._K8_SKIP_MIN_DIAGS
-    dia._K8_SKIP_MIN_DIAGS = 0 if skip else 1 << 30
+    saved = dia._K8_SKIP_RULE
+    dia._K8_SKIP_RULE = (0, float("inf")) if skip else (0, 0.0)
     try:
         yield
     finally:
-        dia._K8_SKIP_MIN_DIAGS = saved
+        dia._K8_SKIP_RULE = saved
 
 
 def _k8_paths(label, d, x):
@@ -1431,6 +1439,8 @@ def _k8_paths(label, d, x):
     ys, ms = {}, {}
     n_copies = _copies(d.data.numel() * d.data.element_size() + 2 * x.numel() * x.element_size())
     copies = [(d, x)] + [(_dia_copy(d), x.clone()) for _ in range(1, n_copies)]
+    for c, _ in copies:       # flags for the forced skip path, made before any capture
+        dia._flags(c)
     for skip in (False, True):
         with _k8_path(skip):
             ys[skip] = dia.spmv_dia(d, x)
@@ -1442,9 +1452,12 @@ def _k8_paths(label, d, x):
     pick = dia._k8_skips(d)
     verdict = "faster" if ms[pick] <= ms[not pick] else \
         f"slower by {100 * (ms[pick] / ms[not pick] - 1):.1f}%"
+    n0, below = dia._K8_SKIP_RULE
     print(f"[K8-paths] {label}: skip path equals rows path bit for bit; rows {ms[False]:.5f} "
-          f"ms, skip {ms[True]:.5f} ms; the rule ({d.ndiags} diagonals, skip from "
-          f"{dia._K8_SKIP_MIN_DIAGS}) picks {'skip' if pick else 'rows'}: {verdict}", flush=True)
+          f"ms, skip {ms[True]:.5f} ms; the rule ({d.ndiags} diagonals, "
+          f"{100 * dia._k8_share(d):.2f}% of the segments holding an entry; skip below "
+          f"{below:g}·(1 − {n0}/ndiags)) picks {'skip' if pick else 'rows'}: {verdict}",
+          flush=True)
     if ms[pick] > (1 + RULE_MARGIN) * ms[not pick]:
         fail(f"K8 ({label}): the rule's path is {verdict} than the other")
 
@@ -1505,7 +1518,8 @@ def phase_dia(dev):
         if not float((lib_y - want).abs().max()) <= _dia_tol(want, 1):
             fail("the torch.sparse yardstick does not compute K8's function")
         words = _k8_segments(dd, name)
-        nbytes = 4 * (words + 2 * dd.n) + dd.flags.numel()
+        flag_bytes = dia._flags(dd).numel() if dia._k8_skips(dd) else 0   # the rows path reads none
+        nbytes = 4 * (words + 2 * dd.n) + flag_bytes
 
         def make(i, dd=dd, x=x):
             di, xi = (dd, x) if i == 0 else (_dia_copy(dd), x.clone())
@@ -1531,7 +1545,7 @@ def phase_dia(dev):
                 "K8 bf16", f"{name} ({dd.ndiags} bf16 diagonals), {_vname(vt)}",
                 [dia.spmv_dia(db, xb)], [wb], 1, lambda i, db=db, xb=xb: make(i, db, xb),
                 lambda db=db, xb=xb: dia.spmv_dia_ref(db, xb),
-                2 * _k8_segments(db) + 2 * xb.element_size() * dd.n + db.flags.numel(),
+                2 * _k8_segments(db) + 2 * xb.element_size() * dd.n + flag_bytes,
                 2 * words, make_lib=lambda i, cb=cb, xb=xb: make_lib(i, cb, xb),
                 again=lambda db=db, xb=xb: [dia.spmv_dia(db, xb)], f32=f32, f32_rec=r,
                 lib=_bf16_lib(lambda: cb @ xb, wb, vt))
@@ -1773,9 +1787,9 @@ def phase_validate(run_dir: Path, dev):
     total = _counts()
     if total["K8"] == 0:
         fail("the validation harness did not launch K8")
+    total.update(_k8_path_counts())
     print(f"[validate] kernel launches over the seven rows: {total} (orsirr_like150's "
-          f"DIA has 230 diagonals: the fused selection picks k = 1 on the fine level); "
-          f"K8 by path over the rows {dict(dia.spmv_dia.path_launches)}",
+          f"DIA has 230 diagonals: the fused selection picks k = 1 on the fine level)",
           flush=True)
     return report, total
 
@@ -1934,6 +1948,7 @@ def phase_poisson(dev):
     total = _counts()
     if min(total.values()) == 0:
         fail(f"[poisson] a kernel of the path did not launch: {total}")
+    total.update(_k8_path_counts())
     print(f"[poisson] kernel launches over the three rows (two solves each, plus "
           f"estimate_lmax; the streamed-forced re-solves not counted): {total}",
           flush=True)
@@ -2512,6 +2527,7 @@ def phase_vcycle(dev):
     total = _counts()
     if total["K8"] == 0 or total["K12"] + total["K13"] == 0:
         fail(f"[vcycle] the V-cycles did not run K8 and the fused kernels: {total}")
+    total.update(_k8_path_counts())
 
     ors = gallery.get(MATRIX)
     A = sp.csr_matrix((ors.data, (ors.row, ors.col)), shape=ors.shape)
@@ -3852,8 +3868,22 @@ def main() -> int:
          "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
         for nm, k, d, file, rep, lib in rows]
-    for nm, k, file, rep in (("spmv_dia (K8)", "K8", "dia_spmv.cu", "dia.py:215"),
-                             ("spmv_dia_power (K12)", "K12", "dia.cu", "dia.py:1325"),
+    # K8 by path (``ops/dia.py`` ``_k8_skips``): the rows path at poisson1024's
+    # record, the skip path (its scan and SpMV) at orsirr_like150's
+    k8_paths = {k: val_launches[k] + pois_launches[k] + vc_launches[k]
+                for k in ("K8 rows", "K8 skip")}
+    if min(k8_paths.values()) == 0:
+        fail(f"a path of K8 did not launch on the main path: {k8_paths}")
+    for nm, k, d in (("spmv_dia (K8, rows path: dia_spmv_kernel)", "K8 rows",
+                      dk[f"K8 poisson{POISSON}"]),
+                     ("spmv_dia (K8, skip path: dia_x_nonfinite_kernel, dia_spmv_skip_kernel)",
+                      "K8 skip", dk[f"K8 {MATRIX}"])):
+        kernels.append({"name": nm, "route": "cuda", "source": src + "dia.cu",
+                        "replaces": "gflownet_spai_tpu/ops/dia.py:215",
+                        "launches": k8_paths[k], "max_abs_err": d["err"], "ms": d["ms"],
+                        "plain_ms": d["plain"], "bound_ms": d["bound"][0],
+                        "bound_by": d["bound"][1], "library_ms": d["lib"]})
+    for nm, k, file, rep in (("spmv_dia_power (K12)", "K12", "dia.cu", "dia.py:1325"),
                              ("spmv_dia_cheby (K13)", "K13", "dia.cu", "dia.py:1606")):
         d = dk[k]
         errs = [v["err"] for key, v in dk.items() if key.split()[0] == k]
@@ -3897,7 +3927,7 @@ def main() -> int:
     # first [dia] / [dia-multi] case's times, the largest error against the
     # plain version over those phases' bf16 cases
     bf16_recs = {key: v for key, v in {**dk, **dm}.items() if key.startswith("bf16 ")}
-    for nm, k, file, rep in (("spmv_dia", "K8", "dia_spmv.cu", "dia.py:215"),
+    for nm, k, file, rep in (("spmv_dia", "K8", "dia.cu", "dia.py:215"),
                              ("spmv_dia_padded_io", "K10", "dia.cu", "dia.py:856"),
                              ("spmv_dia_pingpong", "K11", "dia.cu", "dia.py:1091"),
                              ("spmv_dia_power", "K12", "dia.cu", "dia.py:1325"),

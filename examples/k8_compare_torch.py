@@ -13,8 +13,9 @@ diagonals) as float32, in the three instances (float32; bf16 diagonals
 with float32 vectors; bf16 with bf16), through `spmv_dia` and
 `spmv_dia_padded`, and orsirr_like150 with inf and NaN in x.  A line per
 tree and case gives the graph-replay time over cold copies of the inputs
-(as `chip_smoke.py`'s `_timed`) and a hash of the output, which are equal
-between trees whose kernels give the same bits; then GMRES(20) on
+(as `chip_smoke.py`'s `_timed`), the host time of an eager call (the mean
+over 200 calls, right after the timing), and a hash of the output, which are
+equal between trees whose kernels give the same bits; then GMRES(20) on
 orsirr_like150 (b = ones, rtol 1e-5) with the Jacobi-16 and Chebyshev-16
 preconditioners: iterations, K8 launches, the host clock's ms per iteration
 over six solves, and the device time per iteration of a seventh solve
@@ -31,11 +32,13 @@ import io
 import itertools
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 POISSON, MATRIX = 1024, "orsirr_like150"
 COLD_BYTES = 150_000_000      # input copies cycled through per timing (3x L2)
 REPS = 20
+HOST_CALLS = 200              # eager calls timed on the host clock per case
 SOLVES = 6                    # GMRES solves per validate row (the first one cold)
 
 
@@ -125,8 +128,15 @@ def run_tree(tree: str) -> None:
                                         arg.clone()) for _ in range(1, n_copies)]
                 it = itertools.cycle([lambda c=c: fn(*c) for c in copies])
                 ms = _graph_ms(lambda: next(it)())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    fn(d, arg)
+                host_us = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+                torch.cuda.synchronize()
                 print(f"[compare] {tree} {name} {inst} {entry}: K8 {ms:.5f} ms (graph replay "
-                      f"over {n_copies} copies), output sha256 {_digest(y)}, NaN rows "
+                      f"over {n_copies} copies), host {host_us:.1f} us an eager call, "
+                      f"output sha256 {_digest(y)}, NaN rows "
                       f"{int(y.isnan().sum())}, a second launch "
                       f"{'the same bits' if same else 'OTHER BITS'}", flush=True)
     coo = gallery.get(MATRIX)

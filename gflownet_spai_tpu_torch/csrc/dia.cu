@@ -17,15 +17,16 @@
 // from global memory, where L2 (50 MB) holds the vector.  Two paths, picked
 // by the caller (`ops/dia.py` `_k8_skips`), with the same arithmetic:
 //
-// - rows (a narrow band): one thread per output row loops over every
+// - rows (a dense or narrow band): one thread per output row loops over every
 //   diagonal, neighbouring threads on neighbouring words of each diagonal
 //   and of x, so every load coalesces.  What bounds it on an H100: bytes (2
 //   flops per diagonal word).  The streamed passes of K12 run on it too.
-// - skip (many diagonals): a DIA built from an unstructured matrix stores
-//   mostly zeros (orsirr_like150: 230 diagonals of 22,528 rows for 112,125
-//   nonzeros, 2.2% of the stored words), and the rows path spends its time
-//   on one dependent load after another, about 5 warps per SM.  With the
-//   matrix the wrapper builds one flag per (64-row tile, diagonal), set where
+// - skip (a band whose segments mostly hold zeros): a DIA built from an
+//   unstructured matrix stores mostly zeros (orsirr_like150: 230 diagonals
+//   of 22,528 rows for 112,125 nonzeros, 2.2% of the stored words), and
+//   the rows path spends its time on one dependent load after another,
+//   about 5 warps per SM.  With such a matrix the wrapper builds one flag
+//   per (64-row tile, diagonal), set where
 //   the segment holds a word other than zero (`ops/dia.py` `_segment_flags`;
 //   NaN is set).  A term of a skipped segment is fma(+-0.0, x[j], acc),
 //   which leaves acc as it is unless x[j] is inf or NaN (the term gives NaN)
@@ -277,7 +278,7 @@ dia_spmv_skip_kernel(const TD* __restrict__ data, long long ld, const int* __res
   __shared__ int s_off[kNeedChunk];
   __shared__ unsigned char s_flag[kNeedChunk];
   __shared__ unsigned char s_need[kNeedChunk];
-  __shared__ int2 s_list[kNeedChunk];   // (offset, 2.diagonal + flag) of the listed diagonals
+  __shared__ int2 s_list[kNeedChunk];   // (offset, diagonal) of the listed diagonals
   __shared__ int s_count;
   const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
   const long long r_end = min(r0 + kTileRows, rows);
@@ -310,7 +311,7 @@ dia_spmv_skip_kernel(const TD* __restrict__ data, long long ld, const int* __res
         const bool need = s < cn && s_need[s];
         const unsigned mask = __ballot_sync(0xffffffffu, need);
         if (need)
-          s_list[count + __popc(mask & ((1u << lane) - 1))] = make_int2(s_off[s], 2 * s + s_flag[s]);
+          s_list[count + __popc(mask & ((1u << lane) - 1))] = make_int2(s_off[s], s);
         count += __popc(mask);
       }
       if (lane == 0) s_count = count;
@@ -335,14 +336,16 @@ dia_spmv_skip_kernel(const TD* __restrict__ data, long long ld, const int* __res
         if (k0 + u < m && i < rows) {
           const int2 e = s_list[k0 + u];
           xv[u] = x_at(x, i + e.x, x_lo, x_hi);
-          if (e.y & 1) dv[u] = to_f(data[(c0 + (e.y >> 1)) * ld + i]);
+          // a diagonal listed for x's inf / NaN alone: its word is +-0.0,
+          // loaded all the same for the sign the rows path gives a -0.0 sum
+          dv[u] = to_f(data[(c0 + e.y) * ld + i]);
         }
       }
       asm volatile("" ::: "memory");   // every load of the batch is issued before the first add
 #pragma unroll
       for (int u = 0; u < kNeedBatch; ++u) {
         if (k0 + u < m) {
-          const int s = s_list[k0 + u].y >> 1;
+          const int s = s_list[k0 + u].y;
           skipped(next, s);
           acc = __fmaf_rn(dv[u], xv[u], acc);
           next = s + 1;

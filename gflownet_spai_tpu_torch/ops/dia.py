@@ -12,9 +12,10 @@ out of range, padded to ``n_pad`` rows (a multiple of 1024)::
 Entry points and the kernels they launch on CUDA tensors:
 
 - ``spmv_dia`` / ``spmv_dia_padded`` (and the unfused affine sweep): K8,
-  which from ``_K8_SKIP_MIN_DIAGS`` diagonals on reads a diagonal only in
-  the row tiles where the matrix's segment flags (``_segment_flags``, made
-  with the DIA) say it holds a word other than zero;
+  which on a wide band that stores mostly zeros (``_k8_skips``) reads a
+  diagonal only in the row tiles where the matrix's segment flags
+  (``_segment_flags``, made with such a DIA) say it holds a word other
+  than zero;
 - ``spmv_dia_padded_io`` (K10, output in x's padded layout, halo blocks
   zeroed by the kernel) and ``spmv_dia_pingpong`` (K11, into a second
   buffer's interior): one entry of ``csrc/dia.cu``;
@@ -123,6 +124,16 @@ def _segment_flags(data: torch.Tensor) -> torch.Tensor:
     return seg.transpose(-1, -2).to(torch.uint8).contiguous()
 
 
+def _host_seg_share(data: np.ndarray) -> float:
+    """The share of the segments of host diagonals ``data`` [ndiags, n_pad]
+    (n_pad a multiple of ``_FLAG_ROWS``) that hold a word other than zero:
+    ``_segment_flags``'s mean, reckoned where the data is made."""
+    nd, n_pad = data.shape
+    if nd == 0:
+        return 0.0
+    return float((data.reshape(nd, n_pad // _FLAG_ROWS, _FLAG_ROWS) != 0).any(-1).mean())
+
+
 def _data_version(t: torch.Tensor) -> int | None:
     """The version counter of ``t`` (None for an inference tensor, which
     keeps none)."""
@@ -140,11 +151,15 @@ class DIA:
     offsets: Tuple[int, ...]
     shape: Tuple[int, int]
     nnz: int
+    # the share of the 64-row segments of the diagonals that hold an entry,
+    # where the maker knows or estimates it (K8's rule, ``_k8_share``)
+    seg_share: float | None = dataclasses.field(default=None, repr=False)
     # the offsets as int32 on the data's device, which the kernels read
     offsets_t: torch.Tensor = dataclasses.field(init=False, repr=False)
-    # K8's segment flags (``_segment_flags``) and the version of ``data``
-    # they were made from (``_flags`` makes them again after an in-place write)
-    flags: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # K8's segment flags (``_segment_flags``; None where its rule takes the
+    # rows path, which reads none) and the version of ``data`` they were
+    # made from (``_flags`` makes them again after an in-place write)
+    flags: torch.Tensor | None = dataclasses.field(init=False, repr=False)
     flags_version: int | None = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
@@ -154,7 +169,8 @@ class DIA:
         dev = self.data.device
         object.__setattr__(self, "offsets_t", _offsets_tensor(self.offsets, dev))
         _offsets_tensor(tuple(-o for o in self.offsets), dev)
-        object.__setattr__(self, "flags", _segment_flags(self.data))
+        object.__setattr__(self, "flags", _segment_flags(self.data) if _k8_skips(self)
+                           else None)
         object.__setattr__(self, "flags_version", _data_version(self.data))
 
     @property
@@ -214,7 +230,7 @@ def coo_to_dia(coo: COO, max_diags: int | None = None, device=None) -> DIA:
     np.add.at(data, (diag_ids, row), dat)   # duplicate entries sum
     return DIA(data=torch.as_tensor(data, device=device),
                offsets=tuple(int(o) for o in offs), shape=tuple(coo.shape),
-               nnz=int(len(dat)))
+               nnz=int(len(dat)), seg_share=_host_seg_share(data))
 
 
 def dia_to_coo(d: DIA) -> COO:
@@ -251,7 +267,7 @@ def dia_transpose(d: DIA) -> DIA:
         valid = (idx - off >= 0) & (idx - off < n)
         rows.append(torch.where(valid, torch.roll(d.data[s], off), 0.0))
     return DIA(data=torch.stack(rows), offsets=tuple(-o for o in d.offsets),
-               shape=(d.shape[1], d.shape[0]), nnz=d.nnz)
+               shape=(d.shape[1], d.shape[0]), nnz=d.nnz, seg_share=d.seg_share)
 
 
 # ---------------------------------------------------------------------------
@@ -993,14 +1009,20 @@ def _scratch(like: torch.Tensor, n_pad: int, rows: int, k: int):
 
 
 def _flags(d: DIA) -> torch.Tensor:
-    """``d.flags``, made again on the device when ``d.data`` was written in
-    place since they were made (its version counter moved; an inference
-    tensor keeps none, so its flags are made at every call)."""
+    """``d.flags``, made on the device where ``d`` was made without them
+    (K8's rule took the rows path) or ``d.data`` was written in place since
+    they were made (its version counter moved; an inference tensor keeps
+    none, so its flags are made at every call).  Flags made while a CUDA
+    graph is captured hold their values only in its replays, so they are
+    not kept on ``d``."""
     version = _data_version(d.data)
-    if version is None or version != d.flags_version:      # written in place since
-        object.__setattr__(d, "flags", _segment_flags(d.data))
+    if d.flags is not None and version is not None and version == d.flags_version:
+        return d.flags
+    flags = _segment_flags(d.data)
+    if not (d.data.is_cuda and torch.cuda.is_current_stream_capturing()):
+        object.__setattr__(d, "flags", flags)
         object.__setattr__(d, "flags_version", version)
-    return d.flags
+    return flags
 
 
 def _check_flags(d: DIA, flags: torch.Tensor, what: str) -> None:
@@ -1013,14 +1035,31 @@ def _check_flags(d: DIA, flags: torch.Tensor, what: str) -> None:
                          f"kernel reads contiguous uint8 {shape}")
 
 
-_K8_SKIP_MIN_DIAGS = 16   # K8 takes its skip path from this many diagonals (fitted on an H100)
+# (n0, s): K8 takes its skip path on ndiags diagonals where fewer than
+# s·(1 − n0 / ndiags) of the segments hold an entry (fitted on an H100 by
+# examples/k8_paths_torch.py; PERF.md)
+_K8_SKIP_RULE = (6, 0.32)
+
+
+def _k8_share(d: DIA) -> float:
+    """The share of ``d``'s segments that hold an entry, from host fields:
+    ``d.seg_share`` where its maker gave it, else nnz / (ndiags·n), the
+    least it can be (a share of single words scattered over many segments
+    is far larger)."""
+    if d.seg_share is not None:
+        return d.seg_share
+    return d.nnz / max(d.ndiags * d.n, 1)
 
 
 def _k8_skips(d: DIA) -> bool:
-    """Whether K8 takes its skip path (``csrc/dia.cu``'s header) on ``d``:
-    a narrow band stores few zeros and its rows path reads every word at
-    the bandwidth, with no scan of x first."""
-    return d.ndiags >= _K8_SKIP_MIN_DIAGS
+    """Whether K8 takes its skip path (``csrc/dia.cu``'s header) on ``d``,
+    from host fields (no sync, also inside a capture): a band whose
+    segments mostly hold only zeros.  A dense band reads every word at the
+    bandwidth on the rows path, with no scan of x first, and a narrow one
+    (at most n0 diagonals) reads too few words a row there for the skip
+    path's scan and lists to pay."""
+    n0, below = _K8_SKIP_RULE
+    return d.ndiags > n0 and _k8_share(d) < below * (1 - n0 / d.ndiags)
 
 
 def _k8(d: DIA, x: torch.Tensor, base: int, lo: int, hi: int, rows: int,

@@ -24,7 +24,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..ops.dia import DIA, _ALIGN, _round_up, dia_pad_pp, dia_pp_tile, spmv_dia
+from ..ops.dia import (DIA, _ALIGN, _k8_share, _round_up, dia_pad_pp, dia_pp_tile,
+                       spmv_dia)
 from .linop import LinOp
 from .stationary import (_pick_power_config, _safe_diag, _sweep_pairs, chebyshev_op,
                          estimate_lmax, jacobi_iteration_matrix)
@@ -58,9 +59,11 @@ def galerkin_coarse_dia(d: DIA) -> DIA:
     flat = torch.zeros((len(c_offs) * n_cpad,), dtype=d.data.dtype, device=dev)
     flat.index_add_(0, torch.as_tensor(dst, device=dev),
                     0.5 * d.data.reshape(-1)[torch.as_tensor(src, device=dev)])
+    # nnz counts every stored word of A that ``dst`` maps, zeros included;
+    # A_c's share of segments holding an entry is estimated as A's (K8's rule)
     return DIA(data=flat.reshape(len(c_offs), n_cpad),
                offsets=tuple(int(o) for o in c_offs), shape=(n_c, n_c),
-               nnz=int(len(dst)))
+               nnz=int(len(dst)), seg_share=_k8_share(d))
 
 
 def restrict(r: torch.Tensor) -> torch.Tensor:

@@ -266,12 +266,14 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     assert T._scratch(xq, td.n_pad, 0, 8).shape == (td.n_pad,)
     assert T._scratch(xq, td.n_pad, 0, 1) is None
     assert T._scratch(xq, td.n_pad, 4096, 8) is None
-    # K8: its C entry's arguments; the skip path from _K8_SKIP_MIN_DIAGS
-    # diagonals on, reading flags of one shape only
+    # K8: its C entry's arguments; the skip path on wide bands whose
+    # segments mostly hold only zeros (_K8_SKIP_RULE), reading flags of one
+    # shape only
     assert len(T._ARGTYPES["dia_spmv"]) == 15
     assert not T._k8_skips(td) and T._k8_skips(_offsets_dia("orsirr_like150")[1])
-    T._check_flags(td, td.flags, "spmv_dia")
-    for bad in (td.flags[:-1], td.flags.to(torch.int32), td.flags.t()):
+    flags = T._flags(td)
+    T._check_flags(td, flags, "spmv_dia")
+    for bad in (flags[:-1], flags.to(torch.int32), flags.t()):
         with pytest.raises(ValueError, match="segment flags"):
             T._check_flags(td, bad, "spmv_dia")
 

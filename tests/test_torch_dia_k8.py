@@ -1,9 +1,12 @@
 """K8's segment flags and the semantics its skipping keeps, on the CPU.
 
 K8's skip path (``csrc/dia.cu``) reads a diagonal only in the row tiles
-where the matrix's segment flags (``ops/dia._segment_flags``, made with
-every DIA) say the segment holds a word other than zero, and applies the
-skipped terms fma(+-0.0, x[j], acc) only where they can change acc.  These tests hold the flags against a numpy reckoning from
+where the matrix's segment flags (``ops/dia._segment_flags``, made with a
+DIA that K8's rule sends to that path, else on demand by ``_flags``) say
+the segment holds a word other than zero, and applies the skipped terms
+fma(+-0.0, x[j], acc) only where they can change acc.  These tests hold
+the rule against the matrices' share of entries, and the flags against a
+numpy reckoning from
 the COO pattern and from the stored words, through every way the port
 makes a DIA, and the version check that makes them again after an
 in-place write; and hold the port's ``spmv_dia`` against JAX's
@@ -93,9 +96,11 @@ def _held(d, data=None):
     of the matrix's pattern and exactly the segments with a word other than
     zero, made from the data's current version."""
     data = d.data if data is None else data
-    assert d.flags.dtype == torch.uint8 and d.flags.device == d.data.device
-    assert tuple(d.flags.shape) == (-(-d.n_pad // R), d.ndiags)
-    got = d.flags.numpy()
+    flags = T._flags(d)
+    assert flags is d.flags
+    assert flags.dtype == torch.uint8 and flags.device == d.data.device
+    assert tuple(flags.shape) == (-(-d.n_pad // R), d.ndiags)
+    got = flags.numpy()
     pattern = _pattern_flags(data, d.offsets, d.n)
     assert (got >= pattern).all(), "a segment holding an entry is not flagged"
     np.testing.assert_array_equal(got, _word_flags(data))
@@ -140,9 +145,9 @@ def test_jacobi_matrix_keeps_the_skipped_segments():
     d = _dia(data, offsets, n)
     m = t_st.jacobi_iteration_matrix(d)
     assert bool(((m.data == 0) & torch.signbit(m.data)).any())
-    want = d.flags.clone()
+    want = T._flags(d).clone()
     want[:, offsets.index(0)] = 1
-    assert torch.equal(m.flags, want)
+    assert torch.equal(T._flags(m), want)
 
 
 def test_flags_of_the_galerkin_coarse_operator():
@@ -151,6 +156,38 @@ def test_flags_of_the_galerkin_coarse_operator():
     data, offsets, n = _case("orsirr_like24")
     coarse = t_mg.galerkin_coarse_dia(_dia(data, offsets, n))
     _held(coarse)
+
+
+def test_k8_rule_reads_the_share_of_entries():
+    """K8 takes its skip path on bands of more than ``_K8_SKIP_RULE``'s n0
+    diagonals whose segments mostly hold only zeros, by host fields:
+    ``coo_to_dia`` reckons the share of segments holding an entry on the
+    host (orsirr_like150 2.45%, ``_segment_flags``'s mean), which its
+    Jacobi matrix, transpose and bf16 copy keep and its Galerkin levels
+    take as their estimate (their nnz counts every word the index map adds,
+    zeros included); a DIA made without it is read by nnz / (ndiags·n).
+    Not a fully stored band (poisson96), orsirr_like24 (10 diagonals, 31%
+    of the segments), a band of n0 diagonals however sparse, or a wide one
+    whose words are all stored."""
+    ors = T.coo_to_dia(t_gallery.get("orsirr_like150"), device="cpu")
+    assert ors.seg_share == pytest.approx(float(T._segment_flags(ors.data).float().mean()))
+    assert 0.02 < ors.seg_share < 0.03
+    c1 = t_mg.galerkin_coarse_dia(ors)
+    c2 = t_mg.galerkin_coarse_dia(c1)
+    assert c1.nnz > 0.5 * c1.ndiags * c1.n and c2.seg_share == ors.seg_share
+    for d in (ors, t_st.jacobi_iteration_matrix(ors), T.dia_transpose(ors),
+              T.dia_astype(ors, BF16), c1, c2):
+        assert T._k8_skips(d) and isinstance(d.flags, torch.Tensor)
+    for name in ("poisson96", "orsirr_like24"):
+        d = T.coo_to_dia(t_gallery.get(name), device="cpu")
+        assert not T._k8_skips(d) and not T._k8_skips(T.dia_transpose(d))
+    n = 4096
+    for nd in (T._K8_SKIP_RULE[0], 32):
+        band = T.DIA(data=torch.ones(nd, n), offsets=tuple(range(nd)), shape=(n, n),
+                     nnz=nd * n)
+        sparse = dataclasses.replace(band, nnz=n // 8)
+        assert not T._k8_skips(band) and T._k8_skips(sparse) == (nd == 32)
+        assert band.flags is None and isinstance(sparse.flags, torch.Tensor) == (nd == 32)
 
 
 def test_a_word_that_rounds_to_zero_in_bf16():
@@ -181,9 +218,9 @@ def test_flags_are_made_again_after_an_in_place_write(dtype):
     device data."""
     data, offsets, n = _case("orsirr_like24")
     d = T.dia_astype(_dia(data, offsets, n), dtype)
-    s, tile = next((s, t) for t in range(d.flags.shape[0]) for s in range(d.ndiags)
-                   if not d.flags[t, s] and t * R < d.n)
-    before = d.flags
+    before = T._flags(d)
+    s, tile = next((s, t) for t in range(before.shape[0]) for s in range(d.ndiags)
+                   if not before[t, s] and t * R < d.n)
     d.data[s, tile * R] = 1.5
     assert d.flags_version != d.data._version
     flags = T._flags(d)
@@ -193,15 +230,20 @@ def test_flags_are_made_again_after_an_in_place_write(dtype):
 
 
 def test_flags_exist_once_the_dia_does():
-    """Like the int32 offsets, the flags are made with the matrix (never
-    in a kernel call, so a CUDA-graph capture of a call holds the flags it
-    reads); every constructor and ``dataclasses.replace`` makes them."""
-    data, offsets, n = _case("poisson96")
-    d = _dia(data, offsets, n)
-    assert isinstance(d.flags, torch.Tensor) and d.flags_version == d.data._version
+    """Like the int32 offsets, the flags of a DIA that K8's rule sends to
+    the skip path are made with the matrix (never in a kernel call, so a
+    CUDA-graph capture of a call holds the flags it reads); every
+    constructor and ``dataclasses.replace`` makes them.  A dense band,
+    which the rows path reads, gets none until ``_flags`` asks."""
+    ors = T.coo_to_dia(t_gallery.get("orsirr_like150"), device="cpu")
+    assert T._k8_skips(ors) and ors.flags.shape == (352, 230)
+    assert ors.flags_version == ors.data._version
     fields = {f.name: f for f in dataclasses.fields(T.DIA)}
     assert not fields["flags"].init and not fields["flags_version"].init
-    assert T.coo_to_dia(t_gallery.get("poisson32"), device="cpu").flags.shape == (16, 5)
+    data, offsets, n = _case("poisson96")
+    d = _dia(data, offsets, n)
+    assert not T._k8_skips(d) and d.flags is None
+    assert T._flags(d) is d.flags and d.flags.shape == (144, 5)
     with torch.inference_mode():               # no version counter: made at every call
         inf_d = _dia(data, offsets, n)
     assert inf_d.flags_version is None

@@ -1184,7 +1184,7 @@ def test_bf16_wrappers_refuse_other_dtypes(cuda):
 # --- K8's two paths (csrc/dia.cu): rows, and skip (stored-zero segments) -------
 
 K8_INSTANCES = [(torch.float32, torch.float32), (BF16, torch.float32), (BF16, BF16)]
-K8_PATHS = {"rows": 10 ** 9, "skip": 0}     # _K8_SKIP_MIN_DIAGS forcing each path
+K8_PATHS = {"rows": (0, 0.0), "skip": (0, float("inf"))}   # _K8_SKIP_RULE forcing each path
 
 
 def _k8_case(dev, name, dt, vt, seed=0):
@@ -1206,7 +1206,7 @@ def _on_paths(monkeypatch, call):
     out = {}
     for path, least in K8_PATHS.items():
         with monkeypatch.context() as mp:
-            mp.setattr(dia, "_K8_SKIP_MIN_DIAGS", least)
+            mp.setattr(dia, "_K8_SKIP_RULE", least)
             before = dict(dia.spmv_dia.path_launches)
             out[path] = call()
             torch.cuda.synchronize()
@@ -1261,25 +1261,37 @@ def test_k8_nonfinite_x_gives_nan_where_the_plain_version_does(cuda, no_plain, m
     _same_nonfinite(y, want)
 
 
+@pytest.mark.parametrize("inf_at", [None, 3010], ids=["finite x", "inf in x"])
 @pytest.mark.parametrize("word", [0.0, -0.0], ids=["+0.0", "-0.0"])
-def test_k8_skipped_terms_turn_a_negative_zero_sum_positive(cuda, monkeypatch, word):
+def test_k8_skipped_terms_turn_a_negative_zero_sum_positive(cuda, monkeypatch, word, inf_at):
     """A row whose sum underflows to -0.0 (fma(-1e-30, 1e-30, +0.0)) and
     then meets a skipped segment of ``word`` (+0.0 or -0.0, neither
     flagged): fma(word, x, -0.0) is +0.0 where word·x is +0.0, so the skip
-    path must walk that segment with its words.  The rows path's bits."""
+    path must walk that segment with its words.  With inf at x[3010] the
+    segment is listed in the tiles whose window of x holds it (rows 960 to
+    1087), and read with its words there too: NaN in row 1010 only, every
+    other row the rows path's bits."""
     n = 4096
     data = torch.full((2, n), word, device=cuda)
     data[0] = -1e-30                                 # offset 0: every row, flagged
     d = dia.DIA(data=data, offsets=(0, 2000), shape=(n, n), nnz=n)   # offset 2000: +-0.0
-    assert not d.flags[:, 1].any()
+    assert not dia._flags(d)[:, 1].any()
     x = torch.full((n,), 1e-30, device=cuda)
     x[2000:3000] = 2.0
     x[3000:] = -2.0
+    if inf_at is not None:
+        x[inf_at] = float("inf")
     (y,) = _on_paths(monkeypatch, lambda: (dia.spmv_dia(d, x),))
     bits = _bits(y).cpu()                            # rows < 2000 summed to -0.0 first
+    nan = torch.zeros(n, dtype=torch.bool)
+    if inf_at is not None:
+        nan[inf_at - 2000] = True
+    assert torch.equal(y.isnan().cpu(), nan)
     plus = np.copysign(1.0, word) > 0                # word·2 is +0.0 for word +0.0
-    pos, neg = (bits[:1000], bits[1000:2000]) if plus else (bits[1000:2000], bits[:1000])
-    assert (pos == 0).all() and (neg == -2 ** 31).all()
+    rows = torch.arange(n)
+    pos = (rows < 1000) if plus else (rows >= 1000) & (rows < 2000)
+    neg = (rows < 2000) & ~pos
+    assert (bits[pos & ~nan] == 0).all() and (bits[neg & ~nan] == -2 ** 31).all()
     assert (y[2000:] != 0).all()
 
 
@@ -1287,7 +1299,7 @@ def test_spmv_dia_skip_path_captures_on_a_fresh_matrix(cuda, monkeypatch):
     """As ``test_spmv_dia_captures_on_a_fresh_matrix`` on the skip path:
     the backward's transpose, made inside the capture, builds its segment
     flags there (device ops only), and the scan and the SpMV replay."""
-    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    monkeypatch.setattr(dia, "_K8_SKIP_RULE", K8_PATHS["skip"])
     dia.spmv_dia(_poisson_dia(cuda, 16)[1], torch.ones(256, device=cuda))
     d = _banded_dia(cuda, 5000, 131, seed=9)
     d = dia.DIA(data=d.data, offsets=(-131, -3, 0, 5, 77), shape=d.shape, nnz=d.nnz)
@@ -1308,7 +1320,7 @@ def test_spmv_dia_skip_path_captures_on_a_fresh_matrix(cuda, monkeypatch):
 def test_k8_reads_an_in_place_write(cuda, no_plain, monkeypatch, dt):
     """A write into a segment whose flag is clear: the next launch makes
     the flags again (the data's version moved) and reads the new word."""
-    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    monkeypatch.setattr(dia, "_K8_SKIP_RULE", K8_PATHS["skip"])
     d, x = _k8_case(cuda, "orsirr_like150", dt, dt)
     ref = no_plain("spmv_dia_ref")["spmv_dia_ref"]
     y0 = dia.spmv_dia(d, x)
@@ -1355,7 +1367,7 @@ def test_k8_refuses_flags_it_cannot_read(cuda, monkeypatch):
     """On the skip path, flags of another shape raise ``ValueError`` before
     any launch; flags made for another tile height pass the wrapper's check
     and the C entry refuses them."""
-    monkeypatch.setattr(dia, "_K8_SKIP_MIN_DIAGS", 0)
+    monkeypatch.setattr(dia, "_K8_SKIP_RULE", K8_PATHS["skip"])
     _, d = _poisson_dia(cuda, 32)
     x = torch.randn(d.n, device=cuda)
     before = dia.spmv_dia.launches
