@@ -106,9 +106,12 @@ Phases (any failure exits non-zero before the result line):
                8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
                SpMMs) at 256 right-hand sides (K15 also held at K 7, its
                word-by-word path, and 16, and timed on orsirr_like150's
-               230 diagonals at K 64), K14 (multi-RHS fused k-step)
+               230 diagonals at K 64; K16's unpadded entry held to the
+               padded one bit for bit), K14 (multi-RHS fused k-step)
                at k = 1 with 16 right-hand sides and at k = 8 on
-               poisson512 with 2 (tiled, and forced streamed), all on
+               poisson512 with 2 and poisson128 with 16 (both modes, tiled
+               equal to streamed bit for bit, the mode rule's pick no more
+               than 3% slower than the other), all on
                poisson1024 unless named, against their plain versions;
                times as [dia], library calls torch.sparse CSR A@x / A@X
                and (K14 at k = 1) addmm.  Each kernel's first case (and
@@ -119,7 +122,8 @@ Phases (any failure exits non-zero before the result line):
                one-diagonal Jacobi M, every column against single-RHS
                ``cg`` (the same first iteration at rtol 1e-1 and 1e-2, within
                5% at 1e-5); ``jacobi_multirhs`` (100 sweeps, k = 1: K14)
-               against 16 single ``jacobi`` runs.
+               against 16 single ``jacobi`` runs; host ms and device ms
+               (torch.profiler, one more solve) per iteration or sweep.
 16. vcycle   — poisson1024 CG (b = ones, rtol 1e-5) with none, a 6-level
                Jacobi V-cycle, a 3-level Chebyshev V-cycle and its W-cycle,
                each against the same operator in float64 on the CPU (the
@@ -1096,6 +1100,17 @@ def _streamed():
         yield
     finally:
         dia._SMEM_BYTES = saved
+
+
+@contextlib.contextmanager
+def _tiled():
+    """K14 in its tiled mode wherever a tile fits, whatever its rule says."""
+    saved = dia._K14_TILED
+    dia._K14_TILED = True
+    try:
+        yield
+    finally:
+        dia._K14_TILED = saved
 
 
 def _rule(kind, d, k, types=0):
@@ -2214,6 +2229,9 @@ def phase_dia_multi(dev):
         h, kp = dd.halo, xtp.shape[0]
         yt = dia.spmm_dia_t_padded(dd, xtp)
         want = dia.spmm_dia_t_padded_ref(dd, xtp)
+        # the unpadded entry (cg_multi's apply) on the same rows: the same bits
+        if not torch.equal(dia.spmm_dia_t_rows(dd, xtp[:, h:h + dd.n_pad].contiguous()), yt):
+            fail(f"K16 ({label}): spmm_dia_t_rows differs from spmm_dia_t_padded")
         mcsr = _csr(dd)
         x_nk = xtp[:, h:h + n].t().contiguous()
         if not float((mcsr @ x_nk - want[:, :n].t()).abs().max()) <= _dia_tol(want, 1):
@@ -2240,6 +2258,10 @@ def phase_dia_multi(dev):
         for vt in BF16_VECS:
             xb, cb = xtp.to(vt), _csr_rounded(dd, vt)
             wb = dia.spmm_dia_t_padded_ref(mb, xb)
+            if not torch.equal(dia.spmm_dia_t_rows(mb, xb[:, h:h + dd.n_pad].contiguous()),
+                               dia.spmm_dia_t_padded(mb, xb)):
+                fail(f"K16 bf16 ({label}, {_vname(vt)}): spmm_dia_t_rows differs from "
+                     "spmm_dia_t_padded")
             _bf16_put(out, "K16", vt, _record(
                 "K16 bf16", f"{label}, {dd.ndiags} bf16 diagonals, {shape}, {_vname(vt)}",
                 [dia.spmm_dia_t_padded(mb, xb)], [wb], 1, lambda i, xb=xb: make(i, mb, xb),
@@ -2278,7 +2300,7 @@ def phase_dia_multi(dev):
         kb = min(n_rhs, dia._RHS_BLOCK)
 
         def mode(mm, xq):
-            rows = dia._rhs_tile_rows(mm, n_rhs, k, xq.element_size())
+            rows = dia._k14_rows(mm, n_rhs, k, xq.element_size())
             return (f"tiled ({rows} rows x {kb} right-hand sides per block)" if rows
                     else "one batched pass" if k == 1 else f"streamed ({k} launches)")
 
@@ -2305,6 +2327,13 @@ def phase_dia_multi(dev):
 
         shape = f"{n_rhs} right-hand sides, k = {k}, P = {tr}, affine"
         ops = k * n_rhs * (2 * m.ndiags + 2) * m.n_pad
+        if dia._k14_rows(m, n_rhs, k, xq.element_size()):
+            with _streamed():
+                got_s = dia.spmv_dia_power_rhs(m, None, xq, torch.zeros_like(xq), k=k, add=cq)
+            if not torch.equal(got, got_s):
+                fail(f"K14 ({label}, {shape}): tiled and streamed modes differ")
+            print(f"[K14] {label} Jacobi M, {shape}: tiled equals streamed bit for bit",
+                  flush=True)
         rec = _record(
             "K14", f"{label} Jacobi M, {shape}, {mode(m, xq)}", [got], [want], k, make,
             lambda: dia.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), k=k, add=cq),
@@ -2321,7 +2350,7 @@ def phase_dia_multi(dev):
                 mb, xb, torch.zeros_like(xb), k=k, add=cb)
             label_b = f"{label} bf16 Jacobi M, {shape}, {_vname(vt)}, {mode(mb, xb)}"
             got_b = call()
-            if k > 1 and dia._SMEM_BYTES > 0:
+            if dia._k14_rows(mb, n_rhs, k, xb.element_size()):
                 with _streamed():
                     got_s = call()
                 if not torch.equal(got_b[0], got_s[0]):
@@ -2351,26 +2380,34 @@ def phase_dia_multi(dev):
     out["K14"] = k14(d, name, MULTI_K, 1, trk or dia.dia_pp_tile(m) or m.halo, lib=True,
                      bf16="k=1")
     del m
-    d512 = dia.coo_to_dia(gallery.poisson2d(POISSON // 2, dtype=np.float32), device=dev)
-    k, trk = _multirhs_config(jacobi_iteration_matrix(d512), 8, 16, 2)
-    if k != 8:
-        fail(f"jacobi_multirhs on poisson{POISSON // 2} with 2 right-hand sides should "
-             f"fuse k = 8, not {k}")
-    out["K14 k=8"] = k14(d512, f"poisson{POISSON // 2}", 2, 8, trk, bf16="k=8")
-    with _streamed():
-        out["K14 k=8 streamed"] = k14(d512, f"poisson{POISSON // 2}", 2, 8, trk,
-                                      bf16="k=8 streamed")
-    # the table's other fused case: poisson128 with 16 right-hand sides, a
-    # small grid where one launch may beat eight
-    d128 = dia.coo_to_dia(gallery.poisson2d(POISSON // 8, dtype=np.float32), device=dev)
-    k, trk = _multirhs_config(jacobi_iteration_matrix(d128), 8, 16, MULTI_K)
-    if k != 8:
-        fail(f"jacobi_multirhs on poisson{POISSON // 8} with {MULTI_K} right-hand sides "
-             f"should fuse k = 8, not {k}")
-    out["K14 k=8 small"] = k14(d128, f"poisson{POISSON // 8}", MULTI_K, 8, trk)
-    with _streamed():
-        out["K14 k=8 small streamed"] = k14(d128, f"poisson{POISSON // 8}", MULTI_K, 8,
-                                             trk)
+    # K14 at k 8, where the TPU's selection fuses k = 8 (copied: k is part of
+    # the operator): poisson512 with 2 right-hand sides (also in both bf16
+    # instances) and poisson128 with 16, each in both modes; the rule's pick
+    # (``_K14_TILED``) must not be slower than the other mode by more than
+    # RULE_MARGIN
+    for side, n_rhs, key, bf16 in ((POISSON // 2, 2, "K14 k=8", True),
+                                   (POISSON // 8, MULTI_K, "K14 k=8 small", False)):
+        dd = dia.coo_to_dia(gallery.poisson2d(side, dtype=np.float32), device=dev)
+        mk = jacobi_iteration_matrix(dd)
+        k, trk = _multirhs_config(mk, 8, 16, n_rhs)
+        if k != 8:
+            fail(f"jacobi_multirhs on poisson{side} with {n_rhs} right-hand sides should "
+                 f"fuse k = 8, not {k}")
+        for mode in ("tiled", "streamed"):
+            with _tiled() if mode == "tiled" else _streamed():
+                rec = k14(dd, f"poisson{side}", n_rhs, 8, trk,
+                          bf16=f"k=8 {mode}" if bf16 else None)
+            out[f"{key} {mode}"] = rec
+        picked = "tiled" if dia._k14_rows(mk, n_rhs, 8) else "streamed"
+        other = "streamed" if picked == "tiled" else "tiled"
+        ratio = out[f"{key} {picked}"]["ms"] / out[f"{key} {other}"]["ms"]
+        print(f"[K14] poisson{side}, {n_rhs} right-hand sides, k = 8: tiled "
+              f"{out[f'{key} tiled']['ms']:.5f} ms, streamed {out[f'{key} streamed']['ms']:.5f} "
+              f"ms; the rule picks the {picked} mode ({ratio:.3f}x the other)", flush=True)
+        if ratio > 1 + RULE_MARGIN:
+            fail(f"K14 at poisson{side}, {n_rhs} right-hand sides, k = 8: the rule's "
+                 f"{picked} mode is {ratio:.3f}x the {other} one")
+        out[key] = out[f"{key} {picked}"]
     return out, launches
 
 
@@ -2378,6 +2415,17 @@ def _crossing(hist, bnorm, rtol):
     """The first iteration whose residual is ≤ rtol·‖b‖ (None if none)."""
     hit = np.nonzero(hist <= rtol * bnorm)[0]
     return int(hit[0]) + 1 if len(hit) else None
+
+
+def _solver_device_ms(solve, steps):
+    """Device ms per iteration (or sweep) of one more ``solve()`` under
+    ``torch.profiler``, all kernels; its launches are left out of the
+    counts."""
+    saved = _counts(MULTI_COUNTERS)
+    _, busy_ms, _, _ = _profiled(solve, 1)
+    for key, fn in MULTI_COUNTERS.items():
+        fn.launches = saved[key]
+    return busy_ms / steps
 
 
 def phase_multirhs(dev):
@@ -2408,6 +2456,8 @@ def phase_multirhs(dev):
         launches = {k: v - before[k] for k, v in _counts(MULTI_COUNTERS).items() if v - before[k]}
         its = res.iterations.cpu().numpy()
         hist = res.residuals.cpu().numpy()
+        dev_ms = _solver_device_ms(lambda m=m: cg_multi(d, B, m=m, maxiter=CG_MAXITER,
+                                                        rtol=1e-5), int(its.max()))
         if not bool(res.converged.all()):
             fail(f"[multirhs] {label}: not every system converged ({its})")
         t0 = time.perf_counter()
@@ -2427,8 +2477,9 @@ def phase_multirhs(dev):
               f"{its.min()}-{its.max()} (single cg {min(s.iterations for s in singles)}-"
               f"{max(s.iterations for s in singles)}); wall cold {walls[0]:.3f} s, steady "
               f"{walls[1]:.3f} s per solve of all {MULTI_K} ({1e3 * walls[1] / its.max():.4f} "
-              f"ms/iteration), single cg {single_s:.3f} s for the {MULTI_K} columns; "
-              f"launches per solve {launches}", flush=True)
+              f"ms/iteration; device {dev_ms:.4f} ms/iteration under torch.profiler), "
+              f"single cg {single_s:.3f} s for the {MULTI_K} columns; launches over both "
+              f"solves {launches}", flush=True)
         if bad:
             fail(f"[multirhs] {label} vs single cg (system, rtol, multi, single): {bad}")
         total[label] = launches
@@ -2439,6 +2490,7 @@ def phase_multirhs(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in _counts(MULTI_COUNTERS).items() if v - before[k]}
+    dev_ms = _solver_device_ms(lambda: jacobi_multirhs(d, B, iters=100), jm.iterations)
     t0 = time.perf_counter()
     singles = [jacobi(d, B[i], iters=100, fuse_k=1) for i in range(MULTI_K)]
     torch.cuda.synchronize()
@@ -2448,8 +2500,9 @@ def phase_multirhs(dev):
     rel = float(np.max(np.abs(got - want) / want))
     print(f"[multirhs] jacobi_multirhs: {MULTI_K} systems, {jm.iterations} sweeps (k = "
           f"1): {1e3 * wall:.3f} ms ({1e3 * wall / jm.iterations:.4f} ms/sweep for all "
-          f"{MULTI_K}), {MULTI_K} single jacobi {1e3 * single_s:.3f} ms; residuals vs the "
-          f"single runs: max relative difference {rel:.3e}; launches {launches}", flush=True)
+          f"{MULTI_K}; device {dev_ms:.4f} ms/sweep under torch.profiler), {MULTI_K} single "
+          f"jacobi {1e3 * single_s:.3f} ms; residuals vs the single runs: max relative "
+          f"difference {rel:.3e}; launches {launches}", flush=True)
     if jm.iterations != 100 or singles[0].iterations != 100 or launches.get("K14") != 100 \
             or not rel <= 1e-4:
         fail(f"[multirhs] jacobi_multirhs: {jm.iterations} sweeps, launches {launches}, "
@@ -3903,9 +3956,10 @@ def main() -> int:
         fail(f"a kernel of the solver library did not launch on its path: {path_launches}")
     for nm, k, file, rep in (("spmv_dia_padded_io (K10)", "K10", "dia.cu", "dia.py:856"),
                              ("spmv_dia_pingpong (K11)", "K11", "dia.cu", "dia.py:1091"),
-                             ("spmv_dia_power_rhs (K14)", "K14", "dia.cu", "dia.py:1889"),
+                             ("spmv_dia_power_rhs (K14)", "K14", "dia_rhs.cu", "dia.py:1889"),
                              ("spmm_dia (K15)", "K15", "dia_spmm.cu", "dia.py:499"),
-                             ("spmm_dia_t_padded (K16)", "K16", "dia_spmm.cu", "dia.py:651")):
+                             ("spmm_dia_t_padded, spmm_dia_t_rows (K16)", "K16", "dia_rhs.cu",
+                              "dia.py:651")):
         d = dm[k]
         errs = [v["err"] for key, v in dm.items() if key.split()[0] == k]
         kernels.append({"name": nm, "route": "cuda", "source": src + file,
@@ -3932,9 +3986,10 @@ def main() -> int:
                              ("spmv_dia_pingpong", "K11", "dia.cu", "dia.py:1091"),
                              ("spmv_dia_power", "K12", "dia.cu", "dia.py:1325"),
                              ("spmv_dia_cheby", "K13", "dia.cu", "dia.py:1606"),
-                             ("spmv_dia_power_rhs", "K14", "dia.cu", "dia.py:1889"),
+                             ("spmv_dia_power_rhs", "K14", "dia_rhs.cu", "dia.py:1889"),
                              ("spmm_dia", "K15", "dia_spmm.cu", "dia.py:499"),
-                             ("spmm_dia_t_padded", "K16", "dia_spmm.cu", "dia.py:651")):
+                             ("spmm_dia_t_padded, spmm_dia_t_rows", "K16", "dia_rhs.cu",
+                              "dia.py:651")):
         for vec in ("float32 vectors", "bf16 vectors"):
             tag = f"bf16 {k} {vec}"
             d = bf16_recs[tag]

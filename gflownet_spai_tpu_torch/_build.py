@@ -35,7 +35,7 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("bsr", "bsr_bf16", "dia", "dia_spmm", "gat_fused", "segment")
+SOURCES = ("bsr", "bsr_bf16", "dia", "dia_rhs", "dia_spmm", "gat_fused", "segment")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -5,7 +5,8 @@
 //   K11  dia_spmv_pp    y = scale.A.x into the interior of a second buffer
 //   K12  dia_power      z = (scale.A)^k.x, or k affine passes cur <- scale.A.cur + c
 //   K13  dia_cheby      k Chebyshev steps  dd <- a_p.dd + b_p.(r - A.z);  z <- z + dd
-//   K14  dia_power_rhs  K12 on K right-hand sides at once
+//
+// (K14, K12 on K right-hand sides, and K16 run on `dia_rhs.cu`.)
 //
 // Storage is row-scaled: data[s, i] = A[i, i + offs[s]], [ndiags, n_pad]
 // row-major.  x is read as zero outside the range the caller gives.
@@ -102,26 +103,13 @@
 // writing at the pad offset P.  K10's threads that fall on the halo blocks
 // write their zeros in the same launch.  Bound by bytes.
 //
-// K14 (dia_power_rhs) replaces `_spmv_pallas_power_rhs`: K12 on K
-// right-hand sides, [K, P + n_pad + P] row-major buffers.  Each thread owns
-// one row and keeps up to kRhs sums in registers, so a diagonal word read
-// once serves every right-hand side of its block: the diagonals' traffic
-// drops by that factor, which is what the TPU kernel is for.  Two modes:
-// tiled (one block per row tile and block of kb <= kRhs right-hand sides,
-// their kb windows in shared memory across the k passes, shrinking by R per
-// pass, the overlap rows computed again by the neighbouring blocks) or
-// streamed (k launches of the batched one-pass kernel through a [K, n_pad]
-// scratch buffer); k = 1 is one batched pass.  Bound by bytes.  The tiled
-// mode reads the diagonals from device memory (L1 and L2) at every pass;
-// only the iterate lives in shared memory.
-//
 // Element types (`dia_types.cuh`): every kernel is a template over the
 // stored diagonals' type TD and the vectors' type TV, one instance per
 // (TD, TV) in (float32, float32), (bf16, float32), (bf16, bf16), chosen
 // by the `types` code each entry point takes.  Every multiply-add runs in
 // float32 (a bf16 word is widened in a register where it is read) and
 // each result is rounded once, where it is stored, to TV; on bf16 buffers
-// K12, K13 and K14 therefore round every pass's iterate (and K13's dd) to
+// K12 and K13 therefore round every pass's iterate (and K13's dd) to
 // bf16.  In the fused mode the staged diagonals, the
 // iterate's two buffers and the aux rows are held in shared memory in
 // their stored types, so bf16 halves the staging bytes and the shared
@@ -149,16 +137,14 @@ using dia_types::from_f;
 using dia_types::to_f;
 using dia_types::with_types;
 
-constexpr int kThreads = 256;      // K8 rows, K10, K11, K12 / K13 / K14 streamed
+constexpr int kThreads = 256;      // K8 rows, K10, K11, K12 / K13 streamed
 constexpr int kTileRows = 64;      // K8 skip: rows of a tile (the segment flags' tile)
 constexpr int kNeedChunk = 256;    // K8 skip: diagonals listed in shared memory at a time
 constexpr int kNeedBatch = 8;      // K8 skip: listed diagonals whose loads a row issues at once
 constexpr int kScanThreads = 256;  // K8 skip: the x scan, 32 chunks of 32 elements a warp
-constexpr int kTileThreads = 512;  // K14 tiled
 constexpr int kFusedThreads = 1024;    // K12, K13 fused: one CTA per SM
 constexpr int kMaxPasses = 32;
 constexpr int kMaxCluster = 16;
-constexpr int kRhs = 8;            // K14: right-hand sides per block
 
 struct Coeffs {
   float a[kMaxPasses];
@@ -176,32 +162,6 @@ struct PowerRow {
     return __fadd_rn(__fmul_rn(acc, scale), c);
   }
 };
-
-// K14's arithmetic: a term of a row's sum, acc + d.x, and the row's value
-// scale.acc (+ c).  The float32 instance as the compiler contracts it;
-// the bf16-diagonal instances with every rounding explicit, so that their
-// tiled and streamed modes agree bit for bit and, on bf16 buffers (where
-// the product of two bf16 values is exact), a result has the plain
-// version's bits.
-template <typename TD>
-__device__ __forceinline__ float rhs_add(float acc, float d, float x) {
-  if constexpr (sizeof(TD) == 2) {
-    return __fmaf_rn(d, x, acc);
-  } else {
-    return acc + d * x;
-  }
-}
-
-template <typename TD, typename TV>
-__device__ __forceinline__ float rhs_value(float acc, float scale, const TV* c) {
-  if constexpr (sizeof(TD) == 2) {
-    return c != nullptr ? __fadd_rn(__fmul_rn(acc, scale), to_f(*c)) : __fmul_rn(acc, scale);
-  } else {
-    float v = acc * scale;
-    if (c != nullptr) v += to_f(*c);
-    return v;
-  }
-}
 
 // K13's update of one row from t = (A.z)_i: dn = a.dd + b.(r - t).
 __device__ __forceinline__ float cheby_dn(float a, float dd, float b, float r, float t) {
@@ -379,44 +339,6 @@ dia_spmv_pp_kernel(const TD* __restrict__ data, long long ld,
     acc += to_f(data[s * ld + i]) * xv;
   }
   y[i] = from_f<TV>(acc * scale);
-}
-
-// One pass of K14 over rows [0, n_pad) of K right-hand sides: for each r,
-// y_r[i] = scale.sum_s data[s, i].x_r[i + offs[s]] (+ c_r[i]), x_r = x + r.ldx
-// read for x_lo <= j < x_hi.  Block b covers kThreads rows and right-hand
-// sides [kRhs.(b % rhs_blocks), +kRhs): consecutive blocks share their rows,
-// so the diagonal words they re-read come from L2.
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_rhs_kernel(const TD* __restrict__ data, long long n_pad,
-                    const int* __restrict__ offs, int ndiags,
-                    const TV* __restrict__ x, long long ldx, long long x_lo,
-                    long long x_hi, const TV* __restrict__ c, long long ldc,
-                    float scale, TV* __restrict__ y, long long ldy, int n_rhs,
-                    unsigned rhs_blocks) {
-  const long long i = (blockIdx.x / rhs_blocks) * static_cast<long long>(kThreads)
-                      + threadIdx.x;
-  if (i >= n_pad) return;
-  const int r0 = static_cast<int>(blockIdx.x % rhs_blocks) * kRhs;
-  const int nr = min(kRhs, n_rhs - r0);
-  float acc[kRhs];
-#pragma unroll
-  for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
-  for (int s = 0; s < ndiags; ++s) {
-    const long long j = i + offs[s];
-    if (j < x_lo || j >= x_hi) continue;   // adds 0.f: the sums are unchanged
-    const float dv = to_f(data[s * n_pad + i]);
-#pragma unroll
-    for (int r = 0; r < kRhs; ++r)
-      if (r < nr) acc[r] = rhs_add<TD>(acc[r], dv, to_f(x[(r0 + r) * ldx + j]));
-  }
-#pragma unroll
-  for (int r = 0; r < kRhs; ++r) {
-    if (r < nr) {
-      y[(r0 + r) * ldy + i] = from_f<TV>(
-          rhs_value<TD>(acc[r], scale, c != nullptr ? c + (r0 + r) * ldc + i : nullptr));
-    }
-  }
 }
 
 // One pass of K13's streamed mode over rows [0, n_pad): t = A.z,
@@ -740,73 +662,6 @@ dia_fused_kernel(const TD* __restrict__ data, long long n_pad,
   // window's stores all arrived before its last pass
 }
 
-// K14 tiled: block (blockIdx.x, blockIdx.y) owns rows [t0, t0 + tr) of
-// right-hand sides [kb.blockIdx.y, +kb).  smem: cur[kb][W], nxt[kb][W]
-// (TV), offs[ndiags] with W = tr + 2.k.R, window index i holding row
-// t0 - k.R + i; buffers are [n_rhs][ld], ld = P + n_pad + P.
-template <bool kAffine, typename TD, typename TV>
-__global__ void __launch_bounds__(kTileThreads)
-dia_power_rhs_kernel(const TD* __restrict__ data, long long n_pad,
-                     const int* __restrict__ offs, int ndiags, int reach,
-                     const TV* __restrict__ xq, const TV* __restrict__ cq,
-                     TV* __restrict__ zq, long long P, int n_rhs, int k,
-                     float scale, int tr, int kb) {
-  extern __shared__ __align__(16) unsigned char rhs_smem[];
-  const int W = tr + 2 * k * reach;
-  const long long ld = n_pad + 2 * P;
-  const int r0 = blockIdx.y * kb;
-  const int nr = min(kb, n_rhs - r0);
-  TV* cur = reinterpret_cast<TV*>(rhs_smem);
-  TV* nxt = cur + static_cast<long long>(kb) * W;
-  int* offs_s = reinterpret_cast<int*>(cur + 2LL * kb * W);
-  const long long t0 = static_cast<long long>(blockIdx.x) * tr;
-  const long long base = t0 - static_cast<long long>(k) * reach;
-  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
-  for (int e = threadIdx.x; e < nr * W; e += blockDim.x) {
-    const int r = e / W, i = e % W;
-    const long long row = base + i;
-    cur[e] = (row >= -P && row < n_pad + P) ? xq[(r0 + r) * ld + P + row] : from_f<TV>(0.f);
-  }
-  __syncthreads();
-  for (int p = 1; p <= k; ++p) {
-    const int hi = W - p * reach;
-    for (int i = p * reach + threadIdx.x; i < hi; i += blockDim.x) {
-      const long long row = base + i;
-      float acc[kRhs];
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
-      const bool inside = row >= 0 && row < n_pad;
-      if (inside) {
-        for (int s = 0; s < ndiags; ++s) {
-          const float dv = to_f(data[s * n_pad + row]);
-          const int j = i + offs_s[s];
-#pragma unroll
-          for (int r = 0; r < kRhs; ++r)
-            if (r < nr) acc[r] = rhs_add<TD>(acc[r], dv, to_f(cur[r * W + j]));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) {
-        if (r < nr) {
-          nxt[r * W + i] = from_f<TV>(
-              inside ? rhs_value<TD>(acc[r], scale,
-                                     kAffine ? cq + (r0 + r) * ld + P + row : nullptr)
-                     : 0.f);
-        }
-      }
-    }
-    __syncthreads();
-    TV* const done = cur;
-    cur = nxt;
-    nxt = done;
-  }
-  for (int e = threadIdx.x; e < nr * tr; e += blockDim.x) {
-    const int r = e / tr, i = e % tr;
-    const long long row = t0 + i;
-    if (row < n_pad) zq[(r0 + r) * ld + P + row] = cur[r * W + k * reach + i];
-  }
-}
-
 // Dynamic shared memory above 48 KB needs an opt-in per kernel; raise it
 // only when a launch needs more than the last one set.
 template <typename Kernel>
@@ -823,8 +678,6 @@ template <typename TD, typename TV>
 constexpr int type_code() {
   return sizeof(TD) == 4 ? 0 : sizeof(TV) == 4 ? 1 : 2;
 }
-
-size_t g_power_rhs_smem[3][2] = {};
 
 // The fused kernel's instances: kind (0 K12, 1 K12 with c, 2 K13) by
 // ndiags in [1, kFusedMaxDiags] by (TD, TV); wider matrices take the
@@ -1096,64 +949,6 @@ extern "C" int dia_spmv_pp(const void* data, long long n_pad, const void* offs,
         static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags,
         static_cast<const TV*>(xq) + P, -P, n_pad + P, scale, static_cast<TV*>(yq) + P,
         n_pad, pad);
-    return cudaGetLastError();
-  }));
-}
-
-// K14.  xq, cq (nullable) and zq are [n_rhs][P + n_pad + P] buffers; only
-// zq's interiors are written.  k == 1 or tr == 0: k batched passes, through
-// `tmp` ([n_rhs][n_pad] elements; unused when k == 1); else tiled, `tr`
-// rows and `kb` (<= kRhs) right-hand sides per block.
-extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs,
-                             int ndiags, int reach, const void* xq, const void* cq,
-                             void* zq, long long P, int n_rhs, int k, float scale,
-                             int tr, int kb, void* tmp, int types, void* stream) {
-  if (n_rhs < 1 || k < 1 || kb < 1 || kb > kRhs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(with_types(types, [&](auto t) {
-    DIA_TYPES(t);
-    const TD* dat = static_cast<const TD*>(data);
-    const int* off = static_cast<const int*>(offs);
-    const TV* x = static_cast<const TV*>(xq);
-    const TV* c = static_cast<const TV*>(cq);
-    TV* z = static_cast<TV*>(zq);
-    const long long ld = n_pad + 2 * P;
-    if (tr == 0 || k == 1) {
-      const unsigned rhs_blocks = static_cast<unsigned>((n_rhs + kRhs - 1) / kRhs);
-      const TV* src = x + P;
-      long long ld_src = ld;
-      for (int p = 1; p <= k; ++p) {
-        const bool last = (k - p) % 2 == 0;
-        TV* dst = last ? z + P : static_cast<TV*>(tmp);
-        const long long ld_dst = last ? ld : n_pad;
-        const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
-        dia_spmv_rhs_kernel<TD, TV><<<row_blocks(n_pad) * rhs_blocks, kThreads, 0, st>>>(
-            dat, n_pad, off, ndiags, src, ld_src, lo, hi, c == nullptr ? nullptr : c + P,
-            ld, scale, dst, ld_dst, n_rhs, rhs_blocks);
-        src = dst;
-        ld_src = ld_dst;
-      }
-      return cudaGetLastError();
-    }
-    const size_t smem = sizeof(TV) * 2 * static_cast<size_t>(kb)
-                            * (tr + 2 * static_cast<size_t>(k) * reach)
-                        + sizeof(int) * ndiags;
-    const dim3 grid(static_cast<unsigned>((n_pad + tr - 1) / tr),
-                    static_cast<unsigned>((n_rhs + kb - 1) / kb));
-    size_t* granted = g_power_rhs_smem[type_code<TD, TV>()];
-    cudaError_t err;
-    if (c != nullptr) {
-      err = opt_in_smem(dia_power_rhs_kernel<true, TD, TV>, smem, &granted[1]);
-      if (err != cudaSuccess) return err;
-      dia_power_rhs_kernel<true, TD, TV><<<grid, kTileThreads, smem, st>>>(
-          dat, n_pad, off, ndiags, reach, x, c, z, P, n_rhs, k, scale, tr, kb);
-    } else {
-      err = opt_in_smem(dia_power_rhs_kernel<false, TD, TV>, smem, &granted[0]);
-      if (err != cudaSuccess) return err;
-      dia_power_rhs_kernel<false, TD, TV><<<grid, kTileThreads, smem, st>>>(
-          dat, n_pad, off, ndiags, reach, x, nullptr, z, P, n_rhs, k, scale, tr, kb);
-    }
     return cudaGetLastError();
   }));
 }

@@ -1,7 +1,8 @@
-// DIA sparse x dense products (SpMM) of the multi-RHS solvers:
+// DIA sparse x dense product (SpMM) of the multi-RHS solvers:
 //
 //   K15  dia_spmm    Y = A.X          X, Y [n, K] row-major
-//   K16  dia_spmm_t  Yt = (A.X)^T     Xt [K, h + n_pad + h] -> Yt [K, n_pad]
+//
+// (K16, the product on right-hand sides held as rows, runs on `dia_rhs.cu`.)
 //
 // Storage is row-scaled: data[s, i] = A[i, i + offs[s]], [ndiags, n_pad]
 // row-major; each output is sum_s data[s, i].X[i + offs[s]], summed in
@@ -22,24 +23,16 @@
 // per thread) serves a K that is not a multiple of 4 or an X or Y that is
 // not 16-byte aligned.
 //
-// K16 replaces `_spmm_dia_t_pallas` (window DMAs of [kb, tr + 2h] so each
-// right-hand side is one contiguous burst).  Here a thread owns one row of
-// kRhs right-hand sides and keeps their sums in registers: each diagonal word
-// is loaded once per block and serves all kRhs of them, and neighbouring
-// threads read neighbouring words of each Xt row.  Consecutive blocks cover
-// the same rows for the next kRhs right-hand sides, so their diagonal words
-// come from L2.
-//
-// Both take any K (the TPU's K >= 128, K % 128 == 0 rule is a VMEM
-// condition).  What bounds them on an H100: bytes of X and Y (2.ndiags flops
-// per 8 bytes moved per element at ndiags = 5, per 4 on bf16 vectors); K15
+// It takes any K (the TPU's K >= 128, K % 128 == 0 rule is a VMEM
+// condition).  What bounds it on an H100: bytes of X and Y (2.ndiags flops
+// per 8 bytes moved per element at ndiags = 5, per 4 on bf16 vectors); it
 // also reads each X row ndiags times, from L1 or L2 after the first.
 //
-// Element types (`dia_types.cuh`): both are templates over the stored
+// Element types (`dia_types.cuh`): it is a template over the stored
 // diagonals' type TD and the vectors' type TV, instances (float32,
 // float32), (bf16, float32) and (bf16, bf16) by the `types` code of the
 // entry points; products and sums in float32, each output rounded once to
-// TV.  K15 stages its diagonal words in shared memory as TD (2 bytes each
+// TV.  It stages its diagonal words in shared memory as TD (2 bytes each
 // in bf16), and its vector path moves 4 columns a thread: one 16-byte
 // load or store of float32, one 8-byte one of bf16 (X and Y then need
 // 8-byte alignment).
@@ -59,8 +52,6 @@ constexpr int kMaxDiags = 1024;  // K15: staged diagonals per block
 constexpr int kSpmmThreads = 256;  // K15: threads per block (at most)
 constexpr int kSpmmSmem = 227 * 1024;  // K15: shared memory a block may use
 constexpr int kR = 4;            // K15: rows per thread (4 ran faster than 8 on an H100)
-constexpr int kThreads = 256;    // K16
-constexpr int kRhs = 16;         // K16: right-hand sides per thread
 
 // Four adjacent columns of X or Y as float32: one 16-byte access of
 // float32, one 8-byte access of bf16 (the lower column in the low bits).
@@ -186,39 +177,9 @@ cudaError_t launch_spmm(const TD* data, long long n_pad, const int* offs, int nd
   return cudaGetLastError();
 }
 
-// Block b covers kThreads rows and right-hand sides [kRhs.(b % rhs_blocks),
-// +kRhs).  xt points at logical column 0 of row 0; x_r[j] = xt[r.ldx + j]
-// is read for -h <= j < n_pad + h.
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(kThreads)
-dia_spmm_t_kernel(const TD* __restrict__ data, long long n_pad,
-                  const int* __restrict__ offs, int ndiags,
-                  const TV* __restrict__ xt, long long ldx, long long h,
-                  int n_rhs, unsigned rhs_blocks, TV* __restrict__ yt) {
-  const long long i = (blockIdx.x / rhs_blocks) * static_cast<long long>(kThreads)
-                      + threadIdx.x;
-  if (i >= n_pad) return;
-  const int r0 = static_cast<int>(blockIdx.x % rhs_blocks) * kRhs;
-  const int nr = min(kRhs, n_rhs - r0);
-  float acc[kRhs];
-#pragma unroll
-  for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
-  for (int s = 0; s < ndiags; ++s) {
-    const long long j = i + offs[s];
-    if (j < -h || j >= n_pad + h) continue;   // adds 0.f: the sums are unchanged
-    const float dw = to_f(data[s * n_pad + i]);
-#pragma unroll
-    for (int r = 0; r < kRhs; ++r)
-      if (r < nr) acc[r] += dw * to_f(xt[(r0 + r) * ldx + j]);
-  }
-#pragma unroll
-  for (int r = 0; r < kRhs; ++r)
-    if (r < nr) yt[(r0 + r) * n_pad + i] = from_f<TV>(acc[r]);
-}
-
 }  // namespace
 
-// Both entry points take `types`, the (diagonal, vector) element types:
+// The entry point takes `types`, the (diagonal, vector) element types:
 // 0 (float32, float32), 1 (bf16, float32), 2 (bf16, bf16).
 
 // K15.  x, y: [n, K] row-major; ndiags <= kMaxDiags; vec: K % 4 == 0 and
@@ -239,25 +200,5 @@ extern "C" int dia_spmm(const void* data, long long n_pad, const void* offs,
     auto* yy = static_cast<TV*>(y);
     return vec ? launch_spmm<true>(d, n_pad, o, ndiags, xx, n, K, yy, st)
                : launch_spmm<false>(d, n_pad, o, ndiags, xx, n, K, yy, st);
-  }));
-}
-
-// K16.  xt points at column h of a [K][ldx] buffer, ldx = h + n_pad + h;
-// yt is [K][n_pad].
-extern "C" int dia_spmm_t(const void* data, long long n_pad, const void* offs,
-                          int ndiags, const void* xt, long long ldx, int K, void* yt,
-                          int types, void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned rhs_blocks = static_cast<unsigned>((K + kRhs - 1) / kRhs);
-  const unsigned row_blocks = static_cast<unsigned>((n_pad + kThreads - 1) / kThreads);
-  return static_cast<int>(with_types(types, [&](auto t) {
-    using TD = typename decltype(t)::Data;
-    using TV = typename decltype(t)::Vec;
-    dia_spmm_t_kernel<TD, TV><<<row_blocks * rhs_blocks, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-        static_cast<const TV*>(xt), ldx, (ldx - n_pad) / 2, K, rhs_blocks,
-        static_cast<TV*>(yt));
-    return cudaGetLastError();
   }));
 }

@@ -15,8 +15,8 @@ from .dia import (DIA, coo_to_dia, dia_astype, dia_pad_io, dia_pad_pp, dia_pad_p
                   dia_pad_x, dia_pad_xt, dia_power_data, dia_power_ok, dia_power_tile,
                   dia_pp_tile, dia_to_coo, dia_transpose,
                   frobenius_sq_minus_identity_dia, spgemm_dia, spmm_dia, spmm_dia_t,
-                  spmm_dia_t_padded, spmv_dia, spmv_dia_cheby, spmv_dia_padded,
-                  spmv_dia_padded_io, spmv_dia_pingpong, spmv_dia_power,
+                  spmm_dia_t_padded, spmm_dia_t_rows, spmv_dia, spmv_dia_cheby,
+                  spmv_dia_padded, spmv_dia_padded_io, spmv_dia_pingpong, spmv_dia_power,
                   spmv_dia_power_rhs, spmv_dia_ref)
 from .gat_fused import (gat_tile_fused, gat_tile_fused_bwd,
                         gat_tile_fused_bwd_ref, gat_tile_fused_ref)
@@ -40,7 +40,7 @@ __all__ = [
     "dia_pad_x",
     "dia_pad_xt", "dia_power_data", "dia_power_ok", "dia_power_tile", "dia_pp_tile",
     "dia_to_coo", "dia_transpose", "frobenius_sq_minus_identity_dia",
-    "spgemm_dia", "spmm_dia", "spmm_dia_t", "spmm_dia_t_padded",
+    "spgemm_dia", "spmm_dia", "spmm_dia_t", "spmm_dia_t_padded", "spmm_dia_t_rows",
     "spmv_dia", "spmv_dia_cheby", "spmv_dia_padded", "spmv_dia_padded_io",
     "spmv_dia_pingpong", "spmv_dia_power", "spmv_dia_power_rhs", "spmv_dia_ref",
     "gat_tile_fused", "gat_tile_fused_bwd", "gat_tile_fused_bwd_ref",

@@ -21,8 +21,10 @@ Entry points and the kernels they launch on CUDA tensors:
   buffer's interior): one entry of ``csrc/dia.cu``;
 - ``spmv_dia_power`` (K12) and ``spmv_dia_power_rhs`` (K14, K right-hand
   sides): k fused passes; ``spmv_dia_cheby`` (K13): k Chebyshev steps;
-- ``spmm_dia`` (K15, X [n, K]) and ``spmm_dia_t`` / ``spmm_dia_t_padded``
-  (K16, X in [K, n] layout): ``csrc/dia_spmm.cu``.
+- ``spmm_dia`` (K15, X [n, K]): ``csrc/dia_spmm.cu``; ``spmm_dia_t`` /
+  ``spmm_dia_t_padded`` / ``spmm_dia_t_rows`` (K16, X in [K, n] layout, the
+  last on an unpadded [K, n_pad] buffer) and ``spmv_dia_power_rhs`` (K14):
+  ``csrc/dia_rhs.cu``'s row-tile kernel.
 
 On CPU tensors each computes its plain version (``*_ref``), the JAX
 package's jnp fallback.  K12 and K13 have two modes (``csrc/dia.cu``'s
@@ -34,9 +36,12 @@ per CTA, clusters launched) that a cost model fitted on the card times
 fastest, and takes it only where a window fits (at most 9 diagonals, reach
 below the shared memory) and the model times it below the streamed mode;
 the two modes agree bit for bit.  ``_SMEM_BYTES = 0`` forces the streamed
-mode (tests, ``chip_smoke.py``).  K14 keeps the iterate of a row tile in
-one block's shared memory when its window fits (``_rhs_tile_rows``) and
-else streams, so every k the selection picks runs on the card.
+mode (tests, ``chip_smoke.py``).  K14 runs its k passes streamed (k
+launches of the row-tile kernel that K16 shares) or tiled (the iterate of
+a row tile in one block's shared memory, where its window fits,
+``_rhs_tile_rows``), as the mode rule ``_K14_TILED`` fitted on the card
+picks (``_k14_rows``); the two agree bit for bit, and every k the
+selection picks runs on the card.
 
 Dtypes (one rule for the CPU and the card).  The JAX package's two paths
 disagree on bf16: its Pallas kernels cast x to the diagonals' dtype and
@@ -713,11 +718,21 @@ _ARGTYPES = {
     "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
                       _INT, ctypes.c_float, _INT, _INT, _PTR, _INT, _PTR],
     "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _INT, _PTR],
-    "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _PTR],
+    "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _I64, _INT, _PTR, _INT, _PTR],
 }
-_LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_spmm"}   # else csrc/dia.cu
+_LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_rhs",
+            "dia_power_rhs": "dia_rhs"}   # else csrc/dia.cu
 _RHS_BLOCK = 8         # K14: right-hand sides per block in the tiled mode
+# K14's mode rule, fitted on an H100 (``examples/k14_modes_torch.py``: 277
+# shapes, poisson grids of side 32 to 1,024 and bands of reach 1 and 3 at K
+# 1 to 16, k 2 to 8, float32 and bf16): k streamed passes of the row-tile
+# kernel beat the tiled mode at 276 of them, by up to 10.6x, and lost one
+# by 5.4% (a tridiagonal band, K 8, k 8), so it streams at every shape; the
+# tiled mode stays as the one-launch alternative ``chip_smoke.py`` times
+# the rule against
+_K14_TILED = False
 _SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in shared memory
+_RHS_MAX_DIAGS = 12288  # K14, K16 stage a block's offsets in shared memory
 # The kernels' (diagonals, vectors) dtypes: the `types` code of the C entry
 # points, and each instance's name in the wrappers' `type_launches`
 _TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
@@ -799,13 +814,19 @@ def _tile_rows(words) -> int:
 
 
 def _rhs_tile_rows(d: DIA, n_rhs: int, k: int, elem: int = 4) -> int:
-    """K14's rows per block for buffers of ``elem``-byte elements: its
-    kb windows of tr + 2·k·R rows, twice (``elem`` bytes each), and the
-    offsets; 0 (one batched pass, or the streamed mode) at k = 1 or where
-    no tile fits."""
+    """K14's rows per block in the tiled mode for buffers of ``elem``-byte
+    elements: its kb windows of tr + 2·k·R rows, twice (``elem`` bytes
+    each), and the offsets; 0 at k = 1 or where no tile fits."""
     kb = min(n_rhs, _RHS_BLOCK)
     return _tile_rows(lambda t: elem * kb * (t + 2 * k * d.reach) // 2 + d.ndiags) \
         if k > 1 else 0
+
+
+def _k14_rows(d: DIA, n_rhs: int, k: int, elem: int = 4) -> int:
+    """The rows per block of the mode K14 takes: ``_rhs_tile_rows`` where a
+    tile fits and the mode rule ``_K14_TILED`` takes the tiled mode, else 0
+    (one pass of the row-tile kernel at k = 1, k streamed passes above)."""
+    return _rhs_tile_rows(d, n_rhs, k, elem) if _K14_TILED else 0
 
 
 # --- K12 / K13: fused or streamed (``csrc/dia.cu``'s header) ---------------
@@ -1264,7 +1285,7 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
     the ``dia_pad_pp_rhs`` layout [K, P + n_pad + P], or k affine passes
     with ``add`` (per-RHS constants, same layout), each pass rounded to the
     buffers' dtype.  Writes zq's interior in place (zq must not be xq) and
-    returns zq.  K14 (``csrc/dia.cu``) on CUDA tensors, any k ≥ 1,
+    returns zq.  K14 (``csrc/dia_rhs.cu``) on CUDA tensors, any k ≥ 1,
     ``spmv_dia_power_rhs_ref`` on CPU tensors; ``datak`` is not read."""
     del datak
     if xq.device.type == "cpu":
@@ -1272,12 +1293,14 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
     bufs = (xq, zq) if add is None else (xq, zq, add)
     code = _check_cuda(d, "spmv_dia_power_rhs", *bufs)
     p = _check_pp(d, "spmv_dia_power_rhs", *bufs, ndim=2)
-    if zq.data_ptr() == xq.data_ptr() or k < 1:
-        raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1")
+    if zq.data_ptr() == xq.data_ptr() or k < 1 or d.ndiags > _RHS_MAX_DIAGS:
+        raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1, "
+                         f"at most {_RHS_MAX_DIAGS} diagonals ({d.ndiags})")
     n_rhs = xq.shape[0]
-    # k = 1 is one batched pass; k ≥ 2 tiles k passes in shared memory when
-    # kb windows of tr + 2·k·R rows fit a block, else streams them
-    tr = _rhs_tile_rows(d, n_rhs, k, xq.element_size())
+    # k = 1 is one pass; k ≥ 2 tiles k passes in shared memory where kb
+    # windows of tr + 2·k·R rows fit a block and the mode rule picks it,
+    # else streams them
+    tr = _k14_rows(d, n_rhs, k, xq.element_size())
     tmp = torch.empty((n_rhs, d.n_pad), dtype=xq.dtype, device=xq.device) \
         if tr == 0 and k > 1 else None
     stream = torch.cuda.current_stream(xq.device).cuda_stream
@@ -1318,23 +1341,46 @@ def spmm_dia(d: DIA, x: torch.Tensor) -> torch.Tensor:
 def spmm_dia_t_padded(d: DIA, xtp: torch.Tensor) -> torch.Tensor:
     """Transposed-RHS SpMM on a ``dia_pad_xt`` buffer [K_pad, h + n_pad +
     h] (any K_pad): Yt[k, i] = Σ_s data[s, i]·Xt[k, i + off_s] → [K_pad,
-    n_pad], dtype promote(diagonals, Xt).  K16 (``csrc/dia_spmm.cu``) on
+    n_pad], dtype promote(diagonals, Xt).  K16 (``csrc/dia_rhs.cu``) on
     CUDA tensors, ``spmm_dia_t_padded_ref`` on CPU tensors."""
     if xtp.device.type == "cpu":
         return spmm_dia_t_padded_ref(d, xtp)
     xtp = _promoted(d, xtp)
-    code = _check_cuda(d, "spmm_dia_t_padded", xtp)
     if xtp.dim() != 2 or xtp.shape[1] != d.n_pad + 2 * d.halo:
         raise ValueError(f"spmm_dia_t_padded: buffer {tuple(xtp.shape)} is not "
                          f"[K_pad, {d.halo} + {d.n_pad} + {d.halo}]")
-    yt = torch.empty((xtp.shape[0], d.n_pad), dtype=xtp.dtype, device=xtp.device)
-    stream = torch.cuda.current_stream(xtp.device).cuda_stream
+    return _k16(d, xtp, d.halo, "spmm_dia_t_padded")
+
+
+def _k16(d: DIA, xt: torch.Tensor, h: int, what: str) -> torch.Tensor:
+    """K16 on a [K, h + n_pad + h] buffer (h = 0: unpadded), read as zero
+    outside it; counted on ``spmm_dia_t_padded``."""
+    code = _check_cuda(d, what, xt)
+    if d.ndiags > _RHS_MAX_DIAGS or xt.shape[0] < 1:
+        raise ValueError(f"{what}: at most {_RHS_MAX_DIAGS} diagonals ({d.ndiags}) and at "
+                         "least one right-hand side")
+    yt = torch.empty((xt.shape[0], d.n_pad), dtype=xt.dtype, device=xt.device)
+    stream = torch.cuda.current_stream(xt.device).cuda_stream
     _build.check(_lib_fn("dia_spmm_t")(
         d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
-        xtp.data_ptr() + xtp.element_size() * d.halo, xtp.shape[1], xtp.shape[0],
-        yt.data_ptr(), code, stream), "spmm_dia_t_padded")
+        xt.data_ptr() + xt.element_size() * h, xt.shape[1], -h, d.n_pad + h, xt.shape[0],
+        yt.data_ptr(), code, stream), what)
     _count(spmm_dia_t_padded, code)
     return yt
+
+
+def spmm_dia_t_rows(d: DIA, xt: torch.Tensor) -> torch.Tensor:
+    """K16 on an unpadded [K, n_pad] buffer, read as zero outside [0,
+    n_pad): the values of ``spmm_dia_t_padded`` on the buffer padded with
+    zero halos, without the padded copy → [K, n_pad], dtype
+    promote(diagonals, Xt).  Its launches count on
+    ``spmm_dia_t_padded``."""
+    if xt.device.type == "cpu":
+        return spmm_dia_t_padded_ref(d, torch.nn.functional.pad(xt, (d.halo, d.halo)))
+    xt = _promoted(d, xt)
+    if xt.dim() != 2 or xt.shape[1] != d.n_pad:
+        raise ValueError(f"spmm_dia_t_rows: buffer {tuple(xt.shape)} is not [K, {d.n_pad}]")
+    return _k16(d, xt, 0, "spmm_dia_t_rows")
 
 
 def spmm_dia_t(d: DIA, xt: torch.Tensor) -> torch.Tensor:

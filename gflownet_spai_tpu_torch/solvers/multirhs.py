@@ -3,12 +3,13 @@ of ``gflownet_spai_tpu/solvers/multirhs.py``).
 
 Solves ``A·X = B`` for K right-hand sides at once, held in [K, n] layout
 (each system a contiguous row), so each application of a DIA operator is
-one ``spmm_dia_t_padded`` (K16): the diagonals are read once per iteration
-for all K systems.  The systems are independent (batched CG, not
-block-Krylov): each has its own α, β and convergence flag; a converged
-system freezes (α = 0) while the rest run, and its residual history reads
-NaN from then on.  Vectors and scalars stay on the device; whether every
-system is done comes to the host once per iteration for the loop's test.
+one ``spmm_dia_t_rows`` (K16, on the [K_pad, n_pad] iterate itself): the
+diagonals are read once per iteration for all K systems.  The systems are
+independent (batched CG, not block-Krylov): each has its own α, β and
+convergence flag; a converged system freezes (α = 0) while the rest run,
+and its residual history reads NaN from then on.  Vectors and scalars stay
+on the device; whether every system is done comes to the host once per
+iteration for the loop's test.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.dia import DIA, _round_up, _spmm_t_tiles, spmm_dia_t_padded
+from ..ops.dia import DIA, _round_up, _spmm_t_tiles, spmm_dia_t_rows
 from .linop import LinOp
 
 
@@ -29,10 +30,12 @@ class CGMultiResult(NamedTuple):
 
 
 def _dia_apply_t(d: DIA, vt: torch.Tensor) -> torch.Tensor:
-    """[Kp, n_pad] → [Kp, n_pad] through K16 (the halo is padded anew each
-    call; rows beyond n stay zero because the diagonals are zero there)."""
-    h = d.halo
-    return spmm_dia_t_padded(d, torch.nn.functional.pad(vt.to(d.data.dtype), (h, h)))
+    """[Kp, n_pad] → [Kp, n_pad] through K16, which reads vt as zero
+    outside [0, n_pad): the values of JAX's apply on its zero-padded
+    buffer, without the copy.  vt is rounded to the diagonals' dtype first,
+    as JAX's buffer of that dtype rounds it (rows beyond n stay zero
+    because the diagonals are zero there)."""
+    return spmm_dia_t_rows(d, vt.to(d.data.dtype))
 
 
 def _as_multi_op(op):

@@ -859,8 +859,10 @@ def test_k10_k11_match_plain(cuda, no_plain, name):
 @pytest.mark.parametrize("affine", [False, True])
 def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
     """K14 on poisson96's Jacobi matrix with 12 right-hand sides (one full
-    block of 8 and one of 4): one batched pass at k = 1, k passes tiled in
-    shared memory, or (shared memory taken away) k streamed passes."""
+    block of 8 and one of 4): one pass of the row-tile kernel at k = 1, k
+    passes tiled in shared memory (forced, whatever the mode rule says),
+    or (shared memory taken away) k streamed passes.  A second launch gives
+    the same bits, and the tiled mode the streamed mode's."""
     from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
 
     _, d = _poisson_dia(cuda)
@@ -868,7 +870,9 @@ def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
     ref = no_plain("spmv_dia_power_rhs_ref")["spmv_dia_power_rhs_ref"]
     if streamed:
         monkeypatch.setattr(dia, "_SMEM_BYTES", 0)
-    tiled = dia._tile_rows(lambda t: 2 * 8 * (t + 2 * k * m.reach) + m.ndiags) and k > 1
+    else:
+        monkeypatch.setattr(dia, "_K14_TILED", True)
+    tiled = dia._k14_rows(m, 12, k)
     assert bool(tiled) == (k > 1 and not streamed)
     tr = 2 * m.halo
     gen = torch.Generator(device=cuda).manual_seed(k)
@@ -884,6 +888,99 @@ def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
     want = ref(m, xq, torch.full_like(xq, 5.0), scale=0.9, k=k, add=cq)
     _close_k(got, want, k)
     assert (got[:, :tr] == 5.0).all() and (got[:, tr + m.n_pad:] == 5.0).all()
+    call = lambda: dia.spmv_dia_power_rhs(m, None, xq, torch.full_like(xq, 5.0), scale=0.9,
+                                          k=k, add=cq)
+    assert torch.equal(call(), got)
+    if tiled:
+        monkeypatch.setattr(dia, "_SMEM_BYTES", 0)
+        assert not dia._k14_rows(m, 12, k)
+        assert torch.equal(call(), got)
+
+
+def _ragged_dia(dev, dtype=torch.float32, n=4990, n_pad=5001, offsets=(-70, -1, 0, 1, 70)):
+    """A hand-made DIA whose n_pad is no multiple of the row-tile kernel's V
+    rows (its scalar instance), entries where the band covers the matrix."""
+    gen = torch.Generator(device=dev).manual_seed(n_pad)
+    i = torch.arange(n_pad, device=dev)
+    data = torch.stack([torch.where((i < n) & (i + o >= 0) & (i + o < n),
+                                    torch.randn(n_pad, generator=gen, device=dev) / 4, 0.0)
+                        for o in offsets])
+    return dia.DIA(data=data.to(dtype), offsets=offsets, shape=(n, n),
+                   nnz=int((data != 0).sum()))
+
+
+def _shifted(t):
+    """``t``'s values in contiguous storage one element past a 16-byte
+    boundary (the row-tile kernel's scalar instance)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
+def test_k14_ragged_and_unaligned(cuda, no_plain, monkeypatch, k, vt):
+    """K14 on a DIA of n_pad 5,001 (a ragged tail, the scalar instance) and
+    on poisson96's Jacobi matrix with buffers one element off their
+    alignment, 13 right-hand sides, affine, in the streamed mode and (k 3)
+    tiled: the plain version's values, and on poisson96 the aligned
+    buffers' bits."""
+    from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
+
+    ref = no_plain("spmv_dia_power_rhs_ref")["spmv_dia_power_rhs_ref"]
+    m96 = jacobi_iteration_matrix(_poisson_dia(cuda)[1])
+    dd = dia.dia_astype if vt == BF16 else (lambda d, _: d)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for m, unaligned in ((dd(_ragged_dia(cuda), BF16), False), (dd(m96, BF16), True)):
+        p = m.halo
+        xq = dia.dia_pad_pp_rhs(m, torch.randn((13, m.n), generator=gen, device=cuda),
+                                tr=p).to(vt)
+        cq = dia.dia_pad_pp_rhs(m, torch.randn((13, m.n), generator=gen, device=cuda),
+                                tr=p).to(vt)
+        for tiled in ((False, True) if k > 1 else (False,)):
+            with monkeypatch.context() as mp:
+                mp.setattr(dia, "_K14_TILED", tiled)
+                got = dia.spmv_dia_power_rhs(m, None, xq, torch.zeros_like(xq), scale=0.8,
+                                             k=k, add=cq)
+                want = ref(m, xq, torch.zeros_like(xq), scale=0.8, k=k, add=cq)
+                _held(got, want, k)
+                if unaligned:
+                    xs, cs = _shifted(xq), _shifted(cq)
+                    zs = _shifted(torch.zeros_like(xq))
+                    assert torch.equal(dia.spmv_dia_power_rhs(m, None, xs, zs, scale=0.8, k=k,
+                                                              add=cs), got)
+
+
+@pytest.mark.parametrize("K", [1, 7, 13])
+@pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
+def test_k16_ragged_and_unaligned(cuda, no_plain, K, vt):
+    """K16 on a DIA of n_pad 5,001 (a ragged tail) and on poisson96 with
+    Xt one element off its alignment, K not a multiple of the kernel's
+    group of right-hand sides, float32 and bf16 diagonals: the plain
+    version's values, both entry points (the padded buffer and the
+    unpadded rows) the same bits, on poisson96 the aligned buffer's."""
+    ref = no_plain("spmm_dia_t_padded_ref")["spmm_dia_t_padded_ref"]
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    for diag_t in (torch.float32, BF16):
+        if vt == BF16 and diag_t == torch.float32:
+            continue
+        for d, unaligned in ((_ragged_dia(cuda, diag_t), False),
+                             (dia.coo_to_dia(gallery.poisson2d(96, dtype=np.float32),
+                                             device=cuda), True)):
+            d = dia.dia_astype(d, diag_t) if d.data.dtype != diag_t else d
+            h = d.halo
+            rows = torch.randn((K, d.n_pad), generator=gen, device=cuda).to(vt)
+            rows[:, d.n:] = 0
+            xtp = torch.nn.functional.pad(rows, (h, h))
+            got = dia.spmm_dia_t_padded(d, xtp)
+            _held(got, ref(d, xtp))
+            assert torch.equal(dia.spmm_dia_t_rows(d, rows), got)
+            assert torch.equal(dia.spmm_dia_t_padded(d, xtp), got)
+            if unaligned:
+                assert torch.equal(dia.spmm_dia_t_padded(d, _shifted(xtp)), got)
+                assert torch.equal(dia.spmm_dia_t_rows(d, _shifted(rows)), got)
 
 
 @pytest.mark.parametrize("name,K", [("poisson96", 1), ("poisson96", 7), ("poisson96", 16),
@@ -909,8 +1006,9 @@ def test_k15_matches_plain(cuda, no_plain, name, K, offset):
 @pytest.mark.parametrize("name,K", [("poisson96", 13), ("poisson96", 200),
                                     ("orsirr_like24", 16)])
 def test_k16_matches_plain(cuda, no_plain, name, K):
-    """K16 on the ``dia_pad_xt`` buffer (K padded to the model's kb), and
-    the [K, n] entry point."""
+    """K16 on the ``dia_pad_xt`` buffer (K padded to the model's kb), the
+    [K, n] entry point, and the unpadded entry on the same rows (the same
+    bits, as is a second launch)."""
     a = gallery.get(name)
     d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=cuda)
     ref = no_plain("spmm_dia_t_padded_ref", "spmm_dia_t_ref")
@@ -919,11 +1017,13 @@ def test_k16_matches_plain(cuda, no_plain, name, K):
     before = dia.spmm_dia_t_padded.launches
     got = dia.spmm_dia_t_padded(d, xtp)
     got_t = dia.spmm_dia_t(d, xt)
+    got_r = dia.spmm_dia_t_rows(d, xtp[:, d.halo:d.halo + d.n_pad].contiguous())
     torch.cuda.synchronize()
-    assert dia.spmm_dia_t_padded.launches == before + 2
+    assert dia.spmm_dia_t_padded.launches == before + 3
     want = ref["spmm_dia_t_padded_ref"](d, xtp)
     _close1(got, want)
     _close1(got_t, want[:K, :d.n])
+    assert torch.equal(got_r, got) and torch.equal(dia.spmm_dia_t_padded(d, xtp), got)
 
 
 def test_multirhs_solvers_on_card(cuda):
@@ -1129,9 +1229,9 @@ def test_bf16_k13_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, pl
 @pytest.mark.parametrize("vt", VEC_DTYPES)
 def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
     """K14 on poisson96's bf16 Jacobi matrix with 12 right-hand sides,
-    affine: one batched pass at k 1, k passes tiled (bf16 windows take half
+    affine: one pass at k 1, k passes tiled (forced; bf16 windows take half
     the shared memory) against streamed (shared memory taken away) bit for
-    bit, and the plain version (``_held``)."""
+    bit, a second launch, and the plain version (``_held``)."""
     from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
 
     m = jacobi_iteration_matrix(_bf16_dia(cuda, "poisson96"))
@@ -1142,7 +1242,8 @@ def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
     xq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
     cq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
     xq, cq = xq.to(vt), cq.to(vt)
-    assert bool(dia._rhs_tile_rows(m, 12, k, xq.element_size())) == (k > 1)
+    monkeypatch.setattr(dia, "_K14_TILED", True)
+    assert bool(dia._k14_rows(m, 12, k, xq.element_size())) == (k > 1)
     call = lambda: dia.spmv_dia_power_rhs(m, None, xq, torch.full_like(xq, 5.0), scale=0.9,
                                           k=k, add=cq)
     tiled = call()
@@ -1151,6 +1252,7 @@ def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
         streamed = call()
     torch.cuda.synchronize()
     assert tiled.dtype == vt and torch.equal(tiled, streamed)
+    assert torch.equal(call(), tiled)
     _held(tiled, ref(m, xq, torch.full_like(xq, 5.0), scale=0.9, k=k, add=cq), k)
     assert (tiled[:, :tr] == 5.0).all() and (tiled[:, tr + m.n_pad:] == 5.0).all()
 
