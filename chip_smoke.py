@@ -106,17 +106,17 @@ Phases (any failure exits non-zero before the result line):
                8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
                SpMMs) at 256 right-hand sides (K15 also held at K 7, its
                word-by-word path, and 16, and timed on orsirr_like150's
-               230 diagonals at K 64; K16's unpadded entry held to the
-               padded one bit for bit), K14 (multi-RHS fused k-step)
-               at k = 1 with 16 right-hand sides and at k = 8 on
-               poisson512 with 2 and poisson128 with 16 (both modes, tiled
-               equal to streamed bit for bit, the mode rule's pick no more
-               than 3% slower than the other), all on
+               230 diagonals at K 64; K16 at cg_multi's K_pad 16 on A and
+               on the Jacobi M, and at 256, each through its unpadded entry
+               (cg_multi's) and its padded one, timed apart, the same
+               bits), K14 (multi-RHS fused k-step, k passes) at k = 1 with
+               16 right-hand sides and at k = 8 on poisson512 with 2 and
+               poisson128 with 16, all on
                poisson1024 unless named, against their plain versions;
                times as [dia], library calls torch.sparse CSR A@x / A@X
                and (K14 at k = 1) addmm.  Each kernel's first case (and
-               K15 at K 16 and 7, held) then runs on bf16 diagonals as in
-               [dia]; K14 at k 8 tiled held to streamed bit for bit.
+               K15 at K 16 and 7, K16's padded entry, held) then runs on
+               bf16 diagonals as in [dia].
 15. multirhs — launch counters to 0, poisson1024 with 16 seeded
                right-hand sides: ``cg_multi`` (K16) plain and with a
                one-diagonal Jacobi M, every column against single-RHS
@@ -1100,17 +1100,6 @@ def _streamed():
         yield
     finally:
         dia._SMEM_BYTES = saved
-
-
-@contextlib.contextmanager
-def _tiled():
-    """K14 in its tiled mode wherever a tile fits, whatever its rule says."""
-    saved = dia._K14_TILED
-    dia._K14_TILED = True
-    try:
-        yield
-    finally:
-        dia._K14_TILED = saved
 
 
 def _rule(kind, d, k, types=0):
@@ -2221,39 +2210,54 @@ def phase_dia_multi(dev):
         lib_name="torch.sparse CSR A@X")
     del X150, y150, want150, csr150
 
-    def k16(dd, label, xtp, reps=20, bf16=False):
-        """K16 on the [K_pad, h + n_pad + h] buffer ``xtp``; the library
-        yardstick is CSR A@X on a contiguous [n, K_pad] copy of X.  With
-        ``bf16``, then on ``dia_astype(dd, bf16)`` with ``xtp`` in both
-        vector dtypes."""
+    def k16(key, dd, label, xtp, reps=20, bf16=False):
+        """K16 at the shape its path gives it: the unpadded entry
+        (``spmm_dia_t_rows``, cg_multi's apply) on the [K_pad, n_pad]
+        interior of the [K_pad, h + n_pad + h] buffer ``xtp``, filed as
+        ``out[key]``, then the padded entry (``spmm_dia_t_padded``) on
+        ``xtp`` itself as ``out[key + " padded"]``, the same bits.  The
+        library yardstick is CSR A@X on a contiguous [n, K_pad] copy of X.
+        With ``bf16``, both entries then on ``dia_astype(dd, bf16)`` with X
+        in both vector dtypes."""
         h, kp = dd.halo, xtp.shape[0]
-        yt = dia.spmm_dia_t_padded(dd, xtp)
+        pad = lambda t: torch.nn.functional.pad(t, (h, h))
+        xr = xtp[:, h:h + dd.n_pad].contiguous()
+        yt = dia.spmm_dia_t_rows(dd, xr)
         want = dia.spmm_dia_t_padded_ref(dd, xtp)
-        # the unpadded entry (cg_multi's apply) on the same rows: the same bits
-        if not torch.equal(dia.spmm_dia_t_rows(dd, xtp[:, h:h + dd.n_pad].contiguous()), yt):
+        if not torch.equal(dia.spmm_dia_t_padded(dd, xtp), yt):
             fail(f"K16 ({label}): spmm_dia_t_rows differs from spmm_dia_t_padded")
         mcsr = _csr(dd)
         x_nk = xtp[:, h:h + n].t().contiguous()
         if not float((mcsr @ x_nk - want[:, :n].t()).abs().max()) <= _dia_tol(want, 1):
             fail("the torch.sparse yardstick does not compute K16's function")
 
-        def make(i, dd=dd, xtp=xtp):
-            di, xi = (dd, xtp) if i == 0 else (_dia_copy(dd), xtp.clone())
-            return lambda: dia.spmm_dia_t_padded(di, xi)
+        def make(i, dd=dd, x=xr, entry=dia.spmm_dia_t_rows):
+            di, xi = (dd, x) if i == 0 else (_dia_copy(dd), x.clone())
+            return lambda: entry(di, xi)
 
         def make_lib(i, mcsr=mcsr, x_nk=x_nk):
             ci, xi = (mcsr, x_nk) if i == 0 else (mcsr.clone(), x_nk.clone())
             return lambda: ci @ xi
 
         lib_name = "torch.sparse CSR A@X (X [n, K_pad] contiguous)"
-        shape = f"Xt [{kp}, {h} + {dd.n_pad} + {h}]"
-        rec = _record(
-            "K16", f"{label}, {dd.ndiags} diagonals, {shape}",
-            [yt], [want], 1, make, lambda: dia.spmm_dia_t_padded_ref(dd, xtp),
-            4 * (dd.ndiags * dd.n_pad + 2 * kp * dd.n_pad), 2 * dd.ndiags * dd.n_pad * kp,
-            make_lib=make_lib, lib_name=lib_name, reps=reps)
+        entries = ((f"Xt [{kp}, {dd.n_pad}] unpadded, spmm_dia_t_rows", "",
+                    dia.spmm_dia_t_rows, lambda x: x[:, h:h + dd.n_pad].contiguous(),
+                    lambda x: dia.spmm_dia_t_padded_ref(dd, pad(x))),
+                   (f"Xt [{kp}, {h} + {dd.n_pad} + {h}], spmm_dia_t_padded", " padded",
+                    dia.spmm_dia_t_padded, lambda x: x,
+                    lambda x: dia.spmm_dia_t_padded_ref(dd, x)))
+        # every word of A once, X's K_pad rows of n_pad once, Y once
+        nbytes = 4 * (dd.ndiags * dd.n_pad + 2 * kp * dd.n_pad)
+        ops = 2 * dd.ndiags * dd.n_pad * kp
+        for shape, tag, entry, arg, plain in entries:
+            x = arg(xtp)
+            out[key + tag] = _record(
+                "K16", f"{label}, {dd.ndiags} diagonals, {shape}",
+                [entry(dd, x)], [want], 1, lambda i, x=x, entry=entry: make(i, dd, x, entry),
+                lambda x=x, plain=plain: plain(x), nbytes, ops, make_lib=make_lib,
+                lib_name=lib_name, reps=reps)
         if not bf16:
-            return rec
+            return
         mb = dia.dia_astype(dd, BF16)
         for vt in BF16_VECS:
             xb, cb = xtp.to(vt), _csr_rounded(dd, vt)
@@ -2262,47 +2266,45 @@ def phase_dia_multi(dev):
                                dia.spmm_dia_t_padded(mb, xb)):
                 fail(f"K16 bf16 ({label}, {_vname(vt)}): spmm_dia_t_rows differs from "
                      "spmm_dia_t_padded")
-            _bf16_put(out, "K16", vt, _record(
-                "K16 bf16", f"{label}, {dd.ndiags} bf16 diagonals, {shape}, {_vname(vt)}",
-                [dia.spmm_dia_t_padded(mb, xb)], [wb], 1, lambda i, xb=xb: make(i, mb, xb),
-                lambda xb=xb: dia.spmm_dia_t_padded_ref(mb, xb),
-                2 * dd.ndiags * dd.n_pad + 2 * xb.element_size() * kp * dd.n_pad,
-                2 * dd.ndiags * dd.n_pad * kp, reps=reps,
-                make_lib=lambda i, cb=cb, xb=xb: make_lib(i, cb, xb[:, h:h + n].t().contiguous()),
-                again=lambda xb=xb: [dia.spmm_dia_t_padded(mb, xb)], f32=[yt], f32_rec=rec,
-                lib=_bf16_lib(lambda: cb @ xb[:, h:h + n].t().contiguous(), wb[:, :n].t(), vt,
-                              "A@X (X [n, K_pad] contiguous)")), "cg_multi A")
-        return rec
+            x_b = xb[:, h:h + n].t().contiguous()
+            lib_b = _bf16_lib(lambda: cb @ x_b, wb[:, :n].t(), vt,
+                              "A@X (X [n, K_pad] contiguous)")
+            plain_b = ((lambda x: dia.spmm_dia_t_padded_ref(mb, pad(x))),
+                       (lambda x: dia.spmm_dia_t_padded_ref(mb, x)))
+            for (shape, tag, entry, arg, _), plain in zip(entries, plain_b):
+                x = arg(xb)
+                # the first (the unpadded entry) stands as the kernels line's
+                _bf16_put(out, "K16", vt, _record(
+                    "K16 bf16", f"{label}, {dd.ndiags} bf16 diagonals, {shape}, {_vname(vt)}",
+                    [entry(mb, x)], [wb], 1, lambda i, x=x, entry=entry: make(i, mb, x, entry),
+                    lambda x=x, plain=plain: plain(x),
+                    2 * dd.ndiags * dd.n_pad + 2 * xb.element_size() * kp * dd.n_pad, ops,
+                    reps=reps, make_lib=lambda i, cb=cb, x_b=x_b: make_lib(i, cb, x_b),
+                    again=lambda x=x, entry=entry: [entry(mb, x)], f32=[yt],
+                    f32_rec=out[key + tag], lib=lib_b), "cg_multi A" + tag)
 
     # K16 at cg_multi's shapes (its main path): A at K = 16 (dia_pad_xt's
-    # K_pad), and the one-diagonal Jacobi M on the same [K_pad, n_pad] rows
-    # padded as cg_multi's M apply pads them; then the wide K = 256 case
+    # K_pad), and the one-diagonal Jacobi M on the same [K_pad, n_pad] rows;
+    # then the wide K = 256 case
     xtp = dia.dia_pad_xt(d, rnd(MULTI_K, n))
-    out["K16"] = k16(d, f"{name} (cg_multi's A)", xtp, bf16=True)
+    k16("K16", d, f"{name} (cg_multi's A)", xtp, bf16=True)
     mj = _jacobi_m(d)
     h = d.halo
-    out["K16 M"] = k16(mj, f"{name} Jacobi M (cg_multi's M)", torch.nn.functional.pad(
+    k16("K16 M", mj, f"{name} Jacobi M (cg_multi's M)", torch.nn.functional.pad(
         xtp[:, h:h + d.n_pad], (mj.halo, mj.halo)))
     del xtp, mj
-    out["K16 K=256"] = k16(d, name, dia.dia_pad_xt(d, rnd(SPMM_K, n)), reps=5)
+    k16("K16 K=256", d, name, dia.dia_pad_xt(d, rnd(SPMM_K, n)), reps=5)
 
     def k14(dd, label, n_rhs, k, tr, lib=False, bf16=None):
         """K14 on ``dd``'s Jacobi M; where ``bf16`` names the case, then on
-        its bf16 copy with the same X and C in both vector dtypes (at k > 1
-        outside ``_streamed``, the tiled mode held to the streamed one bit
-        for bit)."""
+        its bf16 copy with the same X and C in both vector dtypes."""
         m = jacobi_iteration_matrix(dd)
         xq = dia.dia_pad_pp_rhs(m, rnd(n_rhs, m.n), tr=tr)
         cq = dia.dia_pad_pp_rhs(m, rnd(n_rhs, m.n), tr=tr)
         zq = torch.zeros_like(xq)
         got = dia.spmv_dia_power_rhs(m, None, xq, zq, k=k, add=cq)
         want = dia.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), k=k, add=cq)
-        kb = min(n_rhs, dia._RHS_BLOCK)
-
-        def mode(mm, xq):
-            rows = dia._k14_rows(mm, n_rhs, k, xq.element_size())
-            return (f"tiled ({rows} rows x {kb} right-hand sides per block)" if rows
-                    else "one batched pass" if k == 1 else f"streamed ({k} launches)")
+        mode = "one pass" if k == 1 else f"{k} passes"
 
         def make(i, m=m, xq=xq, cq=cq):
             zq = torch.zeros_like(xq)
@@ -2327,15 +2329,8 @@ def phase_dia_multi(dev):
 
         shape = f"{n_rhs} right-hand sides, k = {k}, P = {tr}, affine"
         ops = k * n_rhs * (2 * m.ndiags + 2) * m.n_pad
-        if dia._k14_rows(m, n_rhs, k, xq.element_size()):
-            with _streamed():
-                got_s = dia.spmv_dia_power_rhs(m, None, xq, torch.zeros_like(xq), k=k, add=cq)
-            if not torch.equal(got, got_s):
-                fail(f"K14 ({label}, {shape}): tiled and streamed modes differ")
-            print(f"[K14] {label} Jacobi M, {shape}: tiled equals streamed bit for bit",
-                  flush=True)
         rec = _record(
-            "K14", f"{label} Jacobi M, {shape}, {mode(m, xq)}", [got], [want], k, make,
+            "K14", f"{label} Jacobi M, {shape}, {mode}", [got], [want], k, make,
             lambda: dia.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), k=k, add=cq),
             4 * (m.ndiags * m.n_pad + 3 * n_rhs * m.n_pad), ops, make_lib=make_lib,
             lib_name="torch.addmm(C, CSR M, X)")
@@ -2348,14 +2343,8 @@ def phase_dia_multi(dev):
                 mb, None, xb, torch.zeros_like(xb), k=k, add=cb)]
             plain = lambda xb=xb, cb=cb: dia.spmv_dia_power_rhs_ref(
                 mb, xb, torch.zeros_like(xb), k=k, add=cb)
-            label_b = f"{label} bf16 Jacobi M, {shape}, {_vname(vt)}, {mode(mb, xb)}"
+            label_b = f"{label} bf16 Jacobi M, {shape}, {_vname(vt)}, {mode}"
             got_b = call()
-            if dia._k14_rows(mb, n_rhs, k, xb.element_size()):
-                with _streamed():
-                    got_s = call()
-                if not torch.equal(got_b[0], got_s[0]):
-                    fail(f"K14 bf16 ({label_b}): tiled and streamed modes differ")
-                print(f"[K14 bf16] {label_b}: tiled equals streamed bit for bit", flush=True)
             lib_b, make_lib_b = None, None
             if lib:
                 mc, x_nk, c_nk = _csr_rounded(m, vt), nk(xb), nk(cb)
@@ -2382,32 +2371,15 @@ def phase_dia_multi(dev):
     del m
     # K14 at k 8, where the TPU's selection fuses k = 8 (copied: k is part of
     # the operator): poisson512 with 2 right-hand sides (also in both bf16
-    # instances) and poisson128 with 16, each in both modes; the rule's pick
-    # (``_K14_TILED``) must not be slower than the other mode by more than
-    # RULE_MARGIN
+    # instances) and poisson128 with 16
     for side, n_rhs, key, bf16 in ((POISSON // 2, 2, "K14 k=8", True),
                                    (POISSON // 8, MULTI_K, "K14 k=8 small", False)):
         dd = dia.coo_to_dia(gallery.poisson2d(side, dtype=np.float32), device=dev)
-        mk = jacobi_iteration_matrix(dd)
-        k, trk = _multirhs_config(mk, 8, 16, n_rhs)
+        k, trk = _multirhs_config(jacobi_iteration_matrix(dd), 8, 16, n_rhs)
         if k != 8:
             fail(f"jacobi_multirhs on poisson{side} with {n_rhs} right-hand sides should "
                  f"fuse k = 8, not {k}")
-        for mode in ("tiled", "streamed"):
-            with _tiled() if mode == "tiled" else _streamed():
-                rec = k14(dd, f"poisson{side}", n_rhs, 8, trk,
-                          bf16=f"k=8 {mode}" if bf16 else None)
-            out[f"{key} {mode}"] = rec
-        picked = "tiled" if dia._k14_rows(mk, n_rhs, 8) else "streamed"
-        other = "streamed" if picked == "tiled" else "tiled"
-        ratio = out[f"{key} {picked}"]["ms"] / out[f"{key} {other}"]["ms"]
-        print(f"[K14] poisson{side}, {n_rhs} right-hand sides, k = 8: tiled "
-              f"{out[f'{key} tiled']['ms']:.5f} ms, streamed {out[f'{key} streamed']['ms']:.5f} "
-              f"ms; the rule picks the {picked} mode ({ratio:.3f}x the other)", flush=True)
-        if ratio > 1 + RULE_MARGIN:
-            fail(f"K14 at poisson{side}, {n_rhs} right-hand sides, k = 8: the rule's "
-                 f"{picked} mode is {ratio:.3f}x the {other} one")
-        out[key] = out[f"{key} {picked}"]
+        out[key] = k14(dd, f"poisson{side}", n_rhs, 8, trk, bf16="k=8" if bf16 else None)
     return out, launches
 
 
@@ -4031,7 +4003,7 @@ def main() -> int:
           f"K16 the multirhs phase {multi_launches}; their ms are one call at "
           f"poisson1024 (K10, K11 scale 0.2; K14 16 right-hand sides, k = 1, "
           f"affine; K15 256 right-hand sides; K16 cg_multi's A at its K_pad "
-          f"for 16), max_abs_err the largest over the dia-multi cases. K5-K7 "
+          f"for 16 through spmm_dia_t_rows, the unpadded entry cg_multi calls), max_abs_err the largest over the dia-multi cases. K5-K7 "
           f"launches count one forward + backward of the [gat-generic] stack "
           f"(K5b: K5's backward kernel), "
           f"their ms, plain_ms, library_ms and bound_ms the sums over that "

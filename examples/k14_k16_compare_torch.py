@@ -18,8 +18,9 @@ others.  Cases, at `[dia-multi]`'s seeds and shapes:
   be the padded entry's), on its Jacobi M (1 diagonal) and at K 256;
 - K14 on poisson1024's Jacobi matrix, 16 right-hand sides, k 1, affine,
   in the three instances; at k 8 on poisson512 with 2 right-hand sides
-  and on poisson128 with 16, in the tiled and the streamed mode (forced)
-  and in the mode the tree's rule picks.
+  and on poisson128 with 16, in the mode the tree picks and, on a tree
+  that still has a tiled mode (`_rhs_tile_rows`), in the tiled and the
+  streamed mode forced.
 
 A line per tree and case gives the graph-replay time over cold copies of
 the inputs (as `chip_smoke.py`'s `_timed`), a hash of the output (equal
@@ -54,7 +55,8 @@ K16_NAMES = ("dia_spmm_t_kernel", "dia_rhs_kernel")
 
 @contextlib.contextmanager
 def _mode(dia, tiled):
-    """K14's k > 1 mode forced: tiled (where a tile fits) or streamed."""
+    """K14's k > 1 mode forced on a tree that has two: tiled (where a tile
+    fits) or streamed; None leaves the tree's own."""
     saved = dia._SMEM_BYTES, getattr(dia, "_K14_TILED", None)
     if tiled is False:
         dia._SMEM_BYTES = 0
@@ -152,9 +154,10 @@ def run_tree(tree: str) -> None:
             call = lambda mm_, x_, c_, z_: dia.spmv_dia_power_rhs(mm_, None, x_, z_, k=k,
                                                                    add=c_)
             label = f"K14 poisson{side} {inst}, {n_rhs} right-hand sides, k {k}, affine"
-            for mode in ((None,) if k == 1 else (None, True, False)):
+            two = k > 1 and hasattr(dia, "_rhs_tile_rows")
+            for mode in ((None, True, False) if two else (None,)):
                 with _mode(dia, mode):
-                    tag = {None: "the rule's mode", True: "tiled", False: "streamed"}[mode]
+                    tag = {None: "the tree's mode", True: "tiled", False: "streamed"}[mode]
                     case(f"{label}, {tag}", call, (mm, xv, cv, torch.zeros_like(xv)), nb)
     # the solvers
     B = torch.randn((MULTI_K, n), generator=torch.Generator(device=dev).manual_seed(77),

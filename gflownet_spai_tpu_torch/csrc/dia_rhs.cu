@@ -46,20 +46,13 @@
 //   multiple of V, or a pointer off 16 bytes) takes the scalar instance of
 //   the same kernel: the same sums in the same order.
 //
-// K14's k passes run in one of two modes, picked by the caller (`ops/dia.py`
-// `_k14_rows`, a rule fitted on an H100 that streams at every shape it was
-// fitted on):
-// - streamed (tr == 0, and always at k = 1): k launches of the row-tile
-//   kernel through a caller-given [K, n_pad] scratch buffer, ordered so that
-//   the last pass lands in the output; rows outside [0, n_pad) are zero at
-//   every pass after the first, which reads x on [-P, n_pad + P);
-// - tiled (the first port's kernel): one block per row tile and block of kb
-//   right-hand sides holds their windows of tr + 2.k.R rows in shared
-//   memory across the k passes, shrinking by R per pass; neighbouring
-//   blocks compute the overlap rows again, and the grid of a few such
-//   blocks leaves most SMs idle, so it lost to the streamed passes at all
-//   but one of the shapes the rule was fitted on.
-// Both round every row alike, so they agree bit for bit.
+// K14's k passes are k launches of the row-tile kernel through a
+// caller-given [K, n_pad] scratch buffer, ordered so that the last pass
+// lands in the output; rows outside [0, n_pad) are zero at every pass after
+// the first, which reads x on [-P, n_pad + P).  Holding a row tile's
+// windows in shared memory across the k passes in one launch instead
+// recomputes 2.k.R overlap rows per tile and leaves most SMs idle: on an
+// H100 that lost to these passes at 276 of 277 shapes.
 //
 // Element types (`dia_types.cuh`): every kernel is a template over the
 // stored diagonals' type TD and the vectors' type TV, instances (float32,
@@ -85,8 +78,6 @@ using dia_types::to_f;
 using dia_types::with_types;
 
 constexpr int kRowThreads = 128;   // the row-tile kernel
-constexpr int kTileThreads = 512;  // K14 tiled
-constexpr int kRhs = 8;            // K14 tiled: right-hand sides per block (at most)
 constexpr int kSums = 32;          // the row-tile kernel: float32 sums a thread holds
 constexpr int kFillBlocks = 3;     // ... blocks per SM below which its groups shrink
 constexpr int kMaxDiags = 12288;   // offsets a block stages (48 KB of shared memory)
@@ -94,7 +85,7 @@ constexpr int kMaxDiags = 12288;   // offsets a block stages (48 KB of shared me
 // K14's value of a row: scale.acc (+ c), each rounding explicit.  On
 // float32 diagonals scale.acc + c is one fused multiply-add, on bf16 ones
 // a multiply and an add: the roundings of the one-pass kernel this
-// replaces (as nvcc contracted its float32 instance), in both modes.
+// replaces (as nvcc contracted its float32 instance).
 template <typename TD>
 __device__ __forceinline__ float rhs_value(float acc, float scale, bool has_c, float c) {
   if constexpr (sizeof(TD) == 4) {
@@ -259,73 +250,6 @@ dia_rhs_kernel(const TD* __restrict__ data, long long n_pad,
   }
 }
 
-// K14 tiled: block (blockIdx.x, blockIdx.y) owns rows [t0, t0 + tr) of
-// right-hand sides [kb.blockIdx.y, +kb).  smem: cur[kb][W], nxt[kb][W]
-// (TV), offs[ndiags] with W = tr + 2.k.R, window index i holding row
-// t0 - k.R + i; buffers are [n_rhs][ld], ld = P + n_pad + P.
-template <bool kAffine, typename TD, typename TV>
-__global__ void __launch_bounds__(kTileThreads)
-dia_power_rhs_kernel(const TD* __restrict__ data, long long n_pad,
-                     const int* __restrict__ offs, int ndiags, int reach,
-                     const TV* __restrict__ xq, const TV* __restrict__ cq,
-                     TV* __restrict__ zq, long long P, int n_rhs, int k,
-                     float scale, int tr, int kb) {
-  extern __shared__ __align__(16) unsigned char rhs_smem[];
-  const int W = tr + 2 * k * reach;
-  const long long ld = n_pad + 2 * P;
-  const int r0 = blockIdx.y * kb;
-  const int nr = min(kb, n_rhs - r0);
-  TV* cur = reinterpret_cast<TV*>(rhs_smem);
-  TV* nxt = cur + static_cast<long long>(kb) * W;
-  int* offs_s = reinterpret_cast<int*>(cur + 2LL * kb * W);
-  const long long t0 = static_cast<long long>(blockIdx.x) * tr;
-  const long long base = t0 - static_cast<long long>(k) * reach;
-  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
-  for (int e = threadIdx.x; e < nr * W; e += blockDim.x) {
-    const int r = e / W, i = e % W;
-    const long long row = base + i;
-    cur[e] = (row >= -P && row < n_pad + P) ? xq[(r0 + r) * ld + P + row] : from_f<TV>(0.f);
-  }
-  __syncthreads();
-  for (int p = 1; p <= k; ++p) {
-    const int hi = W - p * reach;
-    for (int i = p * reach + threadIdx.x; i < hi; i += blockDim.x) {
-      const long long row = base + i;
-      float acc[kRhs];
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) acc[r] = 0.f;
-      const bool inside = row >= 0 && row < n_pad;
-      if (inside) {
-        for (int s = 0; s < ndiags; ++s) {
-          const float dv = to_f(data[s * n_pad + row]);
-          const int j = i + offs_s[s];
-#pragma unroll
-          for (int r = 0; r < kRhs; ++r)
-            if (r < nr) acc[r] = __fmaf_rn(dv, to_f(cur[r * W + j]), acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRhs; ++r) {
-        if (r < nr) {
-          nxt[r * W + i] = from_f<TV>(
-              inside ? rhs_value<TD>(acc[r], scale, kAffine,
-                                     kAffine ? to_f(cq[(r0 + r) * ld + P + row]) : 0.f)
-                     : 0.f);
-        }
-      }
-    }
-    __syncthreads();
-    TV* const done = cur;
-    cur = nxt;
-    nxt = done;
-  }
-  for (int e = threadIdx.x; e < nr * tr; e += blockDim.x) {
-    const int r = e / tr, i = e % tr;
-    const long long row = t0 + i;
-    if (row < n_pad) zq[(r0 + r) * ld + P + row] = cur[r * W + k * reach + i];
-  }
-}
-
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -374,25 +298,6 @@ cudaError_t launch_rows(const TD* data, long long n_pad, const int* offs, int nd
   return cudaGetLastError();
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel; raise it
-// only when a launch needs more than the last one set.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, size_t bytes, size_t* granted) {
-  if (bytes <= 48 * 1024 || bytes <= *granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) *granted = bytes;
-  return err;
-}
-
-// The index of a (TD, TV) instance: its `types` code.
-template <typename TD, typename TV>
-constexpr int type_code() {
-  return sizeof(TD) == 4 ? 0 : sizeof(TV) == 4 ? 1 : 2;
-}
-
-size_t g_power_rhs_smem[3][2] = {};
-
 #define DIA_TYPES(t)                          \
   using TD = typename decltype(t)::Data;      \
   using TV = typename decltype(t)::Vec
@@ -425,60 +330,35 @@ extern "C" int dia_spmm_t(const void* data, long long n_pad, const void* offs,
 }
 
 // K14.  xq, cq (nullable) and zq are [n_rhs][P + n_pad + P] buffers; only
-// zq's interiors are written.  k == 1 or tr == 0: k passes of the row-tile
-// kernel, through `tmp` ([n_rhs][n_pad] elements; unused when k == 1);
-// else tiled, `tr` rows and `kb` (<= kRhs) right-hand sides per block.
+// zq's interiors are written.  k passes of the row-tile kernel, through
+// `tmp` ([n_rhs][n_pad] elements; unused when k == 1).
 extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs,
-                             int ndiags, int reach, const void* xq, const void* cq,
-                             void* zq, long long P, int n_rhs, int k, float scale,
-                             int tr, int kb, void* tmp, int types, void* stream) {
-  if (n_rhs < 1 || k < 1 || kb < 1 || kb > kRhs || ndiags < 1 || ndiags > kMaxDiags)
+                             int ndiags, const void* xq, const void* cq, void* zq,
+                             long long P, int n_rhs, int k, float scale, void* tmp,
+                             int types, void* stream) {
+  if (n_rhs < 1 || k < 1 || ndiags < 1 || ndiags > kMaxDiags)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_types(types, [&](auto t) {
     DIA_TYPES(t);
-    const TD* dat = static_cast<const TD*>(data);
-    const int* off = static_cast<const int*>(offs);
-    const TV* x = static_cast<const TV*>(xq);
     const TV* c = static_cast<const TV*>(cq);
     TV* z = static_cast<TV*>(zq);
     const long long ld = n_pad + 2 * P;
-    if (tr == 0 || k == 1) {
-      const TV* src = x + P;
-      long long ld_src = ld;
-      for (int p = 1; p <= k; ++p) {
-        const bool last = (k - p) % 2 == 0;
-        TV* dst = last ? z + P : static_cast<TV*>(tmp);
-        const long long ld_dst = last ? ld : n_pad;
-        const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
-        const cudaError_t err = launch_rows<true>(
-            dat, n_pad, off, ndiags, src, ld_src, lo, hi, c == nullptr ? nullptr : c + P,
-            ld, scale, dst, ld_dst, n_rhs, st);
-        if (err != cudaSuccess) return err;
-        src = dst;
-        ld_src = ld_dst;
-      }
-      return cudaSuccess;
-    }
-    const size_t smem = sizeof(TV) * 2 * static_cast<size_t>(kb)
-                            * (tr + 2 * static_cast<size_t>(k) * reach)
-                        + sizeof(int) * ndiags;
-    const dim3 grid(static_cast<unsigned>((n_pad + tr - 1) / tr),
-                    static_cast<unsigned>((n_rhs + kb - 1) / kb));
-    size_t* granted = g_power_rhs_smem[type_code<TD, TV>()];
-    cudaError_t err;
-    if (c != nullptr) {
-      err = opt_in_smem(dia_power_rhs_kernel<true, TD, TV>, smem, &granted[1]);
+    const TV* src = static_cast<const TV*>(xq) + P;
+    long long ld_src = ld;
+    for (int p = 1; p <= k; ++p) {
+      const bool last = (k - p) % 2 == 0;
+      TV* dst = last ? z + P : static_cast<TV*>(tmp);
+      const long long ld_dst = last ? ld : n_pad;
+      const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
+      const cudaError_t err = launch_rows<true>(
+          static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags, src,
+          ld_src, lo, hi, c == nullptr ? nullptr : c + P, ld, scale, dst, ld_dst, n_rhs, st);
       if (err != cudaSuccess) return err;
-      dia_power_rhs_kernel<true, TD, TV><<<grid, kTileThreads, smem, st>>>(
-          dat, n_pad, off, ndiags, reach, x, c, z, P, n_rhs, k, scale, tr, kb);
-    } else {
-      err = opt_in_smem(dia_power_rhs_kernel<false, TD, TV>, smem, &granted[0]);
-      if (err != cudaSuccess) return err;
-      dia_power_rhs_kernel<false, TD, TV><<<grid, kTileThreads, smem, st>>>(
-          dat, n_pad, off, ndiags, reach, x, nullptr, z, P, n_rhs, k, scale, tr, kb);
+      src = dst;
+      ld_src = ld_dst;
     }
-    return cudaGetLastError();
+    return cudaSuccess;
   }));
 }

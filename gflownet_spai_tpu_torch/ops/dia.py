@@ -36,12 +36,9 @@ per CTA, clusters launched) that a cost model fitted on the card times
 fastest, and takes it only where a window fits (at most 9 diagonals, reach
 below the shared memory) and the model times it below the streamed mode;
 the two modes agree bit for bit.  ``_SMEM_BYTES = 0`` forces the streamed
-mode (tests, ``chip_smoke.py``).  K14 runs its k passes streamed (k
-launches of the row-tile kernel that K16 shares) or tiled (the iterate of
-a row tile in one block's shared memory, where its window fits,
-``_rhs_tile_rows``), as the mode rule ``_K14_TILED`` fitted on the card
-picks (``_k14_rows``); the two agree bit for bit, and every k the
-selection picks runs on the card.
+mode (tests, ``chip_smoke.py``).  K14 runs its k passes as k launches of
+the row-tile kernel that K16 shares, so every k the selection picks runs
+on the card.
 
 Dtypes (one rule for the CPU and the card).  The JAX package's two paths
 disagree on bf16: its Pallas kernels cast x to the diagonals' dtype and
@@ -97,7 +94,6 @@ _ALIGN = 1024          # Mosaic vector-load alignment for f32 1-D refs
 _MAX_VMEM_BYTES = 15 * 1024 * 1024   # of the 16 MiB/core on v5e
 _SMEM_BYTES_MAX = 232448
 _SMEM_BYTES = _SMEM_BYTES_MAX   # shared memory K12-K14 may give a block (0: they stream)
-_TILE_ROWS = 4096      # K14 output rows per block, halved until it fits
 
 
 def _round_up(x: int, m: int) -> int:
@@ -715,22 +711,13 @@ _ARGTYPES = {
     "dia_fused_clusters": [_INT, _INT, _INT, _INT, _I64, ctypes.POINTER(_INT)],
     "dia_spmv_pp": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _I64, ctypes.c_float, _INT,
                     _INT, _PTR],
-    "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _INT, _PTR, _PTR, _PTR, _I64, _INT,
-                      _INT, ctypes.c_float, _INT, _INT, _PTR, _INT, _PTR],
+    "dia_power_rhs": [_PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _I64, _INT, _INT,
+                      ctypes.c_float, _PTR, _INT, _PTR],
     "dia_spmm": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _INT, _PTR, _INT, _INT, _PTR],
     "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _I64, _INT, _PTR, _INT, _PTR],
 }
 _LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_rhs",
             "dia_power_rhs": "dia_rhs"}   # else csrc/dia.cu
-_RHS_BLOCK = 8         # K14: right-hand sides per block in the tiled mode
-# K14's mode rule, fitted on an H100 (``examples/k14_modes_torch.py``: 277
-# shapes, poisson grids of side 32 to 1,024 and bands of reach 1 and 3 at K
-# 1 to 16, k 2 to 8, float32 and bf16): k streamed passes of the row-tile
-# kernel beat the tiled mode at 276 of them, by up to 10.6x, and lost one
-# by 5.4% (a tridiagonal band, K 8, k 8), so it streams at every shape; the
-# tiled mode stays as the one-launch alternative ``chip_smoke.py`` times
-# the rule against
-_K14_TILED = False
 _SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in shared memory
 _RHS_MAX_DIAGS = 12288  # K14, K16 stage a block's offsets in shared memory
 # The kernels' (diagonals, vectors) dtypes: the `types` code of the C entry
@@ -801,32 +788,6 @@ def _check_pp(d: DIA, what: str, *bufs: torch.Tensor, ndim: int = 1) -> int:
                          f"n_pad + P] with P >= halo ({d.halo}); got "
                          f"{[tuple(b.shape) for b in bufs]}")
     return p
-
-
-def _tile_rows(words) -> int:
-    """K14 rows per block in the tiled mode: 4096, halved until the
-    block's shared memory (``words(tr)`` 4-byte words) fits; 0 (the
-    streamed mode) when not even 128 rows fit."""
-    tr = _TILE_ROWS
-    while tr > 128 and 4 * words(tr) > _SMEM_BYTES:
-        tr //= 2
-    return tr if 4 * words(tr) <= _SMEM_BYTES else 0
-
-
-def _rhs_tile_rows(d: DIA, n_rhs: int, k: int, elem: int = 4) -> int:
-    """K14's rows per block in the tiled mode for buffers of ``elem``-byte
-    elements: its kb windows of tr + 2·k·R rows, twice (``elem`` bytes
-    each), and the offsets; 0 at k = 1 or where no tile fits."""
-    kb = min(n_rhs, _RHS_BLOCK)
-    return _tile_rows(lambda t: elem * kb * (t + 2 * k * d.reach) // 2 + d.ndiags) \
-        if k > 1 else 0
-
-
-def _k14_rows(d: DIA, n_rhs: int, k: int, elem: int = 4) -> int:
-    """The rows per block of the mode K14 takes: ``_rhs_tile_rows`` where a
-    tile fits and the mode rule ``_K14_TILED`` takes the tiled mode, else 0
-    (one pass of the row-tile kernel at k = 1, k streamed passes above)."""
-    return _rhs_tile_rows(d, n_rhs, k, elem) if _K14_TILED else 0
 
 
 # --- K12 / K13: fused or streamed (``csrc/dia.cu``'s header) ---------------
@@ -1297,18 +1258,15 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
         raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1, "
                          f"at most {_RHS_MAX_DIAGS} diagonals ({d.ndiags})")
     n_rhs = xq.shape[0]
-    # k = 1 is one pass; k ≥ 2 tiles k passes in shared memory where kb
-    # windows of tr + 2·k·R rows fit a block and the mode rule picks it,
-    # else streams them
-    tr = _k14_rows(d, n_rhs, k, xq.element_size())
+    # k passes of the row-tile kernel, through a scratch buffer when k > 1
     tmp = torch.empty((n_rhs, d.n_pad), dtype=xq.dtype, device=xq.device) \
-        if tr == 0 and k > 1 else None
+        if k > 1 else None
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     _build.check(_lib_fn("dia_power_rhs")(
-        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags, d.reach,
+        d.data.data_ptr(), d.n_pad, d.offsets_t.data_ptr(), d.ndiags,
         xq.data_ptr(), None if add is None else add.data_ptr(), zq.data_ptr(), p,
-        n_rhs, k, float(scale), tr, min(n_rhs, _RHS_BLOCK),
-        None if tmp is None else tmp.data_ptr(), code, stream), "spmv_dia_power_rhs")
+        n_rhs, k, float(scale), None if tmp is None else tmp.data_ptr(), code, stream),
+        "spmv_dia_power_rhs")
     _count(spmv_dia_power_rhs, code)
     return zq
 

@@ -580,14 +580,3 @@ def test_fused_plan_on_bf16_is_a_launch_the_kernel_takes(kind, ndiags, k, reach,
     plan = T._fused_plan(kind, ndiags, k, reach, n_pad, T._H100_ACTIVE, T._SMEM_BYTES,
                          elems)
     assert plan is None or (plan in cands and plan.fused_us < plan.streamed_us)
-
-
-def test_k14_tiles_twice_the_rows_on_bf16_buffers():
-    """K14's tiled rows per block count the buffers' element bytes: bf16
-    windows take half the shared memory of float32 ones."""
-    _, td = _poisson(64)
-    m = t_st.jacobi_iteration_matrix(td)
-    r32, r16 = T._rhs_tile_rows(m, 16, 8, 4), T._rhs_tile_rows(m, 16, 8, 2)
-    assert r32 > 0 and r16 == 2 * r32
-    assert T._rhs_tile_rows(m, 16, 1, 2) == 0
-    assert r32 == T._tile_rows(lambda t: 2 * 8 * (t + 2 * 8 * m.reach) + m.ndiags)

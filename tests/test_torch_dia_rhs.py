@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: the multi-right-hand-side DIA operator
 that ``cg_multi`` applies without a padded copy of its iterate (K16 on the
-unpadded [K_pad, n_pad] buffer, ``spmm_dia_t_rows``), and K14's mode rule
-(``_k14_rows``: host fields only) at ``chip_smoke.py``'s shapes, beside the
-fused k JAX's selection picks there.
+unpadded [K_pad, n_pad] buffer, ``spmm_dia_t_rows``), the fused k JAX's
+selection picks at ``chip_smoke.py``'s K14 shapes, and K14's k passes
+composed as its CUDA entry runs them.
 
 ``solvers/multirhs._dia_apply_t`` hands the iterate itself to
 ``spmm_dia_t_rows`` (rounded to the diagonals' dtype, as JAX's buffer of
@@ -153,8 +153,8 @@ def test_apply_hands_the_iterate_itself(monkeypatch):
 
 def _zero_dia(side):
     """Both packages' DIA of poisson``side``'s offsets and padded size with
-    zero diagonals: the selection functions and the mode rule read only
-    offsets, reach, halo and n_pad."""
+    zero diagonals: the selection functions read only offsets, reach, halo
+    and n_pad."""
     n = side * side
     offsets = (-side, -1, 0, 1, side)
     data = np.zeros((5, -(-n // 1024) * 1024), np.float32)
@@ -163,27 +163,40 @@ def _zero_dia(side):
 
 
 @pytest.mark.parametrize("side,n_rhs,k_want", [(512, 2, 8), (128, 16, 8), (1024, 16, 1)])
-def test_k14_mode_rule_at_the_smoke_shapes(monkeypatch, side, n_rhs, k_want):
+def test_k14_k_at_the_smoke_shapes(side, n_rhs, k_want):
     """``jacobi_multirhs``'s fused k at ``chip_smoke.py``'s K14 shapes is
-    JAX's (poisson512 with 2 right-hand sides and poisson128 with 16 fuse k
-    8, poisson1024 with 16 k 1), and the mode rule never changes it; the
-    rule streams there on float32 and bf16 buffers, where the tiled mode's
-    tile fits at k 8 (the geometry it would take, ``_rhs_tile_rows``)."""
+    JAX's: poisson512 with 2 right-hand sides and poisson128 with 16 fuse k
+    8, poisson1024 with 16 k 1 (K14 runs any k as k passes)."""
     jd, td = _zero_dia(side)
+    k, trk = j_st._pick_power_config(jd, 8, 16)
+    while k > 1 and not J.dia_power_rhs_ok(jd, k, n_rhs, trk or J.dia_pp_tile(jd)):
+        k //= 2
+        trk = J.dia_power_tile(jd, k) if k > 1 else 0
+    assert t_st._multirhs_config(td, 8, 16, n_rhs) == (k, trk)
+    assert k == k_want
 
-    def jax_k():
-        k, trk = j_st._pick_power_config(jd, 8, 16)
-        while k > 1 and not J.dia_power_rhs_ok(jd, k, n_rhs, trk or J.dia_pp_tile(jd)):
-            k //= 2
-            trk = J.dia_power_tile(jd, k) if k > 1 else 0
-        return k, trk
 
-    for tiled in (False, True):
-        monkeypatch.setattr(T, "_K14_TILED", tiled)
-        assert t_st._multirhs_config(td, 8, 16, n_rhs) == jax_k()
-        k, _ = t_st._multirhs_config(td, 8, 16, n_rhs)
-        assert k == k_want
-        for elem in (4, 2):
-            rows = T._k14_rows(td, n_rhs, k, elem)
-            assert rows == (T._rhs_tile_rows(td, n_rhs, k, elem) if tiled else 0)
-            assert bool(rows) == (tiled and k > 1)
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_k14_passes_compose(k, bf16):
+    """K14's k passes as its CUDA entry runs them: the first pass reads the
+    padded buffer's halo, every later one reads the last pass's rows as
+    zero outside [0, n_pad).  Composed from k one-pass plain calls through
+    zero-halo buffers, they give the k-pass plain version's bits, affine
+    and not, on poisson96's Jacobi matrix (float32 and bf16 diagonals and
+    buffers) with a halo of nonzero values in x."""
+    _, td = _pair("poisson96", bf16)
+    m = t_st.jacobi_iteration_matrix(td)
+    dt = BF if bf16 else torch.float32
+    gen = torch.Generator().manual_seed(k)
+    xq = T.dia_pad_pp_rhs(m, torch.randn((5, m.n), generator=gen), tr=2 * m.halo)
+    p = (xq.shape[1] - m.n_pad) // 2
+    xq[:, :p] = torch.randn((5, p), generator=gen)          # read by the first pass only
+    xq = xq.to(dt)
+    cq = T.dia_pad_pp_rhs(m, torch.randn((5, m.n), generator=gen), tr=2 * m.halo).to(dt)
+    for add in (None, cq):
+        want = T.spmv_dia_power_rhs_ref(m, xq, torch.zeros_like(xq), scale=0.9, k=k, add=add)
+        z = xq
+        for _ in range(k):
+            z = T.spmv_dia_power_rhs_ref(m, z, torch.zeros_like(xq), scale=0.9, k=1, add=add)
+        assert z.dtype == dt and torch.equal(z, want)

@@ -29,8 +29,7 @@ K8 rtol 1e-5, atol 1e-5 (the kernel's sums contract to FMAs and start
 from zero in offset order like the plain version: float32 rounding only).
 K12, K13 and K14 carry k dependent passes: atol 1e-5 times k times the
 largest output magnitude, rtol 1e-5, in every mode (K12 and K13 fused or
-streamed, K14 tiled or streamed; a reach too wide for shared memory, or
-forced).  K12's and K13's two modes round every row alike, so they must
+streamed; a reach too wide for shared memory, or forced).  K12's and K13's two modes round every row alike, so they must
 agree exactly (``torch.equal``).  K10,
 K11, K15 and K16 as K8 (one pass, sums from zero in offset order), with
 atol 1e-5 times the largest output magnitude.  Each kernel test also
@@ -40,8 +39,8 @@ reached it would show.
 The bf16 instances (``dia_astype``): on bf16 vectors bit for bit with
 their plain versions (a product of two bf16 values is exact in float32,
 so a fused multiply-add rounds as a multiply and an add), on float32
-vectors as the float32 kernels; fused against streamed, tiled against
-streamed, and a second launch, bit for bit.
+vectors as the float32 kernels; fused against streamed, K14's k passes
+against k one-pass calls, and a second launch, bit for bit.
 
 K7 only moves values: exact.  K6 sums each node's run in slot order, the
 plain version with index_add_: rtol 1e-5 and per element 4·eps32·Σ|v|
@@ -855,25 +854,26 @@ def test_k10_k11_match_plain(cuda, no_plain, name):
     assert dia.spmv_dia_pingpong.launches == before + 3
 
 
-@pytest.mark.parametrize("k,streamed", [(1, False), (3, False), (8, False), (8, True)])
+def _k14_chained(m, xq, cq, scale, k):
+    """K14's k passes as k one-pass calls, each into a buffer whose halo is
+    zero (the rows the passes after the first read as zero)."""
+    z = xq
+    for _ in range(k):
+        z = dia.spmv_dia_power_rhs(m, None, z, torch.zeros_like(xq), scale=scale, k=1, add=cq)
+    return z
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("affine", [False, True])
-def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
+def test_k14_matches_plain(cuda, no_plain, k, affine):
     """K14 on poisson96's Jacobi matrix with 12 right-hand sides (one full
-    block of 8 and one of 4): one pass of the row-tile kernel at k = 1, k
-    passes tiled in shared memory (forced, whatever the mode rule says),
-    or (shared memory taken away) k streamed passes.  A second launch gives
-    the same bits, and the tiled mode the streamed mode's."""
+    group of 8 and one of 4): k passes of the row-tile kernel in one call.
+    A second launch gives the same bits, as do k one-pass calls chained."""
     from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
 
     _, d = _poisson_dia(cuda)
     m = jacobi_iteration_matrix(d)
     ref = no_plain("spmv_dia_power_rhs_ref")["spmv_dia_power_rhs_ref"]
-    if streamed:
-        monkeypatch.setattr(dia, "_SMEM_BYTES", 0)
-    else:
-        monkeypatch.setattr(dia, "_K14_TILED", True)
-    tiled = dia._k14_rows(m, 12, k)
-    assert bool(tiled) == (k > 1 and not streamed)
     tr = 2 * m.halo
     gen = torch.Generator(device=cuda).manual_seed(k)
     X = torch.randn((12, m.n), generator=gen, device=cuda)
@@ -891,10 +891,8 @@ def test_k14_matches_plain(cuda, no_plain, monkeypatch, k, streamed, affine):
     call = lambda: dia.spmv_dia_power_rhs(m, None, xq, torch.full_like(xq, 5.0), scale=0.9,
                                           k=k, add=cq)
     assert torch.equal(call(), got)
-    if tiled:
-        monkeypatch.setattr(dia, "_SMEM_BYTES", 0)
-        assert not dia._k14_rows(m, 12, k)
-        assert torch.equal(call(), got)
+    z = _k14_chained(m, xq, cq, 0.9, k)
+    assert torch.equal(z[:, tr:tr + m.n_pad], got[:, tr:tr + m.n_pad])
 
 
 def _ragged_dia(dev, dtype=torch.float32, n=4990, n_pad=5001, offsets=(-70, -1, 0, 1, 70)):
@@ -921,12 +919,11 @@ def _shifted(t):
 
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
-def test_k14_ragged_and_unaligned(cuda, no_plain, monkeypatch, k, vt):
+def test_k14_ragged_and_unaligned(cuda, no_plain, k, vt):
     """K14 on a DIA of n_pad 5,001 (a ragged tail, the scalar instance) and
     on poisson96's Jacobi matrix with buffers one element off their
-    alignment, 13 right-hand sides, affine, in the streamed mode and (k 3)
-    tiled: the plain version's values, and on poisson96 the aligned
-    buffers' bits."""
+    alignment, 13 right-hand sides, affine: the plain version's values, and
+    on poisson96 the aligned buffers' bits."""
     from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
 
     ref = no_plain("spmv_dia_power_rhs_ref")["spmv_dia_power_rhs_ref"]
@@ -939,18 +936,13 @@ def test_k14_ragged_and_unaligned(cuda, no_plain, monkeypatch, k, vt):
                                 tr=p).to(vt)
         cq = dia.dia_pad_pp_rhs(m, torch.randn((13, m.n), generator=gen, device=cuda),
                                 tr=p).to(vt)
-        for tiled in ((False, True) if k > 1 else (False,)):
-            with monkeypatch.context() as mp:
-                mp.setattr(dia, "_K14_TILED", tiled)
-                got = dia.spmv_dia_power_rhs(m, None, xq, torch.zeros_like(xq), scale=0.8,
-                                             k=k, add=cq)
-                want = ref(m, xq, torch.zeros_like(xq), scale=0.8, k=k, add=cq)
-                _held(got, want, k)
-                if unaligned:
-                    xs, cs = _shifted(xq), _shifted(cq)
-                    zs = _shifted(torch.zeros_like(xq))
-                    assert torch.equal(dia.spmv_dia_power_rhs(m, None, xs, zs, scale=0.8, k=k,
-                                                              add=cs), got)
+        got = dia.spmv_dia_power_rhs(m, None, xq, torch.zeros_like(xq), scale=0.8, k=k,
+                                     add=cq)
+        _held(got, ref(m, xq, torch.zeros_like(xq), scale=0.8, k=k, add=cq), k)
+        if unaligned:
+            xs, cs, zs = _shifted(xq), _shifted(cq), _shifted(torch.zeros_like(xq))
+            assert torch.equal(dia.spmv_dia_power_rhs(m, None, xs, zs, scale=0.8, k=k,
+                                                      add=cs), got)
 
 
 @pytest.mark.parametrize("K", [1, 7, 13])
@@ -1227,10 +1219,9 @@ def test_bf16_k13_fused_equals_streamed(cuda, no_plain, monkeypatch, name, k, pl
 
 @pytest.mark.parametrize("k", [1, 3, 8])
 @pytest.mark.parametrize("vt", VEC_DTYPES)
-def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
+def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, k, vt):
     """K14 on poisson96's bf16 Jacobi matrix with 12 right-hand sides,
-    affine: one pass at k 1, k passes tiled (forced; bf16 windows take half
-    the shared memory) against streamed (shared memory taken away) bit for
+    affine: k passes in one call against k one-pass calls chained bit for
     bit, a second launch, and the plain version (``_held``)."""
     from gflownet_spai_tpu_torch.solvers.stationary import jacobi_iteration_matrix
 
@@ -1242,19 +1233,16 @@ def test_bf16_k14_tiled_equals_streamed(cuda, no_plain, monkeypatch, k, vt):
     xq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
     cq = dia.dia_pad_pp_rhs(m, torch.randn((12, m.n), generator=gen, device=cuda), tr=tr)
     xq, cq = xq.to(vt), cq.to(vt)
-    monkeypatch.setattr(dia, "_K14_TILED", True)
-    assert bool(dia._k14_rows(m, 12, k, xq.element_size())) == (k > 1)
     call = lambda: dia.spmv_dia_power_rhs(m, None, xq, torch.full_like(xq, 5.0), scale=0.9,
                                           k=k, add=cq)
-    tiled = call()
-    with monkeypatch.context() as mp:
-        mp.setattr(dia, "_SMEM_BYTES", 0)
-        streamed = call()
+    got = call()
+    chained = _k14_chained(m, xq, cq, 0.9, k)
     torch.cuda.synchronize()
-    assert tiled.dtype == vt and torch.equal(tiled, streamed)
-    assert torch.equal(call(), tiled)
-    _held(tiled, ref(m, xq, torch.full_like(xq, 5.0), scale=0.9, k=k, add=cq), k)
-    assert (tiled[:, :tr] == 5.0).all() and (tiled[:, tr + m.n_pad:] == 5.0).all()
+    assert got.dtype == vt
+    assert torch.equal(got[:, tr:tr + m.n_pad], chained[:, tr:tr + m.n_pad])
+    assert torch.equal(call(), got)
+    _held(got, ref(m, xq, torch.full_like(xq, 5.0), scale=0.9, k=k, add=cq), k)
+    assert (got[:, :tr] == 5.0).all() and (got[:, tr + m.n_pad:] == 5.0).all()
 
 
 def test_bf16_wrappers_refuse_other_dtypes(cuda):
