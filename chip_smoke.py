@@ -178,7 +178,12 @@ Phases (any failure exits non-zero before the result line):
                of the stored values in X's dtype @ X (at 4096^2 also the
                dense bf16 torch.matmul, printed); per case the real against
                stored block slots, kernel / library, the X bytes staged
-               from L2 and each instance against the float32 one.
+               from L2 and each instance against the float32 one; for the
+               tensor-core kernel its ptxas registers and spills and its
+               shape per bm, each case's column tile and chunk-list build
+               ms, and the (8,128) cases against their L2 floor (X's bytes
+               staged from L2 over an L2 read yardstick, the row sums of
+               a 32 MB bf16 buffer that stays in L2).
 21. train-default — ``python -m gflownet_spai_tpu_torch.train --epochs 20``
                with every other argument at its default, in a subprocess on
                the card: exit 0, the DIA env on LF10_like (the checkpoint's
@@ -354,8 +359,15 @@ def phase_card():
     return name, count
 
 
+BUILD_LOG = []              # the build's compiler output (ptxas -v), for [bell]
+
+
 def phase_build():
-    secs = _build.build_all(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        secs = _build.build_all(verbose=True)
+    print(log.getvalue(), end="", flush=True)
+    BUILD_LOG.extend(log.getvalue().splitlines())
     for name in _build.SOURCES:
         _build.load(name)
     print(f"[build] {len(_build.SOURCES)} kernel sources in {secs:.2f} s", flush=True)
@@ -3183,8 +3195,10 @@ def _bell_csr(a):
 
 def _bell_tail(a, x, ms):
     """What bounds K17 on the benchmark matrix: its time with only the
-    block row of the most real blocks kept, and with no real block (the
-    scan of every padded slot and the Y writes), beside the whole."""
+    block row of the most real blocks kept (the tensor-core kernel walks a
+    row's chunks in one block), and with no real block (the launch, the Y
+    writes and, in the CUDA-core kernel, the scan of every padded slot),
+    beside the whole."""
     real = a.data.abs().amax(dim=(2, 3)) > 0
     heavy = int(real.sum(dim=1).argmax())
     keep = torch.zeros_like(real[:, 0])
@@ -3194,8 +3208,8 @@ def _bell_tail(a, x, ms):
         d = a.data * mask[:, None, None, None]
         copies = [(dataclasses.replace(a, data=d.clone()), x.clone()) for _ in range(16)]
         t = graph_ms(_cycle([lambda c=c: bsr.spmm_bell(*c) for c in copies]), 10)
-        print(f"[bell] same W, {what}: kernel {t:.5f} ms (the whole matrix {ms:.5f})",
-              flush=True)
+        print(f"[bell] {a.data.dtype} blocks, {x.dtype} X, same W, {what}: kernel {t:.5f} ms "
+              f"(the whole matrix {ms:.5f})", flush=True)
 
 
 def _bf16_ulp(v):
@@ -3245,6 +3259,49 @@ def _bell_lib(a, x):
                                    c.values().to(x.dtype), c.shape)
 
 
+L2_YARDSTICK_BYTES = 32 << 20   # a buffer that stays in the 50 MB L2
+
+
+def _l2_rate(dev):
+    """An L2 read yardstick: bytes per second of the row sums of a bf16
+    buffer of L2_YARDSTICK_BYTES in rows of 4096, replayed back to back
+    (graph replay), so every read after the first replay hits L2.  (The
+    fastest read of the PyTorch calls tried on the H100: whole sums, float32
+    row sums, amax, torch.mv, torch.mm with 8 columns reached 0.8-4.8
+    TB/s; it is a floor of the L2's rate, not its peak.)"""
+    buf = torch.ones(L2_YARDSTICK_BYTES // 2, device=dev, dtype=BF16).view(-1, 4096)
+    ms = graph_ms(lambda: buf.sum(1), 50)
+    return L2_YARDSTICK_BYTES / (ms * 1e-3), ms
+
+
+def _bell_ptxas():
+    """The tensor-core K17's registers and spills per instance (from this
+    run's ptxas -v) beside its shape per bm and column tile."""
+    lines = [ln.strip() for ln in BUILD_LOG]
+    found = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"bell_spmm_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", line)
+        if not m or "Compiling entry" not in line:
+            continue
+        bm, cw, mt, tma = map(int, m.groups())
+        cfg = bsr.kernel_config(bm, 64 * cw * mt)
+        found += 1
+        print(f"[bell] ptxas bm {bm}, Kc {64 * cw * mt} ({cw} consumer warpgroups x {mt} "
+              f"m64 tiles), X {'by TMA' if tma else 'element by element'}: {lines[i + 2]}; "
+              f"{lines[i + 3]}; {cfg['threads']} threads, {cfg['stages']} stages, "
+              f"{cfg['smem']} B dynamic shared memory, setmaxnreg {cfg['producer_regs']} / "
+              f"{cfg['consumer_regs']}", flush=True)
+        if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
+            fail(f"[bell] the tensor-core K17 spills at bm {bm}, Kc {64 * cw * mt}")
+    # ptxas's note where it makes a kernel's wgmmas synchronous (it cost the
+    # kernel a third of its time at 4096², (8,128))
+    serial = [ln for ln in lines if "bell_spmm_bf16_kernel" in ln and "serialized" in ln]
+    if serial:
+        fail(f"[bell] ptxas serializes the tensor-core K17's wgmmas: {serial[0]}")
+    if not found:
+        print("[bell] ptxas: bsr_bf16 was not built in this run (a kept library)", flush=True)
+
+
 def phase_bell(dev):
     """K17 through ``spmm_bell`` at docs/BENCH.md:108-125's configuration
     (4096², 2% of the (8,128) blocks, K = 256), at blockshapes (32,128)
@@ -3257,6 +3314,10 @@ def phase_bell(dev):
     from gflownet_spai_tpu_torch.sparse import coo_to_csr
     from gflownet_spai_tpu_torch.sparse.types import COO
 
+    _bell_ptxas()
+    l2_rate, l2_ms = _l2_rate(dev)
+    print(f"[bell] L2 read yardstick: row sums (dim 1, rows of 4096) of {L2_YARDSTICK_BYTES >> 20}"
+          f" MB bf16 {l2_ms:.5f} ms, {l2_rate / 1e12:.3f} TB/s (graph replay)", flush=True)
     rng = np.random.default_rng(17)
     gen = torch.Generator(device=dev).manual_seed(17)
     cases = []
@@ -3387,6 +3448,19 @@ def phase_bell(dev):
                   f"from L2 {l2 / 1e9:.4f} GB ({chunks} nonzero [{bm}, 32] chunks x 32 rows "
                   f"x {BELL_K} columns x {ex} B); the float32 instance {f32:.5f} ms, "
                   f"this / float32 {rec['ms'] / f32:.3f}", flush=True)
+            if name == "bf16 blocks, bf16 X":
+                lst = graph_ms(lambda: bsr._chunk_list(aa.data), 5)
+                kc = bsr._col_tile(nbr, BELL_K, True)
+                print(f"[bell] {name}, {m}², blocks {bs}: chunk list build {lst:.5f} ms "
+                      f"(graph replay; once per BELL), column tile Kc {kc} ({nbr} block rows "
+                      f"x {-(-BELL_K // kc)} tiles)", flush=True)
+                if bm == 8:
+                    floor = l2 / l2_rate * 1e3
+                    print(f"[bell] {name}, {m}², blocks {bs}: L2 floor {floor:.5f} ms "
+                          f"({l2 / 1e9:.4f} GB of X / the yardstick's "
+                          f"{l2_rate / 1e12:.3f} TB/s), kernel / L2 floor "
+                          f"{rec['ms'] / floor:.3f}; the kernel reads X from L2 at "
+                          f"{l2 / rec['ms'] / 1e9:.3f} TB/s", flush=True)
             if name == "bf16 blocks, bf16 X" and m <= 4096:
                 dense = aa.todense()
                 print(f"[bell] {name}, {m}², blocks {bs}: dense bf16 torch.matmul of "
@@ -3394,7 +3468,7 @@ def phase_bell(dev):
                       f"replay, L2-warm), not a yardstick of the table", flush=True)
                 del dense
             del copies, csrs
-            if name == "float32" and k == 0:
+            if name in ("float32", "bf16 blocks, bf16 X") and k == 0:
                 _bell_tail(aa, x, rec["ms"])
     for name in BELL_TYPES:
         recs[(name, "err")] = max(errs[name])
@@ -3976,8 +4050,8 @@ def main() -> int:
     # K17: each instance's launches on the [bell] path, its time at the
     # first case, its largest error over the cases
     for nm, inst, file in (("spmm_bell (K17a, K17b)", "float32", "bsr.cu"),
-                           ("spmm_bell (K17, bf16 blocks, bf16 X)", "bf16 blocks, bf16 X",
-                            "bsr_bf16.cu"),
+                           ("spmm_bell (K17, bf16 blocks, bf16 X: wgmma fed by a TMA ring "
+                            "over the chunk list)", "bf16 blocks, bf16 X", "bsr_bf16.cu"),
                            ("spmm_bell (K17, bf16 blocks, float32 X)", "bf16 blocks, float32 X",
                             "bsr.cu")):
         d = bell_recs[(inst,) + BELL_CASES[0]]

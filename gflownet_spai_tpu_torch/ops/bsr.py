@@ -22,8 +22,10 @@ The dtype rule (blocks, X → output, and the kernel that runs on the card):
   order (the float32 instance's bits on ``data.float()``);
 - float32, bf16 → float32: X is promoted to float32 first, as
   ``spmm_bell_jnp`` promotes it, and the float32 instance runs;
-- bf16, bf16 → bf16: ``bell_spmm_bf16`` (``csrc/bsr_bf16.cu``), bf16
-  tensor-core MMAs with float32 accumulators;
+- bf16, bf16 → bf16: ``bell_spmm_bf16`` (``csrc/bsr_bf16.cu``), wgmma
+  on bf16 with float32 accumulators, fed by TMA, over the BELL's chunk list
+  (``_chunk_list``: per block row its [bm, 32] chunks that hold a word other
+  than zero, made once per BELL's data) in column tiles of ``_col_tile``;
 - any other dtype (float16, float64, …) raises ``ValueError`` on the card.
 
 Every product and sum is float32, and the output is rounded once, where it
@@ -46,6 +48,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import _build
 from ..sparse.ops import f32_exact
 from ..sparse.types import CSR, Shape, to_numpy
+from .dia import _data_version
 
 _BMS = (8, 16, 32, 64, 128)   # block heights the kernel is built for
 _BN_STEP = 32                 # block widths: multiples of the kernel's staged chunk
@@ -56,9 +59,18 @@ _REF_WORDS = 1 << 28          # plain version: gathered X words per chunk of blo
 _TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
           (torch.bfloat16, torch.bfloat16): 2}
 _TYPE_NAMES = ("float32", "bf16 blocks, float32 X", "bf16 blocks, bf16 X")
-# (data, bcols, nbr, W, bm, bn, x, K, y, vec) of both C entry points
+# (data, bcols, nbr, W, bm, bn, x, K, y, vec) of the CUDA-core entry point
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
              + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int])
+# (data, bcols, list, nbr, W, bm, bn, x, n, K, y, kc, tma, stream) of the
+# tensor-core one
+_ARGTYPES_BF16 = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_CHUNK = 32           # the columns of a block in one chunk: a wgmma's two k16 steps
+_SMS = 132            # the H100's SMs
+_COL_TILES = (256, 128, 64)   # the tensor-core kernel's column tiles Kc
+_ENCODE_ERROR = 1000  # its return code for a tensor-map encode that failed, + the CUresult
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +82,20 @@ class BELL:
     bcols: Any
     shape: Shape
     nnz: int
+    # the tensor-core K17's chunk list (``_chunk_list``), made with a BELL of
+    # bf16 blocks on the card (None otherwise: ``_chunks`` makes it on
+    # demand), and the version of ``data`` it was made from (``_chunks``
+    # makes it again after an in-place write)
+    chunks: Any = dataclasses.field(init=False, repr=False, compare=False)
+    chunks_version: int | None = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        # Made with the matrix, never in a kernel call: a CUDA-graph capture
+        # of a call then holds no list build.
+        made = isinstance(self.data, torch.Tensor) and self.data.is_cuda \
+            and self.data.dtype == torch.bfloat16 and self.data.dim() == 4
+        object.__setattr__(self, "chunks", _chunk_list(self.data) if made else None)
+        object.__setattr__(self, "chunks_version", _data_version(self.data) if made else None)
 
     @property
     def blockshape(self) -> Tuple[int, int]:
@@ -98,6 +124,76 @@ class BELL:
         out.index_put_((rows.reshape(-1), bcols.reshape(-1)),
                        data.reshape(-1, bm, bn), accumulate=True)
         return out.permute(0, 2, 1, 3).reshape(self.shape)
+
+
+def _chunk_list(data: torch.Tensor) -> torch.Tensor:
+    """The tensor-core K17's chunk list of blocks ``data`` [nbr, W, bm, bn]:
+    int32 [nbr, 1 + W·bn/32], per block row the count of its [bm, 32]
+    chunks that hold a word other than zero (NaN counts, -0.0 does not),
+    then their indices w·bn/32 + j in slot order (the row's other indices
+    follow, unread).  The kernel multiplies the listed chunks alone, so an
+    all-zero chunk adds nothing whatever X holds under it.  Device ops
+    only, no host sync: a CUDA-graph capture may make a BELL."""
+    nbr, W, bm, bn = data.shape
+    C = W * (bn // _CHUNK)
+    # a block column's least and largest word over the bm rows (one pass,
+    # coalesced across columns): not both zero where a word is other than
+    # zero, NaN where one is NaN
+    lo, hi = torch.aminmax(data.detach().reshape(nbr * W, bm, bn), dim=1)
+    listed = ((lo != 0) | (hi != 0)).reshape(nbr, C, _CHUNK).any(-1)
+    count = listed.sum(1, dtype=torch.int32)
+    # each index's place: the listed ones first, the others after, both in
+    # slot order (a permutation, so the scatter writes every place once)
+    place = torch.where(listed, listed.cumsum(1, dtype=torch.int32),
+                        count[:, None] + (~listed).cumsum(1, dtype=torch.int32))
+    out = torch.empty((nbr, 1 + C), dtype=torch.int32, device=data.device)
+    out[:, 0] = count
+    out.scatter_(1, place.long(), torch.arange(C, dtype=torch.int32, device=data.device)
+                 .expand(nbr, C))
+    return out
+
+
+def _chunks(a: BELL) -> torch.Tensor:
+    """``a.chunks``, made where ``a`` was made without it (host or float32
+    blocks moved or cast since) or ``a.data`` was written in place since it
+    was made (its version counter moved; an inference tensor keeps none, so
+    its list is made at every call).  A list made while a CUDA graph is
+    captured holds its values only in its replays, so it is not kept."""
+    version = _data_version(a.data)
+    if a.chunks is not None and version is not None and version == a.chunks_version:
+        return a.chunks
+    chunks = _chunk_list(a.data)
+    if not (a.data.is_cuda and torch.cuda.is_current_stream_capturing()):
+        object.__setattr__(a, "chunks", chunks)
+        object.__setattr__(a, "chunks_version", version)
+    return chunks
+
+
+def _col_tile(nbr: int, K: int, tma: bool) -> int:
+    """The X columns Kc a block of the tensor-core K17 takes: the widest of
+    ``_COL_TILES`` (256: A read once at K <= 256) no wider than K's 64-column
+    tiles whose grid of nbr·ceil(K / Kc) blocks still gives every SM of the
+    card a block, else 64; 64 where X goes without TMA (``tma`` false).  On
+    an H100 it picks the fastest of the three at every ``chip_smoke.py``
+    ``[bell]`` shape."""
+    if tma:
+        for kc in _COL_TILES[:-1]:
+            if kc <= -(-K // 64) * 64 and nbr * -(-K // kc) >= _SMS:
+                return kc
+    return _COL_TILES[-1]
+
+
+def kernel_config(bm: int, kc: int) -> dict:
+    """The tensor-core K17's shape at block height bm and column tile kc
+    (``csrc/bsr_bf16.cu`` ``Cfg``): threads a block, ring stages, dynamic
+    shared memory bytes, and the registers setmaxnreg gives a producer and
+    a consumer thread.  Needs the built kernel (a CUDA machine)."""
+    fn = _build.load("bsr_bf16").bell_spmm_bf16_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    _build.check(fn(bm, kc, out), "kernel_config")
+    return dict(zip(("threads", "stages", "smem", "producer_regs", "consumer_regs"), out))
 
 
 def csr_to_bell(csr: CSR, blockshape=(8, 128)) -> BELL:
@@ -225,17 +321,33 @@ def spmm_bell(a: BELL, x: torch.Tensor) -> torch.Tensor:
     # the kernels read A as 16-byte words: a view at an unaligned offset is copied
     data = a.data if a.data.data_ptr() % 16 == 0 else a.data.clone()
     y = torch.empty((a.shape[0], K), dtype=x.dtype, device=x.device)
-    # 16-byte X and Y rows: K a multiple of a 16-byte word's elements
+    # 16-byte X and Y rows: K a multiple of a 16-byte word's elements (for
+    # bf16 X also what TMA needs to take X)
     vec = K % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
-    if code == 2:       # bf16 x bf16: the tensor-core kernel
-        fn, types = _build.load("bsr_bf16").bell_spmm_bf16, []
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if code == 2:       # bf16 x bf16: the tensor-core kernel over the chunk list
+        if nbr * W * bm > 2**31 - 1 or x.shape[0] > 2**31 - 1:
+            raise ValueError(f"spmm_bell: the tensor-core kernel takes fewer than 2^31 "
+                             f"block rows x slots x bm ({nbr * W * bm}) and X rows")
+        chunks = _chunks(a)
+        if chunks.device != x.device or tuple(chunks.shape) != (nbr, 1 + W * bn // _CHUNK):
+            raise ValueError(f"spmm_bell: chunk list {tuple(chunks.shape)} on "
+                             f"{chunks.device}; the kernel reads [{nbr}, "
+                             f"{1 + W * bn // _CHUNK}] on {x.device}")
+        fn = _build.load("bsr_bf16").bell_spmm_bf16
+        fn.argtypes, fn.restype = _ARGTYPES_BF16, ctypes.c_int
+        rc = fn(data.data_ptr(), a.bcols.data_ptr(), chunks.data_ptr(), nbr, W, bm, bn,
+                x.data_ptr(), x.shape[0], K, y.data_ptr(), _col_tile(nbr, K, vec), int(vec),
+                stream)
+        if rc >= _ENCODE_ERROR:
+            raise RuntimeError(f"spmm_bell: cuTensorMapEncodeTiled failed (CUresult "
+                               f"{rc - _ENCODE_ERROR})")
     else:               # the CUDA-core kernel's float32 or bf16-block instance
-        fn, types = _build.load("bsr").bell_spmm, [code]
-    fn.argtypes = _ARGTYPES + [ctypes.c_int] * len(types) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _build.check(fn(data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn, x.data_ptr(), K,
-                    y.data_ptr(), int(vec), *types,
-                    torch.cuda.current_stream(x.device).cuda_stream), "spmm_bell")
+        fn = _build.load("bsr").bell_spmm
+        fn.argtypes, fn.restype = _ARGTYPES + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        rc = fn(data.data_ptr(), a.bcols.data_ptr(), nbr, W, bm, bn, x.data_ptr(), K,
+                y.data_ptr(), int(vec), code, stream)
+    _build.check(rc, "spmm_bell")
     spmm_bell.launches += 1
     spmm_bell.type_launches[_TYPE_NAMES[code]] += 1
     return y

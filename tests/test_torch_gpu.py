@@ -2059,6 +2059,82 @@ def test_k17_bf16_inf_under_zero_chunk_stays_finite(cuda, xdt):
     assert torch.isnan(bsr.spmm_bell_ref(a, x)[:16]).any()
 
 
+@pytest.mark.parametrize("blockshape", [(8, 32), (32, 96), (128, 160), (16, 96)])
+@pytest.mark.parametrize("K", [8, 64, 72, 264, 520])
+def test_k17_bf16_column_tiles(cuda, no_plain_mod, monkeypatch, blockshape, K):
+    """The tensor-core kernel at block widths that are not multiples of 64
+    and at K around its column tiles, on the irregular BELL (its rows 0,
+    5, ... hold no real block): at every column tile Kc no wider than K's
+    64-column tiles, against the plain version, with the same bits at every
+    Kc (a column's sum does not depend on the tile) and zero rows where no
+    block is real."""
+    rng, host = _irregular_bell(blockshape, m=16 * blockshape[0], n=12 * blockshape[1])
+    a = host.to(cuda)
+    a = dataclasses.replace(a, data=a.data.to(BF16))
+    ref = no_plain_mod(bsr, "spmm_bell_ref")["spmm_bell_ref"]
+    x = torch.as_tensor(rng.standard_normal((a.shape[1], K)), dtype=torch.float32,
+                        device=cuda).to(BF16)
+    got = bsr.spmm_bell(a, x)
+    torch.cuda.synchronize()
+    _hold_k17_bf16(a, x, got, ref)
+    empty = (a.data.abs().amax(dim=(1, 2, 3)) == 0).repeat_interleave(blockshape[0])
+    assert bool(empty.any()) and not got[empty].any()
+    rule = bsr._col_tile
+    for kc in (64, 128, 256):
+        if kc <= -(-K // 64) * 64:
+            monkeypatch.setattr(bsr, "_col_tile", lambda nbr, k, tma, kc=kc: kc)
+            assert torch.equal(bsr.spmm_bell(a, x), got), f"Kc {kc}"
+    monkeypatch.setattr(bsr, "_col_tile", rule)
+
+
+def test_k17_bf16_chunk_list_made_once_per_bell(cuda, monkeypatch):
+    """The chunk list is made with the BELL, not per call, and again after
+    an in-place write to its blocks (the output follows the write)."""
+    rng, host = _irregular_bell((8, 128), m=128, n=1024)
+    made = []
+    build = bsr._chunk_list
+    monkeypatch.setattr(bsr, "_chunk_list", lambda d: made.append(1) or build(d))
+    a = host.to(cuda)
+    a = dataclasses.replace(a, data=a.data.to(BF16))
+    assert len(made) == 1 and a.chunks is not None
+    x = torch.as_tensor(rng.standard_normal((1024, 64)), dtype=BF16, device=cuda)
+    first = bsr.spmm_bell(a, x)
+    assert torch.equal(bsr.spmm_bell(a, x), first) and len(made) == 1
+    a.data[0, 0, 3, 5] = 2.0                          # row 0 holds no real block
+    second = bsr.spmm_bell(a, x)
+    torch.cuda.synchronize()
+    assert len(made) == 2 and bool(second[:8].any()) and not first[:8].any()
+    assert torch.equal(second[8:], first[8:])
+    torch.testing.assert_close(second[3], (2.0 * x[a.bcols[0, 0].long() * 128 + 5]
+                                           .float()).to(BF16), rtol=0, atol=0)
+
+
+def test_k17_bf16_bell_made_in_a_graph_capture(cuda):
+    """A BELL made inside a CUDA-graph capture (its chunk list among the
+    graph's work) with a product, replayed: the eager call's bits, and after
+    new values written into the captured blocks, the product of those."""
+    rng, host = _irregular_bell((32, 128), m=512, n=1024)
+    data = torch.as_tensor(host.data, device=cuda).to(BF16)
+    bcols = torch.as_tensor(host.bcols, device=cuda)
+    x = torch.as_tensor(rng.standard_normal((1024, 256)), dtype=BF16, device=cuda)
+    eager = bsr.spmm_bell(bsr.BELL(data=data, bcols=bcols, shape=host.shape, nnz=host.nnz), x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a = bsr.BELL(data=data, bcols=bcols, shape=host.shape, nnz=host.nnz)
+        y = bsr.spmm_bell(a, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager)
+    other = torch.roll(data, 1, dims=0)               # row i takes row i - 1's blocks
+    data.copy_(other)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = bsr.spmm_bell(bsr.BELL(data=other.clone(), bcols=bcols, shape=host.shape,
+                                  nnz=host.nnz), x)
+    assert torch.equal(y, want) and not torch.equal(y, eager)
+
+
 # ---------------------------------------------------------------------------
 # The rowblock and DIA reward envs on the card (plain PyTorch, no kernel of
 # their own): residual norms against the same env on the CPU (rtol 1e-5:
