@@ -102,8 +102,13 @@ Phases (any failure exits non-zero before the result line):
                versions on two vectors, K12's and K13's launches by mode,
                and the polynomial rows' iteration counts again with the
                streamed mode forced (they must be equal).
-14. dia-multi — K10 (padded-IO SpMV) and K11 (ping-pong SpMV) as chains of
-               8 calls at scale 0.2 (halo blocks checked), K15 and K16 (the
+14. dia-multi — the row-tile kernel's ptxas registers and spills per
+               instance (fails on spills); K10 (padded-IO SpMV) and K11
+               (ping-pong SpMV), both on that kernel, as chains of 8 calls
+               at scale 0.2 (halo blocks checked), then in each instance
+               one K10 call into an allocator block that held NaN (its halo
+               blocks must be zero) and one K11 call into a buffer of NaN
+               (its halo blocks must stay NaN), K15 and K16 (the
                SpMMs) at 256 right-hand sides (K15 also held at K 7, its
                word-by-word path, and 16, and timed on orsirr_like150's
                230 diagonals at K 64; K16 at cg_multi's K_pad 16 on A and
@@ -2009,6 +2014,62 @@ def _csr(d):
                                    torch.cat(vals), d.shape).coalesce().to_sparse_csr()
 
 
+def _rhs_ptxas():
+    """The row-tile kernel's (K10, K11, K14, K16) registers and spills per
+    instance, from this run's ptxas -v; fails on spills."""
+    found = 0
+    # (S1_ in the mangled name repeats the first template type, bf16)
+    for m, spills, regs in _ptxas_entries(r"dia_rhs_kernelILb(\d)ELb(\d)ELi(\d+)ELi(\d+)E"
+                                          r"(f|13__nv_bfloat16)(f|13__nv_bfloat16|S1_)E"):
+        vec, power, rows, groups = map(int, m.groups()[:4])
+        td, tv = ("float32" if t == "f" else "bf16" for t in m.groups()[4:])
+        what = (f"{'16-byte' if vec else 'scalar'}, {rows} rows x {groups} right-hand sides "
+                f"a thread, {'K14 / K10 / K11' if power else 'K16'}, diagonals {td}, "
+                f"vectors {tv}")
+        found += 1
+        print(f"[dia-multi] ptxas dia_rhs_kernel, {what}: {spills}; {regs}", flush=True)
+        if "0 bytes spill stores, 0 bytes spill loads" not in spills:
+            fail(f"[dia-multi] the row-tile kernel spills ({what})")
+    if not found:
+        print("[dia-multi] ptxas: dia_rhs was not built in this run (a kept library)",
+              flush=True)
+
+
+def _pp_halo_check(key, dd, xq):
+    """K10 into an allocator block that was filled with NaN before it was
+    freed (the block its previous call was handed, so a halo row the launch
+    skipped would show: its halo blocks must be zero), or K11 into a buffer
+    of NaN (its halo blocks must stay NaN); the interior against the plain
+    version (``_check``).  Made after the chain's counts were read."""
+    p = (xq.shape[0] - dd.n_pad) // 2
+    if key == "K10":
+        y = dia.spmv_dia_padded_io(dd, xq, scale=0.2)
+        ptr = y.data_ptr()
+        y.fill_(float("nan"))
+        del y
+        y = dia.spmv_dia_padded_io(dd, xq, scale=0.2)
+        torch.cuda.synchronize()
+        if y.data_ptr() != ptr:
+            fail("K10's NaN check: the allocator handed K10 another block")
+        ok = not (y[:p].any() or y[p + dd.n_pad:].any())      # NaN counts as nonzero
+        want = dia.spmv_dia_padded_io_ref(dd, xq, 0.2)
+    else:
+        y = torch.full_like(xq, float("nan"))
+        dia.spmv_dia_pingpong(dd, xq, y, scale=0.2)
+        torch.cuda.synchronize()
+        ok = bool(torch.isnan(y[:p]).all() and torch.isnan(y[p + dd.n_pad:]).all())
+        want = dia.spmv_dia_pingpong_ref(dd, xq, torch.full_like(xq, float("nan")), 0.2)
+    label = f"{dd.data.dtype} diagonals, {_vname(xq.dtype)}"
+    if not ok:
+        fail(f"{key} ({label}): a halo block " + ("is not zero over a NaN block" if key == "K10"
+                                                  else "was written"))
+    _, checked = _check(key, f"halo check, {label}", [y[p:p + dd.n_pad]],
+                        [want[p:p + dd.n_pad]], 1)
+    print(f"[{key}] {label}: " + ("halo blocks zero over an allocator block that held NaN"
+                                  if key == "K10" else "halo blocks of a NaN buffer untouched")
+          + f"; interior {checked}", flush=True)
+
+
 def phase_dia_multi(dev):
     """K10, K11, K14, K15 and K16 against their plain versions on the card
     at poisson1024 (K14 also at poisson512 with 2 right-hand sides and at
@@ -2021,6 +2082,7 @@ def phase_dia_multi(dev):
                                                             jacobi_iteration_matrix)
     from gflownet_spai_tpu_torch.sparse import gallery
 
+    _rhs_ptxas()
     gen = torch.Generator(device=dev).manual_seed(4048)
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     d = dia.coo_to_dia(gallery.poisson2d(POISSON, dtype=np.float32), device=dev)
@@ -2081,6 +2143,7 @@ def phase_dia_multi(dev):
                 (2 * nd + 1) * d.n_pad, make_lib=make_lib,
                 again=lambda xq=xq: chain(key, db, xq), f32=f32, f32_rec=f32_rec,
                 lib=_bf16_lib(lambda: cb @ xin, dia.spmv_dia_ref(db, xin), vt)), "chain")
+            _pp_halo_check(key, db, xq)
 
     # K10: the padded-IO chain (a new buffer per call, halo blocks zeroed)
     x = rnd(n)
@@ -2097,6 +2160,7 @@ def phase_dia_multi(dev):
         want = dia.spmv_dia_padded_io_ref(d, want, 0.2)
     if launches["K10"] != CHAIN or yq[:p].any() or yq[p + d.n_pad:].any():
         fail(f"K10 chain: {launches['K10']} launches, or a halo block not zero")
+    _pp_halo_check("K10", d, xq0)
     xin = xq0[p:p + n]
 
     def make10(i, dd=d, xq=xq0):
@@ -2129,6 +2193,7 @@ def phase_dia_multi(dev):
         ref.reverse()
     if launches["K11"] != CHAIN or any(b[:p].any() or b[p + d.n_pad:].any() for b in bufs):
         fail(f"K11 chain: {launches['K11']} launches, or a halo block written")
+    _pp_halo_check("K11", d, xq0)
     yq0 = torch.zeros_like(xq0)
 
     def make11(i, dd=d, xq=xq0):
@@ -3274,28 +3339,35 @@ def _l2_rate(dev):
     return L2_YARDSTICK_BYTES / (ms * 1e-3), ms
 
 
+def _ptxas_entries(pattern):
+    """(match, spill line, register line) of each kernel instance whose
+    mangled name matches ``pattern`` in this run's ptxas -v output."""
+    lines = [ln.strip() for ln in BUILD_LOG]
+    for i, line in enumerate(lines):
+        m = re.search(pattern, line)
+        if m and "Compiling entry" in line:
+            yield m, lines[i + 2], lines[i + 3]
+
+
 def _bell_ptxas():
     """The tensor-core K17's registers and spills per instance (from this
     run's ptxas -v) beside its shape per bm and column tile."""
-    lines = [ln.strip() for ln in BUILD_LOG]
     found = 0
-    for i, line in enumerate(lines):
-        m = re.search(r"bell_spmm_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", line)
-        if not m or "Compiling entry" not in line:
-            continue
+    for m, spills, regs in _ptxas_entries(
+            r"bell_spmm_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E"):
         bm, cw, mt, tma = map(int, m.groups())
         cfg = bsr.kernel_config(bm, 64 * cw * mt)
         found += 1
         print(f"[bell] ptxas bm {bm}, Kc {64 * cw * mt} ({cw} consumer warpgroups x {mt} "
-              f"m64 tiles), X {'by TMA' if tma else 'element by element'}: {lines[i + 2]}; "
-              f"{lines[i + 3]}; {cfg['threads']} threads, {cfg['stages']} stages, "
+              f"m64 tiles), X {'by TMA' if tma else 'element by element'}: {spills}; "
+              f"{regs}; {cfg['threads']} threads, {cfg['stages']} stages, "
               f"{cfg['smem']} B dynamic shared memory, setmaxnreg {cfg['producer_regs']} / "
               f"{cfg['consumer_regs']}", flush=True)
-        if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
+        if "0 bytes spill stores, 0 bytes spill loads" not in spills:
             fail(f"[bell] the tensor-core K17 spills at bm {bm}, Kc {64 * cw * mt}")
     # ptxas's note where it makes a kernel's wgmmas synchronous (it cost the
     # kernel a third of its time at 4096², (8,128))
-    serial = [ln for ln in lines if "bell_spmm_bf16_kernel" in ln and "serialized" in ln]
+    serial = [ln for ln in BUILD_LOG if "bell_spmm_bf16_kernel" in ln and "serialized" in ln]
     if serial:
         fail(f"[bell] ptxas serializes the tensor-core K17's wgmmas: {serial[0]}")
     if not found:
@@ -3837,6 +3909,11 @@ def phase_dia_bf16(dev, pois):
         for _ in range(CHAIN):
             dia.spmv_dia_pingpong(db, bufs[0], bufs[1], scale=0.2)
             bufs.reverse()
+        halo = lambda b: b[:(b.shape[0] - d.n_pad) // 2].any() or \
+            b[(b.shape[0] + d.n_pad) // 2:].any()
+        if any(halo(b) for b in (yq, *bufs)):
+            fail(f"[dia-bf16] a K10 halo block not zero, or a K11 one written "
+                 f"({_vname(vt)})")
         xq = dia.dia_pad_pp(m32, x32, tr=_pick_power_config(m32, 8, 16)[1]).to(vt)
         dia.spmv_dia_power(mb, None, xq, torch.zeros_like(xq), k=8, add=xq)
         zq = dia.dia_pad_pp(d, x32).to(vt)
@@ -4000,8 +4077,8 @@ def main() -> int:
                      "K16": sum(v.get("K16", 0) for v in multi_launches.values())}
     if min(path_launches.values()) == 0:
         fail(f"a kernel of the solver library did not launch on its path: {path_launches}")
-    for nm, k, file, rep in (("spmv_dia_padded_io (K10)", "K10", "dia.cu", "dia.py:856"),
-                             ("spmv_dia_pingpong (K11)", "K11", "dia.cu", "dia.py:1091"),
+    for nm, k, file, rep in (("spmv_dia_padded_io (K10)", "K10", "dia_rhs.cu", "dia.py:856"),
+                             ("spmv_dia_pingpong (K11)", "K11", "dia_rhs.cu", "dia.py:1091"),
                              ("spmv_dia_power_rhs (K14)", "K14", "dia_rhs.cu", "dia.py:1889"),
                              ("spmm_dia (K15)", "K15", "dia_spmm.cu", "dia.py:499"),
                              ("spmm_dia_t_padded, spmm_dia_t_rows (K16)", "K16", "dia_rhs.cu",
@@ -4028,8 +4105,8 @@ def main() -> int:
     # plain version over those phases' bf16 cases
     bf16_recs = {key: v for key, v in {**dk, **dm}.items() if key.startswith("bf16 ")}
     for nm, k, file, rep in (("spmv_dia", "K8", "dia.cu", "dia.py:215"),
-                             ("spmv_dia_padded_io", "K10", "dia.cu", "dia.py:856"),
-                             ("spmv_dia_pingpong", "K11", "dia.cu", "dia.py:1091"),
+                             ("spmv_dia_padded_io", "K10", "dia_rhs.cu", "dia.py:856"),
+                             ("spmv_dia_pingpong", "K11", "dia_rhs.cu", "dia.py:1091"),
                              ("spmv_dia_power", "K12", "dia.cu", "dia.py:1325"),
                              ("spmv_dia_cheby", "K13", "dia.cu", "dia.py:1606"),
                              ("spmv_dia_power_rhs", "K14", "dia_rhs.cu", "dia.py:1889"),

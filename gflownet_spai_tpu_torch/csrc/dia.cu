@@ -1,12 +1,11 @@
 // DIA (diagonal-format) SpMV kernels of the validation path and the solvers:
 //
 //   K8   dia_spmv       y = A.x                  (one pass over the diagonals)
-//   K10  dia_spmv_pp    y = scale.A.x in x's padded layout, halo blocks zeroed
-//   K11  dia_spmv_pp    y = scale.A.x into the interior of a second buffer
 //   K12  dia_power      z = (scale.A)^k.x, or k affine passes cur <- scale.A.cur + c
 //   K13  dia_cheby      k Chebyshev steps  dd <- a_p.dd + b_p.(r - A.z);  z <- z + dd
 //
-// (K14, K12 on K right-hand sides, and K16 run on `dia_rhs.cu`.)
+// (K10 and K11, the padded-IO and ping-pong SpMVs, K14, K12 on K
+// right-hand sides, and K16 run on `dia_rhs.cu`'s row-tile kernel.)
 //
 // Storage is row-scaled: data[s, i] = A[i, i + offs[s]], [ndiags, n_pad]
 // row-major.  x is read as zero outside the range the caller gives.
@@ -95,14 +94,6 @@
 // traffic (2.ndiags + 2 words per row update) and the wait for the
 // neighbours' edge rows.
 
-// K10 and K11 (dia_spmv_pp) replace `_spmv_pallas_io` / `_spmv_pallas_io_stream`
-// (y in x's padded layout, halo blocks zeroed) and `_spmv_pallas_pp` /
-// `_spmv_pallas_pp_stream` (y into the interior of a second buffer, whose
-// halo blocks are never written).  Each TPU pair differs only in whether x
-// fits VMEM; here both are the one-thread-per-row SpMV with `scale`,
-// writing at the pad offset P.  K10's threads that fall on the halo blocks
-// write their zeros in the same launch.  Bound by bytes.
-//
 // Element types (`dia_types.cuh`): every kernel is a template over the
 // stored diagonals' type TD and the vectors' type TV, one instance per
 // (TD, TV) in (float32, float32), (bf16, float32), (bf16, bf16), chosen
@@ -137,7 +128,7 @@ using dia_types::from_f;
 using dia_types::to_f;
 using dia_types::with_types;
 
-constexpr int kThreads = 256;      // K8 rows, K10, K11, K12 / K13 streamed
+constexpr int kThreads = 256;      // K8 rows, K12 / K13 streamed
 constexpr int kTileRows = 64;      // K8 skip: rows of a tile (the segment flags' tile)
 constexpr int kNeedChunk = 256;    // K8 skip: diagonals listed in shared memory at a time
 constexpr int kNeedBatch = 8;      // K8 skip: listed diagonals whose loads a row issues at once
@@ -315,30 +306,6 @@ dia_spmv_skip_kernel(const TD* __restrict__ data, long long ld, const int* __res
     skipped(next, cn);
   }
   if (i < rows) y[i] = from_f<TV>(__fmul_rn(acc, 1.f));
-}
-
-// K10 and K11: thread t owns buffer row i = t - pad.  Rows in [0, rows) get
-// scale.sum_s data[s, i].x[i + offs[s]]; with pad = P (K10) the rows of the
-// two halo blocks [-P, 0) and [rows, rows + P) get zeros.
-template <typename TD, typename TV>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_pp_kernel(const TD* __restrict__ data, long long ld,
-                   const int* __restrict__ offs, int ndiags,
-                   const TV* __restrict__ x, long long x_lo, long long x_hi,
-                   float scale, TV* __restrict__ y, long long rows, long long pad) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x - pad;
-  if (i >= rows + pad) return;
-  if (i < 0 || i >= rows) {
-    y[i] = from_f<TV>(0.f);
-    return;
-  }
-  float acc = 0.f;
-  for (int s = 0; s < ndiags; ++s) {
-    const long long j = i + offs[s];
-    const float xv = (j >= x_lo && j < x_hi) ? to_f(x[j]) : 0.f;
-    acc += to_f(data[s * ld + i]) * xv;
-  }
-  y[i] = from_f<TV>(acc * scale);
 }
 
 // One pass of K13's streamed mode over rows [0, n_pad): t = A.z,
@@ -932,23 +899,5 @@ extern "C" int dia_fused_clusters(int kind, int ndiags, int types, int cluster,
                                      [&](auto kern) {
       return cudaOccupancyMaxActiveClusters(active, kern, &l.cfg);
     });
-  }));
-}
-
-// K10 (zero_halo != 0) and K11.  xq and yq are [P + n_pad + P] buffers.
-// K11 writes yq's interior [P, P + n_pad) only; K10 writes all of yq, the
-// halo blocks as zeros.
-extern "C" int dia_spmv_pp(const void* data, long long n_pad, const void* offs,
-                           int ndiags, const void* xq, void* yq, long long P,
-                           float scale, int zero_halo, int types, void* stream) {
-  const long long pad = zero_halo ? P : 0;
-  return static_cast<int>(with_types(types, [&](auto t) {
-    DIA_TYPES(t);
-    dia_spmv_pp_kernel<TD, TV><<<row_blocks(n_pad + 2 * pad), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags,
-        static_cast<const TV*>(xq) + P, -P, n_pad + P, scale, static_cast<TV*>(yq) + P,
-        n_pad, pad);
-    return cudaGetLastError();
   }));
 }

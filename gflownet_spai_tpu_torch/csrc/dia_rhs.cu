@@ -1,5 +1,7 @@
-// The multi-right-hand-side DIA kernels of the solver library:
+// The DIA kernels of the solver library that run on one row-tile kernel:
 //
+//   K10  dia_spmv_pp    y = scale.A.x in x's padded layout, halo blocks zeroed
+//   K11  dia_spmv_pp    y = scale.A.x into the interior of a second buffer
 //   K14  dia_power_rhs  Z = (scale.A)^k.X, or k affine passes Z <- scale.A.Z + C,
 //                       on K right-hand sides, [K, P + n_pad + P] buffers
 //   K16  dia_spmm_t     Yt = A.X for right-hand sides held as rows of Xt
@@ -11,17 +13,25 @@
 //
 // K16 replaces gflownet_spai_tpu/ops/dia.py `_spmm_dia_t_pallas` (window
 // DMAs of [kb, tr + 2h] so each right-hand side is one contiguous burst);
-// one pass of K14 replaces a pass of `_spmv_pallas_power_rhs`.  Both run
-// on one row-tile kernel (`dia_rhs_kernel`): K16 is its case scale 1
-// without c, a pass of K14 the case with scale and an optional c.
+// one pass of K14 replaces a pass of `_spmv_pallas_power_rhs`.  K10
+// replaces `_spmv_pallas_io` / `_spmv_pallas_io_stream` (y in x's padded
+// layout, halo blocks zeroed) and K11 `_spmv_pallas_pp` /
+// `_spmv_pallas_pp_stream` (y into the interior of a second buffer, whose
+// halo blocks are never written); each TPU pair differs only in whether x
+// fits VMEM.  All run on one row-tile kernel (`dia_rhs_kernel`): K16 is
+// its case scale 1 without c, a pass of K14 the case with scale and an
+// optional c, K10 and K11 a pass of K14 on one right-hand side without c,
+// K10 with the rows of its two halo blocks written as zeros by the same
+// launch.
 //
 // What bounds them on an H100: bytes, each diagonal word once and each
 // right-hand side's x and y once (2.ndiags flops per 8 bytes at float32).
-// The one-thread-per-row loop this replaces reached 55-66% of that
-// bound in float32 and 30-36% in bf16, where its bytes halve and its time
-// barely moves: it issued one 4-byte (2-byte in bf16) load per diagonal
-// and right-hand side and row, unaligned at the +-1 offsets, and re-read
-// the diagonals once per block of right-hand sides.  Here:
+// The one-thread-per-row loops this replaces reached 55-74% of that
+// bound in float32 and 30-44% in bf16, where their bytes halve and their
+// time barely moves: they issued one 4-byte (2-byte in bf16) load per
+// diagonal and right-hand side and row, unaligned at the +-1 offsets, and
+// K14 / K16 re-read the diagonals once per block of right-hand sides.
+// Here:
 //
 // - a thread owns V consecutive rows (V = 4 on float32 vectors, 8 on bf16:
 //   16 bytes of each right-hand side) and moves each of its diagonal words,
@@ -39,12 +49,30 @@
 //   neighbouring tiles, whose rows the far offsets read from L2, drift
 //   apart).  Where the blocks would not fill the card (small n, few
 //   right-hand sides) the group shrinks, down to one right-hand side;
-// - the offsets sit in shared memory, loaded once per block;
+// - with more than one right-hand side the offsets sit in shared memory,
+//   loaded once per block, up to kMaxDiags of them; a wider band reads the
+//   rest from global memory (through L1), so no band is refused;
+// - one right-hand side (K10, K11; K14 and K16 at K = 1) has instances of
+//   its own (G = 1): no group loop, 30-40 registers, so more blocks stay
+//   resident, and the offsets read through L1 instead of being staged, so
+//   a block's first loads wait for no staging round and no barrier (on an
+//   H100 the multi-right-hand-side instance took 1.4x the one-thread-per-row
+//   kernel's time at poisson1024 in float32).  Issuing the loads of 2, 3, 4
+//   or 8 diagonals before their terms did not pay there: the registers it
+//   took cost more resident blocks than the loads in flight gained.  Where
+//   the 16-byte instance's blocks would not fill the card (a short band of
+//   many diagonals: orsirr_like150's 230 at n_pad 22,528 gave 44 blocks)
+//   or the buffers are not aligned, a thread takes one row, the loop of
+//   the one-thread-per-row kernel this replaces;
 // - a thread whose window reaches past [x_lo, x_hi) reads that diagonal's
 //   words one by one (zero outside), and a launch whose buffers are not
-//   aligned to V elements (n_pad, a leading dimension or x_lo, x_hi not a
-//   multiple of V, or a pointer off 16 bytes) takes the scalar instance of
-//   the same kernel: the same sums in the same order.
+//   aligned to V elements (n_pad, a leading dimension, x_lo, x_hi or the
+//   halo not a multiple of V, or a pointer off 16 bytes) takes the scalar
+//   instance of the same kernel: the same sums in the same order;
+// - K10's halo blocks: the grid covers rows [-halo, n_pad + halo), and a
+//   thread whose rows lie outside [0, n_pad) stores zeros there (16 bytes
+//   at a time in the vector instance) and reads nothing, so the output
+//   needs no clearing pass: K10's buffer is written once.
 //
 // K14's k passes are k launches of the row-tile kernel through a
 // caller-given [K, n_pad] scratch buffer, ordered so that the last pass
@@ -79,8 +107,11 @@ using dia_types::with_types;
 
 constexpr int kRowThreads = 128;   // the row-tile kernel
 constexpr int kSums = 32;          // the row-tile kernel: float32 sums a thread holds
-constexpr int kFillBlocks = 3;     // ... blocks per SM below which its groups shrink
-constexpr int kMaxDiags = 12288;   // offsets a block stages (48 KB of shared memory)
+constexpr int kFillBlocks = 3;     // ... blocks per SM below which its groups shrink (one
+                                   // right-hand side: a thread takes one row)
+constexpr int kOneRowThreads = 256;  // threads of a block that takes one row a thread
+constexpr int kMaxDiags = 12288;   // offsets a block stages (48 KB of shared memory); any
+                                   // past them are read from global memory
 
 // K14's value of a row: scale.acc (+ c), each rounding explicit.  On
 // float32 diagonals scale.acc + c is one fused multiply-add, on bf16 ones
@@ -157,65 +188,115 @@ __device__ __forceinline__ void add_shifted(int rem, const TV* __restrict__ xb, 
 // The row-tile kernel: y_r[i] = scale.sum_s data[s, i].x_r[i + offs[s]]
 // (+ c_r[i]) for rows i < n_pad of right-hand sides r < n_rhs, x_r = x +
 // r.ldx read for x_lo <= j < x_hi (zero elsewhere), c_r = c + r.ldc, y_r =
-// y + r.ldy; kPower false: K16's y_r[i] = sum (no scale, no c).  Block b
-// takes row tile b / groups and the gsz (<= G) right-hand sides from
-// gsz.(b % groups); its thread t owns rows i0 = V.(tile.blockDim + t) +
-// [0, V).  kVec: n_pad, the leading dimensions, x_lo and x_hi multiples of
-// V, and x, y, c aligned to 16 bytes and data to V words.
-template <bool kVec, bool kPower, typename TD, typename TV>
-__global__ void __launch_bounds__(kRowThreads)
+// y + r.ldy; kPower false: K16's y_r[i] = sum (no scale, no c).  Rows
+// -halo <= i < 0 and n_pad <= i < n_pad + halo of y_r get zeros (K10's
+// halo blocks; halo 0 otherwise).  Block b takes row tile b / groups and
+// the gsz (<= G) right-hand sides from gsz.(b % groups); its thread t owns
+// rows i0 = V.(tile.blockDim + t) - halo + [0, V).  kVec: V = 16 bytes of
+// TV, n_pad, the leading dimensions, x_lo, x_hi and halo multiples of V,
+// and x, y, c aligned to 16 bytes and data to V words.  G == 1 without
+// kVec takes V = 1: one row a thread.
+template <bool kVec, bool kPower, int V, int G, typename TD, typename TV>
+__global__ void __launch_bounds__(kOneRowThreads)
 dia_rhs_kernel(const TD* __restrict__ data, long long n_pad,
                const int* __restrict__ offs, int ndiags,
                const TV* __restrict__ x, long long ldx, long long x_lo, long long x_hi,
                const TV* __restrict__ c, long long ldc, float scale,
-               TV* __restrict__ y, long long ldy, int n_rhs, int gsz) {
-  constexpr int V = 16 / sizeof(TV);
-  constexpr int G = kSums / V;
+               TV* __restrict__ y, long long ldy, long long halo, int n_rhs, int gsz) {
+  // the offsets: G > 1 stages them in shared memory (up to kMaxDiags); one
+  // right-hand side reads them through L1, so its data loads need not wait
+  // for a staging round and a barrier
   extern __shared__ int offs_s[];
-  for (int s = threadIdx.x; s < ndiags; s += blockDim.x) offs_s[s] = offs[s];
-  __syncthreads();
-  const int groups = (n_rhs + gsz - 1) / gsz;
+  if constexpr (G > 1) {
+    for (int s = threadIdx.x; s < min(ndiags, kMaxDiags); s += blockDim.x) offs_s[s] = offs[s];
+    __syncthreads();
+  }
+  const auto offset = [&](int s) {
+    return G > 1 && s < kMaxDiags ? offs_s[s] : __ldg(offs + s);
+  };
+  const int groups = G == 1 ? 1 : (n_rhs + gsz - 1) / gsz;
   const long long i0 = (blockIdx.x / groups * static_cast<long long>(blockDim.x) + threadIdx.x)
-                       * V;
-  if (i0 >= n_pad) return;
+                       * V - halo;
+  if (i0 >= n_pad + halo) return;
   const int g0 = static_cast<int>(blockIdx.x % groups) * gsz;
   const int ng = min(gsz, n_rhs - g0);
+  // K10's halo rows: zeros, and nothing read for them
+  const bool outside = i0 + V <= 0 || i0 >= n_pad;
+  if (halo > 0 && (outside || (!kVec && V > 1))) {
+    for (int r = 0; r < ng; ++r) {
+      TV* yr = y + (g0 + r) * ldy + i0;
+      if constexpr (kVec) {
+        const float zero[V] = {};
+        store_v(yr, zero);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          if ((i0 + v < 0 || i0 + v >= n_pad) && i0 + v < n_pad + halo) yr[v] = from_f<TV>(0.f);
+      }
+    }
+  }
+  if (outside) return;
   const TV* xg = x + g0 * ldx;
   float acc[G][V];
 #pragma unroll
   for (int r = 0; r < G; ++r)
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-  for (int s = 0; s < ndiags; ++s) {
-    const int off = offs_s[s];
-    const TD* ds = data + s * n_pad + i0;
-    float dv[V];
-    if constexpr (kVec) {
-      load_v(ds, dv);
-    } else {
+  // the terms of diagonal s whose x window reaches past [x_lo, x_hi): words
+  // one by one, zero outside the range
+  const auto add_words = [&](int s, const float (&dv)[V]) {
+    const long long j0 = i0 + offset(s);
 #pragma unroll
-      for (int v = 0; v < V; ++v) dv[v] = i0 + v < n_pad ? to_f(ds[v]) : 0.f;
-    }
-    const long long j0 = i0 + off;
-    bool inside = false;
-    if constexpr (kVec) inside = j0 >= x_lo && j0 + V <= x_hi;
-    if (inside) {
-      if constexpr (kVec) {
-        const int rem = off & (V - 1);     // off mod V
-        add_shifted<V, G>(rem, xg + (j0 - rem), ldx, ng, dv, acc,
-                          std::make_integer_sequence<int, V>{});
-      }
-    } else {                               // words one by one, zero outside the range
+    for (int r = 0; r < G; ++r) {
+      if (r < ng) {
 #pragma unroll
-      for (int r = 0; r < G; ++r) {
-        if (r < ng) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) {
-            const long long j = j0 + v;
-            const float xv = j >= x_lo && j < x_hi ? to_f(xg[r * ldx + j]) : 0.f;
-            acc[r][v] = __fmaf_rn(dv[v], xv, acc[r][v]);
-          }
+        for (int v = 0; v < V; ++v) {
+          const long long j = j0 + v;
+          const float xv = j >= x_lo && j < x_hi ? to_f(xg[r * ldx + j]) : 0.f;
+          acc[r][v] = __fmaf_rn(dv[v], xv, acc[r][v]);
         }
+      }
+    }
+  };
+  if constexpr (G == 1 && !kVec) {       // one row a thread, inside [0, n_pad)
+    static_assert(V == 1, "the scalar instance on one right-hand side takes one row a thread");
+    const auto add = [&](int s) {
+      const long long j = i0 + offset(s);
+      const float xv = j >= x_lo && j < x_hi ? to_f(xg[j]) : 0.f;
+      acc[0][0] = __fmaf_rn(to_f(data[s * n_pad + i0]), xv, acc[0][0]);
+    };
+    // a long band unrolled by 8, so 8 diagonals' loads are in flight (on
+    // an H100, orsirr_like150's 230 diagonals: 9% less time than nvcc's
+    // own unrolling in float32, 32% in bf16 x float32); a short one as nvcc
+    // unrolls it (unrolling by 8 cost poisson1024's 5 diagonals 23%)
+    if (ndiags >= 8) {
+#pragma unroll 8
+      for (int s = 0; s < ndiags; ++s) add(s);
+    } else {
+      for (int s = 0; s < ndiags; ++s) add(s);
+    }
+  } else {
+    for (int s = 0; s < ndiags; ++s) {
+      const int off = offset(s);
+      const TD* ds = data + s * n_pad + i0;
+      float dv[V];
+      if constexpr (kVec) {
+        load_v(ds, dv);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) dv[v] = i0 + v >= 0 && i0 + v < n_pad ? to_f(ds[v]) : 0.f;
+      }
+      const long long j0 = i0 + off;
+      bool inside = false;
+      if constexpr (kVec) inside = j0 >= x_lo && j0 + V <= x_hi;
+      if (inside) {
+        if constexpr (kVec) {
+          const int rem = off & (V - 1);     // off mod V
+          add_shifted<V, G>(rem, xg + (j0 - rem), ldx, ng, dv, acc,
+                            std::make_integer_sequence<int, V>{});
+        }
+      } else {
+        add_words(s, dv);
       }
     }
   }
@@ -230,7 +311,8 @@ dia_rhs_kernel(const TD* __restrict__ data, long long n_pad,
           load_v(c + row * ldc + i0, cv);
         } else {
 #pragma unroll
-          for (int v = 0; v < V; ++v) cv[v] = i0 + v < n_pad ? to_f(c[row * ldc + i0 + v]) : 0.f;
+          for (int v = 0; v < V; ++v)
+            cv[v] = i0 + v >= 0 && i0 + v < n_pad ? to_f(c[row * ldc + i0 + v]) : 0.f;
         }
       }
 #pragma unroll
@@ -245,7 +327,7 @@ dia_rhs_kernel(const TD* __restrict__ data, long long n_pad,
     } else {
 #pragma unroll
       for (int v = 0; v < V; ++v)
-        if (i0 + v < n_pad) yr[v] = from_f<TV>(out[v]);
+        if (i0 + v >= 0 && i0 + v < n_pad) yr[v] = from_f<TV>(out[v]);
     }
   }
 }
@@ -266,36 +348,45 @@ int sm_count() {
 }
 
 // One launch of the row-tile kernel (K16 when kPower is false, else a
-// pass of K14); takes its vector instance where the buffers allow it.
+// pass of K14, or K10 / K11 at n_rhs 1 without c); takes its vector
+// instance where the buffers allow it.  On one right-hand side a thread
+// takes one row (the scalar instance, 256 threads a block) where the
+// buffers do not allow the vector instance or its blocks would not fill
+// the card (a short band of many diagonals).
 template <bool kPower, typename TD, typename TV>
 cudaError_t launch_rows(const TD* data, long long n_pad, const int* offs, int ndiags,
                         const TV* x, long long ldx, long long x_lo, long long x_hi,
                         const TV* c, long long ldc, float scale, TV* y, long long ldy,
-                        int n_rhs, cudaStream_t st) {
+                        long long halo, int n_rhs, cudaStream_t st) {
   constexpr int V = 16 / sizeof(TV);
   constexpr int G = kSums / V;
   const bool vec = n_pad % V == 0 && ldx % V == 0 && ldy % V == 0 && x_lo % V == 0
-                   && x_hi % V == 0 && aligned(x, 16) && aligned(y, 16)
+                   && x_hi % V == 0 && halo % V == 0 && aligned(x, 16) && aligned(y, 16)
                    && aligned(data, V * sizeof(TD))
                    && (c == nullptr || (ldc % V == 0 && aligned(c, 16)));
-  const long long rows = static_cast<long long>(V) * kRowThreads;
-  const long long row_blocks = (n_pad + rows - 1) / rows;
-  // G right-hand sides a block, fewer where the blocks would not fill the card
+  const long long rows = n_pad + 2 * halo;
+  const auto threads = [](int v) { return v == 1 ? kOneRowThreads : kRowThreads; };
+  const auto tiles = [&](int v) { return (rows + v * threads(v) - 1) / (v * threads(v)); };
   const long long want = static_cast<long long>(kFillBlocks) * sm_count();
-  int gsz = std::min(G, n_rhs);
-  while (gsz > 1 && row_blocks * ((n_rhs + gsz - 1) / gsz) < want) gsz = (gsz + 1) / 2;
-  const long long blocks = row_blocks * ((n_rhs + gsz - 1) / gsz);
-  const size_t smem = sizeof(int) * ndiags;
-  if (vec) {
-    dia_rhs_kernel<true, kPower, TD, TV><<<static_cast<unsigned>(blocks), kRowThreads, smem,
-                                           st>>>(data, n_pad, offs, ndiags, x, ldx, x_lo,
-                                                 x_hi, c, ldc, scale, y, ldy, n_rhs, gsz);
-  } else {
-    dia_rhs_kernel<false, kPower, TD, TV><<<static_cast<unsigned>(blocks), kRowThreads, smem,
-                                            st>>>(data, n_pad, offs, ndiags, x, ldx, x_lo,
-                                                  x_hi, c, ldc, scale, y, ldy, n_rhs, gsz);
+  const auto launch = [&](auto kern, int v, long long blocks, int gsz) {
+    const size_t smem = n_rhs > 1 ? sizeof(int) * std::min(ndiags, kMaxDiags) : 0;
+    if (blocks > 0)
+      kern<<<static_cast<unsigned>(blocks), threads(v), smem, st>>>(
+          data, n_pad, offs, ndiags, x, ldx, x_lo, x_hi, c, ldc, scale, y, ldy, halo, n_rhs,
+          gsz);
+    return cudaGetLastError();
+  };
+  if (n_rhs == 1) {
+    if (vec && tiles(V) >= want)
+      return launch(dia_rhs_kernel<true, kPower, V, 1, TD, TV>, V, tiles(V), 1);
+    return launch(dia_rhs_kernel<false, kPower, 1, 1, TD, TV>, 1, tiles(1), 1);
   }
-  return cudaGetLastError();
+  // G right-hand sides a block, fewer where the blocks would not fill the card
+  int gsz = std::min(G, n_rhs);
+  while (gsz > 1 && tiles(V) * ((n_rhs + gsz - 1) / gsz) < want) gsz = (gsz + 1) / 2;
+  const long long blocks = tiles(V) * ((n_rhs + gsz - 1) / gsz);
+  if (vec) return launch(dia_rhs_kernel<true, kPower, V, G, TD, TV>, V, blocks, gsz);
+  return launch(dia_rhs_kernel<false, kPower, V, G, TD, TV>, V, blocks, gsz);
 }
 
 #define DIA_TYPES(t)                          \
@@ -304,10 +395,9 @@ cudaError_t launch_rows(const TD* data, long long n_pad, const int* offs, int nd
 
 }  // namespace
 
-// Both entry points take `types`, the (diagonal, vector) element types:
+// The entry points take `types`, the (diagonal, vector) element types:
 // 0 (float32, float32), 1 (bf16, float32), 2 (bf16, bf16); the output and
-// every buffer have the vector type.  Both refuse more than kMaxDiags
-// diagonals.
+// every buffer have the vector type.
 
 // K16.  xt points at logical column 0 of right-hand side 0; xt[r.ldx + j]
 // is read for x_lo <= j < x_hi and is zero elsewhere (the padded buffer of
@@ -316,15 +406,14 @@ cudaError_t launch_rows(const TD* data, long long n_pad, const int* offs, int nd
 extern "C" int dia_spmm_t(const void* data, long long n_pad, const void* offs,
                           int ndiags, const void* xt, long long ldx, long long x_lo,
                           long long x_hi, int K, void* yt, int types, void* stream) {
-  if (K < 1 || ndiags < 1 || ndiags > kMaxDiags) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pad == 0) return static_cast<int>(cudaGetLastError());
+  if (K < 1 || ndiags < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_types(types, [&](auto t) {
     DIA_TYPES(t);
     return launch_rows<false>(static_cast<const TD*>(data), n_pad,
                               static_cast<const int*>(offs), ndiags,
                               static_cast<const TV*>(xt), ldx, x_lo, x_hi,
                               static_cast<const TV*>(nullptr), 0, 1.f,
-                              static_cast<TV*>(yt), n_pad, K,
+                              static_cast<TV*>(yt), n_pad, 0, K,
                               static_cast<cudaStream_t>(stream));
   }));
 }
@@ -336,9 +425,7 @@ extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs
                              int ndiags, const void* xq, const void* cq, void* zq,
                              long long P, int n_rhs, int k, float scale, void* tmp,
                              int types, void* stream) {
-  if (n_rhs < 1 || k < 1 || ndiags < 1 || ndiags > kMaxDiags)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pad == 0) return static_cast<int>(cudaGetLastError());
+  if (n_rhs < 1 || k < 1 || ndiags < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_types(types, [&](auto t) {
     DIA_TYPES(t);
@@ -354,11 +441,31 @@ extern "C" int dia_power_rhs(const void* data, long long n_pad, const void* offs
       const long long lo = p == 1 ? -P : 0, hi = p == 1 ? n_pad + P : n_pad;
       const cudaError_t err = launch_rows<true>(
           static_cast<const TD*>(data), n_pad, static_cast<const int*>(offs), ndiags, src,
-          ld_src, lo, hi, c == nullptr ? nullptr : c + P, ld, scale, dst, ld_dst, n_rhs, st);
+          ld_src, lo, hi, c == nullptr ? nullptr : c + P, ld, scale, dst, ld_dst, 0, n_rhs,
+          st);
       if (err != cudaSuccess) return err;
       src = dst;
       ld_src = ld_dst;
     }
     return cudaSuccess;
+  }));
+}
+
+// K10 (zero_halo != 0) and K11: one launch of the row-tile kernel on one
+// right-hand side.  xq and yq are [P + n_pad + P] buffers, x read on
+// [-P, n_pad + P).  K11 writes yq's interior [P, P + n_pad) only; K10
+// writes all of yq, the halo blocks as zeros.
+extern "C" int dia_spmv_pp(const void* data, long long n_pad, const void* offs,
+                           int ndiags, const void* xq, void* yq, long long P,
+                           float scale, int zero_halo, int types, void* stream) {
+  return static_cast<int>(with_types(types, [&](auto t) {
+    DIA_TYPES(t);
+    const long long ld = n_pad + 2 * P;
+    return launch_rows<true>(static_cast<const TD*>(data), n_pad,
+                             static_cast<const int*>(offs), ndiags,
+                             static_cast<const TV*>(xq) + P, ld, -P, n_pad + P,
+                             static_cast<const TV*>(nullptr), 0, scale,
+                             static_cast<TV*>(yq) + P, ld, zero_halo ? P : 0, 1,
+                             static_cast<cudaStream_t>(stream));
   }));
 }

@@ -17,8 +17,9 @@ Entry points and the kernels they launch on CUDA tensors:
   (``_segment_flags``, made with such a DIA) say it holds a word other
   than zero;
 - ``spmv_dia_padded_io`` (K10, output in x's padded layout, halo blocks
-  zeroed by the kernel) and ``spmv_dia_pingpong`` (K11, into a second
-  buffer's interior): one entry of ``csrc/dia.cu``;
+  zeroed by the same launch) and ``spmv_dia_pingpong`` (K11, into a second
+  buffer's interior): one entry of ``csrc/dia_rhs.cu``, a launch of its
+  row-tile kernel on one right-hand side;
 - ``spmv_dia_power`` (K12) and ``spmv_dia_power_rhs`` (K14, K right-hand
   sides): k fused passes; ``spmv_dia_cheby`` (K13): k Chebyshev steps;
 - ``spmm_dia`` (K15, X [n, K]): ``csrc/dia_spmm.cu``; ``spmm_dia_t`` /
@@ -717,9 +718,8 @@ _ARGTYPES = {
     "dia_spmm_t": [_PTR, _I64, _PTR, _INT, _PTR, _I64, _I64, _I64, _INT, _PTR, _INT, _PTR],
 }
 _LIBRARY = {"dia_spmm": "dia_spmm", "dia_spmm_t": "dia_rhs",
-            "dia_power_rhs": "dia_rhs"}   # else csrc/dia.cu
+            "dia_power_rhs": "dia_rhs", "dia_spmv_pp": "dia_rhs"}   # else csrc/dia.cu
 _SPMM_MAX_DIAGS = 1024  # K15 stages a block's diagonal words in shared memory
-_RHS_MAX_DIAGS = 12288  # K14, K16 stage a block's offsets in shared memory
 # The kernels' (diagonals, vectors) dtypes: the `types` code of the C entry
 # points, and each instance's name in the wrappers' `type_launches`
 _TYPES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.float32): 1,
@@ -1196,8 +1196,12 @@ def spmv_dia_cheby(d: DIA, datak: torch.Tensor, zq: torch.Tensor,
 
 def _spmv_pp(d: DIA, xq: torch.Tensor, yq: torch.Tensor, scale: float,
              zero_halo: bool, what: str) -> int:
-    """Launch ``dia_spmv_pp`` (K10 with ``zero_halo``, else K11); returns
-    the ``types`` code."""
+    """Launch ``dia_spmv_pp`` (K10 with ``zero_halo``, else K11: one
+    launch of ``csrc/dia_rhs.cu``'s row-tile kernel on one right-hand side:
+    its 16-byte instance where the buffers and the diagonals lie on 16-byte
+    boundaries, n_pad and P are multiples of 4 float32 or 8 bf16 vector
+    elements and its blocks fill the card, else one row a thread, with the
+    same sums); returns the ``types`` code."""
     code = _check_cuda(d, what, xq, yq)
     p = _check_pp(d, what, xq, yq)
     if yq.data_ptr() == xq.data_ptr():
@@ -1213,8 +1217,8 @@ def spmv_dia_padded_io(d: DIA, xq: torch.Tensor, scale: float = 1.0) -> torch.Te
     """y = scale·A·x on a ``dia_pad_io`` buffer, returned as a new buffer
     in the same [P + n_pad + P] layout (dtype promote(diagonals, x)) with
     its halo blocks zero, so chained applies never repack.  K10
-    (``csrc/dia.cu``, which writes the halo blocks itself) on CUDA tensors,
-    ``spmv_dia_padded_io_ref`` on CPU tensors."""
+    (``csrc/dia_rhs.cu``, whose launch writes the halo blocks too) on CUDA
+    tensors, ``spmv_dia_padded_io_ref`` on CPU tensors."""
     if xq.device.type == "cpu":
         return spmv_dia_padded_io_ref(d, xq, scale)
     xq = _promoted(d, xq)
@@ -1231,7 +1235,7 @@ def spmv_dia_pingpong(d: DIA, xq: torch.Tensor, yq: torch.Tensor,
 
         y = spmv_dia_pingpong(d, x, y); x, y = y, x
 
-    K11 (``csrc/dia.cu``) on CUDA tensors, ``spmv_dia_pingpong_ref`` on
+    K11 (``csrc/dia_rhs.cu``) on CUDA tensors, ``spmv_dia_pingpong_ref`` on
     CPU tensors."""
     if xq.device.type == "cpu":
         return spmv_dia_pingpong_ref(d, xq, yq, scale)
@@ -1254,9 +1258,8 @@ def spmv_dia_power_rhs(d: DIA, datak, xq: torch.Tensor, zq: torch.Tensor,
     bufs = (xq, zq) if add is None else (xq, zq, add)
     code = _check_cuda(d, "spmv_dia_power_rhs", *bufs)
     p = _check_pp(d, "spmv_dia_power_rhs", *bufs, ndim=2)
-    if zq.data_ptr() == xq.data_ptr() or k < 1 or d.ndiags > _RHS_MAX_DIAGS:
-        raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1, "
-                         f"at most {_RHS_MAX_DIAGS} diagonals ({d.ndiags})")
+    if zq.data_ptr() == xq.data_ptr() or k < 1:
+        raise ValueError("spmv_dia_power_rhs: zq must be another buffer than xq, k >= 1")
     n_rhs = xq.shape[0]
     # k passes of the row-tile kernel, through a scratch buffer when k > 1
     tmp = torch.empty((n_rhs, d.n_pad), dtype=xq.dtype, device=xq.device) \
@@ -1314,9 +1317,8 @@ def _k16(d: DIA, xt: torch.Tensor, h: int, what: str) -> torch.Tensor:
     """K16 on a [K, h + n_pad + h] buffer (h = 0: unpadded), read as zero
     outside it; counted on ``spmm_dia_t_padded``."""
     code = _check_cuda(d, what, xt)
-    if d.ndiags > _RHS_MAX_DIAGS or xt.shape[0] < 1:
-        raise ValueError(f"{what}: at most {_RHS_MAX_DIAGS} diagonals ({d.ndiags}) and at "
-                         "least one right-hand side")
+    if xt.shape[0] < 1:
+        raise ValueError(f"{what}: at least one right-hand side")
     yt = torch.empty((xt.shape[0], d.n_pad), dtype=xt.dtype, device=xt.device)
     stream = torch.cuda.current_stream(xt.device).cuda_stream
     _build.check(_lib_fn("dia_spmm_t")(

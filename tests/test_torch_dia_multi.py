@@ -4,9 +4,10 @@ their plain versions against the Pallas kernels in interpret mode, at the
 shapes of ``tests/test_ops.py``, and the TPU VMEM selection functions that
 fix the pad widths, K_pad and the fused k of ``jacobi_multirhs``.
 
-Tolerances: selection functions exact.  K10, K11 rtol 2e-6, atol 1e-5 (the
-Pallas kernels start their sums at the main diagonal, the plain versions
-at zero in offset order: float32 rounding only).  K14 rtol 3e-6, atol 1e-4
+Tolerances: selection functions exact.  K10, K11 rtol 2e-6, atol 1e-5 on
+Poisson 256² and on orsirr_like24 (the Pallas kernels start their sums at
+the main diagonal, the plain versions at zero in offset order: float32
+rounding only).  K14 rtol 3e-6, atol 1e-4
 as K12 (float32 over k dependent passes; the bound ``tests/test_ops.py``
 holds the same kernel to).  K15, K16 rtol 1e-5, atol 1e-4 (``test_ops``'s
 bound for the same kernels)."""
@@ -123,15 +124,31 @@ def test_layouts_match_jax():
                                       _np(J.dia_pad_pp_rhs(jd, jnp.asarray(X), tr=tr)))
 
 
-def test_k10_k11_plain_match_pallas_interpret():
+def _orsirr24():
+    """orsirr_like24's DIA (10 diagonals at odd offsets, reach 466) in both
+    packages."""
+    a = t_gallery.get("orsirr_like24")
+    t0 = T.coo_to_dia(a.with_data(a.data.astype(np.float32)), device="cpu")
+    return _pair(t0.data.numpy(), t0.offsets, t0.n)
+
+
+# the case, and the padded-IO tile and interior blocks of its K10 grid
+K10_K11_CASES = {"poisson256": (lambda: _poisson(256), 16384, 4),
+                 "orsirr_like24": (_orsirr24, 1024, 1)}
+
+
+@pytest.mark.parametrize("name", list(K10_K11_CASES))
+def test_k10_k11_plain_match_pallas_interpret(name):
     """K10 (padded-IO, resident and streamed) and K11 (ping-pong, resident
-    and streamed) on Poisson 256² (4 interior blocks of 16,384 rows),
-    scale 0.5: y in the padded layout, halo blocks zero."""
-    jd, td = _poisson(256)
+    and streamed) at scale 0.5 on Poisson 256² (4 interior blocks of 16,384
+    rows) and on orsirr_like24 (odd offsets, one interior block): y in the
+    padded layout, halo blocks zero."""
+    make, io_tile, blocks = K10_K11_CASES[name]
+    jd, td = make()
     rng = np.random.default_rng(5)
     x = rng.standard_normal(td.n).astype(np.float32)
     tr = T._spmv_io_tile(td)
-    assert tr == 16384 and td.n_pad // tr == 4
+    assert tr == io_tile and td.n_pad // tr == blocks
     jxq, txq = J.dia_pad_io(jd, jnp.asarray(x)), T.dia_pad_io(td, torch.as_tensor(x))
     got = T.spmv_dia_padded_io(td, txq, scale=0.5)
     assert got.shape == txq.shape and got is not txq

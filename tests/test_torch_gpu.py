@@ -818,40 +818,171 @@ def _close1(got, want):
                                atol=1e-5 * max(float(want.abs().max()), 1.0))
 
 
-@pytest.mark.parametrize("name", ["poisson96", "orsirr_like24"])
-def test_k10_k11_match_plain(cuda, no_plain, name):
-    """Chains of 3 calls at scale 0.2: K10 returns a new buffer with zero
-    halo blocks, K11 writes the other buffer's interior only."""
+# K10 and K11's (diagonal, vector) instances: float32; bf16 diagonals with
+# float32 vectors; bf16
+PP_INSTANCES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+
+
+def _pp_dia(dev, name, dt):
     a = gallery.get(name)
-    d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=cuda)
+    d = dia.coo_to_dia(a.with_data(a.data.astype(np.float32)), device=dev)
+    return d if dt == torch.float32 else dia.dia_astype(d, dt)
+
+
+def _hold_pp(got, want):
+    """K10 / K11 against their plain versions: on bf16 vectors bit for bit
+    (a product of two bf16 values is exact in float32), on float32 vectors
+    within ``_close1``."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        _close1(got, want)
+
+
+def _k10_over_nan(d, xq, scale):
+    """K10 into an allocator block filled with NaN before it was freed: the
+    block a first call was handed, so a halo row the kernel skipped would
+    show.  Returns the second call's output."""
+    y = dia.spmv_dia_padded_io(d, xq, scale=scale)
+    ptr = y.data_ptr()
+    y.fill_(float("nan"))
+    del y
+    got = dia.spmv_dia_padded_io(d, xq, scale=scale)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr, "the allocator handed K10 another block"
+    return got
+
+
+@pytest.mark.parametrize("name", ["poisson96", "orsirr_like24"])
+@pytest.mark.parametrize("dt,vt", PP_INSTANCES)
+def test_k10_k11_match_plain(cuda, no_plain, name, dt, vt):
+    """Chains of 3 calls at scale 0.2 in each instance: K10 returns a new
+    buffer with zero halo blocks, K11 writes the other buffer's interior
+    only; every launch counted on its instance."""
+    d = _pp_dia(cuda, name, dt)
+    inst = dia._TYPE_NAMES[dia._TYPES[(dt, vt)]]
     ref = no_plain("spmv_dia_padded_io_ref", "spmv_dia_pingpong_ref")
     x = torch.randn(d.n, device=cuda)
-    xq = dia.dia_pad_io(d, x)
+    xq = dia.dia_pad_io(d, x).to(vt)
     p = (xq.shape[0] - d.n_pad) // 2
-    before = dia.spmv_dia_padded_io.launches
+    before = dia.spmv_dia_padded_io.launches, dia.spmv_dia_padded_io.type_launches[inst]
     for _ in range(3):
         want = ref["spmv_dia_padded_io_ref"](d, xq, 0.2)
         got = dia.spmv_dia_padded_io(d, xq, scale=0.2)
         torch.cuda.synchronize()
-        _close1(got, want)
+        _hold_pp(got, want)
         assert not got[:p].any() and not got[p + d.n_pad:].any()
         xq = got
-    assert dia.spmv_dia_padded_io.launches == before + 3
-    xq = dia.dia_pad_pp(d, x)
+    assert (dia.spmv_dia_padded_io.launches,
+            dia.spmv_dia_padded_io.type_launches[inst]) == (before[0] + 3, before[1] + 3)
+    xq = dia.dia_pad_pp(d, x).to(vt)
     p = (xq.shape[0] - d.n_pad) // 2
     yq = torch.full_like(xq, 3.0)
     yq[p:p + d.n_pad] = 0.0
-    before = dia.spmv_dia_pingpong.launches
+    before = dia.spmv_dia_pingpong.launches, dia.spmv_dia_pingpong.type_launches[inst]
     for _ in range(3):
         halo = torch.cat([yq[:p], yq[p + d.n_pad:]])      # 3.0 or 0.0 after a swap
         want = ref["spmv_dia_pingpong_ref"](d, xq, yq.clone(), 0.2)
         got = dia.spmv_dia_pingpong(d, xq, yq, scale=0.2)
         torch.cuda.synchronize()
         assert got is yq
-        _close1(got[p:p + d.n_pad], want[p:p + d.n_pad])
+        _hold_pp(got[p:p + d.n_pad], want[p:p + d.n_pad])
         assert torch.equal(torch.cat([got[:p], got[p + d.n_pad:]]), halo)
         xq, yq = yq, xq
-    assert dia.spmv_dia_pingpong.launches == before + 3
+    assert (dia.spmv_dia_pingpong.launches,
+            dia.spmv_dia_pingpong.type_launches[inst]) == (before[0] + 3, before[1] + 3)
+
+
+@pytest.mark.parametrize("dt,vt", PP_INSTANCES)
+def test_k10_writes_its_halo_over_a_nan_block(cuda, no_plain, dt, vt):
+    """K10's output comes from ``torch.empty_like``: over a block that held
+    NaN its halo blocks are zero (written by the same launch) and its
+    interior is the plain version's, on poisson96 and orsirr_like24."""
+    ref = no_plain("spmv_dia_padded_io_ref")["spmv_dia_padded_io_ref"]
+    for name in ("poisson96", "orsirr_like24"):
+        d = _pp_dia(cuda, name, dt)
+        xq = dia.dia_pad_io(d, torch.randn(d.n, device=cuda)).to(vt)
+        p = (xq.shape[0] - d.n_pad) // 2
+        got = _k10_over_nan(d, xq, 0.7)
+        assert torch.equal(got[:p], torch.zeros_like(got[:p]))
+        assert torch.equal(got[p + d.n_pad:], torch.zeros_like(got[:p]))
+        _hold_pp(got, ref(d, xq, 0.7))
+
+
+@pytest.mark.parametrize("dt,vt", PP_INSTANCES)
+def test_k10_k11_unaligned_take_the_scalar_instance(cuda, no_plain, dt, vt):
+    """The scalar instance of the row-tile kernel: x one element past a
+    16-byte boundary, a pad width P = halo + 1 (no multiple of the 4 or 8
+    rows a thread takes, so threads straddle the halo blocks' edges), and a
+    DIA of n_pad 5,001 (a ragged tail).  Same bits as the aligned call on
+    poisson96; K10's halo blocks zero over a NaN block; K11's halo blocks
+    left as they were (NaN)."""
+    ref = no_plain("spmv_dia_padded_io_ref", "spmv_dia_pingpong_ref")
+    d = _pp_dia(cuda, "poisson96", dt)
+    x = torch.randn(d.n, device=cuda).to(vt)
+
+    def padded(dd, p):
+        return torch.nn.functional.pad(x[:dd.n], (p, dd.n_pad - dd.n + p))
+
+    def run(dd, xq):
+        p = (xq.shape[0] - dd.n_pad) // 2
+        y10 = _k10_over_nan(dd, xq, 0.3)
+        assert not y10[:p].any() and not y10[p + dd.n_pad:].any()
+        y11 = torch.full_like(xq, float("nan"))
+        dia.spmv_dia_pingpong(dd, xq, y11, scale=0.3)
+        torch.cuda.synchronize()
+        assert torch.isnan(y11[:p]).all() and torch.isnan(y11[p + dd.n_pad:]).all()
+        return y10[p:p + dd.n_pad], y11[p:p + dd.n_pad]
+
+    base = run(d, padded(d, d.halo))
+    _hold_pp(base[0], ref["spmv_dia_padded_io_ref"](d, padded(d, d.halo), 0.3)[
+        d.halo:d.halo + d.n_pad])
+    assert torch.equal(base[1], base[0])
+    for xq in (_shifted(padded(d, d.halo)), padded(d, d.halo + 1)):
+        assert all(torch.equal(a, b) for a, b in zip(run(d, xq), base))
+    r = _ragged_dia(cuda, dt)
+    xq = padded(r, r.halo + 1)
+    y10, y11 = run(r, xq)
+    _hold_pp(y10, ref["spmv_dia_padded_io_ref"](r, xq, 0.3)[r.halo + 1:r.halo + 1 + r.n_pad])
+    assert torch.equal(y11, y10)
+
+
+@pytest.mark.parametrize("vt", [torch.float32, torch.bfloat16])
+def test_row_tile_kernel_takes_a_band_wider_than_its_staged_offsets(cuda, no_plain, vt):
+    """12,300 bf16 diagonals (the row-tile kernel stages 12,288 offsets in
+    shared memory and reads the rest from global memory) at n 6,200: K10
+    and K11 (aligned, and x off its alignment), K14 (k 2, 2 right-hand
+    sides) and K16 (3) against their plain versions."""
+    ref = no_plain("spmv_dia_padded_io_ref", "spmv_dia_pingpong_ref",
+                   "spmv_dia_power_rhs_ref", "spmm_dia_t_padded_ref")
+    n, n_pad, offsets = 6200, 6208, tuple(range(-6150, 6150))
+    assert len(offsets) > 12288
+    gen = torch.Generator(device=cuda).manual_seed(12300)
+    i = torch.arange(n_pad, device=cuda)[None]
+    o = torch.tensor(offsets, device=cuda)[:, None]
+    keep = (i < n) & (i + o >= 0) & (i + o < n)
+    data = torch.where(keep, torch.randn((len(offsets), n_pad), generator=gen, device=cuda)
+                       / 64, 0.0).to(BF16)
+    d = dia.DIA(data=data, offsets=offsets, shape=(n, n), nnz=int(keep.sum()))
+    x = torch.randn(n, generator=gen, device=cuda).to(vt)
+    xq = torch.nn.functional.pad(x, (d.halo, n_pad - n + d.halo))
+    p = d.halo
+    y10 = dia.spmv_dia_padded_io(d, xq, scale=0.5)
+    _hold_pp(y10, ref["spmv_dia_padded_io_ref"](d, xq, 0.5))
+    assert not y10[:p].any() and not y10[p + n_pad:].any()
+    assert torch.equal(dia.spmv_dia_padded_io(d, _shifted(xq), scale=0.5), y10)
+    y11 = dia.spmv_dia_pingpong(d, xq, torch.zeros_like(xq), scale=0.5)
+    assert torch.equal(y11, y10)
+    X = torch.randn((2, n), generator=gen, device=cuda).to(vt)
+    Xq = torch.nn.functional.pad(X, (p, n_pad - n + p))
+    got = dia.spmv_dia_power_rhs(d, None, Xq, torch.zeros_like(Xq), scale=0.5, k=2)
+    _held(got, ref["spmv_dia_power_rhs_ref"](d, Xq, torch.zeros_like(Xq), scale=0.5, k=2), 2)
+    rows = torch.nn.functional.pad(X, (0, n_pad - n, 0, 1))
+    got = dia.spmm_dia_t_rows(d, rows)
+    _held(got, ref["spmm_dia_t_padded_ref"](d, torch.nn.functional.pad(rows, (p, p))))
+    torch.cuda.synchronize()
 
 
 def _k14_chained(m, xq, cq, scale, k):
