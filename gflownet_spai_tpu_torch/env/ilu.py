@@ -4,7 +4,8 @@
 The GFlowNet's action space is the nnz set of L @ U from an incomplete LU
 of A.  This is one-off host setup, so it runs in numpy/scipy:
 
-* ``ilu0``         — ILU(0) (no fill, no pivoting) in numpy;
+* ``ilu0``         — ILU(0) (no fill, no pivoting), in the native library
+  where it is built, else in numpy;
 * ``spilu_lu``     — scipy SuperLU ``spilu``;
 * ``seed_pattern`` — the L @ U product as a COO matrix, the env's M0, or
   (``method="spai"``) the classic SPAI of A.
@@ -14,17 +15,24 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..sparse.convert import coo_to_scipy, scipy_to_coo
 from ..sparse.types import COO
 
 
 def ilu0(a: COO):
     """ILU(0) on the sparsity pattern of A, no pivoting.  Returns
-    ``(L, U)`` as COO with unit-diagonal L (diagonal stored)."""
+    ``(L, U)`` as COO with unit-diagonal L (diagonal stored).  The native
+    library, where it is built, runs the loop below in the same order."""
     import scipy.sparse as sp
 
     A = coo_to_scipy(a).tocsr().astype(np.float64)
+    A.sort_indices()
     n = A.shape[0]
+    if native.available():
+        return _split_lu(sp.csr_matrix(
+            (native.ilu0_values(A.indptr, A.indices, A.data), A.indices, A.indptr),
+            shape=(n, n)))
     indptr, indices, data = A.indptr, A.indices, A.data.copy()
     # column-position lookup per row for O(1) pattern membership
     pos = [dict(zip(indices[indptr[i]:indptr[i + 1]],
@@ -49,8 +57,14 @@ def ilu0(a: COO):
                 ip = row_i.get(k)
                 if ip is not None:
                     data[ip] -= lij * data[kp]
-    LU = sp.csr_matrix((data, indices, indptr), shape=(n, n))
-    L = sp.tril(LU, k=-1) + sp.eye(n, format="csr")
+    return _split_lu(sp.csr_matrix((data, indices, indptr), shape=(n, n)))
+
+
+def _split_lu(LU):
+    """The combined L\\U values → (L with its unit diagonal, U) as COO."""
+    import scipy.sparse as sp
+
+    L = sp.tril(LU, k=-1) + sp.eye(LU.shape[0], format="csr")
     U = sp.triu(LU, k=0)
     return scipy_to_coo(L), scipy_to_coo(U)
 

@@ -1,5 +1,5 @@
 """SPAI preconditioner environment on the pair-plan reward path
-(counterpart of ``gflownet_spai_tpu/env/spai.py:40-359``).
+(counterpart of ``gflownet_spai_tpu/env/spai.py``).
 
 A state is a boolean keep-mask over the seed pattern's edges; the reward
 ``‖M·A − I‖_F`` runs through a fixed-pattern plan built once on the host,
@@ -202,10 +202,50 @@ def keep_mask_from_actions(actions: torch.Tensor, num_edges: int) -> torch.Tenso
     return keep[..., :num_edges]
 
 
+def masked_values(env: SpaiEnv, keep: torch.Tensor) -> torch.Tensor:
+    """Values of the thinned preconditioner M on the seed pattern."""
+    return env.seed.data * keep.to(env.seed.data.dtype)
+
+
+def residual_norm(env: SpaiEnv, keep: torch.Tensor) -> torch.Tensor:
+    """``‖M·original − I‖_F`` for one keep mask [num_edges], M the seed
+    values masked by ``keep``, through whichever plan the env carries."""
+    m_vals = masked_values(env, keep)
+    if env.rb is not None:
+        return _rowblock.residual_norm_batch(env.rb, m_vals[None, :])[0]
+    c_vals = env.plan.numeric(m_vals, env.original.data)
+    return torch.sqrt(frobenius_sq_minus_identity(
+        env.plan.out_row, env.plan.out_col, c_vals, env.n))
+
+
+def matrix_flops(env: SpaiEnv, keep: torch.Tensor) -> torch.Tensor:
+    """2·nnz(M)·ncols for one keep mask."""
+    return 2.0 * torch.sum(keep.to(env.seed.data.dtype)) * env.seed.shape[1]
+
+
+def evaluate_preconditioner(env: SpaiEnv, keep: torch.Tensor, alpha) -> torch.Tensor:
+    """α(1 − res/baseline) + (1 − α)(1 − flops/baseline_flops) for one
+    keep mask."""
+    res_ratio = residual_norm(env, keep) / env.baseline_residual
+    comp_ratio = matrix_flops(env, keep) / env.baseline_flops
+    return alpha * (1.0 - res_ratio) + (1.0 - alpha) * (1.0 - comp_ratio)
+
+
+def reward(env: SpaiEnv, keep: torch.Tensor, alpha) -> torch.Tensor:
+    """Terminal reward of one keep mask: the metric × 1000."""
+    return evaluate_preconditioner(env, keep, alpha) * 1000.0
+
+
+def reward_from_actions(env: SpaiEnv, actions: torch.Tensor, alpha) -> torch.Tensor:
+    """The reward of one ``-1``-padded action list [T]; equals
+    ``batched_rewards(env, actions[None], alpha)[0]``."""
+    return reward(env, keep_mask_from_actions(actions, env.num_edges), alpha)
+
+
 def batched_residual_norms(env: SpaiEnv, keep: torch.Tensor) -> torch.Tensor:
     """[B, num_edges] keep masks → [B] residual norms ‖M·original − I‖_F,
     through whichever plan the env carries."""
-    m_vals = env.seed.data * keep.to(env.seed.data.dtype)
+    m_vals = masked_values(env, keep)
     if env.rb is not None:
         return _rowblock.residual_norm_batch(env.rb, m_vals)
     c_vals = env.plan.numeric(m_vals, env.original.data)

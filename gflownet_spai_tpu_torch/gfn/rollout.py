@@ -1,16 +1,17 @@
-"""Trajectory sampler for static logits (counterpart of
-``gflownet_spai_tpu/gfn/rollout.py:30-163``).
+"""Trajectory samplers (counterpart of ``gflownet_spai_tpu/gfn/rollout.py``).
 
 The SPAI rollout never changes the policy's input graph, only the
 taken-action mask, so sequentially sampling a masked categorical without
 replacement from fixed logits is the Plackett–Luce order distribution: one
 Gumbel perturbation and one sort sample every trajectory of a batch, and
-the prefix up to the terminal action is the trajectory.
+the prefix up to the terminal action is the trajectory
+(``gumbel_topk_rollout``).  Envs whose state and mask evolve step by step
+take the generic per-step sampler ``scan_rollout``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -74,6 +75,41 @@ def gumbel_topk_rollout(logits: torch.Tensor, generator: torch.Generator | None,
     return Rollout(actions=torch.where(on_traj, order, -1),
                    fwd_logprobs=torch.where(on_traj, step_lp, 0.0),
                    lengths=k + 1)
+
+
+def scan_rollout(policy_logits_fn: Callable, update_fn: Callable,
+                 init_state: torch.Tensor, generator: torch.Generator | None,
+                 terminal_action: int, max_steps: int,
+                 gumbel: torch.Tensor | None = None):
+    """Generic per-step rollout of a batch, for envs whose state and mask
+    evolve.
+
+    ``init_state``: [B, ...]; ``policy_logits_fn(state, t)`` returns [B, A]
+    logits, already masked; ``update_fn(state, action)`` the next state.
+    Each step samples a categorical by Gumbel-max, argmax(logits + g), g
+    from ``generator`` on the logits' device or ``gumbel[t]`` when the noise
+    ([max_steps, B, A]) is given.  A sample that took ``terminal_action``
+    is done: it keeps its state, and its later slots are ``-1`` with
+    log-prob 0.  Returns (final_state, Rollout) with T = max_steps."""
+    state = init_state
+    B = state.shape[0]
+    done = torch.zeros(B, dtype=torch.bool, device=state.device)
+    actions, lps = [], []
+    for t in range(max_steps):
+        logits = policy_logits_fn(state, t)
+        g = gumbel[t] if gumbel is not None else gumbel_noise(
+            logits.shape, generator, logits.dtype, logits.device)
+        a = torch.argmax(logits + g, dim=-1)
+        lp = torch.gather(torch.log_softmax(logits, dim=-1), -1, a[:, None])[:, 0]
+        a_out = torch.where(done, -1, a)
+        lps.append(torch.where(done, 0.0, lp))
+        keep = done.reshape((B,) + (1,) * (state.dim() - 1))
+        state = torch.where(keep, state, update_fn(state, a))
+        done = done | (a_out == terminal_action)
+        actions.append(a_out)
+    actions = torch.stack(actions, dim=1)
+    return state, Rollout(actions=actions, fwd_logprobs=torch.stack(lps, dim=1),
+                          lengths=torch.sum(actions >= 0, dim=1))
 
 
 def trajectory_logprobs(logits: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

@@ -4,15 +4,15 @@ host (counterpart of ``gflownet_spai_tpu/ops/rcm.py``).
 RCM permutes rows and columns to cluster nonzeros near the main diagonal,
 after which ``coo_to_dia`` stores few distinct diagonals.  ``bandwidth``
 and ``n_diagonals`` also resolve ``env_format="auto"`` in
-``train.loop.setup``.  The ordering is the JAX package's numpy BFS (the
-JAX package takes its C++ library's copy of the same BFS where it is
-built).
+``train.loop.setup``.  The ordering runs in the native library where it
+is built, else as the same BFS in numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..sparse.convert import coo_sort_dedup, coo_to_scipy
 from ..sparse.types import COO
 
@@ -38,6 +38,8 @@ def rcm_permutation(coo: COO) -> np.ndarray:
     A = coo_to_scipy(coo)
     G = (abs(A) + abs(A).T).tocsr()   # symmetrize
     indptr, indices = G.indptr, G.indices
+    if native.available():
+        return native.rcm(indptr, indices)
     degree = np.diff(indptr)
     visited = np.zeros(n, dtype=bool)
     order = np.empty(n, dtype=np.int64)

@@ -1,7 +1,8 @@
 """Matrix Market IO (counterpart of ``gflownet_spai_tpu/sparse/io.py``):
-``read_mtx`` on the JAX package's pure-Python path (coordinate and array
-formats, general / symmetric / skew-symmetric, real / integer / pattern
-fields) and ``write_mtx``."""
+``read_mtx`` (coordinate and array formats, general / symmetric /
+skew-symmetric, real / integer / pattern fields; coordinate files that are
+not gzipped go through the native parser where the library is built) and
+``write_mtx``."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import native
 from .convert import coo_sort_dedup, coo_to_csr
 from .types import COO, CSR, to_numpy
 
@@ -22,7 +24,21 @@ def _open(path):
 
 
 def read_mtx(path, dtype=np.float64) -> COO:
-    """Parse a Matrix Market file into a canonical (sorted) COO."""
+    """Parse a Matrix Market file into a canonical (sorted) COO.
+
+    Coordinate files that are not gzipped go through the native C++ parser
+    where the library is built (``native.available()``); a file it does not
+    take (array format, complex or hermitian) falls through to the Python
+    parser below."""
+    if not str(path).endswith(".gz"):
+        if native.available():
+            try:
+                nr, nc, rows, cols, vals = native.parse_mtx(path)
+            except ValueError:
+                pass
+            else:
+                return COO(row=rows.astype(np.int32), col=cols.astype(np.int32),
+                           data=vals.astype(dtype), shape=(nr, nc))
     with _open(path) as f:
         header = f.readline().strip().lower().split()
         if len(header) < 5 or header[0] != "%%matrixmarket":

@@ -7,7 +7,8 @@ The containers' arrays must be tensors on the right-hand side's device
 float32, without TF32, as the JAX package's ``precision="highest"``.
 
 The patterns of A and B never change while a model trains or samples, only
-their values, so the symbolic product runs once on the host (numpy) and
+their values, so the symbolic product runs once on the host (the native
+library where it is built and B is canonical, else numpy) and
 the numeric phase is a gather · multiply · ``index_add_`` on the device.
 A GPU gathers natively, so this pair plan is the reward path of the port.
 """
@@ -19,6 +20,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import native
 from .._device import resolve_device
 from .types import BSR, COO, CSR, ELL
 
@@ -95,29 +97,30 @@ class SpGEMMPlan:
         n_mid = a_coo.shape[1]
         if b_coo.shape[0] != n_mid:
             raise ValueError("inner dims mismatch")
-        # bucket B's entries by row (= A's col) to enumerate contributing pairs
-        order_b = np.argsort(br, kind="stable")
-        br_s, idx_b = br[order_b], order_b
-        starts = np.searchsorted(br_s, np.arange(n_mid))
-        ends = np.searchsorted(br_s, np.arange(n_mid) + 1)
-        counts = (ends - starts)[ac]
-        pair_a = np.repeat(np.arange(len(ar)), counts)
-        offs = np.concatenate([[0], np.cumsum(counts)])
-        within = np.arange(counts.sum()) - np.repeat(offs[:-1], counts)
-        pair_b = idx_b[starts[ac[pair_a]] + within]
         ncols = b_coo.shape[1]
-        key = ar[pair_a] * ncols + bc[pair_b]
-        uniq, inv = np.unique(key, return_inverse=True)
-        order = np.argsort(inv, kind="stable")
-
+        b_key = br * ncols + bc
+        if native.available() and (len(b_key) == 0 or np.all(np.diff(b_key) > 0)):
+            # B canonical (row-major, no duplicates): its CSR data order is
+            # b_coo.data's order, and A's entry alone orders a slot's pairs
+            indptr_b = np.zeros(n_mid + 1, np.int64)
+            np.add.at(indptr_b, br + 1, 1)
+            out_row, out_col, pair_a, pair_b, pair_out = native.spgemm_plan(
+                ar, ac, n_mid, ncols, np.cumsum(indptr_b), bc)
+            # the library leaves a slot's pairs in no fixed order: put them in
+            # the numpy path's (by A's entry), so both sum alike
+            order = np.argsort(pair_out * max(len(ar), 1) + pair_a, kind="stable")
+            pair_a, pair_b, pair_out = pair_a[order], pair_b[order], pair_out[order]
+        else:
+            out_row, out_col, pair_a, pair_b, pair_out = _pairs(ar, ac, br, bc,
+                                                               n_mid, ncols)
         as_t = lambda x: torch.as_tensor(x, dtype=torch.int64, device=device)
         self.shape = (a_coo.shape[0], ncols)
-        self.out_row = as_t(uniq // ncols)
-        self.out_col = as_t(uniq % ncols)
-        self.pair_a = as_t(pair_a[order])
-        self.pair_b = as_t(pair_b[order])
-        self.pair_out = as_t(inv[order])
-        self.out_nnz = int(len(uniq))
+        self.out_row = as_t(out_row)
+        self.out_col = as_t(out_col)
+        self.pair_a = as_t(pair_a)
+        self.pair_b = as_t(pair_b)
+        self.pair_out = as_t(pair_out)
+        self.out_nnz = int(len(out_row))
         self.npairs = int(len(pair_a))
 
     def numeric(self, a_data: torch.Tensor, b_data: torch.Tensor) -> torch.Tensor:
@@ -129,6 +132,24 @@ class SpGEMMPlan:
 
     def out_coo(self, c_data: torch.Tensor) -> COO:
         return COO(row=self.out_row, col=self.out_col, data=c_data, shape=self.shape)
+
+
+def _pairs(ar, ac, br, bc, n_mid: int, ncols: int):
+    """The symbolic product in numpy: (out_row, out_col, pair_a, pair_b,
+    pair_out), the pattern row-major, a slot's pairs by A's entry."""
+    # bucket B's entries by row (= A's col) to enumerate contributing pairs
+    order_b = np.argsort(br, kind="stable")
+    br_s, idx_b = br[order_b], order_b
+    starts = np.searchsorted(br_s, np.arange(n_mid))
+    ends = np.searchsorted(br_s, np.arange(n_mid) + 1)
+    counts = (ends - starts)[ac]
+    pair_a = np.repeat(np.arange(len(ar)), counts)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    within = np.arange(counts.sum()) - np.repeat(offs[:-1], counts)
+    pair_b = idx_b[starts[ac[pair_a]] + within]
+    uniq, inv = np.unique(ar[pair_a] * ncols + bc[pair_b], return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    return uniq // ncols, uniq % ncols, pair_a[order], pair_b[order], inv[order]
 
 
 def spgemm(a: COO, b: COO) -> COO:
