@@ -249,6 +249,27 @@ Phases (any failure exits non-zero before the result line):
                (Poisson-1M) in a subprocess on the card: exit 0, every row
                converged, each row's iterations and wall seconds, and K8,
                K12 and K13 launched where the row reaches them.
+30. parallel — the multi-device layer on a one-rank NCCL world (TCP store
+               on 127.0.0.1; backend, NCCL version, an all_reduce probe),
+               each multi-device call below with the launch counters
+               K1-K4, K8, K12 set to 0 just before it and read just after
+               (before its reference call), each kernel of its path > 0:
+               on poisson1024
+               ``halo_spmv`` and ``spmv_allgather`` against ``spmv_dia``,
+               ``halo_spmv_power`` k 4 against four ``spmv_dia`` calls,
+               ``distributed_jacobi`` against ``jacobi``, distributed CG /
+               GMRES(30) at the single-device iteration counts (true
+               residuals, ms per apply / iteration beside the single-device
+               call's); ``sharded_policy_pooled`` on orsirr_like150's uniform
+               tile layout against ``forward_policy_pooled``, values and
+               gradients; ``train`` with the sharded sampler at phase 9's
+               configuration (finite, moved, ms/step beside phase 9's) and
+               ``make_dp_train_step`` on the 1×1 mesh against ``loss_fn``
+               on the same noise; then ``bench_scaling.run([1], 262144)``
+               (K8) and ``__graft_entry_torch__.entry()``; with two or more
+               cards, the rank check ``gflownet_spai_tpu_torch.parallel.check``
+               (``halo_spmv`` and a dp step) on min(count, 4) NCCL ranks
+               started by torchrun.
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
@@ -4277,6 +4298,296 @@ def phase_launchers():
                  f"{r['converged']}, launches {r['launches']} (needs {need})")
 
 
+PAR_COUNTERS = {"K1": gf.gat_tile_fused, "K2": gf.gat_tile_fused_bwd,
+                "K3": seg.gather_rows_windows, "K4": seg.scatter_rows_windows,
+                "K8": dia.spmv_dia, "K12": dia.spmv_dia_power}
+PAR_EPOCHS = 6              # [parallel]'s sharded-sampler train steps
+PAR_LAUNCHES: dict = {}     # [parallel]: each multi-device call's own launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def _par_count(label: str, need, fn):
+    """One call of the multi-device path with every counter of
+    ``PAR_COUNTERS`` set to 0 just before it and read just after, before
+    any reference call runs; fails unless each kernel of ``need`` launched
+    in that call.  The counts go into ``PAR_LAUNCHES[label]``."""
+    for c in PAR_COUNTERS.values():
+        c.launches = 0
+    out = fn()
+    got = {k: c.launches for k, c in PAR_COUNTERS.items()}
+    PAR_LAUNCHES[label] = {k: v for k, v in got.items() if v}
+    if any(got[k] == 0 for k in need):
+        fail(f"[parallel] {label} launched {PAR_LAUNCHES[label]}, needs each of {need}")
+    return out
+
+
+def _par_spmv(mesh, dev):
+    """The halo / all-gather SpMVs, the fused k-step halo SpMV and the
+    distributed solvers on poisson1024 against their single-device calls."""
+    from gflownet_spai_tpu_torch.parallel import (distributed_cg, distributed_gmres,
+                                                  distributed_jacobi, halo_spmv,
+                                                  halo_spmv_power, partition_dia,
+                                                  spmv_allgather)
+    from gflownet_spai_tpu_torch.solvers import cg, gmres
+    from gflownet_spai_tpu_torch.solvers.stationary import jacobi
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    d = dia.coo_to_dia(gallery.poisson2d(POISSON, dtype=np.float32), device=dev)
+    dp = partition_dia(d, 1)
+    n = d.n
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(dp.n_pad, generator=gen, device=dev)
+    x[n:] = 0
+    want = dia.spmv_dia(dp, x)[:n]
+    for label, fn in (("halo_spmv", lambda: halo_spmv(mesh, dp, x)),
+                      ("spmv_allgather", lambda: spmv_allgather(mesh, dp, x))):
+        err = _rel_err(_par_count(label, ("K8",), fn)[:n], want)
+        if err > 1e-6:
+            fail(f"[parallel] {label} against spmv_dia: max rel err {err:.3e}")
+        single = lambda: dia.spmv_dia(dp, x)
+        ms, ms1 = cuda_ms(fn, 50), cuda_ms(single, 50)
+        dev_ms, dev1 = graph_ms(fn, 20), graph_ms(single, 20)
+        print(f"[parallel] {label} on poisson{POISSON} (n {n}): max rel err vs spmv_dia "
+              f"{err:.3e}; per apply {ms:.5f} ms eager, {dev_ms:.5f} ms device (graph "
+              f"replays) vs spmv_dia {ms1:.5f} / {dev1:.5f}", flush=True)
+    z = _par_count("halo_spmv_power", ("K12",),
+                   lambda: halo_spmv_power(mesh, dp, x, k=4, scale=0.25))
+    seq = x[:n]
+    for _ in range(4):
+        seq = 0.25 * dia.spmv_dia(dp, seq)
+    err = _rel_err(z[:n], seq)
+    if err > 1e-5:
+        fail(f"[parallel] halo_spmv_power k 4 against 4 spmv_dia calls: max rel err {err:.3e}")
+    ms = cuda_ms(lambda: halo_spmv_power(mesh, dp, x, k=4, scale=0.25), 20)
+    print(f"[parallel] halo_spmv_power k 4 (K12) vs four spmv_dia calls: max rel err "
+          f"{err:.3e}; {ms:.5f} ms per call of 4 applies (eager)", flush=True)
+    b = torch.ones(n, device=dev)
+    xj, rj = _par_count("distributed_jacobi", ("K12",),
+                        lambda: distributed_jacobi(mesh, d, b, iters=96, k=4))
+    ref = jacobi(d, b, iters=96, fuse_k=4)
+    err = _rel_err(xj, ref.x)
+    if ref.iterations != 96 or err > 1e-5:
+        fail(f"[parallel] distributed_jacobi vs jacobi: {ref.iterations} sweeps, max rel "
+             f"err {err:.3e}")
+    print(f"[parallel] distributed_jacobi (96 sweeps, k 4 on K12) vs jacobi: max rel err "
+          f"{err:.3e}; true residual {float(rj):.6e} vs {float(ref.residual):.6e}",
+          flush=True)
+    for label, dist_fn, single_fn in (
+            ("cg", lambda: distributed_cg(mesh, d, b, maxiter=3000, rtol=1e-5),
+             lambda: cg(d, b, maxiter=3000, rtol=1e-5)),
+            ("gmres(30)", lambda: distributed_gmres(mesh, d, b, restart=30, maxiter=300,
+                                                    rtol=1e-5),
+             lambda: gmres(d, b, restart=30, maxiter=300, rtol=1e-5))):
+        runs = {"dist": [], "single": []}
+        for i, which in enumerate(("dist", "single", "single", "dist")):      # A B B A
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = (_par_count(f"distributed_{label}", ("K8",), dist_fn) if i == 0 else
+                   (dist_fn if which == "dist" else single_fn)())
+            torch.cuda.synchronize()
+            runs[which].append((res, time.perf_counter() - t0))
+        got, ref = runs["dist"][0][0], runs["single"][0][0]
+        its = {r.iterations for rs in runs.values() for r, _ in rs}
+        if its != {ref.iterations}:
+            fail(f"[parallel] distributed {label}: iterations {its}, single-device "
+                 f"{ref.iterations}")
+        per = {k: [1e3 * t / max(r.iterations, 1) for r, t in v] for k, v in runs.items()}
+        true = [float(torch.linalg.vector_norm(b - dia.spmv_dia(d, r.x))) for r in (got, ref)]
+        print(f"[parallel] distributed {label} on poisson{POISSON} (b = ones, rtol 1e-5): "
+              f"{got.iterations} iterations = single-device {ref.iterations}, converged "
+              f"{got.converged}; true residual {true[0]:.6e} vs {true[1]:.6e}; ms/iteration "
+              f"(host clock, A B B A) {np.mean(per['dist']):.5f} "
+              f"({', '.join(f'{v:.5f}' for v in per['dist'])}) vs "
+              f"{np.mean(per['single']):.5f} ({', '.join(f'{v:.5f}' for v in per['single'])})",
+              flush=True)
+
+
+def _par_gat(mesh, seed, dev):
+    """The tile-sharded GAT on orsirr_like150's uniform tile layout against
+    ``forward_policy_pooled``: values and the forward parameters' gradient
+    of Σ c·pooled."""
+    from gflownet_spai_tpu_torch.parallel.gat import (local_shard, shard_tiled_graph,
+                                                      sharded_policy_pooled)
+
+    g = pol.tiled_graph_from_seed(seed, bucket_step=None, device=dev)
+    sg, meta = shard_tiled_graph(g, 1)
+    local = local_shard(sg, meta, 0)
+    params = gfn.init_params(torch.Generator().manual_seed(5), gfn.GFlowNetConfig(
+        hidden_dim=4, heads=4, num_actions=seed.nnz + 1), device=dev)
+    c = torch.randn(4, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+
+    def run(fn, label=None):
+        named = tree_leaves(params.forward)
+        leaves = [x.detach().requires_grad_(True) for _, x in named]
+        fwd = tree_replace(params.forward, iter(leaves))
+        grad = lambda: torch.autograd.grad((pooled * c).sum(), leaves, allow_unused=True)
+        if label is None:
+            pooled = fn(fwd)
+            grads = grad()
+        else:
+            pooled = _par_count(label, ("K1", "K3"), lambda: fn(fwd))
+            grads = _par_count(label + " backward", ("K2", "K4"), grad)
+        return pooled.detach(), {p: torch.zeros_like(x) if gr is None else gr
+                                 for (p, x), gr in zip(named, grads)}
+
+    got, g_got = run(lambda f: sharded_policy_pooled(mesh, f, local, meta, 4, 4),
+                     "sharded_policy_pooled")
+    want, g_want = run(lambda f: pol.forward_policy_pooled(f, g, 4, 4))
+    err = _rel_err(got, want)
+    if err > 1e-5:
+        fail(f"[parallel] sharded_policy_pooled vs forward_policy_pooled: rel err {err:.3e}")
+    group = lambda p: p.rsplit("/", 1)[0]
+    scale = {}
+    for p, w in g_want.items():
+        scale[group(p)] = max(scale.get(group(p), 0.0), float(w.abs().max()))
+    worst = 0.0
+    for p, w in g_want.items():
+        e = float((g_got[p] - w).abs().max())
+        worst = max(worst, e / max(scale[group(p)], 1e-30))
+        if not torch.allclose(g_got[p], w, rtol=GRAD_RTOL, atol=GRAD_ATOL * scale[group(p)]):
+            fail(f"[parallel] sharded GAT gradient of {p}: max abs err {e}")
+    fwd_ms = cuda_ms(lambda: sharded_policy_pooled(mesh, params.forward, local, meta, 4, 4),
+                     10)
+    ref_ms = cuda_ms(lambda: pol.forward_policy_pooled(params.forward, g, 4, 4), 10)
+    print(f"[parallel] sharded_policy_pooled on {MATRIX}'s uniform tile layout "
+          f"({g.tiles.tiles} tiles of {g.tiles.slots} slots): rel err vs "
+          f"forward_policy_pooled {err:.3e}, gradients max err / group scale "
+          f"{worst:.3e}; forward {fwd_ms:.5f} ms vs {ref_ms:.5f} ms (eager)", flush=True)
+
+
+def _par_train(run_dir: Path, train_ms: float, dev):
+    """``train`` with the sharded sampler at the [train] configuration, and
+    the dp step on the 1×1 mesh against ``loss_fn`` on the same noise."""
+    from gflownet_spai_tpu_torch.gfn.rollout import gumbel_noise
+    from gflownet_spai_tpu_torch.parallel import make_dp_train_step, make_mesh
+
+    cfg = TrainConfig(**TRAIN, sampler="sharded", num_epochs=PAR_EPOCHS,
+                      out_dir=str(run_dir))
+    _, _, env, graph, mcfg, opt, init = setup(cfg)
+    if graph.gat_buckets:
+        fail("[parallel] the sharded sampler's setup built gat buckets")
+    state, history = _par_count("train(sampler='sharded')", ("K1", "K2", "K3", "K4"),
+                                lambda: train(cfg, progress=False))
+    torch.cuda.synchronize()
+    recs = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(recs) != PAR_EPOCHS or not np.isfinite(history).all():
+        fail(f"[parallel] the sharded-sampler run: {len(recs)} epochs, losses {history}")
+    moved = [p for (p, a), (_, b) in zip(tree_leaves(state.params.forward),
+                                         tree_leaves(init.params.forward))
+             if not torch.equal(a, b)]
+    if not {"/gat1/w_src", "/gat2/w_src", "/fc_w"} <= set(moved):
+        fail(f"[parallel] the sharded-sampler run moved only {moved}")
+    wall = [r["wall_s"] * 1e3 for r in recs]
+    print(f"[parallel] train(sampler='sharded') at [train]'s configuration, 1x1 mesh: "
+          f"{PAR_EPOCHS} steps, steady ms/step {np.mean(wall[1:]):.3f} vs [train]'s dense "
+          f"{train_ms:.3f}; losses {', '.join(f'{h:.4f}' for h in history)}; valid share "
+          f"{', '.join(str(r['valid_frac']) for r in recs)}", flush=True)
+    mesh = make_mesh(1, 1, dev)
+    dcfg = mcfg._replace(t_cap=0)
+    step, _ = make_dp_train_step(mesh, env, graph, dcfg, opt, batch_size=4)
+    A = dcfg.num_actions
+    gumbels = gumbel_noise((4, A), torch.Generator(device=dev).manual_seed(3),
+                           torch.float32, dev)
+    out = _par_count("make_dp_train_step", ("K1", "K2", "K3", "K4"),
+                     lambda: step(init.params, init.opt_state, 0, gumbels=gumbels))
+    want, _ = gfn.loss_fn(init.params, env, graph, dcfg,
+                          torch.Generator(device=dev).manual_seed(3), 4)
+    err = abs(float(out[2]) - float(want)) / max(abs(float(want)), 1e-30)
+    if err > 1e-5:
+        fail(f"[parallel] make_dp_train_step on 1x1: loss {float(out[2])} vs loss_fn "
+             f"{float(want)}")
+    print(f"[parallel] make_dp_train_step on the 1x1 mesh: loss {float(out[2]):.6f} = "
+          f"loss_fn {float(want):.6f} on the same noise (rel err {err:.3e})", flush=True)
+
+
+def _par_multi_rank(count: int):
+    """The port's rank check (``gflownet_spai_tpu_torch.parallel.check``:
+    halo_spmv on poisson1024 split over the ranks against each rank's
+    whole-matrix K8, and one dp step) on min(count, 4) NCCL ranks, one card
+    each, started by torchrun."""
+    n = min(count, 4)
+    repo = Path(__file__).resolve().parent
+    p = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", str(n), "-m",
+                        "gflownet_spai_tpu_torch.parallel.check", "--poisson", str(POISSON)],
+                       env=dict(os.environ, GFNSPAI_TIMEOUT_S="300"), capture_output=True,
+                       text=True, cwd=str(repo), timeout=600)
+    if p.returncode != 0:
+        fail(f"[parallel] the rank check on {n} NCCL ranks exited {p.returncode}: "
+             f"{(p.stdout + p.stderr)[-2000:]}")
+    recs = [json.loads(x) for x in p.stdout.splitlines() if x.startswith('{"rank"')]
+    if len(recs) != n:
+        fail(f"[parallel] the rank check on {n} NCCL ranks printed {len(recs)} records")
+    for r in sorted(recs, key=lambda r: r["rank"]):
+        print(f"[parallel] {n} NCCL ranks, rank {r['rank']}: halo_spmv on poisson"
+              f"{POISSON} max rel err {r['spmv_rel_err']:.3e}, K8 launches "
+              f"{r['k8_launches']}, {r['halo_spmv_ms']:.5f} ms per apply; dp step loss "
+              f"{r['dp_loss']:.6f}", flush=True)
+
+
+def phase_parallel(seed, train_ms: float, dev, count: int):
+    """The multi-device layer on a one-rank NCCL world: the SpMVs and
+    solvers, the sharded GAT, training through the sharded sampler and the
+    dp step, the launchers, each call's launches counted on their own
+    (``_par_count``); then more NCCL ranks where the host has more cards.
+    Returns the launches summed over those calls."""
+    import torch.distributed as dist
+
+    from gflownet_spai_tpu_torch import bench_scaling
+    from gflownet_spai_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe)
+        mesh = make_mesh(1, 1, dev)
+        print(f"[parallel] process group: backend {dist.get_backend()}, NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}, world "
+              f"{dist.get_world_size()}; {mesh}; all_reduce probe {probe.tolist()}",
+              flush=True)
+        PAR_LAUNCHES.clear()
+        _par_spmv(mesh, dev)
+        _par_gat(mesh, seed, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+            _par_train(Path(tmp), train_ms, dev)
+        for rec in _par_count("bench_scaling.run", ("K8",),
+                              lambda: bench_scaling.run([1], 262144)):
+            print(json.dumps(rec), flush=True)
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        import __graft_entry_torch__ as graft
+
+        fn, args = graft.entry()
+        loss, rewards = _par_count("__graft_entry_torch__.entry()", (), lambda: fn(*args))
+        if not (torch.isfinite(loss) and torch.isfinite(rewards).all()):
+            fail("[parallel] __graft_entry_torch__.entry(): a non-finite loss or reward")
+        print(f"[parallel] __graft_entry_torch__.entry() on {loss.device}: loss "
+              f"{float(loss):.4f}, rewards {rewards.shape[0]}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    launches = {k: sum(v.get(k, 0) for v in PAR_LAUNCHES.values()) for k in PAR_COUNTERS}
+    print(f"[parallel] launches, each call counted on its own (counters to 0 just "
+          f"before it, read just after): {json.dumps(PAR_LAUNCHES)}; summed {launches}",
+          flush=True)
+    if count >= 2:
+        _par_multi_rank(count)
+    else:
+        print(f"[parallel] {count} card: this card count allows no multi-rank NCCL run",
+              flush=True)
+    return launches
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4332,6 +4643,7 @@ def main() -> int:
     timed("grid", phase_grid, dev)
     timed("profiling", phase_profiling, cfg, tenv, tgraph, tmcfg, opt, tstate, dk, dev)
     timed("launchers", phase_launchers)
+    par_launches = timed("parallel", phase_parallel, seed, step_ms, dev, count)
     bwd_ms = k2["ms"] + k4["ms"]
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
           f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "

@@ -5,7 +5,9 @@ are numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) into the
 port's ``GFlowNetParams``; ``gatv2_params_from_jax`` does the same for one
 ``GATv2Params`` (any edge_dim), and ``bell_from_jax`` for a block-ELL
 matrix.  They read fields by name and import nothing of JAX, so the
-layouts stay one-to-one.
+layouts stay one-to-one.  ``sharded_params_from_jax`` gives one ``rows``
+rank's parameters of the sharded sampler: the head padded to a multiple of
+the rank count, then the rank's column slice.
 """
 
 from __future__ import annotations
@@ -63,3 +65,13 @@ def params_from_jax(tree, device=None) -> GFlowNetParams:
             else _fields(pol.FlowHeadParams, tree.flow, device))
     return GFlowNetParams(forward=forward, backward=backward,
                           log_z=_tensor(tree.log_z, device), flow=flow)
+
+
+def sharded_params_from_jax(tree, n_shards: int, index: int,
+                            device=None) -> GFlowNetParams:
+    """Rank ``index`` of ``n_shards``: ``params_from_jax`` with the forward
+    head padded (``parallel.tp.pad_head``) and cut to the rank's columns."""
+    from .parallel.tp import head_slice
+
+    p = params_from_jax(tree, device)
+    return p._replace(forward=head_slice(p.forward, n_shards, index))

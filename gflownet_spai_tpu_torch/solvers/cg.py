@@ -27,34 +27,40 @@ def _identity(x):
 
 
 def cg(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None, m_op=None,
-       maxiter: int = 1000, rtol: float = 1e-5, atol: float = 0.0) -> CGResult:
+       maxiter: int = 1000, rtol: float = 1e-5, atol: float = 0.0,
+       dot=None) -> CGResult:
     """Preconditioned CG; ``a_op`` / ``m_op`` may be callables, LinOps or
-    sparse containers.  Stops on ``‖r‖ ≤ max(rtol·‖b‖, atol)``."""
+    sparse containers.  Stops on ``‖r‖ ≤ max(rtol·‖b‖, atol)``.  ``dot``
+    is the inner product (default the local ``torch.dot``; the distributed
+    solvers pass one summed over every rank's shard), the norms are
+    ``sqrt(dot(v, v))`` when it is given."""
+    vdot = torch.dot if dot is None else dot
+    norm = torch.linalg.vector_norm if dot is None else (lambda v: torch.sqrt(dot(v, v)))
     a_op = as_linop(a_op)
     m_op = as_linop(m_op) if m_op is not None else _identity
     f = np.float64 if b.dtype == torch.float64 else np.float32
     x = torch.zeros_like(b) if x0 is None else x0
-    tol = max(f(rtol) * f(torch.linalg.vector_norm(b).item()), f(atol))
+    tol = max(f(rtol) * f(norm(b).item()), f(atol))
     r = b - a_op(x)
     z = m_op(r)
     # one carry dtype: a float64 operator on a float32 b promotes it all
     dt = torch.promote_types(r.dtype, z.dtype)
     x, r, z = x.to(dt), r.to(dt), z.to(dt)
     p = z
-    rz = torch.dot(r, z)
+    rz = vdot(r, z)
     hist = np.full((maxiter,), np.nan, f)
     it = 0
-    done = bool(f(torch.linalg.vector_norm(r).item()) <= tol)
+    done = bool(f(norm(r).item()) <= tol)
     while not done and it < maxiter:
         ap = a_op(p)
-        alpha = rz / torch.dot(p, ap)
+        alpha = rz / vdot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
         z = m_op(r)
-        rz_new = torch.dot(r, z)
+        rz_new = vdot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
-        rnorm = f(torch.linalg.vector_norm(r).item())
+        rnorm = f(norm(r).item())
         hist[it] = rnorm
         it += 1
         done = bool(rnorm <= tol)

@@ -44,13 +44,19 @@ def _np_dtype(t: torch.Tensor):
 def gmres(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
           m_op=None, restart: int = 30, maxiter: int = 1000,
           rtol: float = 1e-5, atol: float = 0.0,
-          side: str = "left") -> GMRESResult:
+          side: str = "left", dot=None) -> GMRESResult:
     """Preconditioned restarted GMRES(m), scipy-compatible semantics.
 
     ``side='left'`` solves ``M A x = M b`` and converges on
     ``‖M(b − A x)‖ ≤ max(rtol·‖M b‖, atol)``; ``side='right'`` solves
     ``A M u = b`` with ``x = M u``, whose history is the true residual.
-    ``a_op`` / ``m_op`` may be callables, LinOps or sparse containers."""
+    ``a_op`` / ``m_op`` may be callables, LinOps or sparse containers.
+    ``dot(a, b)`` is the inner product, ``torch.matmul(a, b)`` for a
+    vector or the basis rows against a vector (default the local one; the
+    distributed solvers pass one summed over every rank's shard), the
+    norms are ``sqrt(dot(v, v))`` when it is given."""
+    vdot = torch.matmul if dot is None else dot
+    norm = torch.linalg.vector_norm if dot is None else (lambda v: torch.sqrt(dot(v, v)))
     a_op: Callable = as_linop(a_op)
     m_op = as_linop(m_op) if m_op is not None else _identity
     left = side == "left"
@@ -60,14 +66,14 @@ def gmres(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     f = _np_dtype(b)
     tiny = f(1e-38)
     x = torch.zeros_like(b) if x0 is None else x0.clone()
-    bnorm = f(torch.linalg.vector_norm(pre(b)).item())
+    bnorm = f(norm(pre(b)).item())
     tol = max(f(rtol) * bnorm, f(atol))
 
     hist = np.full((maxiter,), np.nan, f)
     it, done = 0, False
     while not done and it < maxiter:
         r = pre(b - a_op(x))
-        beta = f(torch.linalg.vector_norm(r).item())
+        beta = f(norm(r).item())
         V = torch.zeros((restart + 1, n), dtype=dtype, device=dev)
         V[0] = r / max(beta, tiny)
         H = np.zeros((restart + 1, restart), f)
@@ -80,11 +86,11 @@ def gmres(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             if done:
                 break
             w = inner(V[j])
-            h1 = torch.matmul(V, w)
+            h1 = vdot(V, w)
             w = w - torch.matmul(V.T, h1)
-            h2 = torch.matmul(V, w)
+            h2 = vdot(V, w)
             w = w - torch.matmul(V.T, h2)
-            hlast = torch.linalg.vector_norm(w)
+            hlast = norm(w)
             V[j + 1] = w / torch.clamp(hlast, min=1e-38)
             hcol_t = h1 + h2
             hcol_t[j + 1] = hlast
@@ -114,7 +120,7 @@ def gmres(a_op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         dx = torch.matmul(V[:restart].T, torch.as_tensor(y, device=dev))
         x = x + (dx if left else m_op(dx))
 
-    final_res = float(torch.linalg.vector_norm(pre(b - a_op(x))))
+    final_res = float(norm(pre(b - a_op(x))))
     # scipy-parity convergence: the Givens recurrence reaching tol counts;
     # the recomputed residual is exposed as final_residual
     rec_ok = it > 0 and bool(hist[it - 1] <= tol)

@@ -1,9 +1,13 @@
 """Training CLI: ``python -m gflownet_spai_tpu_torch.train`` (counterpart of
 ``gflownet_spai_tpu/train/__main__.py``, with the same flags).
 
-Runs on the CUDA card unless ``--platform cpu``.  The flags of the
-multi-device slice (``--multihost``, ``--dp-devices``/``--rows-devices``
-> 1, ``--sampler sharded``) are accepted and raise ``NotImplementedError``.
+Runs on the CUDA card unless ``--platform cpu``.  Multi-device runs start
+one process per device, e.g. ``torchrun --nproc-per-node N -m
+gflownet_spai_tpu_torch.train --multihost --dp-devices D --rows-devices R``
+(D·R = N; add ``--sampler sharded`` for the sharded sampler):
+``--multihost`` starts the process group from the environment
+(``parallel.multihost``: NCCL on the cards, gloo with ``--platform cpu``).
+``--sampler sharded`` on one process runs the 1×1 mesh.
 """
 
 from __future__ import annotations
@@ -172,16 +176,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--legacy", action="store_true",
                    help="reference train.py hyperparams (batch 32, lr 1e-3, hidden 32)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process mesh (the multi-device slice; "
-                        "raises here)")
+                   help="start the process group from the environment "
+                        "(GFNSPAI_COORDINATOR / _NUM_PROCS / _PROC_ID, or "
+                        "torchrun's): one process per device")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost comes with the multi-device slice of the port")
+        import json
+
+        from ..parallel.multihost import initialize_from_env, process_summary
+
+        initialize_from_env(device="cpu" if args.platform == "cpu" else None)
+        print(json.dumps(process_summary()), flush=True)
     base = TrainConfig.legacy() if args.legacy else TrainConfig()
     overrides = {
         k: v for k, v in vars(args).items()
@@ -193,10 +202,6 @@ def main(argv=None) -> int:
             if vars(args)[k] == getattr(TrainConfig(), k):
                 overrides.pop(k, None)
     cfg = dataclasses.replace(base, **overrides)
-    if cfg.sampler == "sharded" or cfg.dp_devices > 1 or cfg.rows_devices > 1:
-        raise NotImplementedError(
-            "--sampler sharded and --dp-devices/--rows-devices > 1 come with "
-            "the multi-device slice of the port")
     from .loop import device_of, train
 
     print(f"config: {cfg}")

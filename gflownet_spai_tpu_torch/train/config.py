@@ -4,9 +4,8 @@
 The reference has no config system; this dataclass collects its knobs with
 the reference training script's defaults (batch 2, 1000 epochs, lr 5e-4,
 Adam + ReduceLROnPlateau(0.2, 10), reward scale 1000, GMRES maxiter 10260).
-Fields of the multi-device path (the sharded sampler, ``dp_devices`` /
-``rows_devices`` > 1, the adaptive ``t_cap`` ladder) keep their names and
-defaults; the port raises where it would need them.
+The multi-device fields (the sharded sampler, ``dp_devices`` /
+``rows_devices``, the adaptive ``t_cap`` ladder) run on ``parallel/``.
 """
 
 from __future__ import annotations

@@ -40,10 +40,6 @@ from ..sparse import gallery, read_mtx
 from ..sparse.types import COO, to_numpy
 from .config import TrainConfig
 
-_MULTI_DEVICE = ("comes with the multi-device slice of the port "
-                 "(parallel/ in the JAX package)")
-
-
 # ---------------------------------------------------------------------------
 # Optimizer: optax.adam, optionally chained with reduce_on_plateau
 # ---------------------------------------------------------------------------
@@ -240,15 +236,20 @@ def setup(cfg: TrainConfig):
     fmt = resolve_env_format(cfg, a, seed)
     if fmt not in ("coo", "dia", "rowblock"):
         raise ValueError(f"unknown env_format {cfg.env_format!r}")
-    if cfg.sampler != "dense":
-        raise NotImplementedError(f"sampler={cfg.sampler!r} {_MULTI_DEVICE}")
+    if cfg.sampler not in ("dense", "sharded"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
 
     def _graph(edges):
         # the node-tile layout (kernels K1-K4) at scale; the GAT ignores
         # edge ids, only the action head maps to them
         if edges.nnz >= cfg.gat_tiled_min_edges:
-            return pol.tiled_graph_from_seed(
-                edges, bucket_step=cfg.gat_bucket_step or None, device=device)
+            bstep = cfg.gat_bucket_step or None
+            if bstep and cfg.sampler == "sharded":
+                # the tile-sharded forward takes the uniform layout only
+                print("gat buckets: disabled under the sharded sampler "
+                      "(uniform tile layout)", flush=True)
+                bstep = None
+            return pol.tiled_graph_from_seed(edges, bucket_step=bstep, device=device)
         return pol.graph_from_seed(edges, device=device)
 
     if fmt == "dia":
@@ -278,7 +279,9 @@ def setup(cfg: TrainConfig):
         subtb_lambda=cfg.subtb_lambda, backward=cfg.backward,
         reward_beta=cfg.reward_beta, terminal_bias=cfg.terminal_bias,
         edge_feats=cfg.edge_feats,
-        t_cap=min(max(cfg.t_cap, 0), env.num_actions),
+        # the dense sampler's cap; the sharded sampler takes its own
+        t_cap=min(cfg.t_cap if cfg.sampler == "dense" and cfg.t_cap > 0 else 0,
+                  env.num_actions),
     )
     tdtype = getattr(torch, cfg.dtype)
     params = gfn.init_params(torch.Generator().manual_seed(cfg.prng_seed), mcfg,
@@ -356,20 +359,216 @@ def make_train_step(cfg: TrainConfig, env, graph, mcfg, opt: Optimizer):
     return step
 
 
-def _make_dp_step_adapter(cfg: TrainConfig, env, graph, mcfg, opt):
-    raise NotImplementedError(
-        f"dp_devices / rows_devices > 1 (the mesh-parallel step) {_MULTI_DEVICE}")
+def _step_seed(state: TrainState) -> int:
+    """One seed per step from the run's generator (the same on every rank:
+    the state is replicated), from which the steps seed their shards'
+    generators."""
+    gen = state.generator
+    return int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
 
 
-def _make_sharded_sampler_adapter(cfg: TrainConfig, env, graph, mcfg, opt):
-    raise NotImplementedError(f"sampler='sharded' {_MULTI_DEVICE}")
+def _metrics(mcfg, params, loss, rewards, lengths, **extra) -> dict:
+    """The adapters' metrics; ``alpha`` is the reward mix the reward used
+    (a fixed α never reads the learned logit)."""
+    alpha = (torch.tensor(mcfg.alpha_fixed, dtype=torch.float32)
+             if mcfg.alpha_fixed >= 0 else torch.sigmoid(params.forward.alpha))
+    return {"loss": loss, "reward_mean": rewards.mean(), "reward_max": rewards.max(),
+            "alpha": alpha, "log_z": params.log_z,
+            "mean_len": lengths.to(torch.float32).mean(), "lengths": lengths,
+            "rewards": rewards, "skipped": ~torch.isfinite(loss), **extra}
+
+
+def _mesh(cfg: TrainConfig):
+    from ..parallel import make_mesh
+
+    return make_mesh(dp=cfg.dp_devices, rows=cfg.rows_devices, device=device_of(cfg))
+
+
+def _make_dp_step_adapter(cfg: TrainConfig, env, graph, mcfg, opt, mesh=None):
+    """The mesh-parallel step (``parallel.dp``) in the single-device step's
+    interface.  Every rank holds the same state; the step's outputs are
+    gathered over ``dp``."""
+    from ..parallel import make_dp_train_step
+
+    use_replay = cfg.replay_size > 0
+    dp_step, _ = make_dp_train_step(
+        mesh or _mesh(cfg), env, graph, mcfg, opt, batch_size=cfg.batch_size,
+        replay_samples=cfg.replay_samples if use_replay else 0)
+
+    def step(state: TrainState):
+        if use_replay and state.replay.actions.shape[1] != mcfg.num_actions:
+            # the dp step rolls out whole trajectories ([b, num_actions]),
+            # whatever t_cap sized the buffer (JAX's adapter fails there)
+            state = state._replace(replay=replay_resize(state.replay, mcfg.num_actions))
+        replay_arg = ()
+        if use_replay:
+            r_actions, _, r_valid = replay_sample(
+                state.replay, state.generator, cfg.replay_samples,
+                prioritized=cfg.replay_prioritized)
+            replay_arg = (r_actions, r_valid)
+        params, opt_state, loss, rewards, actions = dp_step(
+            state.params, state.opt_state, _step_seed(state), *replay_arg)
+        new_replay = state.replay
+        if use_replay:
+            new_replay = replay_update(state.replay, actions, rewards)
+        # the dp step reports no lengths (as JAX's adapter): zeros
+        metrics = _metrics(mcfg, params, loss, rewards,
+                           torch.zeros_like(rewards, dtype=torch.int64))
+        return TrainState(params=params, opt_state=opt_state, generator=state.generator,
+                          epoch=state.epoch + 1, replay=new_replay), metrics
+
+    return step
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(np.ceil(np.log2(max(1, x)))))
 
 
 class CapLadder:
-    """The adaptive ``t_cap`` ladder of the sharded sampler."""
+    """Adaptive ``t_cap`` schedule of the sharded sampler (decisions only;
+    the adapter rebuilds the step).  ``observe(lengths, valid)`` returns
+    the new cap when it changes, else None:
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"the t_cap ladder (CapLadder) {_MULTI_DEVICE}")
+    * SHRINK once ≥95% of rollouts terminated inside the cap for ``window``
+      straight epochs and ``next_pow2(margin · max-window-P95)`` lies
+      strictly below it;
+    * GROW back ×2 (never past the starting cap) when the window-mean
+      termination rate falls below 50% at a shrunken cap.
+
+    History resets after any change.  The sharded step gathers ``lengths``
+    and ``valid`` over ``dp``, so every rank observes the same statistics
+    and changes the cap at the same epoch."""
+
+    def __init__(self, cap: int, cap_min: int, margin: float, window: int):
+        self.cap = cap
+        self.cap0 = cap
+        self.cap_min = cap_min
+        self.margin = margin
+        self.window = window
+        self._p95: list = []
+        self._term: list = []
+
+    def observe(self, lengths, valid):
+        self._p95.append(float(np.percentile(to_numpy(lengths), 95)))
+        self._term.append(float(np.mean(to_numpy(valid))))
+        if len(self._p95) < self.window:
+            return None
+        self._p95 = self._p95[-self.window:]
+        self._term = self._term[-self.window:]
+        term_mean = float(np.mean(self._term))
+        if term_mean < 0.5 and self.cap < self.cap0:
+            self.cap = min(self.cap0, 2 * self.cap)
+            self._p95, self._term = [], []
+            return self.cap
+        if min(self._term) < 0.95:
+            return None
+        want = max(self.cap_min, _next_pow2(int(self.margin * max(self._p95))))
+        if want >= self.cap:
+            return None
+        self.cap = want
+        self._p95, self._term = [], []
+        return want
+
+
+def _make_sharded_sampler_adapter(cfg: TrainConfig, env, graph, mcfg, opt, mesh=None):
+    """The sharded-sampler step (``parallel.sampler``) in the single-device
+    step's interface; returns ``(step, transform)``.  ``transform(state)``
+    cuts the forward head to the rank's column slice and re-initialises the
+    optimizer state on the sharded parameters (a resumed checkpoint keeps
+    its parameters, not its Adam moments); with replay it keeps the buffer,
+    resized to the sampler's ``t_cap`` width, and adopts a narrower stored
+    width as the ladder's cap.  ``cfg.t_cap_auto`` arms the cap ladder
+    (``CapLadder``), which rebuilds the step at each new cap."""
+    from ..parallel import shard_head
+    from ..parallel.sampler import make_sharded_sampler_train_step
+
+    mesh = mesh or _mesh(cfg)
+    t_cap0 = cfg.t_cap or mcfg.num_actions
+    use_replay = cfg.replay_size > 0
+
+    def build(cap: int):
+        return make_sharded_sampler_train_step(
+            mesh, env, graph, mcfg, opt, batch_size=cfg.batch_size, t_cap=cap,
+            replay_samples=cfg.replay_samples if use_replay else 0)[0]
+
+    ladder = CapLadder(t_cap0, cfg.t_cap_min, cfg.t_cap_margin, cfg.t_cap_window)
+    current = {"step": build(t_cap0)}
+
+    def transform(state: TrainState) -> TrainState:
+        params = state.params._replace(forward=shard_head(mesh, state.params.forward))
+        replay = state.replay
+        if use_replay and replay is not None:
+            stored_w = replay.actions.shape[1]
+            if cfg.t_cap_auto and ladder.cap_min <= stored_w < ladder.cap:
+                print(f"t_cap ladder resume: adopting stored cap {stored_w}", flush=True)
+                ladder.cap = stored_w
+                current["step"] = build(stored_w)
+            if stored_w != ladder.cap:
+                replay = replay_resize(replay, ladder.cap)
+        elif use_replay:
+            replay = replay_init(cfg.replay_size, ladder.cap, getattr(torch, cfg.dtype),
+                                 device=state.generator.device)
+        return state._replace(params=params,
+                              opt_state=opt.init(x for _, x in tree_leaves(params)),
+                              replay=replay)
+
+    def _maybe_shrink(state, lengths, valid):
+        old = ladder.cap
+        want = ladder.observe(lengths, valid)
+        if want is None:
+            return state
+        print(f"t_cap ladder: {old} -> {want}; rebuilding step", flush=True)
+        current["step"] = build(want)
+        if state.replay is not None:
+            state = state._replace(replay=replay_resize(state.replay, want))
+        return state
+
+    def step(state: TrainState):
+        replay_arg = ()
+        if use_replay:
+            r_actions, _, r_valid = replay_sample(
+                state.replay, state.generator, cfg.replay_samples,
+                prioritized=cfg.replay_prioritized)
+            replay_arg = (r_actions, r_valid)
+        out = current["step"](state.params, state.opt_state, _step_seed(state),
+                              *replay_arg)
+        params, opt_state, loss, rewards, valid, lengths = out[:6]
+        new_replay = state.replay
+        if use_replay:
+            # a rollout whose terminal missed the prefix scored a truncated
+            # pattern: it never enters the buffer
+            new_replay = replay_update(state.replay, out[6],
+                                       torch.where(valid, rewards, float("-inf")))
+        new_state = TrainState(params=params, opt_state=opt_state,
+                               generator=state.generator, epoch=state.epoch + 1,
+                               replay=new_replay)
+        metrics = _metrics(mcfg, params, loss, rewards, lengths,
+                           valid_frac=valid.to(torch.float32).mean(), t_cap=ladder.cap)
+        if cfg.t_cap_auto:
+            new_state = _maybe_shrink(new_state, lengths, valid)
+        return new_state, metrics
+
+    return step, transform
+
+
+def _stored_state(mesh, state: TrainState) -> TrainState:
+    """A sharded run's state as it is stored: the column-padded head and
+    its Adam moments gathered from every ``rows`` rank (the JAX package
+    stores the padded head too; ``transform`` cuts it again)."""
+    from ..parallel.mesh import all_gather
+
+    if mesh.size("rows") == 1:
+        return state
+    whole = lambda t: torch.cat(list(all_gather(mesh, t.detach(), "rows")), dim=-1)
+    paths = [p for p, _ in tree_leaves(state.params)]
+    head = {i for i, p in enumerate(paths) if p in ("/forward/fc_w", "/forward/fc_b")}
+    params = tree_replace(state.params, (whole(x) if i in head else x
+                                         for i, (_, x) in enumerate(tree_leaves(state.params))))
+    adam = state.opt_state.adam
+    moments = lambda ms: tuple(whole(m) if i in head else m for i, m in enumerate(ms))
+    opt_state = state.opt_state._replace(adam=adam._replace(mu=moments(adam.mu),
+                                                            nu=moments(adam.nu)))
+    return state._replace(params=params, opt_state=opt_state)
 
 
 # ---------------------------------------------------------------------------
@@ -608,9 +807,27 @@ def seed_replay_with_magnitude_thinning(env, state: TrainState, cfg,
 # The run
 # ---------------------------------------------------------------------------
 
+def _checkpoint(cfg: TrainConfig, state: TrainState, env, lead: bool):
+    """Rank 0 writes the checkpoint; with a process group every rank waits
+    for it, so none reads a half-written file."""
+    import torch.distributed as dist
+
+    if lead:
+        save_checkpoint(cfg.out_dir, state, env=env)
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def train(cfg: TrainConfig, progress: bool = True):
-    """Full training run on one device; returns (final TrainState, history
-    of losses)."""
+    """Full training run; returns (final TrainState, history of losses).
+
+    ``cfg.sampler == "sharded"`` runs the sharded sampler, ``dp_devices`` /
+    ``rows_devices`` > 1 the mesh-parallel step (``parallel/``), on the
+    process group's ranks (one per device; a 1×1 mesh needs none), each
+    holding the same state.  Only rank 0 writes metrics and checkpoints; a
+    sharded run stores its column-padded head whole."""
+    import torch.distributed as dist
+
     a, seed, env, graph, mcfg, opt, state = setup(cfg)
     if cfg.replay_seed_fracs:
         state = seed_replay_with_magnitude_thinning(
@@ -628,17 +845,25 @@ def train(cfg: TrainConfig, progress: bool = True):
             state, _ = reconcile(cfg.out_dir, env, restored,
                                  backward=cfg.backward, opt=opt)
             # the stored replay width wins on restore; conform it back to
-            # this run's cap
-            if (state.replay is not None and tmpl_w is not None
+            # this run's cap (the sharded adapter owns its own width)
+            if (cfg.sampler != "sharded" and state.replay is not None
+                    and tmpl_w is not None
                     and state.replay.actions.shape[1] != tmpl_w):
                 state = state._replace(replay=replay_resize(state.replay, tmpl_w))
+    mesh = None
+    stored = lambda st: st
     if cfg.sampler == "sharded":
-        step, _ = _make_sharded_sampler_adapter(cfg, env, graph, mcfg, opt)
+        mesh = _mesh(cfg)
+        step, transform = _make_sharded_sampler_adapter(cfg, env, graph, mcfg, opt, mesh)
+        state = transform(state)
+        stored = lambda st: _stored_state(mesh, st)
     elif cfg.dp_devices > 1 or cfg.rows_devices > 1:
-        step = _make_dp_step_adapter(cfg, env, graph, mcfg, opt)
+        mesh = _mesh(cfg)
+        step = _make_dp_step_adapter(cfg, env, graph, mcfg, opt, mesh)
     else:
         step = make_train_step(cfg, env, graph, mcfg, opt)
-    writer = MetricsWriter(cfg.out_dir, resume=cfg.resume)
+    lead = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    writer = MetricsWriter(cfg.out_dir, resume=cfg.resume) if lead else None
     history = []
     for epoch in range(int(state.epoch), cfg.num_epochs):
         t0 = time.time()
@@ -646,8 +871,9 @@ def train(cfg: TrainConfig, progress: bool = True):
         metrics = {k: to_numpy(v) if isinstance(v, torch.Tensor) else v
                    for k, v in metrics.items()}
         metrics["wall_s"] = time.time() - t0
-        writer.write(epoch, metrics)
-        if progress and epoch % cfg.log_every == 0:
+        if lead:
+            writer.write(epoch, metrics)
+        if lead and progress and epoch % cfg.log_every == 0:
             writer.flush()
             print(f"epoch {epoch} loss {float(metrics['loss']):.4f} "
                   f"reward {float(metrics['reward_mean']):.2f} "
@@ -655,8 +881,10 @@ def train(cfg: TrainConfig, progress: bool = True):
                   f"len {float(metrics['mean_len']):.1f}", flush=True)
         history.append(float(metrics["loss"]))
         if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(cfg.out_dir, state, env=env)
-    save_checkpoint(cfg.out_dir, state, env=env)
+            _checkpoint(cfg, stored(state), env, lead)
+    _checkpoint(cfg, stored(state), env, lead)
+    if not lead:
+        return state, history
     writer.close()
     try:
         from ..utils.reporting import render_training_report

@@ -277,9 +277,19 @@ def test_train_then_sample_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--multihost"], ["--dp-devices", "2"],
-                                   ["--sampler", "sharded"]])
-def test_multi_device_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+                                   ["--sampler", "sharded", "--rows-devices", "2"]])
+def test_multi_device_flags_raise(flags, monkeypatch):
+    """The multi-device flags run on ``parallel/``; on one process without
+    the ranks they ask for they raise: a half-set bootstrap environment, a
+    mesh larger than the world."""
+    for var in ("GFNSPAI_COORDINATOR", "GFNSPAI_NUM_PROCS", "GFNSPAI_PROC_ID",
+                "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+                "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    if "--multihost" in flags:
+        monkeypatch.setenv("GFNSPAI_COORDINATOR", "localhost:1")
+    match = "all three" if "--multihost" in flags else "need 2 ranks"
+    with pytest.raises(ValueError, match=match):
         train_main(["--platform", "cpu", "--matrix", "LF10_like", *flags])
 
 
