@@ -270,9 +270,33 @@ Phases (any failure exits non-zero before the result line):
                cards, the rank check ``gflownet_spai_tpu_torch.parallel.check``
                (``halo_spmv`` and a dp step) on min(count, 4) NCCL ranks
                started by torchrun.
+31. thinning — (runs after phase 12) the deep-thinning recipe at its
+               published scale (docs/BENCH.md:243-307): ``setup`` of
+               orsirr_like150's k = 2 classic-SPAI seed (291,514 actions,
+               the rowblock env ``auto`` picks, the bucketed tile layout
+               with action features), t_cap 163,840, β 50, edge features,
+               SubTB(1.0), linear backward, prioritised replay, batch 16.
+               The landscape: magnitude thinning's exact rewards on a
+               float64 pair env at fractions 0, 0.2, 0.3, 0.4 for α 0.95
+               and 0.985, held to the JAX oracle's printed values (638.4,
+               683.4, 730.01); the replay buffer after
+               ``seed_replay_with_magnitude_thinning`` (its rewards against
+               that oracle); ``warmstart_on_demonstrations`` (one step,
+               then THIN_WARMSTART) and THIN_EPOCHS epochs of
+               ``make_train_step``, each call counted on its own (K1-K4 per
+               step as phase 9); fails on a non-finite loss, a skipped
+               step or a trajectory that is not a deletion sequence; one
+               sampled batch's rewards against float64 scipy.  Prints the
+               seed build time, ms per warm-start step and per epoch, a
+               ``torch.profiler`` reading (device idle share), peak memory
+               and the mean length.
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --only thinning
+
+runs phases 1, 2 and the named one alone and prints no result line.
 """
 
 from __future__ import annotations
@@ -4322,14 +4346,7 @@ def _par_count(label: str, need, fn):
     ``PAR_COUNTERS`` set to 0 just before it and read just after, before
     any reference call runs; fails unless each kernel of ``need`` launched
     in that call.  The counts go into ``PAR_LAUNCHES[label]``."""
-    for c in PAR_COUNTERS.values():
-        c.launches = 0
-    out = fn()
-    got = {k: c.launches for k, c in PAR_COUNTERS.items()}
-    PAR_LAUNCHES[label] = {k: v for k, v in got.items() if v}
-    if any(got[k] == 0 for k in need):
-        fail(f"[parallel] {label} launched {PAR_LAUNCHES[label]}, needs each of {need}")
-    return out
+    return _counted("parallel", label, need, fn, PAR_COUNTERS, PAR_LAUNCHES)
 
 
 def _par_spmv(mesh, dev):
@@ -4588,6 +4605,234 @@ def phase_parallel(seed, train_ms: float, dev, count: int):
     return launches
 
 
+# --- [thinning]: the deep-thinning recipe at its published scale --------------
+
+# docs/BENCH.md:243-307 (the JAX run runs/thin_orsirr150_a985): orsirr_like150's
+# k = 2 classic-SPAI seed (291,513 entries), the identity baseline, SubTB(1.0)
+# with the linear backward policy, β 50, the edge-feature logit channel,
+# magnitude-thinning demonstrations in a prioritised replay buffer and a
+# supervised warm start on them, t_cap 163,840, batch 16 + 4 replayed
+THINNING = dict(matrix=MATRIX, seed_method="spai", seed_k=2, reward_baseline="identity",
+                loss="subtb", subtb_lambda=1.0, backward="linear", replay_size=32,
+                replay_samples=4, replay_prioritized=1.0, alpha_fixed=0.985, lr=1e-3,
+                plateau_patience=0, reward_beta=50.0, edge_feats=True,
+                replay_seed_fracs="0.2,0.3,0.4", t_cap=163840, batch_size=16,
+                terminal_bias=0.0, log_every=1)
+THIN_WARMSTART = 4          # warm-start steps timed (after one that warms up)
+THIN_EPOCHS = 4             # SubTB epochs (the first warms up)
+THIN_PROFILED = 2           # SubTB epochs again under torch.profiler
+# the JAX oracle's magnitude-thinning rewards on that seed (examples/
+# thinning_oracle.py; docs/BENCH.md:253-254, 297-299), (α, fraction) ->
+# (value, printed decimals)
+THIN_LANDSCAPE = {(0.95, 0.0): (638.4, 1), (0.95, 0.4): (683.4, 1),
+                  (0.985, 0.3): (730.01, 2)}
+THIN_SHAPE = (291_514, 163_840)   # the recipe's actions and t_cap
+THIN_LAUNCHES: dict = {}    # [thinning]: each counted call's K1-K4 launches
+
+
+def _counted(tag: str, label: str, need, fn, counters, record: dict):
+    """One call with every counter of ``counters`` set to 0 just before it
+    and read just after, before any reference call runs; fails unless each
+    kernel of ``need`` launched in that call.  The counts go into
+    ``record[label]``."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    record[label] = {k: v for k, v in got.items() if v}
+    if any(got[k] == 0 for k in need):
+        fail(f"[{tag}] {label} launched {record[label]}, needs each of {need}")
+    return out
+
+
+def _deletion_sequences_ok(actions, lengths, num_edges) -> str:
+    """'' where every row is a deletion sequence: distinct seed-entry ids,
+    then the terminal action (``num_edges``) as its last step, or a full
+    ``t_cap`` prefix without it; -1 after its length.  Else what is wrong."""
+    acts, lens = actions.cpu().numpy(), lengths.cpu().numpy()
+    for i, (row, n) in enumerate(zip(acts, lens)):
+        body = row[:n]
+        term = n > 0 and body[-1] == num_edges
+        dels = body[:-1] if term else body
+        if (row[n:] != -1).any():
+            return f"row {i}: ids after its length {n}"
+        if not term and n != acts.shape[1]:
+            return f"row {i}: length {n} without the terminal action"
+        if ((dels < 0) | (dels >= num_edges)).any():
+            return f"row {i}: an id outside the seed's {num_edges} entries"
+        if np.unique(dels).size != dels.size:
+            return f"row {i}: an entry deleted twice"
+    return ""
+
+
+def phase_thinning(dev):
+    """The deep-thinning recipe's path at its published scale: the seed and
+    the env that ``auto`` picks, the landscape against the JAX oracle's
+    values, the replay buffer seeded with magnitude thinning, the warm
+    start, SubTB epochs, a sampled batch against float64 scipy."""
+    from gflownet_spai_tpu_torch.env import ilu
+    from gflownet_spai_tpu_torch.sparse.types import COO
+    from gflownet_spai_tpu_torch.train.loop import (seed_replay_with_magnitude_thinning,
+                                                    warmstart_on_demonstrations)
+
+    cfg = TrainConfig(**THINNING)
+    seed_s, build = [], ilu.seed_pattern
+
+    def timed_seed(*args, **kw):
+        t0 = time.perf_counter()
+        out = build(*args, **kw)
+        seed_s.append(time.perf_counter() - t0)
+        return out
+
+    ilu.seed_pattern = timed_seed
+    try:
+        t0 = time.perf_counter()
+        a, seed, env, graph, mcfg, opt, state = setup(cfg)
+        setup_s = time.perf_counter() - t0
+    finally:
+        ilu.seed_pattern = build
+    if (env.num_actions, mcfg.t_cap) != THIN_SHAPE:
+        fail(f"[thinning] {env.num_actions} actions, t_cap {mcfg.t_cap}: the recipe "
+             f"has {THIN_SHAPE}")
+    if env.rb is None or not isinstance(graph, pol.TiledGraphInputs) \
+            or not graph.gat_buckets or graph.action_feats is None:
+        fail("[thinning] auto did not give the rowblock env, or the policy graph is "
+             "not the bucketed tile layout with action features")
+    n_b = len(graph.gat_buckets)
+    print(f"[thinning] {MATRIX}: classic SPAI k 2 seed of {seed.nnz} entries built in "
+          f"{seed_s[0]:.1f} s (setup {setup_s:.1f} s on the host); env rowblock "
+          f"({len(env.rb.gvals)} buckets), {env.num_actions} actions, t_cap "
+          f"{mcfg.t_cap}, policy graph {graph.tiles.local_dst.shape[0]} tiles in {n_b} buckets",
+          flush=True)
+
+    # the landscape: exact rewards of magnitude thinning on a float64 pair
+    # env, as examples/thinning_oracle_torch.py computes them
+    a64 = COO(row=a.row, col=a.col, data=a.data.astype(np.float64), shape=a.shape)
+    vals = seed.data.astype(np.float64)
+    oracle = spai.make_env(COO(row=seed.row, col=seed.col, data=vals, shape=seed.shape),
+                           original=a64, baseline="identity", device=dev)
+    order = np.argsort(np.abs(vals))
+    land = {}
+    for f in (0.0, 0.2, 0.3, 0.4):
+        keep = np.ones(len(vals), bool)
+        keep[order[:int(f * len(vals))]] = False
+        keep_t = torch.as_tensor(keep, device=dev)
+        for al in (0.95, 0.985):
+            land[al, f] = float(spai.reward(oracle, keep_t, al))
+    del oracle
+    print("[thinning] magnitude-thinning rewards (float64 pair env): " + ", ".join(
+        f"α {al} frac {f}: {r:.4f}" for (al, f), r in land.items()), flush=True)
+    for (al, f), (want, dec) in THIN_LANDSCAPE.items():
+        if round(land[al, f], dec) != want:
+            fail(f"[thinning] the reward at α {al}, fraction {f} is {land[al, f]:.4f}; "
+                 f"the JAX oracle printed {want}")
+
+    # the replay buffer seeded with the demonstrations (no kernel)
+    state = seed_replay_with_magnitude_thinning(env, state, cfg, alpha=cfg.alpha_fixed)
+    rb = state.replay
+    filled = torch.isfinite(rb.rewards).cpu().numpy()
+    got = rb.rewards.cpu().numpy()[filled]
+    want = np.array([land[0.985, f] for f in (0.2, 0.3, 0.4)])
+    if filled.sum() != 3 or not np.allclose(np.sort(got), np.sort(want), **RB_REWARD_TOL):
+        fail(f"[thinning] the seeded buffer holds {filled.sum()} entries of rewards "
+             f"{got} against the float64 oracle's {want}")
+    held = rb.actions[torch.isfinite(rb.rewards)]
+    why = _deletion_sequences_ok(held, (held >= 0).sum(-1), env.num_edges)
+    if why:
+        fail(f"[thinning] a seeded demonstration is not a deletion sequence: {why}")
+
+    # the warm start: one step to warm up, then THIN_WARMSTART timed
+    per_step = {"K1": 2 * n_b, "K2": 2 * n_b, "K3": 1, "K4": 1}
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    for label, steps in (("warm start (warm-up step)", 1), ("warm start", THIN_WARMSTART)):
+        wcfg = dataclasses.replace(cfg, warmstart_epochs=steps)
+        t0 = time.perf_counter()
+        state = _counted("thinning", label, tuple(COUNTERS),
+                         lambda: warmstart_on_demonstrations(env, graph, mcfg, state,
+                                                             wcfg, opt),
+                         COUNTERS, THIN_LAUNCHES)
+        walls[label] = (time.perf_counter() - t0) * 1e3 / steps
+        if THIN_LAUNCHES[label] != {k: v * steps for k, v in per_step.items()}:
+            fail(f"[thinning] {label}: launches {THIN_LAUNCHES[label]} over {steps} "
+                 f"steps, expected {per_step} per step")
+    if not all(torch.isfinite(x).all() for _, x in tree_leaves(state.params)):
+        fail("[thinning] the warm start left a non-finite parameter")
+
+    # SubTB epochs through the train step (NaN guard, replay, Adam)
+    step = make_train_step(cfg, env, graph, mcfg, opt)
+    recs = []
+
+    def epochs():
+        st = state
+        for _ in range(THIN_EPOCHS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st)
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            m["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            recs.append(m)
+        return st
+
+    state = _counted("thinning", "SubTB epochs", tuple(COUNTERS), epochs, COUNTERS,
+                     THIN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if THIN_LAUNCHES["SubTB epochs"] != {k: v * THIN_EPOCHS for k, v in per_step.items()}:
+        fail(f"[thinning] SubTB epochs: launches {THIN_LAUNCHES['SubTB epochs']} over "
+             f"{THIN_EPOCHS} steps, expected {per_step} per step")
+    for i, m in enumerate(recs):
+        if not np.isfinite(m["loss"]) or bool(m["skipped"]):
+            fail(f"[thinning] epoch {i}: loss {m['loss']}, skipped {m['skipped']}: the "
+                 "NaN guard ate a β-50 step")
+    held = state.replay.actions[torch.isfinite(state.replay.rewards)]
+    why = _deletion_sequences_ok(held, (held >= 0).sum(-1), env.num_edges)
+    if why:
+        fail(f"[thinning] a replay entry after training is not a deletion sequence: {why}")
+    box = [state]
+
+    def run():
+        box[0], _ = step(box[0])
+
+    wall_ms, busy_ms, kernels, host_ops = _profiled(run, THIN_PROFILED)
+    idle = 100 * (1 - busy_ms / wall_ms)
+
+    # one sampled batch: deletion sequences, rewards against float64 scipy
+    gen = torch.Generator(device=dev).manual_seed(17)
+    with torch.no_grad():
+        out = gfn.sample(box[0].params, env, graph, mcfg, gen, cfg.batch_size)
+    why = _deletion_sequences_ok(out.rollout.actions, out.rollout.lengths, env.num_edges)
+    if why:
+        fail(f"[thinning] a sampled trajectory is not a deletion sequence: {why}")
+    keep = spai.keep_mask_from_actions(out.rollout.actions, env.num_edges).cpu().numpy()
+    res64 = _host_residuals(seed, a, keep)
+    want = _host_rewards(res64, keep, env, cfg.alpha_fixed)
+    rew = out.rewards.cpu().numpy()
+    if not np.isfinite(rew).all() or not np.allclose(rew, want, **RB_REWARD_TOL):
+        fail(f"[thinning] sampled rewards against float64 scipy: max abs err "
+             f"{np.abs(rew - want).max():.3e}")
+    ep = [m["wall_ms"] for m in recs]
+    print(f"[thinning] warm start: {walls['warm start']:.3f} ms/step over "
+          f"{THIN_WARMSTART} steps (the warm-up step {walls['warm start (warm-up step)']:.1f} "
+          f"ms); SubTB epochs of batch {cfg.batch_size} + {cfg.replay_samples} replayed: "
+          f"steady {np.mean(ep[1:]):.3f} ms/epoch (epochs {', '.join(f'{w:.3f}' for w in ep)}); "
+          f"{THIN_PROFILED} epochs under torch.profiler: {wall_ms:.3f} ms/epoch wall, "
+          f"device busy {busy_ms:.3f} (idle share {idle:.1f}%); peak memory "
+          f"{peak / 2**20:.1f} MiB; launches {THIN_LAUNCHES}", flush=True)
+    print(f"[thinning] kernels with the most device ms/epoch: {kernels}; host operators "
+          f"with the most self ms/epoch: {host_ops}", flush=True)
+    for i, m in enumerate(recs):
+        print(f"[thinning] epoch {i}: loss {float(m['loss']):.6e} reward mean "
+              f"{float(m['reward_mean']):.4f} max {float(m['reward_max']):.4f} mean length "
+              f"{float(m['mean_len']):.1f}", flush=True)
+    print(f"[thinning] a sampled batch of {cfg.batch_size}: every trajectory a deletion "
+          f"sequence, mean length {float(out.rollout.lengths.float().mean()):.1f}, "
+          f"{int((out.rollout.lengths == mcfg.t_cap).sum())} at t_cap; rewards against "
+          f"float64 scipy: max abs err {np.abs(rew - want).max():.3e}", flush=True)
+    return {k: sum(v.get(k, 0) for lab, v in THIN_LAUNCHES.items())
+            for k in COUNTERS}
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4595,11 +4840,25 @@ def timed(name, fn, *args):
     return out
 
 
-def main() -> int:
+ONLY = {"thinning": phase_thinning}   # phases ``--only NAME`` runs alone
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    only = None
+    if args:
+        if len(args) != 2 or args[0] != "--only" or args[1] not in ONLY:
+            fail(f"usage: chip_smoke.py [--only {{{','.join(ONLY)}}}]")
+        only = args[1]
     t_start = time.perf_counter()
     name, count = phase_card()
     timed("build", phase_build)
     dev = port.resolve_device(None)
+    if only:
+        # a development run of one phase: no result line
+        timed(only, ONLY[only], dev)
+        print(f"[only] {only}: passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     t0 = time.perf_counter()
     a, seed, env, graph, mcfg, _, state = setup(
         TrainConfig(matrix=MATRIX, env_format="coo"))
@@ -4624,6 +4883,7 @@ def main() -> int:
         timed("profile", phase_profile, cfg, tenv, tgraph, tmcfg, opt, tstate)
         timed("restore", phase_restore, run_dir)
         _, val_launches = timed("validate", phase_validate, run_dir, dev)
+    thin_launches = timed("thinning", phase_thinning, dev)
     pois_report, pois_launches = timed("poisson", phase_poisson, dev)
     dm, chain_launches = timed("dia-multi", phase_dia_multi, dev)
     multi_launches = timed("multirhs", phase_multirhs, dev)
@@ -4659,7 +4919,8 @@ def main() -> int:
              k4["lib"])]
     kernels = [
         {"name": nm, "route": "cuda", "source": src + file,
-         "replaces": "gflownet_spai_tpu/ops/" + rep, "launches": launches[k],
+         "replaces": "gflownet_spai_tpu/ops/" + rep,
+         "launches": launches[k] + thin_launches[k],
          "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
         for nm, k, d, file, rep, lib in rows]
@@ -4759,8 +5020,9 @@ def main() -> int:
                         "bound_by": d["bound"][1], "library_ms": d["lib"]})
     bell_rec = bell_recs[("float32",) + BELL_CASES[0]]
     n_b = len(graph.gat_buckets)
-    print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps (the sampling "
-          f"slice counted {sample_launches}). ms, plain_ms, library_ms and "
+    print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps {launches} and "
+          f"the [thinning] phase's warm-start steps and SubTB epochs {thin_launches} "
+          f"(the sampling slice counted {sample_launches}). ms, plain_ms, library_ms and "
           f"bound_ms are per policy forward (K1 over its {2 * n_b} launches, "
           f"K3 its one call for the {n_b} buckets) and per policy backward "
           f"(K2 over its {2 * n_b}, K4 its one call). K8, K12 and K13 launches "

@@ -10,8 +10,10 @@ injects) and reports
   (``env.spai.reward`` on a float64 pair env with the identity baseline:
   res_ratio = ‖M_f·A − I‖_F / √n, flops ratio = nnz(M_f) / nnz(A)), per
   requested α, and
-* (``--gmres`` / ``--cg``) scipy iteration counts of the thinned
-  preconditioner, the reference's acceptance metric.
+* (``--gmres`` or ``--cg``, not both) scipy iteration counts of the
+  thinned preconditioner, the reference's acceptance metric.  GMRES runs
+  with scipy's restart (``GMRES_RESTART``) and counts inner iterations
+  (``callback_type="pr_norm"``); each row says so in ``solver``.
 
     python examples/thinning_oracle_torch.py --matrix orsirr_like150 --seed-k 2 \\
         --alphas 0.95,0.98 --fracs 0,0.1,0.2,0.3,0.4,0.5,0.6 [--gmres] [--device cpu]
@@ -29,6 +31,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+GMRES_RESTART = 20   # scipy's default restart (the JAX launcher passes None)
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -36,10 +40,12 @@ def main(argv=None) -> int:
     p.add_argument("--seed-k", type=int, default=2, dest="seed_k")
     p.add_argument("--alphas", default="0.95,0.98")
     p.add_argument("--fracs", default="0,0.1,0.2,0.3,0.4,0.5,0.6")
-    p.add_argument("--gmres", action="store_true",
-                   help="also run scipy GMRES per fraction (slow)")
-    p.add_argument("--cg", action="store_true",
-                   help="also run scipy CG per fraction (SPD matrices)")
+    solver = p.add_mutually_exclusive_group()
+    solver.add_argument("--gmres", action="store_true",
+                        help=f"also run scipy GMRES({GMRES_RESTART}) per fraction, "
+                             "counting inner iterations (slow)")
+    solver.add_argument("--cg", action="store_true",
+                        help="also run scipy CG per fraction (SPD matrices)")
     p.add_argument("--rtol", type=float, default=1e-5)
     p.add_argument("--out", default="")
     p.add_argument("--device", default=None, help="default: the CUDA card")
@@ -81,7 +87,7 @@ def main(argv=None) -> int:
             it["n"] += 1
 
         solver = spla.gmres if args.gmres else spla.cg
-        kw = (dict(restart=None, callback_type="pr_norm") if args.gmres else {})
+        kw = (dict(restart=GMRES_RESTART, callback_type="pr_norm") if args.gmres else {})
         x, _ = solver(A, b, rtol=args.rtol, maxiter=10260, M=M, callback=cb, **kw)
         return it["n"], np.linalg.norm(b - A @ x) / np.linalg.norm(b)
 
@@ -101,6 +107,8 @@ def main(argv=None) -> int:
             M = sp.csr_matrix((m_val[keep], (m_row[keep], m_col[keep])), shape=a.shape)
             linop = spla.LinearOperator(A.shape, matvec=lambda v, M=M: M @ v)
             row["iters"], row["true_res"] = iters_of(linop)
+            row["solver"] = (f"gmres(restart {GMRES_RESTART}), inner iterations"
+                             if args.gmres else "cg")
         rows.append(row)
         print(json.dumps(row), flush=True)
 

@@ -182,6 +182,21 @@ def rewards_from_keep(env: SpaiDiaEnv, keep: torch.Tensor, alpha) -> torch.Tenso
     return metric * 1000.0
 
 
+def residual_norm(env: SpaiDiaEnv, keep: torch.Tensor) -> torch.Tensor:
+    """One [num_edges] keep mask → ‖M·A − I‖_F (a scalar)."""
+    return residual_norms(env, keep[None])[0]
+
+
+def reward(env: SpaiDiaEnv, keep: torch.Tensor, alpha) -> torch.Tensor:
+    """One [num_edges] keep mask → its reward (a scalar)."""
+    return rewards_from_keep(env, keep[None], alpha)[0]
+
+
+def reward_from_actions(env: SpaiDiaEnv, actions: torch.Tensor, alpha) -> torch.Tensor:
+    """One -1-padded trajectory [T] → its reward (a scalar)."""
+    return batched_rewards(env, actions[None], alpha)[0]
+
+
 def batched_rewards(env: SpaiDiaEnv, actions: torch.Tensor, alpha) -> torch.Tensor:
     """``actions``: int[B, T] (-1 padded) → rewards [B]."""
     return rewards_from_keep(

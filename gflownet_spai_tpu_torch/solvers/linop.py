@@ -11,6 +11,7 @@ polynomial preconditioner).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 from ..ops.dia import DIA, spmv_dia
@@ -33,3 +34,13 @@ def as_linop(obj) -> "LinOp | Callable":
     if callable(obj):
         return obj
     return LinOp(data=obj, fn=spmv_dia if isinstance(obj, DIA) else spmv)
+
+
+def _apply_plain(f, _data, x):
+    return f(x)
+
+
+def wrap_plain(f) -> LinOp:
+    """A plain matvec callable → LinOp with empty data, for callers that
+    take one operator form."""
+    return LinOp(data=(), fn=functools.partial(_apply_plain, f))

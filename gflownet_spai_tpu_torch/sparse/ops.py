@@ -42,22 +42,50 @@ def _rows_sum(vals: torch.Tensor, rows, nrows: int) -> torch.Tensor:
     return out.index_add_(0, rows.long(), vals)
 
 
+def spmv_coo(a: COO, x: torch.Tensor) -> torch.Tensor:
+    # a gather of x, a product and one index_add_ into the rows
+    return _rows_sum(a.data * x[a.col], a.row, a.shape[0])
+
+
+def spmv_csr(a: CSR, x: torch.Tensor) -> torch.Tensor:
+    return spmv_coo(a.tocoo(), x)
+
+
+def spmv_ell(a: ELL, x: torch.Tensor) -> torch.Tensor:
+    # gather + product + row sum; padded slots add 0
+    return torch.sum(a.data * x[a.cols], dim=1)
+
+
+def spmv_bsr(a: BSR, x: torch.Tensor) -> torch.Tensor:
+    xb = x.reshape(-1, a.blockshape[1])[a.indices]          # [nblocks, bn]
+    yb = torch.sum(a.data * xb[:, None, :], dim=2)          # [nblocks, bm]
+    return _rows_sum(yb, a.block_rows(), a.shape[0] // a.blockshape[0]) \
+        .reshape(a.shape[0])
+
+
 def spmv(a, x: torch.Tensor) -> torch.Tensor:
     """y = A·x for a COO, CSR, ELL or BSR matrix (or a dense one)."""
-    if isinstance(a, CSR):
-        a = a.tocoo()
-    if isinstance(a, COO):
-        # a gather of x, a product and one index_add_ into the rows
-        return _rows_sum(a.data * x[a.col], a.row, a.shape[0])
-    if isinstance(a, ELL):
-        # gather + product + row sum; padded slots add 0
-        return torch.sum(a.data * x[a.cols], dim=1)
-    if isinstance(a, BSR):
-        xb = x.reshape(-1, a.blockshape[1])[a.indices]          # [nblocks, bn]
-        yb = torch.sum(a.data * xb[:, None, :], dim=2)          # [nblocks, bm]
-        return _rows_sum(yb, a.block_rows(), a.shape[0] // a.blockshape[0]) \
-            .reshape(a.shape[0])
+    for kind, fn in ((COO, spmv_coo), (CSR, spmv_csr), (ELL, spmv_ell), (BSR, spmv_bsr)):
+        if isinstance(a, kind):
+            return fn(a, x)
     return a @ x
+
+
+def spmm_coo(a: COO, b: torch.Tensor) -> torch.Tensor:
+    return _rows_sum(a.data[:, None] * b[a.col], a.row, a.shape[0])
+
+
+def spmm_ell(a: ELL, b: torch.Tensor) -> torch.Tensor:
+    with f32_exact():
+        return torch.einsum("rw,rwc->rc", a.data, b[a.cols])
+
+
+def spmm_bsr(a: BSR, b: torch.Tensor) -> torch.Tensor:
+    bm, bn = a.blockshape
+    bb = b.reshape(-1, bn, b.shape[1])[a.indices]               # [nblocks, bn, K]
+    with f32_exact():
+        yb = torch.bmm(a.data, bb)                              # [nblocks, bm, K]
+    return _rows_sum(yb, a.block_rows(), a.shape[0] // bm).reshape(a.shape[0], b.shape[1])
 
 
 def spmm(a, b: torch.Tensor) -> torch.Tensor:
@@ -65,17 +93,10 @@ def spmm(a, b: torch.Tensor) -> torch.Tensor:
     dense B [n, K]."""
     if isinstance(a, CSR):
         a = a.tocoo()
-    if isinstance(a, COO):
-        return _rows_sum(a.data[:, None] * b[a.col], a.row, a.shape[0])
+    for kind, fn in ((COO, spmm_coo), (ELL, spmm_ell), (BSR, spmm_bsr)):
+        if isinstance(a, kind):
+            return fn(a, b)
     with f32_exact():
-        if isinstance(a, ELL):
-            return torch.einsum("rw,rwc->rc", a.data, b[a.cols])
-        if isinstance(a, BSR):
-            bm, bn = a.blockshape
-            bb = b.reshape(-1, bn, b.shape[1])[a.indices]      # [nblocks, bn, K]
-            yb = torch.bmm(a.data, bb)                           # [nblocks, bm, K]
-            return _rows_sum(yb, a.block_rows(), a.shape[0] // bm) \
-                .reshape(a.shape[0], b.shape[1])
         return a @ b
 
 

@@ -185,3 +185,5 @@ class BSR:
                              (self.block_rows(), self.indices), self.data)
         return out.permute(0, 2, 1, 3).reshape(self.shape)
 
+
+SparseMatrix = (COO, CSR, ELL, BSR)

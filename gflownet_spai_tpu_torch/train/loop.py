@@ -755,6 +755,7 @@ def warmstart_on_demonstrations(env, graph, mcfg, state: TrainState, cfg,
     wopt = Optimizer(lr=cfg.warmstart_lr)
     params = state.params
     wstate = wopt.init(x for _, x in tree_leaves(params))
+    t0 = time.perf_counter()
     for i in range(cfg.warmstart_epochs):
         leaves = [x.detach().requires_grad_(True) for _, x in tree_leaves(params)]
         p = tree_replace(params, iter(leaves))
@@ -771,11 +772,13 @@ def warmstart_on_demonstrations(env, graph, mcfg, state: TrainState, cfg,
             updates, wstate = wopt.update(grads, wstate)
             params = apply_updates(tree_replace(params, (x.detach() for x in leaves)),
                                    updates)
+        loss, dn, tn = loss.detach(), dn.detach(), tn.detach()
         if i % max(1, cfg.warmstart_epochs // 10) == 0:
             print(f"warmstart {i}: NLL {float(loss):.2f} "
                   f"(delete {float(dn):.2f}, stop {float(tn):.3f})", flush=True)
     print(f"warmstart done: NLL {float(loss):.2f} "
-          f"(delete {float(dn):.2f}, stop {float(tn):.3f})", flush=True)
+          f"(delete {float(dn):.2f}, stop {float(tn):.3f}); {cfg.warmstart_epochs} "
+          f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
     return state._replace(params=params,
                           opt_state=opt.init(x for _, x in tree_leaves(params)))
 
@@ -829,27 +832,32 @@ def train(cfg: TrainConfig, progress: bool = True):
     import torch.distributed as dist
 
     a, seed, env, graph, mcfg, opt, state = setup(cfg)
-    if cfg.replay_seed_fracs:
+    lead = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    restored = restore_checkpoint(cfg.out_dir, state) if cfg.resume else None
+    if restored is None and cfg.replay_seed_fracs:
+        # a resumed run restores the seeded buffer and the warmed-up
+        # policy, so neither is made again (the JAX loop repeats the warm
+        # start, then overwrites it with the checkpoint)
         state = seed_replay_with_magnitude_thinning(
             env, state, cfg,
             alpha=cfg.alpha_fixed if cfg.alpha_fixed >= 0 else 0.5)
         if cfg.warmstart_epochs > 0:
             state = warmstart_on_demonstrations(env, graph, mcfg, state, cfg, opt)
-    if cfg.resume:
+            if cfg.checkpoint_every:
+                _checkpoint(cfg, state, env, lead)
+    if restored is not None:
+        from .enums import reconcile
+
         tmpl_w = (state.replay.actions.shape[1]
                   if state.replay is not None else None)
-        restored = restore_checkpoint(cfg.out_dir, state)
-        if restored is not None:
-            from .enums import reconcile
-
-            state, _ = reconcile(cfg.out_dir, env, restored,
-                                 backward=cfg.backward, opt=opt)
-            # the stored replay width wins on restore; conform it back to
-            # this run's cap (the sharded adapter owns its own width)
-            if (cfg.sampler != "sharded" and state.replay is not None
-                    and tmpl_w is not None
-                    and state.replay.actions.shape[1] != tmpl_w):
-                state = state._replace(replay=replay_resize(state.replay, tmpl_w))
+        state, _ = reconcile(cfg.out_dir, env, restored,
+                             backward=cfg.backward, opt=opt)
+        # the stored replay width wins on restore; conform it back to
+        # this run's cap (the sharded adapter owns its own width)
+        if (cfg.sampler != "sharded" and state.replay is not None
+                and tmpl_w is not None
+                and state.replay.actions.shape[1] != tmpl_w):
+            state = state._replace(replay=replay_resize(state.replay, tmpl_w))
     mesh = None
     stored = lambda st: st
     if cfg.sampler == "sharded":
@@ -862,7 +870,6 @@ def train(cfg: TrainConfig, progress: bool = True):
         step = _make_dp_step_adapter(cfg, env, graph, mcfg, opt, mesh)
     else:
         step = make_train_step(cfg, env, graph, mcfg, opt)
-    lead = not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
     writer = MetricsWriter(cfg.out_dir, resume=cfg.resume) if lead else None
     history = []
     for epoch in range(int(state.epoch), cfg.num_epochs):

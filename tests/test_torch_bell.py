@@ -20,6 +20,7 @@ from gflownet_spai_tpu_torch.convert import bell_from_jax
 from gflownet_spai_tpu_torch.ops import bsr as t_bsr
 from gflownet_spai_tpu_torch.sparse import coo_to_csr as t_coo_to_csr
 from gflownet_spai_tpu_torch.sparse import scipy_to_coo as t_scipy_to_coo
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

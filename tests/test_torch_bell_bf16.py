@@ -36,6 +36,7 @@ from gflownet_spai_tpu.ops import bsr as j_bsr
 from gflownet_spai_tpu_torch.convert import bell_from_jax
 from gflownet_spai_tpu_torch.ops import bsr as t_bsr
 from test_torch_bell import _irregular_bell, _pair
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

@@ -23,6 +23,7 @@ import torch
 from gflownet_spai_tpu.ops import bsr as j_bsr
 from gflownet_spai_tpu_torch.ops import bsr as t_bsr
 from test_torch_bell import _irregular_bell
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 EPS32 = 2.0 ** -24

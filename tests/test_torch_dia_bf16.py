@@ -35,6 +35,7 @@ from gflownet_spai_tpu_torch import ops as t_ops
 from gflownet_spai_tpu_torch.ops import dia as T
 from gflownet_spai_tpu_torch.solvers import stationary as t_st
 from test_torch_dia import _banded, _emulate_fused
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16

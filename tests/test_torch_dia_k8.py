@@ -29,6 +29,7 @@ from gflownet_spai_tpu_torch.ops import dia as T
 from gflownet_spai_tpu_torch.solvers import multigrid as t_mg
 from gflownet_spai_tpu_torch.solvers import stationary as t_st
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 K8_TOL = dict(rtol=2e-6, atol=1e-5)
 R = T._FLAG_ROWS

@@ -23,6 +23,7 @@ from gflownet_spai_tpu.solvers import stationary as j_st
 from gflownet_spai_tpu_torch.ops import dia as T
 from gflownet_spai_tpu_torch.solvers import stationary as t_st
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IO_TOL = dict(rtol=2e-6, atol=1e-5)
 K14_TOL = dict(rtol=3e-6, atol=1e-4)

@@ -37,6 +37,7 @@ from gflownet_spai_tpu_torch.ops import dia as T
 from gflownet_spai_tpu_torch.solvers import multirhs as t_mr
 from gflownet_spai_tpu_torch.solvers import stationary as t_st
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-4)
 BF = torch.bfloat16

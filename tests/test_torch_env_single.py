@@ -16,6 +16,7 @@ from gflownet_spai_tpu import env as j_env
 from gflownet_spai_tpu.sparse import gallery as j_gallery
 from gflownet_spai_tpu_torch import env as t_env
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-9
 ROW_RTOL = 1e-12

@@ -20,6 +20,7 @@ from gflownet_spai_tpu.gfn.rollout import scan_rollout as j_scan_rollout
 from gflownet_spai_tpu_torch import env as t_env
 from gflownet_spai_tpu_torch.env import grid as TG
 from gflownet_spai_tpu_torch.gfn.rollout import scan_rollout
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE, STEPS, B = 8, 15, 48

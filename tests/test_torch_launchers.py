@@ -12,6 +12,7 @@ package."""
 import ast
 import importlib.util
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,7 @@ from gflownet_spai_tpu.solvers import chebyshev_op as j_chebyshev_op
 from gflownet_spai_tpu.solvers import estimate_lmax as j_estimate_lmax
 from gflownet_spai_tpu.solvers.multigrid import vcycle_op as j_vcycle_op
 from gflownet_spai_tpu.sparse import gallery as j_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ROOT / "examples"
@@ -76,8 +78,26 @@ def test_launcher_imports_neither_jax_nor_the_jax_package(name):
             assert m.split(".")[0] not in ("jax", "jaxlib", "optax", "gflownet_spai_tpu"), m
 
 
+def _train_config(main_mod, config_cls, argv):
+    """``argv`` parsed as a train CLI's ``main`` parses it."""
+    import dataclasses
+
+    args = vars(main_mod.build_parser().parse_args(argv))
+    return dataclasses.asdict(dataclasses.replace(config_cls(), **{
+        k: v for k, v in args.items()
+        if k not in ("legacy", "multihost") and v != getattr(config_cls(), k, None)}))
+
+
 @pytest.mark.parametrize("argv", [[], ["300", "50"]])
 def test_thinning_orsirr_builds_the_jax_argument_lists(argv, monkeypatch):
+    """The port's commands are JAX's with ``--terminal-bias 0`` added to the
+    train call (the recipe names it, the JAX launcher leaves it to the
+    default), and both train calls parse to the same ``TrainConfig``."""
+    import gflownet_spai_tpu.train.__main__ as j_train_main
+    import gflownet_spai_tpu_torch.train.__main__ as t_train_main
+    from gflownet_spai_tpu.train import TrainConfig as JConfig
+    from gflownet_spai_tpu_torch.train import TrainConfig as TConfig
+
     rec = _Recorder()
     monkeypatch.setattr(subprocess, "run", rec)
     monkeypatch.setattr(sys, "argv", ["thinning_orsirr.py", *argv])
@@ -87,11 +107,71 @@ def test_thinning_orsirr_builds_the_jax_argument_lists(argv, monkeypatch):
     _load("thinning_orsirr_torch").main(argv)
     k = argv[0] if argv else "150"
     assert len(jax_calls) == 2
-    assert rec.calls == _swap(jax_calls, f"runs/thin_orsirr{k}",
-                              f"runs/torch_thin_orsirr{k}")
+    want = _swap(jax_calls, f"runs/thin_orsirr{k}", f"runs/torch_thin_orsirr{k}")
+    assert rec.calls == [want[0] + ["--terminal-bias", "0"], want[1]]
+    j_cfg = _train_config(j_train_main, JConfig, jax_calls[0][3:])
+    t_cfg = _train_config(t_train_main, TConfig, rec.calls[0][3:])
+    j_cfg["out_dir"] = t_cfg["out_dir"]
+    assert t_cfg == j_cfg and t_cfg["terminal_bias"] == 0.0
     rec.calls = []
     _load("thinning_orsirr_torch").main([*argv, "--device", "cpu"])
     assert all(c[-2:] == ["--platform", "cpu"] for c in rec.calls)
+
+
+def test_thinning_orsirr_a985_flags(monkeypatch):
+    """The α 0.985 run's options reach both calls."""
+    rec = _Recorder()
+    monkeypatch.setattr(subprocess, "run", rec)
+    _load("thinning_orsirr_torch").main(
+        ["150", "1500", "--alpha", "0.985", "--fracs", "0.2,0.3,0.4",
+         "--warmstart-epochs", "5000", "--out", "runs/a985"])
+    train, validate = rec.calls
+    for cmd in (train, validate):
+        assert cmd[cmd.index("--alpha-fixed") + 1] == "0.985"
+        assert cmd[cmd.index("--replay-seed-thinning") + 1] == "0.2,0.3,0.4"
+    assert train[train.index("--warmstart-epochs") + 1] == "5000"
+    assert train[train.index("--epochs") + 1] == "1500"
+    assert train[train.index("--out-dir") + 1] == "runs/a985"
+    assert validate[validate.index("--out-dir") + 1] == "runs/a985_val"
+    assert validate[validate.index("--from-checkpoint") + 1] == "runs/a985"
+
+
+def test_thinning_oracle_refuses_gmres_with_cg(capsys):
+    with pytest.raises(SystemExit) as e:
+        _load("thinning_oracle_torch").main(["--gmres", "--cg"])
+    assert e.value.code == 2
+    assert "not allowed with argument" in capsys.readouterr().err
+
+
+def test_thinning_oracle_gmres_rows_name_restart_and_inner_iterations(capsys):
+    """Each GMRES row says it ran GMRES(20) and counted inner iterations,
+    and its count is scipy's GMRES(20) inner-iteration count (37 on the
+    half-thinned seed: two restart cycles)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from gflownet_spai_tpu_torch.env import ilu
+    from gflownet_spai_tpu_torch.sparse import gallery
+
+    mod = _load("thinning_oracle_torch")
+    assert mod.main(["--matrix", "orsirr_like16", "--seed-k", "1", "--alphas", "0.95",
+                     "--fracs", "0,0.5", "--gmres", "--device", "cpu"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    assert len(rows) == 2
+    a = gallery.get("orsirr_like16")
+    seed = ilu.seed_pattern(a, method="spai", k=1)
+    keep = np.ones(seed.nnz, bool)
+    keep[np.argsort(np.abs(seed.data.astype(np.float64)))[:int(0.5 * seed.nnz)]] = False
+    A = sp.csr_matrix((a.data.astype(np.float64), (a.row, a.col)), shape=a.shape)
+    b = A @ np.ones(a.shape[0])
+    M = sp.csr_matrix((seed.data.astype(np.float64)[keep], (seed.row[keep], seed.col[keep])),
+                      shape=seed.shape)
+    n = [0]
+    spla.gmres(A, b, rtol=1e-5, maxiter=10260, M=M, restart=20,
+               callback=lambda _: n.__setitem__(0, n[0] + 1), callback_type="pr_norm")
+    assert all(r["solver"] == "gmres(restart 20), inner iterations" for r in rows)
+    assert rows[1]["nnz"] == keep.sum() and rows[1]["iters"] == n[0] > 20
 
 
 def test_config2_sampled_builds_the_jax_argument_list(tmp_path, monkeypatch):
@@ -124,7 +204,8 @@ def _jax_rows(jd, lmax, degree=64, levels=6):
 def test_chebyshev_cg_matches_jax_cg_at_grid_32():
     proc = subprocess.run([sys.executable, str(EXAMPLES / "chebyshev_cg_torch.py"),
                            str(GRID), "--device", "cpu"], capture_output=True, text=True,
-                          timeout=300, cwd=str(ROOT))
+                          timeout=300, cwd=str(ROOT),
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-2000:]
     cli = json.loads(proc.stdout.strip().splitlines()[-1])
     assert cli["grid"] == GRID and all(r["converged"] for r in cli["rows"])

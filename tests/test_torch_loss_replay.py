@@ -19,6 +19,7 @@ from gflownet_spai_tpu.models import policies as j_pol
 from gflownet_spai_tpu_torch.gfn import loss as t_loss
 from gflownet_spai_tpu_torch.gfn import replay as t_replay
 from gflownet_spai_tpu_torch.models import policies as t_pol
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 5e-5, 5e-5
 

@@ -23,6 +23,7 @@ from gflownet_spai_tpu.sparse import gallery as j_gallery
 from gflownet_spai_tpu.sparse.convert import coo_to_scipy
 from gflownet_spai_tpu_torch.ops import dia as T
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 j_cg = importlib.import_module("gflownet_spai_tpu.solvers.cg")
 j_mg = importlib.import_module("gflownet_spai_tpu.solvers.multigrid")

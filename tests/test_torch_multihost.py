@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HERE = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(HERE))

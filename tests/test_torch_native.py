@@ -32,6 +32,7 @@ from gflownet_spai_tpu_torch.sparse import gallery, read_mtx, write_mtx
 from gflownet_spai_tpu_torch.sparse.convert import coo_to_scipy
 from gflownet_spai_tpu_torch.sparse.ops import SpGEMMPlan, spgemm
 from gflownet_spai_tpu_torch.sparse.types import COO
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ILU_TOL = 1e-12

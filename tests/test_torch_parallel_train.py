@@ -32,6 +32,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 HERE = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(HERE))

@@ -20,6 +20,7 @@ from gflownet_spai_tpu_torch.models import gat as t_gat
 from gflownet_spai_tpu_torch.models import policies as t_pol
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
 from gflownet_spai_tpu_torch.sparse.types import COO as TCOO
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 2e-4, 2e-5
 HIDDEN, HEADS = 4, 4

@@ -11,6 +11,7 @@ from gflownet_spai_tpu.gfn import rollout as j_roll
 from gflownet_spai_tpu.ops import scan as j_scan
 from gflownet_spai_tpu_torch.gfn import rollout as t_roll
 from gflownet_spai_tpu_torch.ops import scan as t_scan
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, A = 6, 40
 

@@ -25,6 +25,7 @@ from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
 from gflownet_spai_tpu_torch.sparse import rowblock as TRB
 from gflownet_spai_tpu_torch.sparse.convert import coo_to_scipy
 from gflownet_spai_tpu_torch.sparse.types import COO
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _residual_sq_jax = jax.jit(JRB.residual_sq_batch)
 

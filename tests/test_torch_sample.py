@@ -23,6 +23,7 @@ from gflownet_spai_tpu_torch.convert import params_from_jax
 from gflownet_spai_tpu_torch.gfn import sample as t_sample
 from gflownet_spai_tpu_torch.train import TrainConfig as TConfig
 from gflownet_spai_tpu_torch.train import setup as t_setup
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CFG = dict(matrix="orsirr_like16", env_format="coo", gat_tiled_min_edges=0)
@@ -76,20 +77,19 @@ def test_sample_scored_by_jax(both):
                               device="cpu")
     gen = torch.Generator().manual_seed(0)
     out = t_sample(tparams, both["tenv"], both["tgraph"], mcfg, gen, 6)
-    jlogits = j_pol.forward_policy_logits(jparams.forward, both["jgraph"],
-                                          mcfg.num_actions, mcfg.hidden_dim,
-                                          mcfg.heads)
+    jlogits = jax.jit(j_pol.forward_policy_logits, static_argnums=(2, 3, 4))(
+        jparams.forward, both["jgraph"], mcfg.num_actions, mcfg.hidden_dim, mcfg.heads)
     np.testing.assert_allclose(out.logits.numpy(), np.asarray(jlogits),
                                rtol=2e-4, atol=2e-5)
     actions = out.rollout.actions.numpy()
     lengths = out.rollout.lengths.numpy()
     assert (actions[np.arange(6), lengths - 1] == mcfg.num_actions - 1).all()
-    want_r = j_spai.batched_rewards(both["jenv"], jnp.asarray(actions, jnp.int32),
-                                    j_pol.forward_policy_alpha(jparams.forward))
+    want_r = jax.jit(j_spai.batched_rewards)(both["jenv"], jnp.asarray(actions, jnp.int32),
+                                             j_pol.forward_policy_alpha(jparams.forward))
     np.testing.assert_allclose(out.rewards.numpy(), np.asarray(want_r),
                                rtol=1e-5, atol=1e-3)
-    want_lp = np.asarray(jax.vmap(lambda a: j_traj_lp(jlogits, a))(
-        jnp.asarray(actions, jnp.int32)))
+    want_lp = np.asarray(jax.jit(jax.vmap(j_traj_lp, in_axes=(None, 0)))(
+        jlogits, jnp.asarray(actions, jnp.int32)))
     np.testing.assert_allclose(out.rollout.fwd_logprobs.numpy(), want_lp,
                                rtol=1e-5, atol=1e-4)
 

@@ -14,6 +14,7 @@ import torch
 
 from gflownet_spai_tpu.ops import scan as j_scan
 from gflownet_spai_tpu_torch.ops import scan as t_scan
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-5
 

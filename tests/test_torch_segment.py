@@ -14,6 +14,7 @@ from gflownet_spai_tpu_torch.models import policies as t_pol
 from gflownet_spai_tpu_torch.ops import segment as t_seg
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
 from gflownet_spai_tpu_torch.sparse.types import COO as TCOO
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

@@ -26,6 +26,7 @@ import torch
 
 from gflownet_spai_tpu.ops import segment as j_seg
 from gflownet_spai_tpu_torch.ops import segment as t_seg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VAL_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-3, atol=5e-4)

@@ -21,6 +21,7 @@ import torch
 from gflownet_spai_tpu.ops import segment as j_seg
 from gflownet_spai_tpu_torch.ops import gat_fused as t_gf
 from gflownet_spai_tpu_torch.ops import segment as t_seg
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 EPS32 = float(np.finfo(np.float32).eps)
 

@@ -39,6 +39,7 @@ from gflownet_spai_tpu_torch.solvers import precond as t_pre
 from gflownet_spai_tpu_torch.solvers import stationary as t_st
 from gflownet_spai_tpu_torch.solvers import trisolve as t_tri
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = "cpu"
 t_spai = importlib.import_module("gflownet_spai_tpu_torch.solvers.spai_classic")

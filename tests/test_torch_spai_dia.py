@@ -29,6 +29,7 @@ from gflownet_spai_tpu_torch.ops.dia import (coo_to_dia, frobenius_sq_minus_iden
 from gflownet_spai_tpu_torch.sparse import gallery as t_gallery
 from gflownet_spai_tpu_torch.sparse.convert import coo_to_scipy
 from gflownet_spai_tpu_torch.sparse.types import COO
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _seeds(name, dtype):

@@ -24,6 +24,7 @@ from gflownet_spai_tpu_torch.sparse.ops import SpGEMMPlan as TPlan
 from gflownet_spai_tpu_torch.sparse.types import COO as TCOO
 from gflownet_spai_tpu_torch.train.config import TrainConfig
 from gflownet_spai_tpu_torch.train.loop import setup
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MATRICES = ["LF10_like", "bcsstk03_like", "orsirr_like12"]
 
@@ -252,3 +253,71 @@ def test_sparse_utils_match():
     pos = np.array([0, 5, -1, t.nnz + 3, 17])
     same(tu.delete_edges_flat(td, torch.as_tensor(pos)),
          ju.delete_edges_flat(j, jnp.asarray(pos)))
+
+
+API_CASES = ["spmv_coo", "spmv_csr", "spmv_ell", "spmv_bsr", "spmm_coo", "spmm_ell",
+             "spmm_bsr", "SparseMatrix", "wrap_plain", "dia residual_norm", "dia reward",
+             "dia reward_from_actions"]
+
+
+@pytest.mark.parametrize("case", API_CASES)
+def test_module_api_matches_jax(case):
+    """The port's per-format SpMV / SpMM entry points, ``SparseMatrix``,
+    ``solvers.linop.wrap_plain`` and the DIA env's single-sample
+    ``residual_norm`` / ``reward`` / ``reward_from_actions`` against the JAX
+    package's (float32, rtol 1e-5, atol 1e-5 for the products: sums in
+    other orders; rtol 1e-5 for the rewards)."""
+    import jax
+
+    from gflownet_spai_tpu.env import spai_dia as j_dia
+    from gflownet_spai_tpu.solvers import linop as j_linop
+    from gflownet_spai_tpu.sparse import ops as j_ops
+    from gflownet_spai_tpu.sparse import types as j_types
+    from gflownet_spai_tpu_torch.env import spai_dia as t_dia
+    from gflownet_spai_tpu_torch.solvers import linop as t_linop
+    from gflownet_spai_tpu_torch.sparse import ops as t_ops
+    from gflownet_spai_tpu_torch.sparse import types as t_types
+
+    rng = np.random.default_rng(3)
+    if case.startswith(("spmv_", "spmm_")):
+        fmt = case.split("_")[1]
+        j, t = _formats("orsirr_like12")[fmt]
+        t = t.to("cpu")
+        x = rng.standard_normal(t.shape[1]).astype(np.float32)
+        if case.startswith("spmm_"):
+            x = rng.standard_normal((t.shape[1], 5)).astype(np.float32)
+        got = getattr(t_ops, case)(t, torch.as_tensor(x))
+        want = jax.jit(getattr(j_ops, case))(j, jnp.asarray(x))
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        fn = t_ops.spmm if case.startswith("spmm_") else t_ops.spmv
+        assert torch.equal(fn(t, torch.as_tensor(x)), got)
+    elif case == "SparseMatrix":
+        assert [c.__name__ for c in t_types.SparseMatrix] == \
+            [c.__name__ for c in j_types.SparseMatrix]
+        for (j, t) in _formats("LF10_like").values():
+            assert isinstance(t, t_types.SparseMatrix) and isinstance(j, j_types.SparseMatrix)
+    elif case == "wrap_plain":
+        x = rng.standard_normal(7).astype(np.float32)
+        t_op, j_op = t_linop.wrap_plain(lambda v: 2.0 * v), j_linop.wrap_plain(lambda v: 2.0 * v)
+        assert isinstance(t_op, t_linop.LinOp) and t_op.data == () == j_op.data
+        np.testing.assert_array_equal(t_op(torch.as_tensor(x)).numpy(),
+                                      np.asarray(j_op(jnp.asarray(x))))
+    else:
+        j, t = _f32_pair("LF10_like")
+        js = j_ilu.seed_pattern(j, method="ilu0", dtype=jnp.float32)
+        ts = t_ilu.seed_pattern(t, method="ilu0", dtype=np.float32)
+        jenv, tenv = j_dia.make_dia_env(js, j), t_dia.make_dia_env(ts, t, device="cpu")
+        acts = np.full(tenv.num_actions, -1, np.int64)
+        acts[:5] = rng.choice(tenv.num_edges, 5, replace=False)
+        acts[5] = tenv.num_edges
+        keep = np.ones(tenv.num_edges, bool)
+        keep[acts[:5]] = False
+        alpha = np.float32(0.6)
+        name = case.split()[1]
+        arg = acts if name == "reward_from_actions" else keep
+        extra = () if name == "residual_norm" else (alpha,)
+        got = getattr(t_dia, name)(tenv, torch.as_tensor(arg), *map(torch.tensor, extra))
+        want = jax.jit(getattr(j_dia, name))(jenv, jnp.asarray(arg), *map(jnp.asarray, extra))
+        assert got.shape == () and got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

@@ -36,6 +36,7 @@ from gflownet_spai_tpu_torch.train import TrainConfig as TConfig
 from gflownet_spai_tpu_torch.train import enums as t_enums
 from gflownet_spai_tpu_torch.train import loop as t_loop
 from gflownet_spai_tpu_torch.train.__main__ import main as train_main
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TILED = dict(matrix="orsirr_like16", env_format="coo", gat_tiled_min_edges=0)
 SMALL = dict(matrix="LF10_like", env_format="coo")
@@ -214,6 +215,38 @@ def test_checkpoint_resume_equals_uninterrupted(tmp_path):
     assert torch.equal(resumed.replay.actions, full.replay.actions)
     lines = (tmp_path / "b" / "metrics.jsonl").read_text().splitlines()
     assert [json.loads(x)["epoch"] for x in lines] == [0, 1, 2, 3]
+
+
+def test_resume_after_the_warm_start_does_not_repeat_it(tmp_path, capsys):
+    """A run with demonstrations writes a checkpoint right after its warm
+    start; resumed from there (or from any later checkpoint) it neither
+    warms up nor seeds the buffer again, and ends on the uninterrupted
+    run's parameters and buffer."""
+    kw = _small_cfg(tmp_path, replay_seed_fracs="0.2,0.3", warmstart_epochs=3,
+                    checkpoint_every=2, alpha_fixed=0.95)
+    full, _ = t_loop.train(TConfig(platform="cpu", num_epochs=4,
+                                   **{**kw, "out_dir": str(tmp_path / "a")}),
+                           progress=False)
+    assert "warmstart done" in capsys.readouterr().out
+    ckpt = tmp_path / "a" / "checkpoint"
+    assert sorted(p.name for p in ckpt.glob("epoch_*.pt")) == [
+        "epoch_0.pt", "epoch_2.pt", "epoch_4.pt"]
+    b = tmp_path / "b"
+    b.mkdir()
+    (b / "checkpoint").mkdir()
+    for name in ("epoch_0.pt", "enum.json"):
+        (b / "checkpoint" / name).write_bytes((ckpt / name).read_bytes())
+    resumed, hist = t_loop.train(TConfig(platform="cpu", num_epochs=4, resume=True,
+                                         **{**kw, "out_dir": str(b)}),
+                                 progress=False)
+    out = capsys.readouterr().out
+    assert "warmstart" not in out and "replay seed" not in out
+    assert resumed.epoch == 4 and len(hist) == 4
+    for (path, x), (_, y) in zip(t_loop.tree_leaves(resumed.params),
+                                 t_loop.tree_leaves(full.params)):
+        assert torch.equal(x, y), path
+    assert torch.equal(resumed.replay.actions, full.replay.actions)
+    assert torch.equal(resumed.replay.rewards, full.replay.rewards)
 
 
 def test_enum_stamp_files_equal_jax(tmp_path):

@@ -18,6 +18,7 @@ from gflownet_spai_tpu_torch import utils
 from gflownet_spai_tpu_torch.utils import (checkify_nan_screen, finite_or_skip,
                                            log_memory_usage, profiler_trace,
                                            roofline_report, timed)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("loss", [float("nan"), float("inf"), 1.0])

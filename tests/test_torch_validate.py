@@ -29,6 +29,7 @@ from gflownet_spai_tpu_torch.sparse.types import COO as TCOO
 from gflownet_spai_tpu_torch.train import TrainConfig as TConfig
 from gflownet_spai_tpu_torch.train import train as t_train
 from gflownet_spai_tpu_torch.validate.__main__ import main as validate_main
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MATRIX = "bcsstk03_like"
 CLI = ["--matrix", MATRIX, "--epochs", "8", "--batch-size", "4", "--maxiter", "500",
