@@ -276,6 +276,9 @@ Phases (any failure exits non-zero before the result line):
                the rowblock env ``auto`` picks, the bucketed tile layout
                with action features), t_cap 163,840, β 50, edge features,
                SubTB(1.0), linear backward, prioritised replay, batch 16.
+               K1-K4 against their plain versions on that policy graph
+               (352 tiles in 3 buckets), as phases 3 and 4 hold them on
+               the ILU(0) graph, with their times and bounds there.
                The landscape: magnitude thinning's exact rewards on a
                float64 pair env at fractions 0, 0.2, 0.3, 0.4 for α 0.95
                and 0.985, held to the JAX oracle's printed values (638.4,
@@ -293,10 +296,6 @@ Phases (any failure exits non-zero before the result line):
 
 Each phase prints its seconds.  The line before the last is the ``kernels``
 JSON object; the last line is ``{"ok": true, "device": {...}}``.
-
-    python3 chip_smoke.py --only thinning
-
-runs phases 1, 2 and the named one alone and prints no result line.
 """
 
 from __future__ import annotations
@@ -4670,7 +4669,9 @@ def phase_thinning(dev):
     """The deep-thinning recipe's path at its published scale: the seed and
     the env that ``auto`` picks, the landscape against the JAX oracle's
     values, the replay buffer seeded with magnitude thinning, the warm
-    start, SubTB epochs, a sampled batch against float64 scipy."""
+    start, SubTB epochs, a sampled batch against float64 scipy.  Returns
+    K1-K4's launches in the counted calls and their records (errors, times,
+    bounds) against their plain versions on this policy graph."""
     from gflownet_spai_tpu_torch.env import ilu
     from gflownet_spai_tpu_torch.sparse.types import COO
     from gflownet_spai_tpu_torch.train.loop import (seed_replay_with_magnitude_thinning,
@@ -4705,6 +4706,13 @@ def phase_thinning(dev):
           f"({len(env.rb.gvals)} buckets), {env.num_actions} actions, t_cap "
           f"{mcfg.t_cap}, policy graph {graph.tiles.local_dst.shape[0]} tiles in {n_b} buckets",
           flush=True)
+    # K1-K4 against their plain versions at this graph's bucket shapes (the
+    # launches of these checks are not counted: the counted calls below
+    # set every counter to 0 first)
+    print("[thinning] K1-K4 against their plain versions on the recipe's policy "
+          "graph:", flush=True)
+    k1, k3 = phase_kernels(graph, dev)
+    k2, k4 = phase_kernels_bwd(graph, dev)
 
     # the landscape: exact rewards of magnitude thinning on a float64 pair
     # env, as examples/thinning_oracle_torch.py computes them
@@ -4829,8 +4837,8 @@ def phase_thinning(dev):
           f"sequence, mean length {float(out.rollout.lengths.float().mean()):.1f}, "
           f"{int((out.rollout.lengths == mcfg.t_cap).sum())} at t_cap; rewards against "
           f"float64 scipy: max abs err {np.abs(rew - want).max():.3e}", flush=True)
-    return {k: sum(v.get(k, 0) for lab, v in THIN_LAUNCHES.items())
-            for k in COUNTERS}
+    launches = {k: sum(v.get(k, 0) for v in THIN_LAUNCHES.values()) for k in COUNTERS}
+    return launches, {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "edges": seed.nnz}
 
 
 def timed(name, fn, *args):
@@ -4840,25 +4848,11 @@ def timed(name, fn, *args):
     return out
 
 
-ONLY = {"thinning": phase_thinning}   # phases ``--only NAME`` runs alone
-
-
-def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    only = None
-    if args:
-        if len(args) != 2 or args[0] != "--only" or args[1] not in ONLY:
-            fail(f"usage: chip_smoke.py [--only {{{','.join(ONLY)}}}]")
-        only = args[1]
+def main() -> int:
     t_start = time.perf_counter()
     name, count = phase_card()
     timed("build", phase_build)
     dev = port.resolve_device(None)
-    if only:
-        # a development run of one phase: no result line
-        timed(only, ONLY[only], dev)
-        print(f"[only] {only}: passed in {time.perf_counter() - t_start:.1f} s", flush=True)
-        return 0
     t0 = time.perf_counter()
     a, seed, env, graph, mcfg, _, state = setup(
         TrainConfig(matrix=MATRIX, env_format="coo"))
@@ -4883,7 +4877,7 @@ def main(argv=None) -> int:
         timed("profile", phase_profile, cfg, tenv, tgraph, tmcfg, opt, tstate)
         timed("restore", phase_restore, run_dir)
         _, val_launches = timed("validate", phase_validate, run_dir, dev)
-    thin_launches = timed("thinning", phase_thinning, dev)
+    thin_launches, thin_recs = timed("thinning", phase_thinning, dev)
     pois_report, pois_launches = timed("poisson", phase_poisson, dev)
     dm, chain_launches = timed("dia-multi", phase_dia_multi, dev)
     multi_launches = timed("multirhs", phase_multirhs, dev)
@@ -4908,22 +4902,26 @@ def main(argv=None) -> int:
     print(f"[train] K2 + K4 device time per step (kernel phase, graph replays): "
           f"{k2['ms']:.5f} + {k4['ms']:.5f} ms = {100 * bwd_ms / step_ms:.3f}% of "
           f"the steady {step_ms:.3f} ms step", flush=True)
-    bounds = {k: bound_ms(d["bytes"], d.get("ops", 0.0))
-              for k, d in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4))}
     src = "gflownet_spai_tpu_torch/csrc/"
-    rows = [("gat_tile_fused (K1)", "K1", k1, "gat_fused.cu", "gat_fused.py:167", None),
-            ("gat_tile_fused_bwd (K2)", "K2", k2, "gat_fused.cu", "gat_fused.py:211", None),
-            ("gather_rows_buckets (K3)", "K3", k3, "segment.cu", "segment.py:612",
-             k3["lib"]),
-            ("scatter_rows_buckets (K4)", "K4", k4, "segment.cu", "segment.py:658",
-             k4["lib"])]
-    kernels = [
-        {"name": nm, "route": "cuda", "source": src + file,
-         "replaces": "gflownet_spai_tpu/ops/" + rep,
-         "launches": launches[k] + thin_launches[k],
-         "max_abs_err": d["err"], "ms": d["ms"], "plain_ms": d["plain"],
-         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib}
-        for nm, k, d, file, rep, lib in rows]
+    rows = [("gat_tile_fused (K1", "K1", "gat_fused.cu", "gat_fused.py:167"),
+            ("gat_tile_fused_bwd (K2", "K2", "gat_fused.cu", "gat_fused.py:211"),
+            ("gather_rows_buckets (K3", "K3", "segment.cu", "segment.py:612"),
+            ("scatter_rows_buckets (K4", "K4", "segment.cu", "segment.py:658")]
+    # K1-K4 twice: on the train phase's ILU(0) graph and on the [thinning]
+    # phase's SPAI graph, each entry with its own graph's launches and records
+    kernels = []
+    for tail, recs, counts in (
+            (")", {"K1": k1, "K2": k2, "K3": k3, "K4": k4}, launches),
+            (f", deep-thinning graph of {thin_recs['edges']} edges)", thin_recs,
+             thin_launches)):
+        for nm, k, file, rep in rows:
+            d = recs[k]
+            b = bound_ms(d["bytes"], d.get("ops", 0.0))
+            kernels.append({"name": nm + tail, "route": "cuda", "source": src + file,
+                            "replaces": "gflownet_spai_tpu/ops/" + rep,
+                            "launches": counts[k], "max_abs_err": d["err"], "ms": d["ms"],
+                            "plain_ms": d["plain"], "bound_ms": b[0], "bound_by": b[1],
+                            "library_ms": d.get("lib")})
     # K8 by path (``ops/dia.py`` ``_k8_skips``): the rows path at poisson1024's
     # record, the skip path (its scan and SpMV) at orsirr_like150's
     k8_paths = {k: val_launches[k] + pois_launches[k] + vc_launches[k]
@@ -5020,12 +5018,14 @@ def main(argv=None) -> int:
                         "bound_by": d["bound"][1], "library_ms": d["lib"]})
     bell_rec = bell_recs[("float32",) + BELL_CASES[0]]
     n_b = len(graph.gat_buckets)
-    print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps {launches} and "
-          f"the [thinning] phase's warm-start steps and SubTB epochs {thin_launches} "
-          f"(the sampling slice counted {sample_launches}). ms, plain_ms, library_ms and "
-          f"bound_ms are per policy forward (K1 over its {2 * n_b} launches, "
-          f"K3 its one call for the {n_b} buckets) and per policy backward "
-          f"(K2 over its {2 * n_b}, K4 its one call). K8, K12 and K13 launches "
+    print(f"[kernels] K1-K4 launches count the {EPOCHS} train steps {launches} "
+          f"(the sampling slice counted {sample_launches}); their deep-thinning "
+          f"entries count the [thinning] phase's warm-start steps and SubTB epochs "
+          f"{thin_launches}, with max_abs_err, ms, plain_ms, library_ms and bound_ms "
+          f"on that phase's graph. ms, plain_ms, library_ms and "
+          f"bound_ms are per policy forward (K1 over its 2 launches per bucket, "
+          f"{2 * n_b} on the ILU(0) graph, K3 its one call for every bucket) and per "
+          f"policy backward (K2 over its 2 per bucket, K4 its one call). K8, K12 and K13 launches "
           f"count the validate "
           f"phase {val_launches} plus the poisson phase {pois_launches}; their ms "
           f"are one call at poisson1024 (K8: y = A.x; K12: k = 8 affine, the "

@@ -8,19 +8,13 @@ identity baseline, α 0.95, SubTB(1.0), edge features, magnitude-thinning
 demonstrations (30-50%), a 6,000-epoch warm start and terminal bias 0
 (the warm start owns the initial depth), t_cap 163,840.  The target is the
 JAX run's acceptance table (``VERDICT.md``): sampled SPAI at no more GMRES
-iterations than classic k = 2 SPAI with fewer entries.
+iterations than classic k = 2 SPAI with fewer entries.  The α 0.985 run
+of ``docs/BENCH.md`` is ``examples/thinning_a985_torch.sh``.
 
     python examples/thinning_orsirr_torch.py [k=150] [epochs=3000] [--device cpu]
 
 Writes ``runs/torch_thin_orsirr<k>`` (metrics, checkpoints) and
-``runs/torch_thin_orsirr<k>_val/validation.json``.  ``--alpha``,
-``--fracs``, ``--warmstart-epochs`` and ``--out`` change the recipe's α,
-demonstration fractions, warm-start length and run directory; the
-α 0.985 run of ``docs/BENCH.md`` (``runs/thin_orsirr150_a985``) is
-
-    python examples/thinning_orsirr_torch.py 150 1500 --alpha 0.985 \
-        --fracs 0.2,0.3,0.4 --warmstart-epochs 5000 \
-        --out runs/torch_thin_orsirr150_a985
+``runs/torch_thin_orsirr<k>_val/validation.json``.
 """
 
 import argparse
@@ -32,15 +26,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("k", nargs="?", default="150")
     p.add_argument("epochs", nargs="?", default="3000")
-    p.add_argument("--alpha", default="0.95", help="the fixed reward mix α")
-    p.add_argument("--fracs", default="0.3,0.4,0.5",
-                   help="magnitude-thinning demonstration fractions")
-    p.add_argument("--warmstart-epochs", default="6000")
-    p.add_argument("--out", default=None,
-                   help="run directory (default runs/torch_thin_orsirr<k>)")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     args = p.parse_args(argv)
-    run = args.out or f"runs/torch_thin_orsirr{args.k}"
+    run = f"runs/torch_thin_orsirr{args.k}"
     common = [
         "--matrix", f"orsirr_like{args.k}",
         "--seed-method", "spai", "--seed-k", "2",
@@ -48,14 +36,14 @@ def main(argv=None):
         "--loss", "subtb", "--subtb-lambda", "1.0", "--backward", "linear",
         "--replay-size", "32", "--replay-samples", "4",
         "--replay-prioritized", "1.0",
-        "--alpha-fixed", args.alpha, "--lr", "1e-3", "--plateau-patience", "0",
+        "--alpha-fixed", "0.95", "--lr", "1e-3", "--plateau-patience", "0",
         "--reward-beta", "50", "--edge-feats",
-        "--replay-seed-thinning", args.fracs,
+        "--replay-seed-thinning", "0.3,0.4,0.5",
         "--t-cap", "163840",
     ]
     platform = ["--platform", "cpu"] if args.device == "cpu" else []
     train = [sys.executable, "-m", "gflownet_spai_tpu_torch.train", *common,
-             "--warmstart-epochs", args.warmstart_epochs,
+             "--warmstart-epochs", "6000",
              "--epochs", args.epochs, "--batch-size", "16",
              "--checkpoint-every", "500", "--log-every", "50",
              "--out-dir", run, "--terminal-bias", "0", *platform]

@@ -118,22 +118,43 @@ def test_thinning_orsirr_builds_the_jax_argument_lists(argv, monkeypatch):
     assert all(c[-2:] == ["--platform", "cpu"] for c in rec.calls)
 
 
-def test_thinning_orsirr_a985_flags(monkeypatch):
-    """The α 0.985 run's options reach both calls."""
+def test_thinning_orsirr_a985_flags(monkeypatch, tmp_path):
+    """``examples/thinning_a985_torch.sh`` calls train and validate with the
+    launcher's argument lists, α, demonstration fractions, warm-start
+    length, epochs and run directory set to the α 0.985 run's (run here
+    with stand-ins for ``python`` and ``nvidia-smi`` that record their
+    arguments)."""
+    bin_dir, calls = tmp_path / "bin", tmp_path / "calls.jsonl"
+    bin_dir.mkdir()
+    (bin_dir / "python").write_text(
+        f"#!{sys.executable}\nimport json, sys\n"
+        f"open({str(calls)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n")
+    (bin_dir / "nvidia-smi").write_text("#!/bin/sh\necho 'card, 700.00 W'\n")
+    for f in bin_dir.iterdir():
+        f.chmod(0o755)
+    out = subprocess.run(
+        ["bash", str(EXAMPLES / "thinning_a985_torch.sh"), "runs/a985"], cwd=tmp_path,
+        env={**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ['PATH']}"},
+        capture_output=True, text=True, check=True).stdout
+    assert out.startswith("card, 700.00 W")
+    got = [json.loads(line) for line in calls.read_text().splitlines()]
+
     rec = _Recorder()
     monkeypatch.setattr(subprocess, "run", rec)
-    _load("thinning_orsirr_torch").main(
-        ["150", "1500", "--alpha", "0.985", "--fracs", "0.2,0.3,0.4",
-         "--warmstart-epochs", "5000", "--out", "runs/a985"])
-    train, validate = rec.calls
-    for cmd in (train, validate):
-        assert cmd[cmd.index("--alpha-fixed") + 1] == "0.985"
-        assert cmd[cmd.index("--replay-seed-thinning") + 1] == "0.2,0.3,0.4"
-    assert train[train.index("--warmstart-epochs") + 1] == "5000"
-    assert train[train.index("--epochs") + 1] == "1500"
-    assert train[train.index("--out-dir") + 1] == "runs/a985"
-    assert validate[validate.index("--out-dir") + 1] == "runs/a985_val"
-    assert validate[validate.index("--from-checkpoint") + 1] == "runs/a985"
+    _load("thinning_orsirr_torch").main(["150", "1500"])
+    set_to = {"--alpha-fixed": "0.985", "--replay-seed-thinning": "0.2,0.3,0.4",
+              "--warmstart-epochs": "5000", "--out-dir": "runs/a985",
+              "--from-checkpoint": "runs/a985"}
+    want = []
+    for cmd in rec.calls:
+        cmd = list(cmd[1:])
+        for flag, value in set_to.items():
+            if flag in cmd:
+                cmd[cmd.index(flag) + 1] = value
+        want.append(cmd)
+    want[1][want[1].index("--out-dir") + 1] = "runs/a985_val"
+    assert got == want
+    assert got[0][got[0].index("--epochs") + 1] == "1500"
 
 
 def test_thinning_oracle_refuses_gmres_with_cg(capsys):

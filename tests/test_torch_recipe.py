@@ -5,29 +5,35 @@ small size: orsirr_like12's k = 2 classic-SPAI seed (1,645 entries) with
 gives the rowblock env and the policy graph the bucketed tile layout, as
 at orsirr_like150's 291,513 entries (the tile ops run their plain
 versions on the CPU).  Both sides start from the JAX parameters
-(``convert.params_from_jax``) and take the same Gumbel noise.  Both run
-in float64: Adam's first steps move each parameter by about ±lr whatever
-the size of its gradient, so a gradient that cancels to float32 rounding
-noise would flip a delta's sign.  Both envs are built on the port's seed:
-the packages' SPAI seeds agree to rounding
+(``convert.params_from_jax``) and take the same Gumbel noise.  Both envs
+are built on the port's seed: the packages' SPAI seeds agree to rounding
 (``tests/test_torch_validate.py::test_spai_seed_pattern_matches_jax``),
 and the magnitude order of near-equal values decides the demonstrations.
 
+Every case runs twice, with both sides in float64 and in float32 (the
+recipe's dtype on the card), at the tolerances of ``TOL``.  The
+parameters' deltas are held in float64 only: Adam's first steps move each
+parameter by about ±lr whatever the size of its gradient, so a gradient
+that cancels to float32 rounding noise would flip a delta's sign.
+
 (a) The replay buffer after ``seed_replay_with_magnitude_thinning`` with
     fractions 0.2 / 0.3 / 0.4: actions, lengths and −1 padding exactly,
-    rewards at rtol 1e-6.
+    rewards at ``reward``.
 (b) Three ``warmstart_on_demonstrations`` steps: each step's printed NLL
-    (delete and total) at rtol 1e-5 plus the print's half unit, and the
-    parameters' deltas at rtol 1e-5 + atol 1e-6 times the largest delta of
-    the leaf's parameter group.
+    (delete and total) at ``nll`` rtol plus the print's half unit, and (in
+    float64) the parameters' deltas at rtol 1e-5 + atol 1e-6 times the
+    largest delta of the leaf's parameter group.
 (c) One SubTB(1.0) train step after them, with β 50, the edge-feature
     logit channel, the linear backward policy, t_cap 1,024 below the 1,646
     actions and prioritised replay over the seeded buffer, the replay draw
-    fed to both sides: the loss and the fresh rewards' β·log R at rtol
-    1e-5, the buffer after the step exactly (actions) and at rtol 1e-6
-    (rewards), and the deltas as in (b).
+    fed to both sides: the loss at ``loss`` rtol and the fresh rewards'
+    β·log R at ``nll`` rtol, the lengths and the buffer after the step
+    exactly (actions) and at ``reward`` (rewards), and (in float64)
+    the deltas as in (b).
 
-The JAX warm start and train step run under ``jax.jit`` (their own)."""
+The JAX warm start and train step run under ``jax.jit`` (their own), and
+so do JAX's parameter init, the demonstrations' rewards and the buffer
+merge (patched here, one compile each)."""
 
 import re
 
@@ -58,7 +64,12 @@ RECIPE = dict(matrix="orsirr_like12", seed_method="spai", seed_k=2,
               replay_prioritized=1.0, alpha_fixed=0.985, lr=1e-3, plateau_patience=0,
               reward_beta=50.0, edge_feats=True, replay_seed_fracs="0.2,0.3,0.4",
               warmstart_epochs=3, t_cap=1024, batch_size=4, terminal_bias=0.0,
-              gat_tiled_min_edges=0, rowblock_min_nnz=0, dtype="float64")
+              gat_tiled_min_edges=0, rowblock_min_nnz=0)
+# a reward is 1000 times a sum of terms near 1 (1 - ||MA - I|| / base,
+# 1 - the flop ratio), so in float32 it also gets an absolute 4e-3: about
+# 32 float32 units of 1000
+TOL = {"float64": dict(reward=dict(rtol=1e-6), nll=1e-5, loss=1e-5),
+       "float32": dict(reward=dict(rtol=1e-5, atol=4e-3), nll=1e-5, loss=1e-5)}
 DRAW = [2, 0, 1, 2]         # the replay slots both sides draw in (c)
 NOISE_SEED = 21
 
@@ -87,10 +98,11 @@ def _hold_deltas(t_before, t_after, j_before, j_after):
     assert moved >= 8
 
 
-@pytest.fixture(scope="module")
-def recipe():
-    jcfg, tcfg = JConfig(**RECIPE), TConfig(platform="cpu", **RECIPE)
-    dtype = np.dtype(RECIPE["dtype"])
+@pytest.fixture(scope="module", params=sorted(TOL, reverse=True))
+def recipe(request):
+    dtype = np.dtype(request.param)
+    jcfg = JConfig(**RECIPE, dtype=request.param)
+    tcfg = TConfig(platform="cpu", **RECIPE, dtype=request.param)
     a = t_gallery.get(RECIPE["matrix"])
     t_seed = t_ilu.seed_pattern(a.__class__(row=a.row, col=a.col, data=a.data.astype(dtype),
                                             shape=a.shape), method="spai", k=2, dtype=dtype)
@@ -102,19 +114,25 @@ def recipe():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_ilu, "seed_pattern", shared_seed)
+        mp.setattr(j_loop.gfn, "init_params",
+                   jax.jit(j_loop.gfn.init_params, static_argnums=1,
+                           static_argnames="dtype"))
         _, _, jenv, jgraph, jmcfg, jopt, jstate = j_loop.setup(jcfg)
     _, _, tenv, tgraph, tmcfg, topt, tstate = t_loop.setup(tcfg)
     assert tenv.rb is not None and tenv.rb.edge_perm is not None
     assert isinstance(tgraph, t_pol.TiledGraphInputs) and tgraph.gat_buckets
     assert tgraph.action_feats is not None
     assert tmcfg.num_actions == jmcfg.num_actions == 1646 > tmcfg.t_cap
+    assert jstate.params.forward.feat_w.dtype == dtype
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
                              device="cpu")
     tstate = tstate._replace(params=params,
                              opt_state=topt.init(x for _, x in t_loop.tree_leaves(params)))
+    assert params.forward.feat_w.dtype == getattr(torch, request.param)
     return dict(jcfg=jcfg, tcfg=tcfg, jenv=jenv, jgraph=jgraph, jmcfg=jmcfg, jopt=jopt,
                 jstate=jstate, tenv=tenv, tgraph=tgraph, tmcfg=tmcfg, topt=topt,
-                tstate=tstate, steps={})
+                tstate=tstate, tol=TOL[request.param], exact=request.param == "float64",
+                steps={})
 
 
 def _seeded(r):
@@ -122,6 +140,7 @@ def _seeded(r):
         with pytest.MonkeyPatch.context() as mp:
             # the demonstrations' rewards under jax.jit, one compile
             mp.setattr(j_loop.gfn, "_batched_rewards", jax.jit(j_loop.gfn._batched_rewards))
+            mp.setattr(j_loop, "replay_update", jax.jit(j_loop.replay_update))
             j = j_loop.seed_replay_with_magnitude_thinning(r["jenv"], r["jstate"],
                                                            r["jcfg"], alpha=0.985)
         t = t_loop.seed_replay_with_magnitude_thinning(r["tenv"], r["tstate"], r["tcfg"],
@@ -164,24 +183,26 @@ def test_seeded_replay_equals_jax(recipe):
     assert sorted(lengths - 1) == deletions
     assert all((row[n:] == -1).all() and row[n - 1] == 1645
                for row, n in zip(ta[filled], lengths))
-    np.testing.assert_allclose(tr[filled], jr[filled], rtol=1e-6)
+    np.testing.assert_allclose(tr[filled], jr[filled], **recipe["tol"]["reward"])
 
 
 def test_warmstart_steps_equal_jax(recipe, capsys):
     """(b)"""
     j, t, j2, t2, j_nll, t_nll = _warm(recipe, capsys)
+    rtol = recipe["tol"]["nll"]
     assert len(j_nll) == len(t_nll) == 3
     for (tn, td), (jn, jd) in zip(t_nll, j_nll):
-        assert abs(tn - jn) <= 1e-5 * abs(jn) + 0.005, (tn, jn)
-        assert abs(td - jd) <= 1e-5 * abs(jd) + 0.005, (td, jd)
+        assert abs(tn - jn) <= rtol * abs(jn) + 0.005, (tn, jn)
+        assert abs(td - jd) <= rtol * abs(jd) + 0.005, (td, jd)
     assert t_nll[2][0] < t_nll[0][0]
-    _hold_deltas(t.params, t2.params, j.params, j2.params)
+    if recipe["exact"]:
+        _hold_deltas(t.params, t2.params, j.params, j2.params)
     assert float(t2.params.forward.feat_w[0]) != 0.0
 
 
 def test_subtb_step_with_beta_and_edge_features_equals_jax(recipe, capsys, monkeypatch):
     """(c)"""
-    r = recipe
+    r, tol = recipe, recipe["tol"]
     _, _, j2, t2, _, _ = _warm(r, capsys)
     A, B = r["tmcfg"].num_actions, r["tcfg"].batch_size
     g = np.random.default_rng(NOISE_SEED).gumbel(size=(B, A)).astype(np.float32)
@@ -203,13 +224,15 @@ def test_subtb_step_with_beta_and_edge_features_equals_jax(recipe, capsys, monke
     assert not bool(jm["skipped"]) and not bool(tm["skipped"])
     jl, tl = float(jm["loss"]), float(tm["loss"])
     assert np.isfinite(jl) and abs(jl) > 1.0
-    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    np.testing.assert_allclose(tl, jl, rtol=tol["loss"])
     jr, tr = np.asarray(jm["rewards"]), tm["rewards"].numpy()
     np.testing.assert_allclose(50.0 * t_log_reward(torch.as_tensor(tr)).numpy(),
-                               50.0 * np.asarray(j_log_reward(jnp.asarray(jr))), rtol=1e-5)
+                               50.0 * np.asarray(j_log_reward(jnp.asarray(jr))),
+                               rtol=tol["nll"])
     np.testing.assert_array_equal(tm["lengths"].numpy(), np.asarray(jm["lengths"]))
     assert int(tm["lengths"].min()) > 1
     np.testing.assert_array_equal(t3.replay.actions.numpy(), np.asarray(j3.replay.actions))
     np.testing.assert_allclose(t3.replay.rewards.numpy(), np.asarray(j3.replay.rewards),
-                               rtol=1e-6)
-    _hold_deltas(t2.params, t3.params, j_before, j3.params)
+                               **tol["reward"])
+    if r["exact"]:
+        _hold_deltas(t2.params, t3.params, j_before, j3.params)
